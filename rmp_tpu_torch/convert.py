@@ -1,0 +1,56 @@
+"""Carry policy parameters and rollout state across from numpy.
+
+The flagship scene has no learned weights; these two functions are how the
+same inputs reach both packages: the JAX package's pytrees, mapped to numpy
+arrays (`jax.tree.map(np.asarray, ...)`), become the port's tensors.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from rmp_tpu_torch.envs.base import EnvState
+from rmp_tpu_torch.sim.collision import ObstacleSet
+from rmp_tpu_torch.sim.world import SimState
+
+
+def params_from_numpy(params, device) -> tuple:
+    """Per-policy param dicts: 0-d entries become Python floats (scalar
+    gains), arrays float32 tensors on `device` (goals)."""
+    out = []
+    for prm in params:
+        converted = {}
+        for k, v in prm.items():
+            a = np.asarray(v)
+            converted[k] = (float(a) if a.ndim == 0 else
+                            torch.tensor(a, dtype=torch.float32,
+                                         device=device))
+        out.append(converted)
+    return tuple(out)
+
+
+def state_from_numpy(leaves: dict, device) -> EnvState:
+    """EnvState of B environments from numpy arrays with leading axis B:
+    q, qd (B, n); t, goal_best (B,); goal (B, 3) or None; steps,
+    solved_count, phase, no_progress (B,) integers; obstacles None or a
+    dict of p0, p1 (B, K, 3), radius (B, K) and an optional `kinds`
+    tuple."""
+    def f32(x):
+        return torch.tensor(np.asarray(x), dtype=torch.float32, device=device)
+
+    def i32(x):
+        return torch.tensor(np.asarray(x), dtype=torch.int32, device=device)
+
+    obs = leaves.get("obstacles")
+    obstacles = None if obs is None else ObstacleSet(
+        f32(obs["p0"]), f32(obs["p1"]), f32(obs["radius"]),
+        kinds=obs.get("kinds"))
+    goal = leaves.get("goal")
+    sim = SimState(q=f32(leaves["q"]), qd=f32(leaves["qd"]),
+                   t=f32(leaves["t"]), obstacles=obstacles,
+                   goal=None if goal is None else f32(goal))
+    return EnvState(sim=sim, steps=i32(leaves["steps"]),
+                    solved_count=i32(leaves["solved_count"]),
+                    phase=i32(leaves["phase"]),
+                    goal_best=f32(leaves["goal_best"]),
+                    no_progress=i32(leaves["no_progress"]))

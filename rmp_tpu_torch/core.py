@@ -1,0 +1,196 @@
+"""RMP combination engine: pullback, accumulate, resolve — batched.
+
+The port's `rmp_tpu/core.py`. Per tick and environment, every leaf policy
+gives (a_i, M_i) on its task space x_i = phi_i(q); the engine pulls them
+back to joint space and solves
+
+    q̈ = (Σ J_iᵀ M_i J_i)⁺ Σ J_iᵀ M_i (a_i − c_i),    c_i = J̇_i q̇.
+
+The FK chain is differentiated in closed form once per tick (fk_bundle,
+through the K3 kernel wrapper); only each policy's small post map sees
+forward-mode autodiff (torch.func).
+"""
+from __future__ import annotations
+
+from typing import Any, Sequence
+
+import torch
+from torch.func import jvp, vmap
+
+from rmp_tpu_torch.models.kinematics import frame_indices
+from rmp_tpu_torch.ops import geom
+from rmp_tpu_torch.ops.cuda_fk import fk_derivatives_batched
+from rmp_tpu_torch.ops.linalg import cholesky_solve_unrolled, lu_solve_unrolled
+
+
+def _pullback(J, M, a, c):
+    """f = Jᵀ M (a − c), A = Jᵀ M J, summed over the pair axis.
+
+    J: (B, P, d, n); M: (B, P, d, d); a, c: (B, P, d) -> f (B, n),
+    A (B, n, n)."""
+    W = M @ J                                               # (B, P, d, n)
+    JT = J.transpose(-1, -2)                                # (B, P, n, d)
+    A = torch.sum(JT @ W, dim=1)
+    f = torch.sum(geom.mv(JT, geom.mv(M, a - c)), dim=1)
+    return f, A
+
+
+def resolve(A: torch.Tensor, f: torch.Tensor, method: str = "pinv"):
+    """q̈ = A⁺ f for A (B, n, n), f (B, n).
+
+    'pinv' (Moore-Penrose, reference parity), 'solve' (unrolled pivoted LU,
+    valid for indefinite metrics) or 'cholesky' (ridge-regularised PSD
+    solve, valid only while the combined metric stays positive definite)."""
+    if method == "pinv":
+        return geom.mv(torch.linalg.pinv(A), f)
+    if method == "solve":
+        return lu_solve_unrolled(A, f)
+    if method == "cholesky":
+        return cholesky_solve_unrolled(A, f)
+    raise ValueError(f"unknown resolve method: {method}")
+
+
+def _post_chain(post, T_blk, Td_blk, Jcols, c_blk, ctx):
+    """Chain (x, ẋ, J, c) of frame derivatives through a post map h:
+
+        x = h(T)           ẋ = Dh[Ṫ]
+        J = Dh ∘ J_T       c = Dh[T̈] + D²h[Ṫ, Ṫ]
+
+    T_blk/Td_blk/c_blk: (B, L, r); Jcols: (B, L, r, n), r = 16 (full rows)
+    or 3 (translation rows)."""
+    def h(t):
+        return post(t, ctx)
+
+    x, xd = jvp(h, (T_blk,), (Td_blk,))
+    J = vmap(lambda v: jvp(h, (T_blk,), (v,))[1],
+             in_dims=-1, out_dims=-1)(Jcols)
+
+    def g(t):
+        return jvp(h, (t,), (Td_blk,))[1]
+    _, quad = jvp(g, (T_blk,), (Td_blk,))
+    c = jvp(h, (T_blk,), (c_blk,))[1] + quad
+    return x, xd, J, c
+
+
+class FkBundle:
+    """One tick's FK derivatives of every frame — (T16, Td16, J16, c16) of
+    the K3 kernel wrapper — with the row selections the taskmaps read."""
+
+    def __init__(self, T16, Td16, J16, c16):
+        self.T16, self.Td16, self.J16, self.c16 = T16, Td16, J16, c16
+
+    def rows(self, frames, translation: bool):
+        """(T, Ṫ, J, c) of the frames: (B, L, r), (B, L, r), (B, L, r, n),
+        (B, L, r) with r = 3 translation rows (entries 3/7/11 of each
+        flattened transform, the slice 3:12:4) or r = 16 full rows."""
+        if len(frames) == 1:
+            k = frames[0]
+            out = tuple(t[:, k:k + 1] for t in
+                        (self.T16, self.Td16, self.J16, self.c16))
+        else:
+            idx = frame_indices(frames, self.T16.device)
+            out = tuple(t.index_select(1, idx) for t in
+                        (self.T16, self.Td16, self.J16, self.c16))
+        if translation:
+            out = tuple(t[:, :, 3:12:4] for t in out)
+        return out
+
+
+def fk_bundle(policies, q, qd) -> dict[int, FkBundle]:
+    """{id(model): FkBundle} for every distinct FK model under `policies`:
+    one K3 launch per model and tick, shared by all policies and by the
+    distance context (FkBundle.T16)."""
+    models: dict[int, Any] = {}
+    for p in policies:
+        tmap = p.taskmap
+        if tmap.fk_rooted:
+            models.setdefault(id(tmap.model), tmap.model)
+    return {mid: FkBundle(*fk_derivatives_batched(m, q, qd))
+            for mid, m in models.items()}
+
+
+def _taskmap_derivatives_analytic(policies, q, qd, ctxs, fk=None):
+    """(x, ẋ, J, c) per policy: FK-rooted taskmaps from the closed-form FK
+    rows plus their post map's autodiff, identity maps exactly."""
+    if fk is None:
+        fk = fk_bundle(policies, q, qd)
+    B, n = q.shape
+    eye = torch.eye(n, dtype=q.dtype, device=q.device).expand(B, 1, n, n)
+    zeros = torch.zeros(B, 1, n, dtype=q.dtype, device=q.device)
+    x_all, xd_all, J_all, c_all = [], [], [], []
+    for p, ctx in zip(policies, ctxs):
+        tmap = p.taskmap
+        if tmap.fk_rooted:
+            i = tmap.frame_idx
+            frames = i if isinstance(i, tuple) else (i,)
+            translation = tmap.post_trans is not None
+            blk = fk[id(tmap.model)].rows(frames, translation)
+            post = tmap.post_trans if translation else tmap.post
+            x, xd, J, c = _post_chain(post, *blk, ctx)
+        elif tmap.is_identity:
+            x, xd, J, c = q[:, None, :], qd[:, None, :], eye, zeros
+        else:
+            raise NotImplementedError(
+                f"policy {p.name!r}: only FK-rooted and identity taskmaps "
+                f"are ported")
+        x_all.append(x)
+        xd_all.append(xd)
+        J_all.append(J)
+        c_all.append(c)
+    return tuple(x_all), tuple(xd_all), tuple(J_all), tuple(c_all)
+
+
+def policy_row_blocks_structured(policies: Sequence, q: torch.Tensor,
+                                 qd: torch.Tensor, params: Sequence,
+                                 ctxs: Sequence, fk=None):
+    """(tags, blocks) of the structured per-policy pullback rows:
+
+      'identity': (M (B, n, n), v (B, n))      J = I_n, no rows
+      'scalar':   (J (B, R, n), m (B, R), v (B, R))   1-D task spaces
+      'dense':    (J (B, R, n), W (B, R, n), v (B, R))
+
+    with W = M J and v = M (a − c) rows — the input of
+    ops/cuda_resolve.pullback_resolve_structured (K1)."""
+    x_all, xd_all, J_all, c_all = _taskmap_derivatives_analytic(
+        policies, q, qd, ctxs, fk=fk)
+    B, n = q.shape
+    tags, blocks = [], []
+    for p, prm, ctx, x, xd, J, c in zip(policies, params, ctxs, x_all, xd_all,
+                                        J_all, c_all):
+        a, M = p.accel_metric(prm, x, xd, ctx)
+        if p.taskmap.is_identity:
+            tags.append("identity")
+            blocks.append((M.reshape(B, n, n), geom.mv(M, a - c).reshape(B, n)))
+        elif x.shape[-1] == 1:
+            tags.append("scalar")
+            m = M.reshape(B, -1)                     # (B, P) scalar metrics
+            blocks.append((J.reshape(B, -1, n), m, m * (a - c).reshape(B, -1)))
+        else:
+            tags.append("dense")
+            blocks.append((J.reshape(B, -1, n), (M @ J).reshape(B, -1, n),
+                           geom.mv(M, a - c).reshape(B, -1)))
+    return tuple(tags), tuple(blocks)
+
+
+def evaluate_policies(policies: Sequence, q: torch.Tensor, qd: torch.Tensor,
+                      params: Sequence, ctxs: Sequence, method: str = "pinv",
+                      fk=None) -> torch.Tensor:
+    """Combined RMP evaluation q̈ (B, n) by the per-policy pullback and
+    core.resolve."""
+    x_all, xd_all, J_all, c_all = _taskmap_derivatives_analytic(
+        policies, q, qd, ctxs, fk=fk)
+    B, n = q.shape
+    f_comb = torch.zeros(B, n, dtype=q.dtype, device=q.device)
+    A_comb = torch.zeros(B, n, n, dtype=q.dtype, device=q.device)
+    for p, prm, ctx, x, xd, J, c in zip(policies, params, ctxs, x_all, xd_all,
+                                        J_all, c_all):
+        a, M = p.accel_metric(prm, x, xd, ctx)
+        if p.taskmap.is_identity:
+            # J == I_n: Jᵀ M J = M and Jᵀ M (a − c) = M (a − c) exactly
+            f_comb = f_comb + torch.sum(geom.mv(M, a - c), dim=1)
+            A_comb = A_comb + torch.sum(M, dim=1)
+            continue
+        f, A = _pullback(J, M, a, c)
+        f_comb = f_comb + f
+        A_comb = A_comb + A
+    return resolve(A_comb, f_comb, method)

@@ -1,0 +1,95 @@
+"""Forward kinematics on batch-first tensors.
+
+The port's `rmp_tpu/models/kinematics.py` (joint transforms, all-frame FK,
+single-frame FK). q: (..., n_q) with any leading batch axes.
+"""
+from __future__ import annotations
+
+import torch
+
+from rmp_tpu_torch.models.urdf import (PRISMATIC, REVOLUTE, ROOT,
+                                       KinematicModel, model_cache)
+from rmp_tpu_torch.ops import geom
+
+_CONSTS: dict[tuple, tuple] = {}
+
+
+def model_constants(model: KinematicModel, device: torch.device,
+                    dtype: torch.dtype = torch.float32
+                    ) -> dict[str, torch.Tensor]:
+    """The model's static tables as tensors on `device`, built once per
+    (model, device, dtype) so a tick copies nothing from the host."""
+    def build():
+        f = dict(dtype=dtype, device=device)
+        return dict(
+            q_gather=torch.as_tensor(
+                [qi if qi >= 0 else model.n_q for qi in model.q_index],
+                dtype=torch.long, device=device),
+            axis=torch.as_tensor(model.axis, **f),
+            T_constant=torch.as_tensor(model.T_constant, **f),
+            is_rev=torch.as_tensor(
+                [1.0 if t == REVOLUTE else 0.0 for t in model.joint_type],
+                **f)[:, None, None],
+            is_pris=torch.as_tensor(
+                [1.0 if t == PRISMATIC else 0.0 for t in model.joint_type],
+                **f)[:, None, None],
+            q_lower=torch.as_tensor(model.q_lower, **f),
+            q_upper=torch.as_tensor(model.q_upper, **f),
+        )
+    return model_cache(_CONSTS, model, (str(device), dtype), build)
+
+
+_INDICES: dict[tuple, torch.Tensor] = {}
+
+
+def frame_indices(frames, device: torch.device) -> torch.Tensor:
+    """A static tuple of frame indices as a long tensor on `device`, built
+    once: indexing a CUDA tensor with a Python list copies the list to the
+    card on every call."""
+    key = (tuple(frames), str(device))
+    idx = _INDICES.get(key)
+    if idx is None:
+        idx = torch.as_tensor(key[0], dtype=torch.long, device=device)
+        _INDICES[key] = idx
+    return idx
+
+
+def joint_transforms(model: KinematicModel, q: torch.Tensor) -> torch.Tensor:
+    """Local parent->child transforms of all frames: (..., F, 4, 4)."""
+    c = model_constants(model, q.device, q.dtype)
+    q_pad = torch.cat([q, torch.zeros_like(q[..., :1])], dim=-1)
+    q_frames = q_pad[..., c["q_gather"]]                      # (..., F)
+    batch = q_frames.shape
+    axis = c["axis"]
+    R_rev = geom.rotation_matrix_from_axis_angle(axis, q_frames)
+    T_rev = geom.hom(R_rev, torch.zeros(*batch, 3, dtype=q.dtype,
+                                        device=q.device))
+    eye3 = torch.eye(3, dtype=q.dtype, device=q.device).expand(*batch, 3, 3)
+    T_pris = geom.hom(eye3, q_frames[..., None] * axis)
+    T_fixed = torch.eye(4, dtype=q.dtype, device=q.device)
+    is_rev, is_pris = c["is_rev"], c["is_pris"]
+    T_var = is_rev * T_rev + is_pris * T_pris \
+        + (1.0 - is_rev - is_pris) * T_fixed
+    return c["T_constant"] @ T_var
+
+
+def fk_all(model: KinematicModel, q: torch.Tensor) -> torch.Tensor:
+    """World transforms of every frame: (..., F, 4, 4)."""
+    T_local = joint_transforms(model, q)
+    world: list[torch.Tensor] = []
+    for i, p in enumerate(model.parent):
+        Ti = T_local[..., i, :, :]
+        world.append(Ti if p == ROOT else world[p] @ Ti)
+    return torch.stack(world, dim=-3)
+
+
+def fk_frame(model: KinematicModel, q: torch.Tensor,
+             frame_idx: int) -> torch.Tensor:
+    """World transform of one frame (..., 4, 4); only its ancestor chain is
+    computed."""
+    chain = model.chain(frame_idx)
+    T_local = joint_transforms(model, q)
+    T = T_local[..., chain[0], :, :]
+    for i in chain[1:]:
+        T = T @ T_local[..., i, :, :]
+    return T

@@ -1,0 +1,230 @@
+"""Robot specifications as plain data, and the model builder.
+
+The port's copy of the Panda tables of `rmp_tpu/models/specs.py`: the link
+and joint table, and the 25-capsule mesh-fitted collision set. The other
+robots (the planar arm, UR5, multi-arm specs) and URDF export are not
+ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from rmp_tpu_torch.models.urdf import (_JOINT_TYPES, ROOT, CollisionPrimitive,
+                                       KinematicModel, _hom, _rpy_matrix)
+
+
+@dataclasses.dataclass(frozen=True)
+class LinkSpec:
+    name: str
+    mass: float = 0.0
+    com: tuple = (0.0, 0.0, 0.0)
+    # (ixx, iyy, izz, ixy, ixz, iyz) about com, link axes
+    inertia: tuple = (0.0, 0.0, 0.0, 0.0, 0.0, 0.0)
+    collision: tuple = ()          # CollisionPrimitive tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class JointSpec:
+    name: str
+    joint_type: str                # 'revolute' | 'prismatic' | 'fixed'
+    parent: str
+    child: str
+    xyz: tuple = (0.0, 0.0, 0.0)
+    rpy: tuple = (0.0, 0.0, 0.0)
+    axis: tuple = (0.0, 0.0, 0.0)
+    lower: float = -1e9
+    upper: float = 1e9
+    velocity: float = 1e9
+    effort: float = 1e9
+    damping: float = 0.0
+    friction: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class RobotSpec:
+    name: str
+    links: tuple
+    joints: tuple
+
+
+def build_model(spec: RobotSpec) -> KinematicModel:
+    """Construct a KinematicModel from a RobotSpec (BFS joint order)."""
+    links = {l.name: l for l in spec.links}
+    child_names = {j.child for j in spec.joints}
+    root_link = next(l.name for l in spec.links if l.name not in child_names)
+
+    order: list[JointSpec] = []
+    todo = [root_link]
+    while todo:
+        ln = todo.pop(0)
+        for j in spec.joints:
+            if j.parent == ln:
+                order.append(j)
+                todo.append(j.child)
+
+    link_to_frame = {root_link: ROOT}
+    parents = []
+    for i, j in enumerate(order):
+        parents.append(link_to_frame[j.parent])
+        link_to_frame[j.child] = i
+
+    motor = tuple(j.name for j in order if j.joint_type != "fixed")
+    q_index = tuple(
+        motor.index(j.name) if j.joint_type != "fixed" else -1 for j in order)
+
+    def _inertia_mat(t):
+        ixx, iyy, izz, ixy, ixz, iyz = t
+        return np.array([[ixx, ixy, ixz], [ixy, iyy, iyz], [ixz, iyz, izz]])
+
+    motor_specs = {j.name: j for j in order}
+
+    def motor_column(field):
+        return np.asarray([getattr(motor_specs[n], field) for n in motor],
+                          dtype=np.float32)
+
+    return KinematicModel(
+        name=spec.name,
+        frame_names=tuple(j.name for j in order),
+        link_names=tuple(j.child for j in order),
+        parent=tuple(parents),
+        joint_type=tuple(_JOINT_TYPES[j.joint_type] for j in order),
+        q_index=q_index,
+        motor_names=motor,
+        T_constant=np.asarray(
+            [_hom(_rpy_matrix(np.array(j.rpy)), np.array(j.xyz)) for j in order],
+            dtype=np.float32),
+        axis=np.asarray([j.axis for j in order], dtype=np.float32),
+        mass=np.asarray([links[j.child].mass for j in order], dtype=np.float32),
+        com=np.asarray([links[j.child].com for j in order], dtype=np.float32),
+        inertia=np.asarray(
+            [_inertia_mat(links[j.child].inertia) for j in order],
+            dtype=np.float32),
+        q_lower=motor_column("lower"),
+        q_upper=motor_column("upper"),
+        velocity_limit=motor_column("velocity"),
+        effort_limit=motor_column("effort"),
+        joint_damping=motor_column("damping"),
+        joint_friction=motor_column("friction"),
+        has_collision=tuple(bool(links[j.child].collision) for j in order),
+        collision=tuple(tuple(links[j.child].collision) for j in order),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Franka Panda (reference asset: urdf/franka_panda/panda.urdf)
+# ---------------------------------------------------------------------------
+
+_DIAG01 = (0.1, 0.1, 0.1, 0.0, 0.0, 0.0)
+# Multi-capsule approximations of the Panda collision meshes, fitted per
+# link (mesh protrusion <= 13 mm, capsule bulge outside the hull <= 11 mm).
+_PANDA_CAPS = {
+    "panda_link1": (
+        CollisionPrimitive("capsule", (0.0024, -0.0000, -0.1504), (-0.0030, -0.0068, -0.1432), 0.0620),
+        CollisionPrimitive("capsule", (-0.0004, -0.0323, -0.0111), (-0.0001, -0.0771, 0.0016), 0.0543),
+        CollisionPrimitive("capsule", (-0.0001, -0.0131, -0.0656), (0.0005, -0.0440, -0.0883), 0.0559),
+        CollisionPrimitive("capsule", (0.0005, -0.0260, -0.0016), (0.0053, -0.0344, 0.0009), 0.0569),
+    ),
+    "panda_link2": (
+        CollisionPrimitive("capsule", (-0.0001, -0.1561, -0.0015), (-0.0001, -0.0882, 0.0411), 0.0581),
+        CollisionPrimitive("capsule", (-0.0001, 0.0064, 0.0360), (0.0001, -0.1400, -0.0010), 0.0551),
+        CollisionPrimitive("capsule", (-0.0021, 0.0013, 0.0785), (0.0041, -0.0034, 0.0743), 0.0528),
+    ),
+    "panda_link3": (
+        CollisionPrimitive("capsule", (-0.0004, 0.0002, -0.0798), (0.0805, 0.0417, -0.0040), 0.0604),
+        CollisionPrimitive("capsule", (0.0844, 0.0644, 0.0013), (0.0828, 0.0265, 0.0041), 0.0509),
+    ),
+    "panda_link4": (
+        CollisionPrimitive("capsule", (-0.0111, 0.0118, 0.0392), (-0.0830, 0.0832, -0.0003), 0.0609),
+        CollisionPrimitive("capsule", (0.0006, -0.0003, 0.0621), (0.0004, -0.0007, 0.0265), 0.0532),
+    ),
+    "panda_link5": (
+        CollisionPrimitive("capsule", (-0.0049, 0.0850, 0.0056), (0.0082, 0.0811, 0.0022), 0.0471),
+        CollisionPrimitive("capsule", (-0.0001, 0.0598, 0.0005), (0.0006, 0.0188, -0.2137), 0.0576),
+        CollisionPrimitive("capsule", (0.0010, 0.0358, -0.1825), (-0.0018, -0.0050, -0.2254), 0.0554),
+    ),
+    "panda_link6": (
+        CollisionPrimitive("capsule", (0.0871, 0.0463, -0.0001), (0.0219, 0.0159, 0.0164), 0.0420),
+        CollisionPrimitive("capsule", (-0.0086, 0.0000, 0.0189), (0.0955, -0.0189, -0.0006), 0.0428),
+    ),
+    "panda_link7": (
+        CollisionPrimitive("capsule", (0.0389, 0.0607, 0.0850), (-0.0268, 0.0119, 0.0647), 0.0204),
+        CollisionPrimitive("capsule", (0.0055, -0.0295, 0.0896), (0.0627, 0.0393, 0.0844), 0.0186),
+        CollisionPrimitive("capsule", (0.0421, 0.0213, 0.0782), (0.0002, -0.0276, 0.0698), 0.0257),
+        CollisionPrimitive("capsule", (-0.0045, 0.0218, 0.0827), (-0.0219, -0.0152, 0.0782), 0.0296),
+    ),
+    "panda_hand": (
+        CollisionPrimitive("capsule", (0.0002, 0.0738, 0.0090), (0.0001, 0.0793, 0.0464), 0.0260),
+        CollisionPrimitive("capsule", (0.0001, -0.0826, 0.0450), (-0.0004, 0.0721, 0.0392), 0.0245),
+        CollisionPrimitive("capsule", (0.0001, -0.0789, 0.0027), (0.0001, 0.0576, 0.0098), 0.0265),
+    ),
+    "panda_leftfinger": (
+        CollisionPrimitive("capsule", (-0.0001, 0.0154, 0.0056), (-0.0001, 0.0081, 0.0451), 0.0118),
+    ),
+    "panda_rightfinger": (
+        CollisionPrimitive("capsule", (0.0001, -0.0154, 0.0056), (0.0001, -0.0081, 0.0451), 0.0118),
+    ),
+}
+
+
+def _plink(name, mass, com):
+    caps = _PANDA_CAPS.get(name)
+    return LinkSpec(name, mass, com, _DIAG01, caps if caps else ())
+
+
+_HALF_PI = 1.57079632679
+
+PANDA_SPEC = RobotSpec(
+    name="panda",
+    links=(
+        _plink("panda_link0", 2.9, (0, 0, 0.5)),
+        _plink("panda_link1", 2.7, (0, -0.04, -0.05)),
+        _plink("panda_link2", 2.73, (0, -0.04, 0.06)),
+        _plink("panda_link3", 2.04, (0.01, 0.01, -0.05)),
+        _plink("panda_link4", 2.08, (-0.03, 0.03, 0.02)),
+        _plink("panda_link5", 3.0, (0, 0.04, -0.12)),
+        _plink("panda_link6", 1.3, (0.04, 0, 0)),
+        _plink("panda_link7", 0.2, (0, 0, 0.08)),
+        _plink("panda_link8", 0.0, (0, 0, 0)),
+        _plink("panda_hand", 0.81, (0, 0, 0.04)),
+        _plink("panda_leftfinger", 0.1, (0, 0.01, 0.02)),
+        _plink("panda_rightfinger", 0.1, (0, -0.01, 0.02)),
+        _plink("panda_grasptarget", 0.0, (0, 0, 0)),
+    ),
+    joints=(
+        JointSpec("panda_joint1", "revolute", "panda_link0", "panda_link1",
+                  xyz=(0, 0, 0.333), axis=(0, 0, 1),
+                  lower=-2.9671, upper=2.9671, velocity=2.175, effort=87),
+        JointSpec("panda_joint2", "revolute", "panda_link1", "panda_link2",
+                  rpy=(-_HALF_PI, 0, 0), axis=(0, 0, 1),
+                  lower=-1.8326, upper=1.8326, velocity=2.175, effort=87),
+        JointSpec("panda_joint3", "revolute", "panda_link2", "panda_link3",
+                  xyz=(0, -0.316, 0), rpy=(_HALF_PI, 0, 0), axis=(0, 0, 1),
+                  lower=-2.9671, upper=2.9671, velocity=2.175, effort=87),
+        JointSpec("panda_joint4", "revolute", "panda_link3", "panda_link4",
+                  xyz=(0.0825, 0, 0), rpy=(_HALF_PI, 0, 0), axis=(0, 0, 1),
+                  lower=-3.1416, upper=0.0, velocity=2.175, effort=87),
+        JointSpec("panda_joint5", "revolute", "panda_link4", "panda_link5",
+                  xyz=(-0.0825, 0.384, 0), rpy=(-_HALF_PI, 0, 0), axis=(0, 0, 1),
+                  lower=-2.9671, upper=2.9671, velocity=2.61, effort=12),
+        JointSpec("panda_joint6", "revolute", "panda_link5", "panda_link6",
+                  rpy=(_HALF_PI, 0, 0), axis=(0, 0, 1),
+                  lower=-0.0873, upper=3.8223, velocity=2.61, effort=12),
+        JointSpec("panda_joint7", "revolute", "panda_link6", "panda_link7",
+                  xyz=(0.088, 0, 0), rpy=(_HALF_PI, 0, 0), axis=(0, 0, 1),
+                  lower=-2.9671, upper=2.9671, velocity=2.61, effort=12),
+        JointSpec("panda_joint8", "fixed", "panda_link7", "panda_link8",
+                  xyz=(0, 0, 0.107)),
+        JointSpec("panda_hand_joint", "fixed", "panda_link8", "panda_hand",
+                  rpy=(0, 0, -0.785398163397)),
+        JointSpec("panda_finger_joint1", "prismatic", "panda_hand", "panda_leftfinger",
+                  xyz=(0, 0, 0.0584), axis=(0, 1, 0),
+                  lower=0.0, upper=0.04, velocity=0.2, effort=20),
+        JointSpec("panda_finger_joint2", "prismatic", "panda_hand", "panda_rightfinger",
+                  xyz=(0, 0, 0.0584), axis=(0, -1, 0),
+                  lower=0.0, upper=0.04, velocity=0.2, effort=20),
+        JointSpec("panda_grasptarget_hand", "fixed", "panda_hand", "panda_grasptarget",
+                  xyz=(0, 0, 0.105)),
+    ),
+)

@@ -1,0 +1,155 @@
+"""K1: fused RMP pullback + pivoted-LU resolve, the CUDA counterpart of
+`rmp_tpu/ops/pallas_resolve.py::pullback_resolve_structured`.
+
+Structured per-policy blocks (core.policy_row_blocks_structured, leading
+batch axis B on every tensor):
+
+  'identity': (M (B, n, n), v (B, n))
+  'scalar':   (J (B, R, n), m (B, R), v (B, R))
+  'dense':    (J (B, R, n), W (B, R, n), v (B, R))
+
+give q̈ = (A + ridge I)^{-1} f with A = Σ identity M + Σ Jᵀ diag(m) J +
+Σ Jᵀ W and f = Σ v + Σ Jᵀ v. A CPU tensor takes the plain PyTorch version
+(`pullback_resolve_structured_plain`); a CUDA tensor launches the kernel of
+csrc/pullback_resolve.cu or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from rmp_tpu_torch import _build
+from rmp_tpu_torch.ops.linalg import lu_solve_unrolled
+
+_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+
+
+def assemble_structured(tags, blocks):
+    """(A (B, n, n), f (B, n)) summed over the blocks in tag order."""
+    A = f = None
+    for tag, blk in zip(tags, blocks):
+        if tag == "identity":
+            dA, df = blk
+        elif tag == "scalar":
+            J, m, v = blk
+            dA = torch.einsum("brn,br,brm->bnm", J, m, J)
+            df = torch.einsum("brn,br->bn", J, v)
+        else:
+            J, W, v = blk
+            dA = torch.einsum("brn,brm->bnm", J, W)
+            df = torch.einsum("brn,br->bn", J, v)
+        A = dA if A is None else A + dA
+        f = df if f is None else f + df
+    return A, f
+
+
+def pullback_resolve_structured_plain(tags, blocks,
+                                      ridge: float = 0.0) -> torch.Tensor:
+    """The plain PyTorch version of K1: einsum accumulation, then the
+    unrolled pivoted LU of ops/linalg.py."""
+    A, f = assemble_structured(tags, blocks)
+    if ridge:
+        A = A + ridge * torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    return lu_solve_unrolled(A, f)
+
+
+def _check_blocks(tags, blocks):
+    """(B, n, device) of validated float32 blocks; raises on anything else."""
+    if len(tags) != len(blocks) or not tags:
+        raise ValueError("tags and blocks must be non-empty and aligned")
+    first = blocks[0][0]
+    B, n, device = first.shape[0], first.shape[-1], first.device
+    for tag, blk in zip(tags, blocks):
+        for x in blk:
+            if x.dtype != torch.float32:
+                raise TypeError(f"pullback_resolve_structured takes float32 "
+                                f"blocks, got {x.dtype} in a {tag!r} block")
+            if x.device != device:
+                raise ValueError(f"blocks on {device} and {x.device}")
+        if tag == "identity":
+            M, v = blk
+            ok = M.shape == (B, n, n) and v.shape == (B, n)
+        elif tag in ("scalar", "dense"):
+            J, X, v = blk
+            R = J.shape[1] if J.dim() == 3 else -1
+            want = (B, R) if tag == "scalar" else (B, R, n)
+            ok = J.shape == (B, R, n) and X.shape == want and v.shape == (B, R)
+        else:
+            raise ValueError(f"unknown block tag {tag!r}")
+        if not ok:
+            raise ValueError(f"bad {tag!r} block shapes "
+                             f"{[tuple(x.shape) for x in blk]} for B={B}, n={n}")
+    return B, n, device
+
+
+def _batch_minor(x: torch.Tensor) -> torch.Tensor:
+    """(B, ...) -> (..., B) contiguous: neighbouring threads of the kernel
+    (neighbouring envs) then read neighbouring addresses."""
+    return x.permute(*range(1, x.dim()), 0).contiguous()
+
+
+def kernel_inputs(tags, blocks) -> dict:
+    """The kernel's operands, batch-minor: the identity blocks pre-summed
+    into one Gram seed A0 (n, n, B), f0 (n, B), as the TPU kernel's wrapper
+    does; all dense blocks stacked by rows into Jd, Wd (Rd, n, B), vd
+    (Rd, B); all scalar blocks into Js (Rs, n, B), ms, vs (Rs, B). Absent
+    parts are None with zero rows. The stacking and the batch-minor copies
+    are one extra pass over the blocks."""
+    A0 = f0 = None
+    dense, scalar = [], []
+    for tag, blk in zip(tags, blocks):
+        if tag == "identity":
+            A0 = blk[0] if A0 is None else A0 + blk[0]
+            f0 = blk[1] if f0 is None else f0 + blk[1]
+        else:
+            (dense if tag == "dense" else scalar).append(blk)
+
+    def rows(group):
+        if not group:
+            return 0, None, None, None
+        parts = [torch.cat(p, dim=1) if len(group) > 1 else p[0]
+                 for p in zip(*group)]
+        return (parts[0].shape[1],) + tuple(_batch_minor(p) for p in parts)
+
+    Rd, Jd, Wd, vd = rows(dense)
+    Rs, Js, ms, vs = rows(scalar)
+    return dict(A0=None if A0 is None else _batch_minor(A0),
+                f0=None if f0 is None else _batch_minor(f0),
+                Rd=Rd, Jd=Jd, Wd=Wd, vd=vd, Rs=Rs, Js=Js, ms=ms, vs=vs)
+
+
+def pullback_resolve_structured(tags, blocks,
+                                ridge: float = 0.0) -> torch.Tensor:
+    """q̈ (B, n) from structured per-policy blocks; see the module doc."""
+    B, n, device = _check_blocks(tags, blocks)
+    if device.type == "cpu":
+        return pullback_resolve_structured_plain(tags, blocks, ridge)
+    if device.type != "cuda":
+        raise ValueError(f"no K1 kernel for device {device}")
+
+    k = kernel_inputs(tags, blocks)
+    out = torch.empty(B, n, dtype=torch.float32, device=device)
+
+    def ptr(name):
+        return None if k[name] is None else k[name].data_ptr()
+
+    fn = _build.c_function("rmp_pullback_resolve_f32", _ARGTYPES)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(device.index, n, B, ptr("A0"), ptr("f0"), k["Rd"], ptr("Jd"),
+                ptr("Wd"), ptr("vd"), k["Rs"], ptr("Js"), ptr("ms"),
+                ptr("vs"), float(ridge), out.data_ptr(), stream)
+    if rc == -1:
+        raise ValueError(f"no K1 kernel instantiated for n={n}")
+    if rc != 0:
+        raise RuntimeError(f"K1 pullback_resolve launch failed: CUDA error {rc}")
+    pullback_resolve_structured.launches += 1
+    return out
+
+
+pullback_resolve_structured.launches = 0
