@@ -34,7 +34,9 @@ def state_from_numpy(leaves: dict, device) -> EnvState:
     q, qd (B, n); t, goal_best (B,); goal (B, 3) or None; steps,
     solved_count, phase, no_progress (B,) integers; obstacles None or a
     dict of p0, p1 (B, K, 3), radius (B, K) and an optional `kinds`
-    tuple."""
+    sequence of strings (numpy 0-d string arrays, as a tree map leaves
+    them, are taken too); gjk_warm (B, L, K, 3), the hull tier's warm
+    carry, or absent / None."""
     def f32(x):
         return torch.tensor(np.asarray(x), dtype=torch.float32, device=device)
 
@@ -42,10 +44,12 @@ def state_from_numpy(leaves: dict, device) -> EnvState:
         return torch.tensor(np.asarray(x), dtype=torch.int32, device=device)
 
     obs = leaves.get("obstacles")
+    kinds = None if obs is None else obs.get("kinds")
     obstacles = None if obs is None else ObstacleSet(
         f32(obs["p0"]), f32(obs["p1"]), f32(obs["radius"]),
-        kinds=obs.get("kinds"))
+        kinds=None if kinds is None else tuple(str(k) for k in kinds))
     goal = leaves.get("goal")
+    warm = leaves.get("gjk_warm")
     sim = SimState(q=f32(leaves["q"]), qd=f32(leaves["qd"]),
                    t=f32(leaves["t"]), obstacles=obstacles,
                    goal=None if goal is None else f32(goal))
@@ -53,4 +57,5 @@ def state_from_numpy(leaves: dict, device) -> EnvState:
                     solved_count=i32(leaves["solved_count"]),
                     phase=i32(leaves["phase"]),
                     goal_best=f32(leaves["goal_best"]),
-                    no_progress=i32(leaves["no_progress"]))
+                    no_progress=i32(leaves["no_progress"]),
+                    gjk_warm=None if warm is None else f32(warm))

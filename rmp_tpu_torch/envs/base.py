@@ -1,12 +1,14 @@
 """Environment machinery: batched scenes and their control tick.
 
 The port's `rmp_tpu/envs/base.py` for the batched, fused path. One control
-tick senses (closed-form FK through K3, capsule distance context), builds the
-structured per-policy pullback blocks, resolves the whole batch at once
-(K1 for resolve_method 'solve'; einsum accumulation + core.resolve for
-'pinv' and 'cholesky'), then runs `control_every` integrator substeps with
-the latched q̈ and the in-graph goal bookkeeping. A rollout is a Python loop
-over ticks.
+tick senses (closed-form FK through K3, the capsule or exact-hull distance
+context), builds the structured per-policy pullback blocks, resolves the
+whole batch at once (K1 for resolve_method 'solve'; einsum accumulation +
+core.resolve for 'pinv' and 'cholesky'), then runs `control_every`
+integrator substeps with the latched q̈ and the in-graph goal bookkeeping. A
+rollout is a Python loop over ticks. In the hull tier a batch of a multiple
+of 128 envs carries the GJK warm start (EnvState.gjk_warm) from tick to
+tick, seeded by one cold query at reset.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ from rmp_tpu_torch.models.urdf import KinematicModel
 from rmp_tpu_torch.ops.cuda_resolve import (assemble_structured,
                                             pullback_resolve_structured)
 from rmp_tpu_torch.policies.base import Policy
+from rmp_tpu_torch.sim.data import (COLD_ITERS, distance_context_batched,
+                                    hull_batched)
 from rmp_tpu_torch.sim.world import SimState, physics_step, sense
 
 
@@ -36,6 +40,9 @@ class EnvState:
     # for state parity (no ported scene sets a stuck predicate)
     goal_best: torch.Tensor      # (B,) float32, +inf after each goal event
     no_progress: torch.Tensor    # (B,) int32
+    # hull tier, B % 128 == 0: the previous tick's GJK witness directions
+    # (B, L, K, 3), the next tick's start; None elsewhere
+    gjk_warm: torch.Tensor | None = None
 
 
 def env_state(sim: SimState) -> EnvState:
@@ -71,6 +78,12 @@ class Env:
     bind_params: Callable | None = None
     # divergence guard: zero non-finite commands and clamp |q̈|
     max_qdd: float | None = None
+    # link collision geometry of the distance context: 'capsule' (fitted
+    # multi-capsule links) or 'hull' (exact mesh hulls through K4)
+    collision_geometry: str = "capsule"
+    # hull tier: GJK iterations of the batched query (None: 10 without a
+    # warm carry, 4 with one)
+    hull_warm_iters: int | None = None
 
     def gather_params(self) -> tuple:
         return tuple(p.params for p in self.policies)
@@ -105,22 +118,34 @@ def ee_position(env: Env, sim: SimState) -> torch.Tensor:
     return K.fk_frame(env.model, sim.q, env.ee_frame)[..., :3, 3]
 
 
-def _policy_inputs(env: Env, state: EnvState, params: tuple):
+def _world_transforms(env: Env, fk: dict, q: torch.Tensor) -> torch.Tensor:
+    """The tick's world transforms (B, F, 4, 4): from the K3 bundle of the
+    env's model, or by FK when no policy is FK-rooted on it."""
+    bundle = fk.get(id(env.model))
+    if bundle is None:
+        return K.fk_all(env.model, q)
+    return bundle.T16.reshape(*bundle.T16.shape[:2], 4, 4)
+
+
+def _policy_inputs(env: Env, state: EnvState, params: tuple,
+                   frame_ctx: dict | None = None, fk: dict | None = None):
     """(q, q̇, bound params, per-policy ctxs, fk bundle) for one tick. The
-    K3 transforms feed the distance context, so the tick runs one FK."""
+    K3 transforms feed the distance context, so the tick runs one FK.
+    frame_ctx: a distance context the caller already built (the batched
+    hull tier), from the bundle `fk` it passes along."""
     sim = state.sim
     policies = env.policies
     if env.bind_params is not None:
         params = env.bind_params(params, sim, policies)
-    fk = fk_bundle(policies, sim.q, sim.qd)
-    bundle = fk.get(id(env.model))
-    T_all = None
-    if bundle is not None:
-        T_all = bundle.T16.reshape(*bundle.T16.shape[:2], 4, 4)
-    q, qd, frame_ctx = sense(env.model, sim, T_all)
+    if fk is None:
+        fk = fk_bundle(policies, sim.q, sim.qd)
+    if frame_ctx is None:
+        _, _, frame_ctx = sense(env.model, sim,
+                                _world_transforms(env, fk, sim.q),
+                                env.collision_geometry)
     ctxs = tuple(frame_ctx.get(p.ctx_key) if p.ctx_key else None
                  for p in policies)
-    return q, qd, params, ctxs, fk
+    return sim.q, sim.qd, params, ctxs, fk
 
 
 def _select(event: torch.Tensor, new, old):
@@ -172,6 +197,14 @@ def _advance(env: Env, state: EnvState, qdd: torch.Tensor):
     return state, aux
 
 
+def _batched_hull(env: Env, states: EnvState) -> bool:
+    """True when the tick builds the hull context for the whole batch with
+    the broad phase and the warm carry (sim.data.hull_batched); other
+    batches take the per-env semantics through sense."""
+    return (states.sim.obstacles is not None
+            and hull_batched(env.collision_geometry, states.sim.q.shape[0]))
+
+
 def make_batched_control_step(env: Env):
     """fn(states, params) -> (states, aux) for one tick of B environments,
     with the whole batch resolved at once and env.resolve_method honoured:
@@ -180,7 +213,15 @@ def make_batched_control_step(env: Env):
     policies = env.policies
 
     def step(states: EnvState, params: tuple):
-        q, qd, params_b, ctxs, fk = _policy_inputs(env, states, params)
+        fk = frame_ctx = warm_next = None
+        if _batched_hull(env, states):
+            fk = fk_bundle(policies, states.sim.q, states.sim.qd)
+            frame_ctx, warm_next = distance_context_batched(
+                env.model, _world_transforms(env, fk, states.sim.q),
+                states.sim.obstacles, "hull",
+                warm=states.gjk_warm, iters=env.hull_warm_iters)
+        q, qd, params_b, ctxs, fk = _policy_inputs(env, states, params,
+                                                   frame_ctx, fk)
         tags, blocks = policy_row_blocks_structured(policies, q, qd, params_b,
                                                     ctxs, fk=fk)
         if env.resolve_method == "solve":
@@ -188,14 +229,39 @@ def make_batched_control_step(env: Env):
         else:
             A, f = assemble_structured(tags, blocks)
             qdd = resolve(A, f, env.resolve_method)
-        return _advance(env, states, qdd)
+        states, aux = _advance(env, states, qdd)
+        if warm_next is not None:
+            # kept through resamples: on_solved moves only the goal, so the
+            # converged witness directions still hold
+            states = dataclasses.replace(states, gjk_warm=warm_next)
+        return states, aux
     return step
+
+
+def _wants_gjk_warm(env: Env, states: EnvState) -> bool:
+    """True when the batched hull tier will run and no carry exists yet."""
+    return states.gjk_warm is None and _batched_hull(env, states)
+
+
+def _seed_gjk_warm(env: Env, states: EnvState) -> EnvState:
+    """states with gjk_warm seeded by one cold 10-iteration hull query: the
+    warm iteration count then always starts from a converged witness."""
+    T_all = K.fk_all(env.model, states.sim.q)
+    _, warm = distance_context_batched(env.model, T_all, states.sim.obstacles,
+                                       "hull", iters=COLD_ITERS)
+    return dataclasses.replace(states, gjk_warm=warm)
 
 
 def make_batched_reset(env: Env, batch: int):
     """fn() -> EnvState of `batch` environments (the reset is
-    deterministic: no random draw)."""
-    return lambda: env.reset(batch)
+    deterministic: no random draw), with the hull tier's warm carry
+    seeded."""
+    def reset():
+        states = env.reset(batch)
+        if _wants_gjk_warm(env, states):
+            states = _seed_gjk_warm(env, states)
+        return states
+    return reset
 
 
 def make_batched_rollout(env: Env, n_ticks: int, with_aux: bool = True):
@@ -205,6 +271,8 @@ def make_batched_rollout(env: Env, n_ticks: int, with_aux: bool = True):
     step = make_batched_control_step(env)
 
     def rollout(states: EnvState, params: tuple):
+        if _wants_gjk_warm(env, states):
+            states = _seed_gjk_warm(env, states)
         auxes = []
         for _ in range(n_ticks):
             states, aux = step(states, params)

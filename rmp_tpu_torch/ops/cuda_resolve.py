@@ -1,5 +1,7 @@
 """K1: fused RMP pullback + pivoted-LU resolve, the CUDA counterpart of
-`rmp_tpu/ops/pallas_resolve.py::pullback_resolve_structured`.
+`rmp_tpu/ops/pallas_resolve.py::pullback_resolve_structured`, and the
+dense-block entry points K2a (`pullback_resolve`, `pullback_resolve_t`) and
+K2b (`pullback_resolve_blocks`) on the same kernel.
 
 Structured per-policy blocks (core.policy_row_blocks_structured, leading
 batch axis B on every tensor):
@@ -12,6 +14,11 @@ give q̈ = (A + ridge I)^{-1} f with A = Σ identity M + Σ Jᵀ diag(m) J +
 Σ Jᵀ W and f = Σ v + Σ Jᵀ v. A CPU tensor takes the plain PyTorch version
 (`pullback_resolve_structured_plain`); a CUDA tensor launches the kernel of
 csrc/pullback_resolve.cu or raises.
+
+K2a and K2b compute q̈ = (Σ Jᵀ W + ridge I)⁻¹ Σ Jᵀ v from dense rows only,
+as the TPU kernels `_kernel` and `_kernel_blocks` do: each launches K1's
+kernel with no identity seed and no scalar rows, keeps its own launch
+counter, and takes the plain version on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -123,15 +130,10 @@ def kernel_inputs(tags, blocks) -> dict:
                 Rd=Rd, Jd=Jd, Wd=Wd, vd=vd, Rs=Rs, Js=Js, ms=ms, vs=vs)
 
 
-def pullback_resolve_structured(tags, blocks,
-                                ridge: float = 0.0) -> torch.Tensor:
-    """q̈ (B, n) from structured per-policy blocks; see the module doc."""
-    B, n, device = _check_blocks(tags, blocks)
-    if device.type == "cpu":
-        return pullback_resolve_structured_plain(tags, blocks, ridge)
+def _launch(tags, blocks, ridge: float, B: int, n: int, device):
+    """q̈ (B, n) from K1's CUDA kernel on validated blocks on `device`."""
     if device.type != "cuda":
         raise ValueError(f"no K1 kernel for device {device}")
-
     k = kernel_inputs(tags, blocks)
     out = torch.empty(B, n, dtype=torch.float32, device=device)
 
@@ -148,8 +150,96 @@ def pullback_resolve_structured(tags, blocks,
         raise ValueError(f"no K1 kernel instantiated for n={n}")
     if rc != 0:
         raise RuntimeError(f"K1 pullback_resolve launch failed: CUDA error {rc}")
+    return out
+
+
+def pullback_resolve_structured(tags, blocks,
+                                ridge: float = 0.0) -> torch.Tensor:
+    """q̈ (B, n) from structured per-policy blocks; see the module doc."""
+    B, n, device = _check_blocks(tags, blocks)
+    if device.type == "cpu":
+        return pullback_resolve_structured_plain(tags, blocks, ridge)
+    out = _launch(tags, blocks, ridge, B, n, device)
     pullback_resolve_structured.launches += 1
     return out
 
 
 pullback_resolve_structured.launches = 0
+
+
+# ------------------------------------------------- K2a, K2b: dense rows ---
+
+def _dense(J_blocks, W_blocks, v_blocks):
+    if not (len(J_blocks) == len(W_blocks) == len(v_blocks)):
+        raise ValueError("J, W and v block lists must be aligned")
+    return ("dense",) * len(J_blocks), list(zip(J_blocks, W_blocks, v_blocks))
+
+
+def _from_batch_minor(Jt, Wt, vt):
+    """(n, R, B) / (R, B) operands as (B, R, n) / (B, R) views; raises on
+    anything else."""
+    if Jt.dim() != 3 or Wt.shape != Jt.shape or vt.shape != Jt.shape[1:]:
+        raise ValueError(f"pullback_resolve_t takes Jt, Wt (n, R, B) and vt "
+                         f"(R, B), got {tuple(Jt.shape)}, {tuple(Wt.shape)}, "
+                         f"{tuple(vt.shape)}")
+    return Jt.permute(2, 1, 0), Wt.permute(2, 1, 0), vt.permute(1, 0)
+
+
+def pullback_resolve_blocks_plain(J_blocks, W_blocks, v_blocks,
+                                  ridge: float = 0.0) -> torch.Tensor:
+    """The plain version of K2b: einsum Gram accumulation over the blocks,
+    the ridge, the unrolled pivoted LU."""
+    return pullback_resolve_structured_plain(
+        *_dense(J_blocks, W_blocks, v_blocks), ridge)
+
+
+def pullback_resolve_plain(J, W, v, ridge: float = 1e-6) -> torch.Tensor:
+    """The plain version of K2a."""
+    return pullback_resolve_blocks_plain([J], [W], [v], ridge)
+
+
+def pullback_resolve_t_plain(Jt, Wt, vt, ridge: float = 1e-6) -> torch.Tensor:
+    """The plain version of K2a on the batch-minor layout."""
+    return pullback_resolve_plain(*_from_batch_minor(Jt, Wt, vt), ridge)
+
+
+def _dense_entry(entry, J_blocks, W_blocks, v_blocks, ridge: float):
+    """q̈ of dense blocks: the plain version on the CPU, else K1's kernel,
+    counted on `entry`."""
+    tags, blocks = _dense(J_blocks, W_blocks, v_blocks)
+    B, n, device = _check_blocks(tags, blocks)
+    if device.type == "cpu":
+        return pullback_resolve_structured_plain(tags, blocks, ridge)
+    out = _launch(tags, blocks, ridge, B, n, device)
+    entry.launches += 1
+    return out
+
+
+def pullback_resolve_blocks(J_blocks, W_blocks, v_blocks,
+                            ridge: float = 0.0) -> torch.Tensor:
+    """K2b: q̈ = (Σ_b J_bᵀ W_b + ridge I)⁻¹ Σ_b J_bᵀ v_b for lists of
+    J_b, W_b (B, R_b, n) and v_b (B, R_b) -> (B, n). The blocks are
+    stacked by rows into the kernel's operands."""
+    return _dense_entry(pullback_resolve_blocks, J_blocks, W_blocks, v_blocks,
+                        ridge)
+
+
+def pullback_resolve(J: torch.Tensor, W: torch.Tensor, v: torch.Tensor,
+                     ridge: float = 1e-6) -> torch.Tensor:
+    """K2a: q̈ = (Jᵀ W + ridge I)⁻¹ Jᵀ v for J, W (B, R, n), v (B, R) ->
+    (B, n)."""
+    return _dense_entry(pullback_resolve, [J], [W], [v], ridge)
+
+
+def pullback_resolve_t(Jt: torch.Tensor, Wt: torch.Tensor, vt: torch.Tensor,
+                       ridge: float = 1e-6) -> torch.Tensor:
+    """K2a on the JAX package's batch-minor layout: Jt, Wt (n, R, B), vt
+    (R, B) -> (B, n). One permute copy makes the kernel's (R, n, B)
+    operand."""
+    J, W, v = _from_batch_minor(Jt, Wt, vt)
+    return _dense_entry(pullback_resolve_t, [J], [W], [v], ridge)
+
+
+pullback_resolve_blocks.launches = 0
+pullback_resolve.launches = 0
+pullback_resolve_t.launches = 0

@@ -1,10 +1,13 @@
-"""Closest-point queries of the capsule tier, batched.
+"""Closest-point queries of the capsule and exact-hull tiers, batched.
 
-The port's capsule half of `rmp_tpu/sim/collision.py`: every link primitive
-and every obstacle is a capsule (a sphere is a zero-length one), queried in
-closed form. Each query returns what PyBullet's getClosestPoints does:
-(point on link, point on obstacle, normal on the obstacle pointing toward the
-link, signed distance). The exact convex-hull tier (GJK) is not ported yet.
+The port's `rmp_tpu/sim/collision.py` for robot-vs-obstacle queries. In the
+capsule tier every link primitive and every obstacle is a capsule (a sphere
+is a zero-length one), queried in closed form. In the hull tier each link is
+the convex hull of its mesh (models/hulls.py), queried against capsules and
+flat-capped cylinders by the K4 GJK kernel. Each query returns what
+PyBullet's getClosestPoints does: (point on link, point on obstacle, normal
+on the obstacle pointing toward the link, signed distance). Self-distances
+(`robot_self_distances_hull`) are not ported yet.
 """
 from __future__ import annotations
 
@@ -13,8 +16,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from rmp_tpu_torch.models.hulls import hull_table
+from rmp_tpu_torch.models.kinematics import frame_indices
 from rmp_tpu_torch.models.urdf import KinematicModel, model_cache
 from rmp_tpu_torch.ops import geom
+from rmp_tpu_torch.ops.cuda_gjk import gjk_hull_obstacles
 
 _EPS = 1e-9
 
@@ -186,3 +192,126 @@ def robot_obstacle_distances(model: KinematicModel, T_all: torch.Tensor,
         out_d.append(bd)
     return (torch.stack(out_pl, dim=1), torch.stack(out_po, dim=1),
             torch.stack(out_n, dim=1), torch.stack(out_d, dim=1))
+
+
+HULL_CONTACT = 5e-4    # hull clearance at or below which the capsule answers
+_FLAGS: dict[tuple, torch.Tensor] = {}
+
+
+def _cylinder_flags(kinds: tuple[str, ...], device) -> torch.Tensor:
+    """(K,) float32 1.0 for 'cylinder' kinds, built once per (kinds, device)
+    so a tick copies nothing from the host."""
+    key = (kinds, str(device))
+    flags = _FLAGS.get(key)
+    if flags is None:
+        flags = _FLAGS[key] = torch.tensor(
+            [float(k == "cylinder") for k in kinds], dtype=torch.float32,
+            device=device)
+    return flags
+
+
+def broad_phase(cap_d: torch.Tensor, top_m: int) -> torch.Tensor:
+    """(B, L, top_m) obstacle indices of the top_m nearest obstacles per
+    (env, link) by capsule distance cap_d (B, L, K), nearest first; equal
+    distances keep the lower obstacle index first, as the JAX package's
+    where-chain does (a stable sort; torch.topk promises no order)."""
+    return torch.sort(cap_d, dim=-1, stable=True).indices[..., :top_m]
+
+
+def gjk_operands(model: KinematicModel, T_all: torch.Tensor,
+                 obstacles: ObstacleSet, capsule_query, top_m: int = 3,
+                 warm: torch.Tensor | None = None):
+    """(idx, operands) of the K4 call of the batched hull query: idx (B, L, M)
+    the broad phase's obstacle indices (None when every pair runs) and the
+    kernel's batch-minor operands by name (gjk_hull_obstacles' arguments).
+    capsule_query: robot_obstacle_distances at the same poses."""
+    cap_pl, cap_po, _, cap_d = capsule_query
+    device = T_all.device
+    T = T_all.index_select(1, frame_indices(model.collision_frames, device))
+    R, t = T[..., :3, :3], T[..., :3, 3]                  # (B, L, 3, 3), (B, L, 3)
+    local = hull_table(model, device)                     # (L, V, 3)
+    B, L, K = cap_d.shape
+
+    p0, p1, rb = obstacles.p0, obstacles.p1, obstacles.radius
+    axis = p1 - p0
+    an = axis / (torch.linalg.vector_norm(axis, dim=-1, keepdim=True) + 1e-12)
+    is_cyl = _cylinder_flags(obstacles.kinds or ("capsule",) * K, device)
+
+    centroid = geom.mv(R, local.mean(dim=-2)) + t         # (B, L, 3)
+    d0_centroid = ((p0 + p1) / 2)[:, None] - centroid[:, :, None]
+    d0_cap = cap_po - cap_pl
+    degenerate = torch.sum(d0_cap * d0_cap, dim=-1, keepdim=True) < 1e-8
+    d0 = torch.where(degenerate, d0_centroid, d0_cap)     # (B, L, K, 3)
+    if warm is not None:
+        live = torch.sum(warm * warm, dim=-1, keepdim=True) > 1e-10
+        d0 = torch.where(live, warm, d0)
+
+    M = min(top_m, K)
+    per_obstacle = torch.cat([p0, p1, an, rb[..., None],
+                              is_cyl.expand(B, K)[..., None]], dim=-1)
+    idx = None
+    if M < K:
+        idx = broad_phase(cap_d, M)                       # (B, L, M)
+        pick = per_obstacle[:, None].expand(B, L, K, 11).gather(
+            2, idx[..., None].expand(B, L, M, 11))
+        d0 = d0.gather(2, idx[..., None].expand(B, L, M, 3))
+    else:
+        pick = per_obstacle[:, None].expand(B, L, K, 11)
+    # (B, L, M, C) -> (L, M, C, B): the kernel's batch-minor operands
+    ops = torch.cat([pick, d0], dim=-1).permute(1, 2, 3, 0)
+    names = ("p0", "p1", "an", "radius", "is_cyl", "d0")
+    cuts = ((0, 3), (3, 6), (6, 9), (9, 10), (10, 11), (11, 14))
+    operands = dict(verts=local, R=R.permute(1, 2, 3, 0).contiguous(),
+                    t=t.permute(1, 2, 0).contiguous())
+    operands.update((name, ops[:, :, a:b].contiguous())
+                    for name, (a, b) in zip(names, cuts))
+    return idx, operands
+
+
+def robot_obstacle_distances_hull_batched(model: KinematicModel,
+                                          T_all: torch.Tensor,
+                                          obstacles: ObstacleSet,
+                                          iters: int = 10, top_m: int = 3,
+                                          warm: torch.Tensor | None = None):
+    """Exact-hull closest points of every (env, link, obstacle) pair through
+    the K4 kernel: T_all (B, F, 4, 4), obstacles (B, K, ...) ->
+    (pos_on_link, pos_on_obstacle, normal) (B, L, K, 3), distance (B, L, K)
+    and warm_next (B, L, K, 3), after rmp_tpu's function of the same name.
+
+    - Start direction per pair: the capsule witness difference, the
+      centroid difference where that is degenerate (|d|^2 < 1e-8), and the
+      previous tick's warm carry where |warm|^2 > 1e-10.
+    - Broad phase: only the top_m obstacles nearest by capsule distance per
+      (env, link) run GJK; every other pair keeps its capsule result.
+      top_m >= K runs every pair.
+    - Near contact (hull clearance <= 0.5 mm) the capsule result answers,
+      with distance min(capsule, hull).
+    - warm_next = pos_on_obstacle - pos_on_link, the next tick's carry.
+    """
+    cap = robot_obstacle_distances(model, T_all, obstacles)
+    cap_pl, cap_po, cap_n, cap_d = cap
+    idx, operands = gjk_operands(model, T_all, obstacles, cap, top_m, warm)
+    pa_k, pb_k, dist_k = gjk_hull_obstacles(**operands, iters=iters)
+    pa = pa_k.permute(3, 0, 1, 2)                         # (B, L, M, 3)
+    pb = pb_k.permute(3, 0, 1, 2)
+    dist = dist_k.permute(2, 0, 1)                        # (B, L, M)
+
+    if idx is not None:
+        # scatter the M exact results back; the other pairs keep the capsule
+        sel = torch.zeros_like(cap_d, dtype=torch.bool).scatter(2, idx, True)
+        idx3 = idx[..., None].expand(*idx.shape, 3)
+        dist = cap_d.scatter(2, idx, dist)
+        pa = cap_pl.scatter(2, idx3, pa)
+        pb = cap_po.scatter(2, idx3, pb)
+        n = torch.where(sel[..., None], (pa - pb) / (dist[..., None] + 1e-9),
+                        cap_n)
+        near = sel & (dist <= HULL_CONTACT)
+    else:
+        n = (pa - pb) / (dist[..., None] + 1e-9)
+        near = dist <= HULL_CONTACT
+    n3 = near[..., None]
+    out_pa = torch.where(n3, cap_pl, pa)
+    out_pb = torch.where(n3, cap_po, pb)
+    return (out_pa, out_pb, torch.where(n3, cap_n, n),
+            torch.where(near, torch.minimum(cap_d, dist), dist),
+            out_pb - out_pa)

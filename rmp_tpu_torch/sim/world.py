@@ -57,12 +57,13 @@ def physics_step(model: KinematicModel, state: SimState, qdd: torch.Tensor,
 
 
 def sense(model: KinematicModel, state: SimState,
-          T_all: torch.Tensor | None = None):
+          T_all: torch.Tensor | None = None, geometry: str = "capsule"):
     """(q, q̇, distance context). T_all: the tick's world transforms
-    (B, F, 4, 4) at state.q when the caller already has them."""
+    (B, F, 4, 4) at state.q when the caller already has them. geometry:
+    'capsule' or 'hull' (exact mesh hulls, per-env semantics)."""
     ctx = {}
     if state.obstacles is not None and state.obstacles.count > 0:
         if T_all is None:
             T_all = K.fk_all(model, state.q)
-        ctx = distance_context(model, T_all, state.obstacles)
+        ctx = distance_context(model, T_all, state.obstacles, geometry)
     return state.q, state.qd, ctx

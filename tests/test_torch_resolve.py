@@ -142,3 +142,90 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         cuda_resolve.pullback_resolve_structured(
             FLAGSHIP_TAGS, [tuple(x.to("meta") for x in b) for b in blocks])
+
+
+def dense_rows(seed: int, B: int, R: int = 30, n: int = 9):
+    """J (B, R, n), W = diag(m) J, v (B, R): the layout of
+    tests/test_pallas_resolve.py::test_pallas_pullback_resolve_interpret."""
+    rng = np.random.default_rng(seed)
+    J = rng.normal(size=(B, R, n)).astype(np.float32)
+    W = (J * rng.uniform(0.1, 2.0, (B, R, 1))).astype(np.float32)
+    return J, W, rng.normal(size=(B, R)).astype(np.float32)
+
+
+def test_plain_k2a_matches_jax_pallas_kernel_interpret():
+    """pullback_resolve and pullback_resolve_t at their default ridge 1e-6
+    (JAX's pullback_resolve runs pullback_resolve_t's kernel)."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from rmp_tpu.ops import pallas_resolve as jpr
+    J, W, v = dense_rows(4, 128)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jpr.pullback_resolve(
+            jnp.asarray(J), jnp.asarray(W), jnp.asarray(v)))
+    counts = (cuda_resolve.pullback_resolve.launches,
+              cuda_resolve.pullback_resolve_t.launches)
+    got = cuda_resolve.pullback_resolve(torch.tensor(J), torch.tensor(W),
+                                        torch.tensor(v)).numpy()
+    got_t = cuda_resolve.pullback_resolve_t(
+        torch.tensor(J.transpose(2, 1, 0)), torch.tensor(W.transpose(2, 1, 0)),
+        torch.tensor(v.T)).numpy()
+    assert counts == (cuda_resolve.pullback_resolve.launches,
+                      cuda_resolve.pullback_resolve_t.launches)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    np.testing.assert_allclose(got_t, want, atol=ATOL)
+
+
+def test_plain_k2b_matches_jax_pallas_kernel_interpret():
+    """Three dense blocks at the default ridge 0."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from rmp_tpu.ops import pallas_resolve as jpr
+    blocks = [dense_rows(5 + i, 128, R=R) for i, R in enumerate((3, 20, 9))]
+    Js, Ws, vs = (list(x) for x in zip(*blocks))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jpr.pullback_resolve_blocks(
+            [jnp.asarray(x) for x in Js], [jnp.asarray(x) for x in Ws],
+            [jnp.asarray(x) for x in vs]))
+    before = cuda_resolve.pullback_resolve_blocks.launches
+    got = cuda_resolve.pullback_resolve_blocks(
+        [torch.tensor(x) for x in Js], [torch.tensor(x) for x in Ws],
+        [torch.tensor(x) for x in vs]).numpy()
+    assert cuda_resolve.pullback_resolve_blocks.launches == before
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+@pytest.mark.parametrize("ridge", [0.0, 1e-6, 1e-3])
+def test_plain_k2_matches_jax_lu_on_assembled_system(ridge):
+    """K2a and K2b plain versions against the JAX package's unrolled LU of
+    Σ Jᵀ W + ridge I, Σ Jᵀ v."""
+    blocks = [dense_rows(7 + i, 64, R=R) for i, R in enumerate((3, 20))]
+    A, f = _assembled(("dense", "dense"), blocks)
+    want = np.asarray(jlinalg.lu_solve_unrolled(
+        jnp.asarray(A + np.float32(ridge) * np.eye(9, dtype=np.float32)),
+        jnp.asarray(f)))
+    Js, Ws, vs = ([torch.tensor(b[i]) for b in blocks] for i in range(3))
+    got = cuda_resolve.pullback_resolve_blocks(Js, Ws, vs, ridge=ridge)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+    one = cuda_resolve.pullback_resolve(
+        torch.cat(Js, 1), torch.cat(Ws, 1), torch.cat(vs, 1), ridge=ridge)
+    np.testing.assert_allclose(one.numpy(), want, atol=ATOL)
+    np.testing.assert_array_equal(
+        cuda_resolve.pullback_resolve_t_plain(
+            *(torch.cat(x, 1).permute(2, 1, 0) for x in (Js, Ws)),
+            torch.cat(vs, 1).T, ridge=ridge).numpy(), one.numpy())
+
+
+def test_k2_wrappers_reject_what_the_kernel_does_not_take():
+    J, W, v = (torch.tensor(x) for x in dense_rows(6, 4))
+    with pytest.raises(TypeError):
+        cuda_resolve.pullback_resolve(J.double(), W.double(), v.double())
+    with pytest.raises(ValueError):
+        cuda_resolve.pullback_resolve(J, W[:, :5], v)
+    with pytest.raises(ValueError):
+        cuda_resolve.pullback_resolve_t(J, W, v)       # not batch-minor
+    with pytest.raises(ValueError):
+        cuda_resolve.pullback_resolve_blocks([J, J], [W], [v, v])
+    with pytest.raises(ValueError):
+        cuda_resolve.pullback_resolve(J.to("meta"), W.to("meta"),
+                                      v.to("meta"))
