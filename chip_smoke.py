@@ -47,6 +47,18 @@ printing the result line:
  10. hull parity: 128 envs (broad phase, warm carry) and 8 envs (every
      pair, cold) x 5 ticks in the hull tier, GPU against CPU, from
      q ± 0.1, q̇ ± 0.05.
+ 11. K5 (the fused v2 tick, ops/cuda_tick.make_fused_qdd), on scenes 06
+     and 05 at B = 4096: the build's registers and spills; kernel against
+     plain version near the ready pose (every env) and from the wide
+     states of tests/test_pallas_tick.py (envs that are finite, stable
+     under a one-ulp move of q and q̇, and within 1e-5 of a float64 plain
+     run), limit 2e-4 x max(1, |q̈|); kernel against the standard q̈
+     (evaluate_policies, 'cholesky') on the first-capsule model, and its
+     gap to the full 25-capsule model printed as a number. Timed: K5,
+     its plain version and the standard q̈ evaluation it stands in for
+     (FK bundle + context + blocks + K1). K5 runs on no main path: phases
+     7-8 hold its count at 0. Then scene 05 GPU/CPU parity, 128 envs x 5
+     ticks from q ± 0.1, q̇ ± 0.05.
 Then one JSON line of per-kernel numbers ({"kernels": [...]}) and, last,
 {"ok": true, "device": {...}}. The full record also goes to
 chiprun_out/chip_smoke.json.
@@ -54,8 +66,10 @@ chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -71,11 +85,14 @@ from rmp_tpu_torch.models import robots
 from rmp_tpu_torch.models.fk_derivatives import fk_derivatives
 from rmp_tpu_torch.models import kinematics
 from rmp_tpu_torch.models.urdf import FIXED
-from rmp_tpu_torch.ops import cuda_fk, cuda_gjk, cuda_resolve
+from rmp_tpu_torch.ops import (cuda_fk, cuda_gjk, cuda_resolve, cuda_tick,
+                               tick_ops)
 from rmp_tpu_torch.sim import collision
+from rmp_tpu_torch.sim.world import SimState
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCENE = "franka/06_cluttered_environment"
+SCENE05 = "franka/05_obstacle_avoidance"
 BATCH = 4096
 TICKS = 150
 WARMUP_TICKS = 2
@@ -85,6 +102,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 K1_TOL = 2e-4          # max |kernel - plain| <= K1_TOL * max(1, max |q̈|)
 K3_ATOL = 2e-4
+K5_ACCURATE = 1e-5     # wide K5 envs compared: plain within this of float64
 K4_DIST_P99, K4_DIST_MEDIAN = 1e-4, 1e-6   # |Δdist| quantiles
 K4_AGREE = 1e-5        # pairs whose distances agree this well ...
 # ... hold their witnesses so. The max is loose: a pair that the fixed
@@ -651,6 +669,148 @@ def phase_k4(env, device) -> dict:
                 warm=w)
 
 
+# ---------------------------------------------------------------- K5 ------
+
+def k5_bound(tick, B: int, K: int):
+    """Bound of one K5 call: reads q, q̇ (n each), the goal (3) and the
+    obstacles (7 K) once and writes q̈ (n), per env; per env it does the
+    operations of the reference body with its constant folding, less those
+    of A's mirrored upper triangle (tick_ops.fused_qdd_ops)."""
+    n = tick.model.n_q
+    total, mirrored = tick_ops.fused_qdd_ops(tick, K)
+    return bound_ms(4.0 * B * (3 * n + 3 + 7 * K),
+                    float(total - mirrored) * B)
+
+
+def k5_inputs(env, B: int, seed: int, wide: bool, dtype=torch.float32):
+    """(q, q̇, goal, obs_p0, obs_p1, obs_r) on the card: near the ready pose
+    (reset q ± 0.1, q̇ ± 0.05, goal ± 0.05) or the wide states of
+    tests/test_pallas_tick.py (q ± 1, q̇ ± 0.8, goals in its box)."""
+    rng = np.random.default_rng(seed)
+    start = envs.make_batched_reset(env, B)().sim
+    if wide:
+        q = rng.uniform(-1.0, 1.0, (B, 9))
+        qd = rng.uniform(-0.8, 0.8, (B, 9))
+        goal = rng.uniform([0.2, -0.5, 0.2], [0.7, 0.5, 0.7], (B, 3))
+    else:
+        q = start.q.cpu().numpy() + rng.uniform(-0.1, 0.1, (B, 9))
+        qd = rng.uniform(-0.05, 0.05, (B, 9))
+        goal = start.goal.cpu().numpy() + rng.uniform(-0.05, 0.05, (B, 3))
+    dev = start.q.device
+    obs = start.obstacles
+    return tuple(torch.tensor(np.asarray(x, np.float32), device=dev).to(dtype)
+                 for x in (q, qd, goal)) + tuple(
+        x.contiguous().to(dtype) for x in (obs.p0, obs.p1, obs.radius))
+
+
+def k5_rel(got, want) -> torch.Tensor:
+    """Per env max |got - want| / max(1, max |want|)."""
+    scale = want.abs().amax(dim=1).clamp_min(1.0)
+    return (got - want).abs().amax(dim=1) / scale
+
+
+def ptxas_counts(source: str) -> dict:
+    """Registers, stack frame and spill bytes of `source` from build.log."""
+    text = _build.build_log().split(f"== {source}\n", 1)[-1].split("\n== ")[0]
+
+    def num(pattern):
+        found = re.findall(pattern, text)
+        return max(int(v) for v in found) if found else None
+    return dict(registers=num(r"Used (\d+) registers"),
+                stack_bytes=num(r"(\d+) bytes stack frame"),
+                spill_store_bytes=num(r"(\d+) bytes spill stores"),
+                spill_load_bytes=num(r"(\d+) bytes spill loads"))
+
+
+def k5_check(what: str, err: torch.Tensor, limit: float) -> float:
+    worst = float(err.max())
+    log(f"K5 {what}: max|Δq̈| / max(1, |q̈|) {worst:.3e} (limit {limit})")
+    check(worst <= limit, f"K5 {what}: disagrees")
+    return worst
+
+
+def phase_k5(device) -> dict:
+    build = ptxas_counts("fused_tick.cu")
+    log(f"K5 build (fused_tick.cu): {json.dumps(build)}")
+    check(build["registers"] is not None, "K5: no ptxas line in build.log")
+    rec = dict(name="fused_qdd", route="cuda",
+               source="rmp_tpu_torch/csrc/fused_tick.cu",
+               replaces="rmp_tpu/ops/pallas_tick.py:421", build=build)
+    err = 0.0
+    for scene, tag in ((SCENE, "06"), (SCENE05, "05")):
+        env = envs.make(scene)
+        tick = cuda_tick.fused_tick(env)
+        fn = cuda_tick.make_fused_qdd(env)
+        plain = functools.partial(cuda_tick.fused_qdd_plain, tick)
+        near = k5_inputs(env, BATCH, 11, wide=False)
+        got, want = fn(*near), plain(*near)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"K5 {tag}: non-finite")
+        err = max(err, k5_check(f"{tag} near ready, kernel vs plain, "
+                                f"{BATCH} envs", k5_rel(got, want), K1_TOL))
+
+        wide = k5_inputs(env, BATCH, 13, wide=True)
+        up = torch.tensor(float("inf"), device=device)
+        w_got, w_want = fn(*wide), plain(*wide)
+        w_ulp = plain(torch.nextafter(wide[0], up),
+                      torch.nextafter(wide[1], up), *wide[2:])
+        w_64 = plain(*(x.double() for x in wide))
+        finite = torch.isfinite(w_want).all(dim=1)
+        w0 = torch.nan_to_num(w_want)
+        held = (finite & (k5_rel(w_ulp, w0) <= STABLE)
+                & (k5_rel(w_64, w0.double()) <= K5_ACCURATE))
+        n_held = int(held.sum())
+        log(f"K5 {tag} wide: {int(finite.sum())} of {BATCH} envs finite, "
+            f"{n_held} compared")
+        check(n_held >= BATCH // 2, f"K5 {tag} wide: too few envs compared")
+        err = max(err, k5_check(f"{tag} wide, kernel vs plain",
+                                k5_rel(w_got[held], w_want[held]), K1_TOL))
+
+        first = cuda_tick.standard_qdd(env, *near, first_capsule=True)
+        full = cuda_tick.standard_qdd(env, *near, first_capsule=False)
+        k5_check(f"{tag} kernel vs the standard q̈ on first capsules",
+                 k5_rel(got, first), K1_TOL)
+        gap = float((got - full).abs().max())
+        log(f"K5 {tag}: max|q̈_K5 - q̈_standard| on the full 25-capsule "
+            f"model {gap:.3e} (K5 reads each link's first capsule only)")
+
+        params = env.gather_params()
+        states = dataclasses.replace(
+            envs.make_batched_reset(env, BATCH)(), sim=SimState(
+                q=near[0], qd=near[1], t=torch.zeros_like(near[0][:, 0]),
+                obstacles=collision.ObstacleSet(*near[3:]), goal=near[2]))
+
+        def standard():
+            q, qd, prm, ctxs, fk = _policy_inputs(env, states, params)
+            tags, blocks = policy_row_blocks_structured(
+                env.policies, q, qd, prm, ctxs, fk=fk)
+            return cuda_resolve.pullback_resolve_structured(tags, blocks,
+                                                            ridge=0.0)
+
+        K = near[5].shape[1]
+        times = dict(ms=time_ms(lambda: fn(*near)),
+                     plain_ms=time_ms(lambda: plain(*near), reps=5),
+                     standard_ms=time_ms(standard))
+        b_ms, b_by = k5_bound(tick, BATCH, K)
+        total, mirrored = tick_ops.fused_qdd_ops(tick, K)
+        log(f"K5 {tag} times at B={BATCH}, K={K}: kernel {times['ms']:.4f} "
+            f"ms, plain {times['plain_ms']:.4f} ms, standard q̈ evaluation "
+            f"(FK + context + blocks + K1) {times['standard_ms']:.4f} ms, "
+            f"bound {b_ms:.6f} ms ({b_by}, {total - mirrored} operations "
+            f"per env: the reference body's {total} less {mirrored} on A's "
+            f"mirrored upper triangle)")
+        rec[f"scene{tag}"] = dict(
+            K=K, wide_compared=n_held, full_model_gap=gap, bound_ms=b_ms,
+            bound_by=b_by, ops_per_env=total - mirrored,
+            reference_ops_per_env=total, **times)
+    main = rec["scene06"]
+    # no single PyTorch call computes the fused tick
+    rec.update(max_abs_err=err, ms=main["ms"], plain_ms=main["plain_ms"],
+               bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+               library_ms=None)
+    return rec
+
+
 # ---------------------------------------------------------- main path -----
 
 COUNTERS = {
@@ -660,8 +820,10 @@ COUNTERS = {
     "pullback_resolve_blocks": cuda_resolve.pullback_resolve_blocks,
     "fk_derivatives_batched": cuda_fk.fk_derivatives_batched,
     "gjk_hull_obstacles": cuda_gjk.gjk_hull_obstacles,
+    "fused_qdd": cuda_tick.fused_qdd,
 }
-# the kernels each main path runs once per tick; every other counter stays 0
+# the kernels each main path runs once per tick; every other counter (K2a,
+# K2b, K5) stays 0
 PATH_KERNELS = {
     "capsule": ("pullback_resolve_structured", "fk_derivatives_batched"),
     "hull": ("pullback_resolve_structured", "fk_derivatives_batched",
@@ -781,8 +943,8 @@ def perturbed_states(env, B: int, seed: int, dq: float, dqd: float,
 
 
 def parity_q(dev: str, dq: float, dqd: float, ulp: bool = False,
-             geometry: str = "capsule", B: int = 128):
-    env = envs.make(SCENE, device=dev)
+             geometry: str = "capsule", B: int = 128, scene: str = SCENE):
+    env = envs.make(scene, device=dev)
     env.resolve_method = "solve"
     env.collision_geometry = geometry
     final, _ = envs.make_batched_rollout(env, 5, with_aux=False)(
@@ -857,6 +1019,15 @@ def phase_hull_parity() -> dict:
     return out
 
 
+def phase_scene05_parity() -> float:
+    err = float((parity_q("cuda", 0.1, 0.05, scene=SCENE05)
+                 - parity_q("cpu", 0.1, 0.05, scene=SCENE05)).abs().max())
+    log(f"scene 05 parity: 128 envs x 5 ticks from q ± 0.1, q̇ ± 0.05, "
+        f"max|q_gpu - q_cpu| {err:.3e} (atol {PARITY_ATOL})")
+    check(err <= PARITY_ATOL, "scene 05 GPU/CPU parity")
+    return err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -887,17 +1058,23 @@ def main() -> int:
     hull_launches, hull_path = phase_main_path(card, "hull")
     parity = phase_parity()
     hull_parity = phase_hull_parity()
+    t0 = time.perf_counter()
+    k5 = phase_k5(device)
+    scene05_parity = phase_scene05_parity()
+    k5_s = time.perf_counter() - t0
+    log(f"phase 11 and scene 05 parity: {k5_s:.1f} s")
 
-    kernels = [k1, k2a, k2b, k3, k4]
+    kernels = [k1, k2a, k2b, k3, k4, k5]
     for rec in kernels:
-        # each kernel's count from the path that runs it (K2a/K2b: none)
+        # each kernel's count from the path that runs it (K2a/K2b, K5: none)
         rec["launches"] = max(launches[rec["name"]],
                               hull_launches[rec["name"]])
         rec["launches_capsule_path"] = launches[rec["name"]]
         rec["launches_hull_path"] = hull_launches[rec["name"]]
     record = dict(card=card, torch=torch.__version__, build_s=build_s,
                   kernels=kernels, main_path=main_path, hull_path=hull_path,
-                  parity=parity, hull_parity=hull_parity)
+                  parity=parity, hull_parity=hull_parity,
+                  scene05_parity=scene05_parity, phase11_s=k5_s)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

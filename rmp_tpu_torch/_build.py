@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels.
 
 Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`), one
-`nvcc` process per source, all started together, and the objects are linked
-into one shared library with a plain C interface that `ctypes` loads. The
-library goes into `rmp_tpu_torch/_build/<hash>/`, keyed by a hash of the
-sources and flags, so a changed source is rebuilt and an unchanged one is
-built once per checkout. Nothing here runs at import: the first CUDA tensor
+`nvcc` process per source, all started together, with `csrc/` on the include
+path for the shared `csrc/*.cuh` headers, and the objects are linked into one
+shared library with a plain C interface that `ctypes` loads. The library goes
+into `rmp_tpu_torch/_build/<hash>/`, keyed by a hash of the sources, the
+headers and the flags, so a changed source or header is rebuilt and an
+unchanged tree is built once per checkout. Nothing here runs at import: the first CUDA tensor
 that reaches a kernel wrapper triggers the build.
 """
 from __future__ import annotations
@@ -51,10 +52,14 @@ def sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
+def headers() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
 def source_hash() -> str:
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
-    for path in sources():
+    for path in sources() + headers():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
@@ -82,7 +87,7 @@ def build() -> str:
         jobs = []
         for src in sources():
             obj = os.path.join(work, os.path.basename(src)[:-3] + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+            cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", src, "-o", obj]
             jobs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))

@@ -18,8 +18,9 @@
 // Design: the model's static tables (parent, joint type, motor index, axis,
 // constant transforms, and the ancestor table anc[f][m]) come in as small
 // device arrays, so one compiled kernel serves every robot up to kMaxFrames
-// frames and kMaxMotors motors. Each thread walks the tree in BFS order and
-// keeps T, W, Wd and G of every frame in per-thread arrays; indexed by a
+// frames and kMaxMotors motors. Each thread walks the tree in BFS order
+// (rmp::fk_step of fk_common.cuh, shared with K5) and keeps T, W, Wd and G
+// of every frame in per-thread arrays; indexed by a
 // run-time frame number they live in local memory (L1-cached), which this
 // first version accepts. Each frame's outputs are written as soon as the
 // frame is done. The writes are batch-major (the contract of the TPU kernel's
@@ -28,47 +29,15 @@
 // coalesced (staging rows through shared memory) is later work.
 #include <cuda_runtime.h>
 
+#include "fk_common.cuh"
+
 namespace {
 
-constexpr int kMaxFrames = 16;
-constexpr int kMaxMotors = 16;
-constexpr int kRevolute = 0;
-constexpr int kPrismatic = 1;
-constexpr int kFixed = 2;
+using rmp::kMaxFrames;
+using rmp::kMaxMotors;
+using rmp::mm44;
+
 constexpr int kThreads = 128;
-
-// c = a @ b for row-major 4x4 matrices; c must not alias a or b.
-__device__ __forceinline__ void mm44(const float* a, const float* b, float* c) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float s = a[4 * i] * b[j];
-#pragma unroll
-      for (int k = 1; k < 4; ++k) s += a[4 * i + k] * b[4 * k + j];
-      c[4 * i + j] = s;
-    }
-  }
-}
-
-__device__ __forceinline__ void set_identity(float* m) {
-#pragma unroll
-  for (int r = 0; r < 16; ++r) m[r] = (r % 5 == 0) ? 1.0f : 0.0f;
-}
-
-// Inverse of a rigid transform: [R t; 0 1]^-1 = [R^T, -R^T t; 0 1].
-__device__ __forceinline__ void rigid_inverse(const float* a, float* out) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) out[4 * i + j] = a[4 * j + i];
-    out[4 * i + 3] = -(a[i] * a[3] + a[4 + i] * a[7] + a[8 + i] * a[11]);
-  }
-  out[12] = 0.0f;
-  out[13] = 0.0f;
-  out[14] = 0.0f;
-  out[15] = 1.0f;
-}
 
 __device__ __forceinline__ void store16(float* dst, const float* src) {
   float4* d = reinterpret_cast<float4*>(dst);
@@ -93,81 +62,10 @@ __global__ void __launch_bounds__(kThreads) fk_derivatives_kernel(
   float W[kMaxFrames][16];
   float Wd[kMaxFrames][16];
   float G[kMaxFrames][16];
-  float eye[16];
-  float zero[16];
-  set_identity(eye);
-#pragma unroll
-  for (int r = 0; r < 16; ++r) zero[r] = 0.0f;
 
   for (int f = 0; f < F; ++f) {
-    const int p = parent[f];
-    const float* Tp = p < 0 ? eye : T[p];
-    const float* Wp = p < 0 ? zero : W[p];
-    const float* Wdp = p < 0 ? zero : Wd[p];
-    const int jt = joint_type[f];
-    const float ax = axis[3 * f], ay = axis[3 * f + 1], az = axis[3 * f + 2];
-
-    float A[16];
-    mm44(Tp, T_constant + 16 * f, A);
-
-    // joint motion: Rodrigues (guarded to identity for a zero axis, as the
-    // plain version's rotation_matrix_from_axis_angle) or a translation
-    float Tv[16];
-    set_identity(Tv);
-    if (jt == kRevolute) {
-      float s, c;
-      sincosf(q[(size_t)b * n + q_index[f]], &s, &c);
-      if (ax * ax + ay * ay + az * az > 0.5f) {
-        const float oc = 1.0f - c;
-        Tv[0] = c + oc * (ax * ax);
-        Tv[1] = -s * az + oc * (ax * ay);
-        Tv[2] = s * ay + oc * (ax * az);
-        Tv[4] = s * az + oc * (ay * ax);
-        Tv[5] = c + oc * (ay * ay);
-        Tv[6] = -s * ax + oc * (ay * az);
-        Tv[8] = -s * ay + oc * (az * ax);
-        Tv[9] = s * ax + oc * (az * ay);
-        Tv[10] = c + oc * (az * az);
-      }
-    } else if (jt == kPrismatic) {
-      const float qv = q[(size_t)b * n + q_index[f]];
-      Tv[3] = qv * ax;
-      Tv[7] = qv * ay;
-      Tv[11] = qv * az;
-    }
-    mm44(A, Tv, T[f]);
-
-    if (jt == kFixed) {
-#pragma unroll
-      for (int r = 0; r < 16; ++r) {
-        W[f][r] = Wp[r];
-        Wd[f][r] = Wdp[r];
-      }
-    } else {
-      float E[16];
-#pragma unroll
-      for (int r = 0; r < 16; ++r) E[r] = 0.0f;
-      if (jt == kRevolute) {
-        E[1] = -az; E[2] = ay;
-        E[4] = az;  E[6] = -ax;
-        E[8] = -ay; E[9] = ax;
-      } else {
-        E[3] = ax; E[7] = ay; E[11] = az;
-      }
-      float AE[16], Ainv[16];
-      mm44(A, E, AE);
-      rigid_inverse(A, Ainv);
-      mm44(AE, Ainv, G[f]);
-      const float qdv = qd[(size_t)b * n + q_index[f]];
-      float WG[16], GW[16];
-      mm44(Wp, G[f], WG);
-      mm44(G[f], Wp, GW);
-#pragma unroll
-      for (int r = 0; r < 16; ++r) {
-        W[f][r] = Wp[r] + qdv * G[f][r];
-        Wd[f][r] = Wdp[r] + qdv * (WG[r] - GW[r]);
-      }
-    }
+    rmp::fk_step(f, parent, joint_type, q_index, axis, T_constant,
+                 q + (size_t)b * n, qd + (size_t)b * n, T, W, Wd, G);
 
     const size_t row = (size_t)b * F + f;
     float out[16];

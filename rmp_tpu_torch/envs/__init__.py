@@ -1,4 +1,4 @@
-"""Scene registry (only the flagship scene is ported so far)."""
+"""Scene registry: the flagship scene 06 and its sister scene 05."""
 from rmp_tpu_torch import default_device
 from rmp_tpu_torch.envs import base, franka  # noqa: F401
 from rmp_tpu_torch.envs.base import (Env, EnvState, env_state,  # noqa: F401
@@ -6,6 +6,7 @@ from rmp_tpu_torch.envs.base import (Env, EnvState, env_state,  # noqa: F401
                                      make_batched_reset, make_batched_rollout)
 
 REGISTRY = {
+    "franka/05_obstacle_avoidance": franka.env_05_obstacle_avoidance,
     "franka/06_cluttered_environment": franka.env_06_cluttered_environment,
 }
 

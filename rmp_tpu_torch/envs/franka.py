@@ -1,8 +1,10 @@
-"""Franka Panda scenes: the flagship 06_cluttered_environment.
+"""Franka Panda scenes: the flagship 06_cluttered_environment and its
+sister 05_obstacle_avoidance.
 
 The port's part of `rmp_tpu/envs/franka.py`: the v2 policy stack, the
-grouped obstacle policy (one policy over all 10 collision frames x 7
-obstacles), the seven cylinders and the six sequential goals.
+grouped obstacle policy (one policy over all 10 collision frames x the
+scene's obstacles), the seven cylinders and six sequential goals of scene
+06, the one tilted cylinder of scene 05.
 """
 from __future__ import annotations
 
@@ -70,6 +72,29 @@ def _obstacle_policies(model):
         metric_exploder_eps=0.001)
     pol.ctx_key = PAIRS_KEY
     return [pol]
+
+
+def env_05_obstacle_avoidance(device) -> Env:
+    """experiments/franka_panda/05_obstacle_avoidance.py: the v2 stack
+    without c-space bias and one tilted cylinder; one goal, no resampling."""
+    device = torch.device(device)
+    model = robots.franka_panda()
+    goal = [0.0, -0.5, 0.5]
+    policies = tuple(
+        _v2_policy_stack(model, goal=goal, attractor_p_gain=0.1,
+                         attractor_d_gain=1.0, with_cspace_bias=False,
+                         device=device)
+        + _obstacle_policies(model))
+    obstacle = cylinder_obstacle([0.3, -0.3, 0.5], [0.2, 0.0, 0.0], 0.025,
+                                 0.3, device=device)
+
+    def reset(batch: int) -> EnvState:
+        return env_state(init_state(model, batch, device, q=Q_READY,
+                                    obstacles=obstacle, goal=goal))
+
+    return Env(name="franka/05_obstacle_avoidance", model=model,
+               policies=policies, reset=reset, ee_frame=model.frame_index(EE),
+               device=device, bind_params=bind_goal(("target", "attractor")))
 
 
 CLUTTERED_GOALS = np.array(

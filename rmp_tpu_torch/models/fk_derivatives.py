@@ -48,8 +48,10 @@ def fk_derivatives(model: KinematicModel, q: torch.Tensor, qd: torch.Tensor):
 
 
 class FkDerivatives:
-    """The shared FK-derivative recursion (T, W, Ẇ, G per frame) and the
-    per-frame products `full_row(k)` built from it."""
+    """The shared FK-derivative recursion and the per-frame products
+    `full_row(k)` built from it. Per frame k: T[k] world transform, W[k]
+    velocity operator, Wd[k] its drift (each (..., 4, 4)), G[k] world twist
+    generator (None for a fixed joint)."""
 
     def __init__(self, model: KinematicModel, q: torch.Tensor,
                  qd: torch.Tensor):
@@ -89,18 +91,18 @@ class FkDerivatives:
 
         self.model = model
         self.n = n
-        self._T, self._W, self._Wd, self._G = T, W, Wd, G
+        self.T, self.W, self.Wd, self.G = T, W, Wd, G
 
     @property
     def T16(self) -> torch.Tensor:
         """All world transforms as per-frame rows: (..., F, 16)."""
-        return torch.stack([t.reshape(*t.shape[:-2], 16) for t in self._T],
+        return torch.stack([t.reshape(*t.shape[:-2], 16) for t in self.T],
                            dim=-2)
 
     def full_row(self, k: int):
         """(T16, Td16, J16 (.., 16, n), c16) for frame k."""
         model, n = self.model, self.n
-        T, W, Wd, G = self._T, self._W, self._Wd, self._G
+        T, W, Wd, G = self.T, self.W, self.Wd, self.G
         batch = T[k].shape[:-2]
         Td16 = (W[k] @ T[k]).reshape(*batch, 16)
         c16 = ((Wd[k] + W[k] @ W[k]) @ T[k]).reshape(*batch, 16)

@@ -47,8 +47,10 @@ def test_build_compiles_every_source_once_for_sm90a(toolkit):
     compiles = [c for c in calls if "-c" in c.split()]
     assert len(compiles) == len(_build.sources())
     assert sorted(os.path.basename(p) for p in _build.sources()) == [
-        "fk_derivatives.cu", "gjk_hull.cu", "pullback_resolve.cu"]
+        "fk_derivatives.cu", "fused_tick.cu", "gjk_hull.cu",
+        "pullback_resolve.cu"]
     assert all("arch=compute_90a,code=sm_90a" in c for c in compiles)
+    assert all(f"-I {_build.CSRC_DIR}" in c for c in compiles)
     assert sum("-shared" in c.split() for c in calls) == 1
     # built once per source hash: a second call runs no compiler
     assert _build.build() == lib
@@ -81,4 +83,16 @@ def test_source_hash_follows_the_sources(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC_DIR", str(src))
     first = _build.source_hash()
     (src / "a.cu").write_text("// two\n")
+    assert _build.source_hash() != first
+
+
+def test_source_hash_follows_the_headers(tmp_path, monkeypatch):
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "a.cu").write_text('#include "common.cuh"\n')
+    (src / "common.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", str(src))
+    assert _build.headers() == [str(src / "common.cuh")]
+    first = _build.source_hash()
+    (src / "common.cuh").write_text("// two\n")
     assert _build.source_hash() != first
