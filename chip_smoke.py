@@ -7,16 +7,24 @@ printing the result line:
   1. card: name and power limit (nvidia-smi), torch version; needs CUDA.
   2. build: every kernel of the main path, built by nvcc from
      rmp_tpu_torch/csrc/ (seconds printed).
-  3. K1 (pullback + pivoted-LU resolve) against its plain PyTorch version at
-     the flagship layout and B = 4096, on seeded random blocks and on the
-     blocks of a real tick; a rank-1 Gram case must stay finite. Timed with
-     CUDA events beside its bound and an einsum + torch.linalg.solve
-     yardstick.
+  3. K1 (pullback + pivoted-LU resolve): the build's registers, shared
+     memory and spills; kernel against its plain PyTorch version at the
+     flagship layout, at B = 4096 and at the ragged B = 1, 7, 4093, on
+     seeded contiguous random blocks and on the strided blocks of a real
+     tick; a rank-1 Gram case must stay finite. The wrapper on the real
+     blocks must launch one device kernel (torch.profiler). Timed with CUDA
+     events beside its bound and an einsum + torch.linalg.solve yardstick:
+     the wrapper call from an idle stream (`ms`, host time to the launch
+     included) and with the stream kept busy ahead (`device_ms`).
   4. K2a (pullback_resolve, pullback_resolve_t; ridge 1e-6) and K2b
      (pullback_resolve_blocks; ridge 0), the dense-block entry points on
-     K1's kernel, against their plain versions at B = 4096, R = 30, n = 9,
-     timed beside an einsum + torch.linalg.solve yardstick.
-  5. K3 (FK derivatives) against its plain version at B = 4096.
+     K1's kernel (K2a's batch-minor views and K2b's row slices read
+     through their strides), against their plain versions at R = 30,
+     n = 9, B = 4096, 1, 7 and 4093, timed at B = 4096 beside an einsum +
+     torch.linalg.solve yardstick.
+  5. K3 (FK derivatives): the build's counts; kernel against its plain
+     version at B = 4096, 1, 7 and 4093; one device kernel per call; timed
+     as K1.
   6. K4 (GJK, link hulls vs obstacles) against its plain version at the
      flagship shapes (10 links x top-3 slots x 4096 envs, 96-vertex hulls),
      from reset states moved by q ± 0.3: a cold 10-iteration query and a
@@ -65,6 +73,7 @@ chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import json
@@ -97,6 +106,10 @@ BATCH = 4096
 TICKS = 150
 WARMUP_TICKS = 2
 REPS = 30
+RAGGED = (1, 7, 4093)  # batches that fill no tile evenly
+# GPU spin ahead of a timed call (~1.1 ms at the H100's boost clock), so the
+# host's time to enqueue the call hides behind it
+LEAD_CYCLES = 2_000_000
 # published H100 SXM peaks: HBM3 bandwidth and fp32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
@@ -143,20 +156,48 @@ def card_lines() -> list[str]:
     return [ln.strip() for ln in out.stdout.splitlines() if ln.strip()]
 
 
-def time_ms(fn, reps: int = REPS) -> float:
-    """Median device time of fn() over `reps` calls, by CUDA events."""
+def time_ms(fn, reps: int = REPS, lead: bool = False) -> float:
+    """Median device time of fn() over `reps` calls, by CUDA events. The
+    stream is idle at each start, so a call's host time up to its last
+    launch counts; with `lead` a spin kernel keeps the stream busy ahead of
+    the start event, so the events time the call's device work alone."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if lead:
+            torch.cuda._sleep(LEAD_CYCLES)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_launches(fn, kernel: str, what: str, calls: int = 10) -> float:
+    """Device kernels per call of fn, from a torch.profiler trace of
+    `calls` calls. Every traced kernel must be `kernel` (a substring of its
+    name). A trace that returns fewer events than calls (the profiler can
+    lose a short window's events) is taken again, at most twice."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        log(f"{what} trace of {calls} calls: {len(names)} device kernels")
+        other = sorted({n[:80] for n in names if kernel not in n})
+        check(not other, f"{what}: the wrapper launches {other}")
+        if len(names) >= calls:
+            break
+    return len(names) / calls
 
 
 def bound_ms(n_bytes: float, n_flops: float):
@@ -178,14 +219,15 @@ def k1_layout(tags, blocks):
 
 
 def k1_bound(tags, blocks):
-    """Bound of the kernel call: it reads the identity seed (n² + n, summed
-    over the identity blocks, absent without one), the dense rows (2n + 1
-    each) and the scalar rows (n + 2 each) once and writes q̈ (n), per env;
-    flops of the accumulation and the LU."""
+    """Bound of the wrapper call: it reads each identity block (n² + n),
+    the dense rows (2n + 1 each) and the scalar rows (n + 2 each) once and
+    writes q̈ (n), per env; flops of the seed's sums, the accumulation and
+    the LU."""
     B, n, Rd, Rs = k1_layout(tags, blocks)
-    seed = n * n + n if "identity" in tags else 0
-    floats = seed + Rd * (2 * n + 1) + Rs * (n + 2) + n
-    flops = (Rd * (2 * n + 2 * n * n)                    # J^T W, J^T v
+    n_id = tags.count("identity")
+    floats = n_id * (n * n + n) + Rd * (2 * n + 1) + Rs * (n + 2) + n
+    flops = (n_id * (n * n + n)                          # seed, seed + rows
+             + Rd * (2 * n + 2 * n * n)                  # J^T W, J^T v
              + Rs * (3 * n + n * (n + 1))                # m J, upper J^T m J
              + sum((n - k - 1) * (2 * (n - k) + 3) for k in range(n))  # LU
              + n * n + n)                                # back substitution
@@ -252,12 +294,29 @@ def real_tick_blocks(env, B: int, seed: int):
                                         fk=fk)
 
 
+def build_counts(source: str, what: str) -> dict:
+    build = ptxas_counts(source)
+    log(f"{what} build ({source}): {json.dumps(build)}")
+    check(build["registers"] is not None, f"{what}: no ptxas line in build.log")
+    return build
+
+
 def phase_k1(env, device) -> dict:
-    tags, blocks = k1_random_blocks(0, BATCH, device)
-    err = k1_compare(tags, blocks, "random flagship layout, B=4096")
-    rtags, rblocks = real_tick_blocks(env, BATCH, 1)
-    check(rtags == tags, f"unexpected flagship tags {rtags}")
-    err = max(err, k1_compare(rtags, rblocks, "real tick, B=4096"))
+    build = build_counts("pullback_resolve.cu", "K1")
+    err, real = 0.0, {}
+    for B in (BATCH,) + RAGGED:
+        tags, blocks = k1_random_blocks(0 if B == BATCH else B, B, device)
+        err = max(err, k1_compare(tags, blocks,
+                                  f"random contiguous blocks, B={B}"))
+        real[B] = real_tick_blocks(env, B, 1)
+        check(real[B][0] == tags, f"unexpected flagship tags {real[B][0]}")
+        err = max(err, k1_compare(*real[B], f"real tick, B={B}"))
+    rtags, rblocks = real[BATCH]
+    layout = {f"{t} {k}": blk[0].stride() for k, (t, blk) in
+              enumerate(zip(rtags, rblocks)) if t != "identity"}
+    log(f"K1 real tick at B={BATCH}: J strides {layout}")
+    check(not rblocks[-1][0].is_contiguous(),
+          "K1 real tick: the scalar block's J is no longer a strided view")
 
     # rank-1 Gram: env 0's scalar rows are all one vector
     rng = np.random.default_rng(2)
@@ -273,22 +332,27 @@ def phase_k1(env, device) -> dict:
     check(bool(torch.isfinite(out).all()), "K1 rank-1 Gram: non-finite output")
     log("K1 rank-1 Gram: finite")
 
-    ms = time_ms(lambda: cuda_resolve.pullback_resolve_structured(rtags, rblocks))
-    prep_ms = time_ms(lambda: cuda_resolve.kernel_inputs(rtags, rblocks))
+    def call():
+        return cuda_resolve.pullback_resolve_structured(rtags, rblocks)
+    per_call = device_launches(call, "pullback_resolve_kernel", "K1")
+    log(f"K1 wrapper on the real blocks: {per_call} device launch(es) per "
+        f"call")
+    check(per_call == 1, "K1: not one launch per wrapper call")
+    ms, device_ms = time_ms(call), time_ms(call, lead=True)
     plain_ms = time_ms(
         lambda: cuda_resolve.pullback_resolve_structured_plain(rtags, rblocks))
     library_ms = time_ms(lambda: k1_library(rtags, rblocks))
     b_ms, b_by = k1_bound(rtags, rblocks)
-    log(f"K1 times at B=4096: kernel {ms:.4f} ms (of which operand "
-        f"preparation {prep_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-        f"einsum+linalg.solve {library_ms:.4f} ms, bound {b_ms:.5f} ms "
-        f"({b_by})")
+    log(f"K1 times at B={BATCH}: wrapper {ms:.4f} ms (device alone "
+        f"{device_ms:.4f} ms), plain {plain_ms:.4f} ms, einsum+linalg.solve "
+        f"{library_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
     return dict(name="pullback_resolve_structured", route="cuda",
                 source="rmp_tpu_torch/csrc/pullback_resolve.cu",
                 replaces="rmp_tpu/ops/pallas_resolve.py:226",
-                max_abs_err=err, ms=ms, kernel_ms=ms, prep_ms=prep_ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=library_ms)
+                max_abs_err=err, ms=ms, device_ms=device_ms,
+                device_launches_per_call=per_call, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                build=build)
 
 
 # ---------------------------------------------------------- K2a, K2b -----
@@ -313,22 +377,34 @@ def k2_compare(got, want, what: str) -> float:
     return err
 
 
-def phase_k2(device) -> tuple[dict, dict]:
-    J, W, v = k2_rows(5, BATCH, device=device)
+def k2_operands(B: int, device):
+    """(J, W, v), their batch-minor copies (Jt, Wt, vt) and K2b's three row
+    slices (Js, Ws, vs), at R = 30."""
+    J, W, v = k2_rows(5 if B == BATCH else B, B, device=device)
     Jt, Wt, vt = (x.permute(*reversed(range(x.dim()))).contiguous()
                   for x in (J, W, v))
-    err_a = max(
-        k2_compare(cuda_resolve.pullback_resolve(J, W, v),
-                   cuda_resolve.pullback_resolve_plain(J, W, v),
-                   "K2a pullback_resolve, ridge 1e-6"),
-        k2_compare(cuda_resolve.pullback_resolve_t(Jt, Wt, vt),
-                   cuda_resolve.pullback_resolve_t_plain(Jt, Wt, vt),
-                   "K2a pullback_resolve_t, ridge 1e-6"))
     cuts = ((0, 3), (3, 23), (23, 30))
     Js, Ws, vs = ([x[:, a:b] for a, b in cuts] for x in (J, W, v))
-    err_b = k2_compare(cuda_resolve.pullback_resolve_blocks(Js, Ws, vs),
-                       cuda_resolve.pullback_resolve_blocks_plain(Js, Ws, vs),
-                       "K2b pullback_resolve_blocks (3 blocks), ridge 0")
+    return (J, W, v), (Jt, Wt, vt), (Js, Ws, vs)
+
+
+def phase_k2(device) -> tuple[dict, dict]:
+    err_a = err_b = 0.0
+    for B in (BATCH,) + RAGGED:
+        (J, W, v), (Jt, Wt, vt), (Js, Ws, vs) = k2_operands(B, device)
+        err_a = max(
+            err_a,
+            k2_compare(cuda_resolve.pullback_resolve(J, W, v),
+                       cuda_resolve.pullback_resolve_plain(J, W, v),
+                       f"K2a pullback_resolve, ridge 1e-6, B={B}"),
+            k2_compare(cuda_resolve.pullback_resolve_t(Jt, Wt, vt),
+                       cuda_resolve.pullback_resolve_t_plain(Jt, Wt, vt),
+                       f"K2a pullback_resolve_t, ridge 1e-6, B={B}"))
+        err_b = max(err_b, k2_compare(
+            cuda_resolve.pullback_resolve_blocks(Js, Ws, vs),
+            cuda_resolve.pullback_resolve_blocks_plain(Js, Ws, vs),
+            f"K2b pullback_resolve_blocks (3 blocks), ridge 0, B={B}"))
+    (J, W, v), (Jt, Wt, vt), (Js, Ws, vs) = k2_operands(BATCH, device)
     b_ms, b_by = k1_bound(("dense",), [(J, W, v)])
 
     def library():
@@ -345,15 +421,18 @@ def phase_k2(device) -> tuple[dict, dict]:
              lambda: cuda_resolve.pullback_resolve_blocks(Js, Ws, vs),
              lambda: cuda_resolve.pullback_resolve_blocks_plain(Js, Ws, vs),
              312, err_b)):
-        ms, plain_ms = time_ms(fn), time_ms(plain)
-        log(f"{name} times at B={BATCH}, R=30: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, einsum+linalg.solve {library_ms:.4f} ms, "
-            f"bound {b_ms:.5f} ms ({b_by})")
+        ms, device_ms = time_ms(fn), time_ms(fn, lead=True)
+        plain_ms = time_ms(plain)
+        log(f"{name} times at B={BATCH}, R=30: wrapper {ms:.4f} ms (device "
+            f"alone {device_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+            f"einsum+linalg.solve {library_ms:.4f} ms, bound {b_ms:.6f} ms "
+            f"({b_by})")
         recs.append(dict(name=name, route="cuda",
                          source="rmp_tpu_torch/csrc/pullback_resolve.cu",
                          replaces=f"rmp_tpu/ops/pallas_resolve.py:{src_line}",
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=library_ms))
+                         max_abs_err=err, ms=ms, device_ms=device_ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=library_ms))
     recs[0]["t_ms"] = time_ms(lambda: cuda_resolve.pullback_resolve_t(Jt, Wt,
                                                                        vt))
     return recs[0], recs[1]
@@ -378,33 +457,54 @@ def k3_bound(model, B: int):
     return bound_ms(4.0 * floats * B, float(flops) * B)
 
 
+def k3_inputs(model, B: int, device):
+    rng = np.random.default_rng(3 if B == BATCH else 3 + B)
+    return tuple(torch.tensor(rng.uniform(-a, a, (B, model.n_q)),
+                              dtype=torch.float32, device=device)
+                 for a in (1.2, 1.0))
+
+
 def phase_k3(device) -> dict:
     model = robots.franka_panda()
-    rng = np.random.default_rng(3)
-    q = torch.tensor(rng.uniform(-1.2, 1.2, (BATCH, model.n_q)),
-                     dtype=torch.float32, device=device)
-    qd = torch.tensor(rng.uniform(-1.0, 1.0, (BATCH, model.n_q)),
-                      dtype=torch.float32, device=device)
-    got = cuda_fk.fk_derivatives_batched(model, q, qd)
-    want = fk_derivatives(model, q, qd)
-    torch.cuda.synchronize()
+    build = build_counts("fk_derivatives.cu", "K3")
+    shared = _build.c_function("rmp_fk_derivatives_shared_bytes",
+                               [ctypes.c_int, ctypes.c_int])
+    build["dynamic_smem_bytes"] = shared(model.n_frames, model.n_q)
+    log(f"K3 dynamic shared memory per CTA: {build['dynamic_smem_bytes']} "
+        f"bytes")
     err = 0.0
-    for name, g, w in zip(("T16", "Td16", "J16", "c16"), got, want):
-        check(g.shape == w.shape, f"K3 {name}: shape {g.shape} vs {w.shape}")
-        e = float((g - w).abs().max())
-        log(f"K3 {name}: max|kernel - plain| {e:.3e} (atol {K3_ATOL})")
-        check(e <= K3_ATOL, f"K3 {name}: disagrees with plain version")
-        err = max(err, e)
-    ms = time_ms(lambda: cuda_fk.fk_derivatives_batched(model, q, qd))
+    for B in (BATCH,) + RAGGED:
+        q, qd = k3_inputs(model, B, device)
+        got = cuda_fk.fk_derivatives_batched(model, q, qd)
+        want = fk_derivatives(model, q, qd)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("T16", "Td16", "J16", "c16"), got, want):
+            check(g.shape == w.shape,
+                  f"K3 {name}: shape {g.shape} vs {w.shape}")
+            e = float((g - w).abs().max())
+            log(f"K3 {name}, B={B}: max|kernel - plain| {e:.3e} "
+                f"(atol {K3_ATOL})")
+            check(e <= K3_ATOL, f"K3 {name}: disagrees with plain version")
+            err = max(err, e)
+    q, qd = k3_inputs(model, BATCH, device)
+
+    def call():
+        return cuda_fk.fk_derivatives_batched(model, q, qd)
+    per_call = device_launches(call, "fk_derivatives_kernel", "K3")
+    log(f"K3 wrapper: {per_call} device launch(es) per call")
+    check(per_call == 1, "K3: not one launch per wrapper call")
+    ms, device_ms = time_ms(call), time_ms(call, lead=True)
     plain_ms = time_ms(lambda: fk_derivatives(model, q, qd))
     b_ms, b_by = k3_bound(model, BATCH)
-    log(f"K3 times at B=4096: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {b_ms:.5f} ms ({b_by})")
+    log(f"K3 times at B={BATCH}: wrapper {ms:.4f} ms (device alone "
+        f"{device_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+        f"({b_by})")
     return dict(name="fk_derivatives_batched", route="cuda",
                 source="rmp_tpu_torch/csrc/fk_derivatives.cu",
                 replaces="rmp_tpu/ops/pallas_fk.py:218",
-                max_abs_err=err, ms=ms, kernel_ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                max_abs_err=err, ms=ms, device_ms=device_ms,
+                device_launches_per_call=per_call, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, build=build)
 
 
 # ---------------------------------------------------------------- K4 ------
@@ -710,13 +810,15 @@ def k5_rel(got, want) -> torch.Tensor:
 
 
 def ptxas_counts(source: str) -> dict:
-    """Registers, stack frame and spill bytes of `source` from build.log."""
+    """Registers, static shared memory, stack frame and spill bytes of
+    `source` from build.log (the largest over its kernels)."""
     text = _build.build_log().split(f"== {source}\n", 1)[-1].split("\n== ")[0]
 
     def num(pattern):
         found = re.findall(pattern, text)
         return max(int(v) for v in found) if found else None
     return dict(registers=num(r"Used (\d+) registers"),
+                smem_bytes=num(r"(\d+) bytes smem"),
                 stack_bytes=num(r"(\d+) bytes stack frame"),
                 spill_store_bytes=num(r"(\d+) bytes spill stores"),
                 spill_load_bytes=num(r"(\d+) bytes spill loads"))
@@ -730,9 +832,7 @@ def k5_check(what: str, err: torch.Tensor, limit: float) -> float:
 
 
 def phase_k5(device) -> dict:
-    build = ptxas_counts("fused_tick.cu")
-    log(f"K5 build (fused_tick.cu): {json.dumps(build)}")
-    check(build["registers"] is not None, "K5: no ptxas line in build.log")
+    build = build_counts("fused_tick.cu", "K5")
     rec = dict(name="fused_qdd", route="cuda",
                source="rmp_tpu_torch/csrc/fused_tick.cu",
                replaces="rmp_tpu/ops/pallas_tick.py:421", build=build)

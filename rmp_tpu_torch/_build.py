@@ -19,6 +19,8 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -130,6 +132,17 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             _lib = ctypes.CDLL(build())
         return _lib
+
+
+def raw_stream(device) -> int:
+    """The cudaStream_t of PyTorch's current stream on `device`, as an int.
+    torch.cuda.current_stream(device).cuda_stream gives the same handle but
+    builds a Stream object, several microseconds of host time per launch.
+    A device without an index means the current one."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def c_function(name: str, argtypes: list):

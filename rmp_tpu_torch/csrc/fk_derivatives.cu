@@ -1,4 +1,4 @@
-// K3: batched closed-form FK derivatives, one thread per environment.
+// K3: batched closed-form FK derivatives, a tile of environments per CTA.
 //
 // Replaces the TPU kernel rmp_tpu/ops/pallas_fk.py::fk_derivatives_batched
 // (_build / _make_kernel). For every frame f of a kinematic tree it computes
@@ -8,25 +8,47 @@
 //   J_f[:, m] = G_j T_f                  (Jacobian column of motor m whose
 //                                          joint j is an ancestor of f)
 // with the world twist generators G_j = A_j E_j A_j^{-1}, A_j the parent-side
-// rigid transform of joint j. Plain version: models/fk_derivatives.py.
+// rigid transform of joint j (the recursion of fk_common.cuh). Plain
+// version: models/fk_derivatives.py.
 //
-// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32): bytes. At B = 4096 and
-// the Panda (F = 12, n = 9) the outputs are 2,304 floats per env (T, Td, c:
-// 3 x 12 x 16; J: 12 x 16 x 9), about 37.7 MB, so ~11 us; the arithmetic is
-// ~20 kFLOP per env, ~1.3 us at the fp32 peak.
+// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32): bytes. At the Panda
+// (F = 12, n = 9) an env reads q, qd (18 floats) and writes 2,304 (T, Td, c:
+// 3 x 12 x 16; J: 12 x 16 x 9): 38.0 MB at B = 4096, 11.4 us. Its ~40
+// kFLOP of 4x4 products take ~2.5 us at the fp32 peak. So the kernel's job
+// is to store 38 MB at close to the memory rate.
 //
-// Design: the model's static tables (parent, joint type, motor index, axis,
-// constant transforms, and the ancestor table anc[f][m]) come in as small
-// device arrays, so one compiled kernel serves every robot up to kMaxFrames
-// frames and kMaxMotors motors. Each thread walks the tree in BFS order
-// (rmp::fk_step of fk_common.cuh, shared with K5) and keeps T, W, Wd and G
-// of every frame in per-thread arrays; indexed by a
-// run-time frame number they live in local memory (L1-cached), which this
-// first version accepts. Each frame's outputs are written as soon as the
-// frame is done. The writes are batch-major (the contract of the TPU kernel's
-// wrapper), so neighbouring threads write 9 KB apart: the stores are not
-// coalesced and the kernel is expected to sit well above its bound. Making it
-// coalesced (staging rows through shared memory) is later work.
+// Design.
+// - A CTA takes a tile of kEnvs = 8 consecutive envs (512 CTAs at
+//   B = 4096); the last tile is masked.
+// - The model's tables (parent, joint type, motor index, axis, constant
+//   transforms, ancestor table anc[f][m]) and the tile's q, qd are loaded
+//   into shared memory once per CTA, so one kernel serves every robot up to
+//   kMaxFrames frames and kMaxMotors motors.
+// - The recursion runs on 16 threads per env, thread (i, j) owning entry
+//   (i, j) of every 4x4 product; the 16 threads of an env sit in one half
+//   warp, so __syncwarp orders them. T (and its transpose), W, Wd and G of
+//   every frame live in shared memory (~5 x F x 16 floats per env), not
+//   in a per-thread local frame. Each entry sums in rmp::mm44's order
+//   (a[4i] b[j] first, then k = 1..3), so the result is today's to the
+//   rounding of contraction. fk_common.cuh's fk_step (one thread per env)
+//   stays as it is for K5. The per-frame work that all 16 lanes would
+//   repeat (sincos, the joint motion Tv, the generator E) runs once per
+//   (env, frame) in a prologue, one lane each, and is kept transposed, so
+//   a step reads a column as one float4 and its lanes never diverge. The
+//   env stride of each array is 16 mod 32 floats, so the two envs of a
+//   warp read the same entry from different banks.
+// - After a __syncthreads the whole CTA writes the tile's outputs in their
+//   own memory order, one float4 per thread and step: a tile's rows of each
+//   output are one contiguous, 16-byte aligned range, so consecutive
+//   threads store consecutive 16 bytes and every warp store is 512
+//   coalesced bytes. A J element is row i of G[anc[f][m]] dotted with row j
+//   of T_f's transpose (float4 shared loads; the generators at a padded
+//   pitch, so a quarter warp's rows hit distinct bank groups, and T_f's
+//   column kept while a float4's elements share it); Td and c take a row of
+//   W or of Wd + W W against the same transposed rows. Staging the tile for
+//   a TMA bulk store was the alternative: the J tile alone is 55 KB, so
+//   shared memory would cap residency, and the plain stores are already
+//   full-width.
 #include <cuda_runtime.h>
 
 #include "fk_common.cuh"
@@ -35,16 +57,116 @@ namespace {
 
 using rmp::kMaxFrames;
 using rmp::kMaxMotors;
-using rmp::mm44;
 
-constexpr int kThreads = 128;
+constexpr int kEnvs = 8;              // envs per CTA
+constexpr int kThreads = 16 * kEnvs;  // one thread per 4x4 entry and env
+// Floats between an env's generators G_f and G_f+1. The store pass reads
+// row i of up to 8 generators in one quarter warp: at a pitch of 16 floats
+// those rows fall into 2 of the 8 16-byte bank groups, at 20 into 8.
+constexpr int kGPitch = 20;
 
-__device__ __forceinline__ void store16(float* dst, const float* src) {
-  float4* d = reinterpret_cast<float4*>(dst);
+// Smallest stride >= s that is 16 mod 32 floats: the two envs of a warp
+// then read the same entry from opposite halves of the 32 banks.
+__host__ __device__ constexpr int odd_half(int s) {
+  return s + (48 - s % 32) % 32;
+}
+
+// Float offsets of the shared-memory arrays, then the int tables. Per env:
+// T, its transpose Tt, W, C (Wd, then Wd + W W) and the joint motions'
+// transposes Tv, F x 16 floats each at env stride `tstride`; the
+// generators at pitch kGPitch and env stride `gstride`. Per model: the
+// constant transforms Tc and the joint generators' transposes Et. The store pass's tables: goff[f n + m], the offset of
+// G[anc[f][m]] among an env's generators (-1: no ancestor, a zero column);
+// for the tile's row ef = e F + f, frame[ef] = f, trow[ef] = its T/Tt/W/C
+// offset and gbase[ef] its env's generator offset; elem[w] = (rr << 8) | m,
+// the first element of float4 w of a J row.
+struct Layout {
+  int tstride, gstride;
+  int T, Tt, W, C, Tv, G, scratch, Tc, Et, eye, axis, q, qd, floats;
+  int parent, type, qidx, goff, frame, trow, gbase, elem, ints;
+  __host__ __device__ constexpr Layout(int F, int n)
+      : tstride(odd_half(16 * F)), gstride(odd_half(kGPitch * F)), T(0),
+        Tt(kEnvs * tstride), W(2 * kEnvs * tstride), C(3 * kEnvs * tstride),
+        Tv(4 * kEnvs * tstride), G(5 * kEnvs * tstride),
+        scratch(G + kEnvs * gstride), Tc(scratch + kEnvs * 48),
+        Et(Tc + F * 16), eye(Et + F * 16), axis(eye + 32),
+        q(axis + 3 * F), qd(q + kEnvs * n), floats(qd + kEnvs * n),
+        parent(0), type(F), qidx(2 * F), goff(3 * F), frame(goff + F * n),
+        trow(frame + kEnvs * F), gbase(trow + kEnvs * F),
+        elem(gbase + kEnvs * F), ints(elem + 4 * n) {}
+  __host__ __device__ constexpr int bytes() const {
+    return 4 * (floats + ints);
+  }
+};
+
+// a . b in rmp::mm44's order (a.x b.x first): entry (i, j) of a 4x4
+// product from row i of the left factor and column j of the right one.
+__device__ __forceinline__ float dot4(float4 a, float4 b) {
+  float s = a.x * b.x;
+  s += a.y * b.y;
+  s += a.z * b.z;
+  s += a.w * b.w;
+  return s;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Column j of a row-major 4x4 matrix in shared memory.
+__device__ __forceinline__ float4 col4(const float* m, int j) {
+  return make_float4(m[j], m[4 + j], m[8 + j], m[12 + j]);
+}
+
+// The joint motion Tv of a frame of joint type jt, as fk_step builds it:
+// Rodrigues (identity for a zero axis), a translation, or the identity.
+__device__ __forceinline__ void joint_motion(float (&tv)[16], int jt,
+                                             float ax, float ay, float az,
+                                             float qv) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-    d[r] = make_float4(src[4 * r], src[4 * r + 1], src[4 * r + 2],
-                       src[4 * r + 3]);
+  for (int k = 0; k < 16; ++k) tv[k] = (k % 5 == 0) ? 1.0f : 0.0f;
+  if (jt == rmp::kRevolute) {
+    float s, c;
+    sincosf(qv, &s, &c);
+    if (ax * ax + ay * ay + az * az > 0.5f) {
+      const float oc = 1.0f - c;
+      tv[0] = c + oc * (ax * ax);
+      tv[1] = -s * az + oc * (ax * ay);
+      tv[2] = s * ay + oc * (ax * az);
+      tv[4] = s * az + oc * (ay * ax);
+      tv[5] = c + oc * (ay * ay);
+      tv[6] = -s * ax + oc * (ay * az);
+      tv[8] = -s * ay + oc * (az * ax);
+      tv[9] = s * ax + oc * (az * ay);
+      tv[10] = c + oc * (az * az);
+    }
+  } else if (jt == rmp::kPrismatic) {
+    tv[3] = qv * ax;
+    tv[7] = qv * ay;
+    tv[11] = qv * az;
+  }
+}
+
+// The generator E of a joint (skew(axis), or the axis as a translation).
+__device__ __forceinline__ void joint_generator(float (&E)[16], int jt,
+                                                float ax, float ay,
+                                                float az) {
+#pragma unroll
+  for (int k = 0; k < 16; ++k) E[k] = 0.0f;
+  if (jt == rmp::kRevolute) {
+    E[1] = -az; E[2] = ay;
+    E[4] = az;  E[6] = -ax;
+    E[8] = -ay; E[9] = ax;
+  } else if (jt == rmp::kPrismatic) {
+    E[3] = ax; E[7] = ay; E[11] = az;
+  }
+}
+
+// m transposed into dst (16 floats).
+__device__ __forceinline__ void store_transposed(float* dst,
+                                                 const float (&m)[16]) {
+#pragma unroll
+  for (int k = 0; k < 16; ++k) dst[4 * (k % 4) + k / 4] = m[k];
 }
 
 __global__ void __launch_bounds__(kThreads) fk_derivatives_kernel(
@@ -55,50 +177,228 @@ __global__ void __launch_bounds__(kThreads) fk_derivatives_kernel(
     const float* __restrict__ qd, float* __restrict__ T16,
     float* __restrict__ Td16, float* __restrict__ J16,
     float* __restrict__ c16) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const Layout L(F, n);
+  int* imem = reinterpret_cast<int*>(smem + L.floats);
+  const int* s_parent = imem + L.parent;
+  const int* s_type = imem + L.type;
+  const int* s_qidx = imem + L.qidx;
+  const int* s_goff = imem + L.goff;
+  const int* s_frame = imem + L.frame;
+  const int* s_trow = imem + L.trow;
+  const int* s_gbase = imem + L.gbase;
+  const int* s_elem = imem + L.elem;
 
-  float T[kMaxFrames][16];
-  float W[kMaxFrames][16];
-  float Wd[kMaxFrames][16];
-  float G[kMaxFrames][16];
+  const int tid = threadIdx.x;
+  const int b0 = blockIdx.x * kEnvs;
+  const int nv = min(kEnvs, B - b0);  // envs of this tile
 
-  for (int f = 0; f < F; ++f) {
-    rmp::fk_step(f, parent, joint_type, q_index, axis, T_constant,
-                 q + (size_t)b * n, qd + (size_t)b * n, T, W, Wd, G);
-
-    const size_t row = (size_t)b * F + f;
-    float out[16];
-    store16(T16 + row * 16, T[f]);
-    mm44(W[f], T[f], out);
-    store16(Td16 + row * 16, out);
-    float acc[16];
-    mm44(W[f], W[f], acc);
+  // the model's tables and the tile's q, qd: every global load is issued
+  // before the first shared store, so they are in flight together (at most
+  // kLoads per thread and table)
+  constexpr int kLoads = 2;
+  static_assert(3 * kMaxFrames <= kThreads &&
+                    16 * kMaxFrames <= kLoads * kThreads &&
+                    kMaxFrames * kMaxMotors <= kLoads * kThreads &&
+                    kEnvs * kMaxMotors <= kLoads * kThreads,
+                "a thread loads at most kLoads entries of a table");
+  const size_t q0 = static_cast<size_t>(b0) * n;
+  float tc[kLoads], qv[kLoads], qdv[kLoads];
+  int an[kLoads];
 #pragma unroll
-    for (int r = 0; r < 16; ++r) acc[r] += Wd[f][r];
-    mm44(acc, T[f], out);
-    store16(c16 + row * 16, out);
+  for (int t = 0; t < kLoads; ++t) {
+    const int k = tid + t * kThreads;
+    tc[t] = k < F * 16 ? T_constant[k] : 0.0f;
+    an[t] = k < F * n ? anc[k] : -1;
+    const bool in = k < nv * n;  // masked envs run on zeros, store nothing
+    qv[t] = in ? q[q0 + k] : 0.0f;
+    qdv[t] = in ? qd[q0 + k] : 0.0f;
+  }
+  const float axis_k = tid < 3 * F ? axis[tid] : 0.0f;
+  const int par = tid < F ? parent[tid] : 0;
+  const int typ = tid < F ? joint_type[tid] : 0;
+  const int qix = tid < F ? q_index[tid] : 0;
+#pragma unroll
+  for (int t = 0; t < kLoads; ++t) {
+    const int k = tid + t * kThreads;
+    if (k < F * 16) smem[L.Tc + k] = tc[t];
+    if (k < F * n) imem[L.goff + k] = an[t] >= 0 ? kGPitch * an[t] : -1;
+    if (k < kEnvs * n) {
+      smem[L.q + k] = qv[t];
+      smem[L.qd + k] = qdv[t];
+    }
+  }
+  if (tid < 3 * F) smem[L.axis + tid] = axis_k;
+  if (tid < F) {
+    imem[L.parent + tid] = par;
+    imem[L.type + tid] = typ;
+    imem[L.qidx + tid] = qix;
+  }
+  for (int k = tid; k < kEnvs * F; k += kThreads) {
+    const int e = k / F, f = k % F;
+    imem[L.frame + k] = f;
+    imem[L.trow + k] = e * L.tstride + 16 * f;
+    imem[L.gbase + k] = e * L.gstride;
+  }
+  for (int k = tid; k < 4 * n; k += kThreads)
+    imem[L.elem + k] = ((4 * k / n) << 8) | (4 * k % n);
+  if (tid < 16) {
+    smem[L.eye + tid] = (tid % 5 == 0) ? 1.0f : 0.0f;  // identity
+    smem[L.eye + 16 + tid] = 0.0f;                      // zero
+  }
+  __syncthreads();
 
-    float* jrow = J16 + row * 16 * n;
-    for (int m = 0; m < n; ++m) {
-      const int j = anc[f * n + m];
-      if (j >= 0) {
-        mm44(G[j], T[f], out);
+  // ---- per frame, once: the joint generators (per model) and the joint
+  // motions (per env), transposed so the recursion reads columns as float4
+  for (int k = tid; k < (kEnvs + 1) * F; k += kThreads) {
+    const int e = k / F, f = k % F;  // e == kEnvs: the model's generator
+    const int jt = imem[L.type + f];
+    const float ax = smem[L.axis + 3 * f], ay = smem[L.axis + 3 * f + 1],
+                az = smem[L.axis + 3 * f + 2];
+    float m[16];
+    if (e == kEnvs) {
+      joint_generator(m, jt, ax, ay, az);
+      store_transposed(smem + L.Et + 16 * f, m);
+    } else {
+      const int qi = imem[L.qidx + f];
+      joint_motion(m, jt, ax, ay, az,
+                   jt == rmp::kFixed ? 0.0f : smem[L.q + e * n + qi]);
+      store_transposed(smem + L.Tv + e * L.tstride + 16 * f, m);
+    }
+  }
+  __syncthreads();
+
+  // ---- the recursion (fk_common.cuh's fk_step): env e, entry (i, j) ----
+  {
+    const int e = tid >> 4;
+    const int r = tid & 15;
+    const int i = r >> 2, j = r & 3;
+    float* T = smem + L.T + e * L.tstride;
+    float* Tt = smem + L.Tt + e * L.tstride;
+    float* W = smem + L.W + e * L.tstride;
+    float* C = smem + L.C + e * L.tstride;  // Wd, then Wd + W W
+    float* G = smem + L.G + e * L.gstride;
+    float* sA = smem + L.scratch + e * 48;
+    float* sAE = sA + 16;
+    float* sAinv = sA + 32;
+    const float* eye = smem + L.eye;
+    const float* zero = eye + 16;
+    const float* qd_row = smem + L.qd + e * n;
+
+    const float* TvT = smem + L.Tv + e * L.tstride;
+    for (int f = 0; f < F; ++f) {
+      // p and jt are the same for every env: branches on them are uniform
+      const int p = s_parent[f];
+      const float* Tp = p < 0 ? eye : T + 16 * p;
+      const float* Wp = p < 0 ? zero : W + 16 * p;
+      const float* Wdp = p < 0 ? zero : C + 16 * p;
+      const int jt = s_type[f];
+
+      sA[r] = dot4(ld4(Tp + 4 * i), col4(smem + L.Tc + 16 * f, j));
+      __syncwarp();
+      const float4 arow = ld4(sA + 4 * i);
+      const float t = dot4(arow, ld4(TvT + 16 * f + 4 * j));  // A Tv
+      T[16 * f + r] = t;
+      Tt[16 * f + 4 * j + i] = t;
+
+      if (jt == rmp::kFixed) {
+        W[16 * f + r] = Wp[r];
+        C[16 * f + r] = Wdp[r];
       } else {
-#pragma unroll
-        for (int r = 0; r < 16; ++r) out[r] = 0.0f;
+        sAE[r] = dot4(arow, ld4(smem + L.Et + 16 * f + 4 * j));  // A E
+        // entry (i, j) of rmp::rigid_inverse(A), without branches
+        const float rot = sA[4 * j + i];
+        const float trans = -(sA[i] * sA[3] + sA[4 + i] * sA[7] +
+                              sA[8 + i] * sA[11]);
+        sAinv[r] = i == 3 ? (j == 3 ? 1.0f : 0.0f) : (j < 3 ? rot : trans);
+        __syncwarp();
+        const float g = dot4(ld4(sAE + 4 * i), col4(sAinv, j));
+        float* Gf = G + kGPitch * f;
+        Gf[r] = g;
+        __syncwarp();
+        const float wg = dot4(ld4(Wp + 4 * i), col4(Gf, j));
+        const float gw = dot4(ld4(Gf + 4 * i), col4(Wp, j));
+        const float qdv = qd_row[s_qidx[f]];
+        W[16 * f + r] = Wp[r] + qdv * g;
+        C[16 * f + r] = Wdp[r] + qdv * (wg - gw);
       }
+      __syncwarp();
+    }
+    // c's left factor, in place: each thread reads W and its own C entry
+    for (int f = 0; f < F; ++f) {
+      const float ww = dot4(ld4(W + 16 * f + 4 * i), col4(W + 16 * f, j));
+      C[16 * f + r] = ww + C[16 * f + r];
+    }
+  }
+  __syncthreads();
+
+  // ---- the stores, in the outputs' memory order ----
+  // (env, frame) rows of the tile: row ef = e F + f
+  const int rows = nv * F;
+  const size_t row0 = static_cast<size_t>(b0) * F;
+  float4* T4 = reinterpret_cast<float4*>(T16 + row0 * 16);
+  float4* Td4 = reinterpret_cast<float4*>(Td16 + row0 * 16);
+  float4* c4 = reinterpret_cast<float4*>(c16 + row0 * 16);
+  for (int v = tid; v < rows * 4; v += kThreads) {
+    const int o = s_trow[v >> 2] + 4 * (v & 3);  // row i = v & 3
+    const float* Tt = smem + L.Tt + s_trow[v >> 2];
+    const float4 t0 = ld4(Tt), t1 = ld4(Tt + 4), t2 = ld4(Tt + 8),
+                 t3 = ld4(Tt + 12);
+    const float4 w = ld4(smem + L.W + o);
+    const float4 cc = ld4(smem + L.C + o);
+    T4[v] = ld4(smem + L.T + o);
+    Td4[v] = make_float4(dot4(w, t0), dot4(w, t1), dot4(w, t2), dot4(w, t3));
+    c4[v] = make_float4(dot4(cc, t0), dot4(cc, t1), dot4(cc, t2),
+                        dot4(cc, t3));
+  }
+
+  // J: a row's 16 n floats are 4 n float4, so no float4 crosses rows.
+  // Float4 v is (row ef, float4 w of the row); a step of kThreads moves
+  // (ef, w) by a constant, so no division runs in the loop.
+  const int per_row = 4 * n;
+  const int step_rows = kThreads / per_row, step_w = kThreads % per_row;
+  float4* J4 = reinterpret_cast<float4*>(J16 + row0 * 16 * n);
+  int ef = tid / per_row, w = tid % per_row;
+  for (int v = tid; v < rows * per_row; v += kThreads) {
+    const int* goff = s_goff + s_frame[ef] * n;
+    int rr = s_elem[w] >> 8, m = s_elem[w] & 255;
+    // the env's generators; T_f's column rr % 4, reloaded when rr moves on
+    const float* Ge = smem + L.G + s_gbase[ef];
+    const float* Tt = smem + L.Tt + s_trow[ef];
+    float4 col = ld4(Tt + 4 * (rr & 3));
+    float out[4];
 #pragma unroll
-      for (int r = 0; r < 16; ++r) jrow[r * n + m] = out[r];
+    for (int k = 0; k < 4; ++k) {
+      const int o = goff[m];
+      out[k] = o >= 0 ? dot4(ld4(Ge + o + 4 * (rr >> 2)), col) : 0.0f;
+      if (++m == n) {
+        m = 0;
+        ++rr;
+        col = ld4(Tt + 4 * (rr & 3));
+      }
+    }
+    J4[v] = make_float4(out[0], out[1], out[2], out[3]);
+    ef += step_rows;
+    w += step_w;
+    if (w >= per_row) {
+      w -= per_row;
+      ++ef;
     }
   }
 }
 
 }  // namespace
 
-// Launches on `stream` of GPU `device`. Returns cudaGetLastError() after the
-// launch, or -1 when the model exceeds the kernel's frame/motor capacity
-// (nothing is launched then).
+// Dynamic shared memory of one CTA for a model of F frames and n motors.
+extern "C" int rmp_fk_derivatives_shared_bytes(int F, int n) {
+  return Layout(F, n).bytes();
+}
+
+// Launches on `stream` of GPU `device` (the caller's current device is
+// restored). Returns cudaGetLastError() after the launch, or -1 when the
+// model exceeds the kernel's frame/motor capacity (nothing is launched
+// then).
 extern "C" int rmp_fk_derivatives_f32(
     int device, int B, int F, int n, const int* parent, const int* joint_type,
     const int* q_index, const float* axis, const float* T_constant,
@@ -106,12 +406,22 @@ extern "C" int rmp_fk_derivatives_f32(
     float* J16, float* c16, void* stream) {
   if (F > kMaxFrames || n > kMaxMotors) return -1;
   if (B <= 0) return 0;
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  const int blocks = (B + kThreads - 1) / kThreads;
-  fk_derivatives_kernel<<<blocks, kThreads, 0,
+  int previous = device;
+  cudaGetDevice(&previous);
+  if (previous != device) {
+    const cudaError_t set = cudaSetDevice(device);
+    if (set != cudaSuccess) return static_cast<int>(set);
+  }
+  const int bytes = Layout(F, n).bytes();
+  if (bytes > 48 * 1024)  // above the default: opt in (up to 227 KB)
+    cudaFuncSetAttribute(fk_derivatives_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const int blocks = (B + kEnvs - 1) / kEnvs;
+  fk_derivatives_kernel<<<blocks, kThreads, bytes,
                           static_cast<cudaStream_t>(stream)>>>(
       B, F, n, parent, joint_type, q_index, axis, T_constant, anc, q, qd, T16,
       Td16, J16, c16);
-  return static_cast<int>(cudaGetLastError());
+  const int rc = static_cast<int>(cudaGetLastError());
+  if (previous != device) cudaSetDevice(previous);
+  return rc;
 }

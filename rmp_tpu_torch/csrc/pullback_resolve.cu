@@ -1,16 +1,14 @@
-// K1: fused RMP pullback + pivoted-LU resolve, one thread per environment.
+// K1: fused RMP pullback + pivoted-LU resolve, a group of lanes per
+// environment, reading each policy block where it lies.
 //
 // Replaces the TPU kernel
 // rmp_tpu/ops/pallas_resolve.py::pullback_resolve_structured
 // (_kernel_structured, _lu_solve_lanes). Per environment b it accumulates
-//   A = A0 + sum_dense J^T W + sum_scalar J^T diag(m) J      (n x n)
-//   f = f0 + sum_dense J^T v + sum_scalar J^T v
-// (A0, f0: the identity-taskmap blocks, pre-summed by the wrapper; the
-// scalar block's W = m J is formed in registers and only the upper triangle
-// of J^T diag(m) J is accumulated, then mirrored), adds the ridge, and solves
-// A x = f by unrolled Gaussian elimination with partial pivoting and
-// sign-preserving clamps (|pivot|, |diagonal| >= 1e-12). Plain version:
-// ops/cuda_resolve.pullback_resolve_structured_plain.
+//   A = sum_identity M + sum_dense J^T W + sum_scalar J^T diag(m) J  (n x n)
+//   f = sum_identity v + sum_dense J^T v + sum_scalar J^T v
+// adds the ridge, and solves A x = f by unrolled Gaussian elimination with
+// partial pivoting and sign-preserving clamps (|pivot|, |diagonal| >=
+// 1e-12). Plain version: ops/cuda_resolve.pullback_resolve_structured_plain.
 //
 // Tie and clamp rules of the TPU kernel, kept exactly: a row replaces the
 // running pivot only if its magnitude is STRICTLY greater, and the displaced
@@ -18,81 +16,196 @@
 // diagonal goes through safe_denom.
 //
 // Bound on an H100 SXM (3.35 TB/s): bytes. In the flagship layout (n = 9;
-// identity seed 90 floats, dense block 57, scalar block 770; output 9) the
-// kernel moves ~926 floats per env, ~15.2 MB at B = 4096, so ~4.5 us; the
-// ~10 kFLOP per env are negligible. Design: n is a template parameter, so
-// the 81 + 9 accumulators and the whole elimination are unrolled into
-// registers. The wrapper hands over batch-minor copies ((R, n, B) and
-// (R, B)), so at every load neighbouring threads read neighbouring addresses;
-// the copies cost one extra pass over the blocks, counted in the wrapper's
-// time.
+// three identity blocks of 90 floats, a dense block of 3 x 19, a scalar
+// block of 70 x 11, 9 out) the call moves 1,106 floats per env, 18.1 MB at
+// B = 4096, so 5.4 us; its ~12 kFLOP per env take ~0.7 us at the fp32 peak.
+//
+// Design.
+// - One launch, no operand copies. The wrapper hands the blocks over as a
+//   table of descriptors, by value (kind, rows, and for each tensor its
+//   pointer and its (batch, row, column) strides in elements), and the
+//   kernel reads every operand through its strides.
+// - kGroup = 8 lanes per env, 4 envs per warp, 16 per CTA (1,024 warps at
+//   B = 4096). The lanes split each block's rows (row r on lane r % 8); each
+//   lane keeps partial sums of A (all n x n: a dense block's J^T W need not
+//   be symmetric; a scalar row adds its upper triangle and mirrors it) and
+//   of f in registers, and a butterfly of shuffles (xor 4, 2, 1) leaves the
+//   group's sums on every lane. Eight lanes, not a warp, per env: the
+//   butterfly is 3 x 90 shuffles for 4 envs, and the 73 flagship rows still
+//   give each lane 9-10.
+// - The identity blocks (no rows) are summed in tag order, (M1 + M2) + M3,
+//   entry e on lane e % 8 (a block's 12 loads per lane issued together,
+//   before the rows), into shared memory, and added to the reduced rows:
+//   A = seed + rows. The scalar rows are unrolled by two, so two rows'
+//   loads are in flight per lane.
+// - Every lane of a group then runs the same elimination in registers (n is
+//   a template parameter, so A and f are indexed at compile time) and lane 0
+//   stores q̈.
+// - Access patterns at the flagship's real strides (B = 4096): the scalar
+//   block's J is stored motor-major, (n, B, R) = strides (70, 1, 70 B), and
+//   its m and v are (B, 70) contiguous, so for a column i the 8 lanes of an
+//   env read 8 consecutive floats and the warp's 4 envs follow each other
+//   in memory; the dense J is a view of the EE frame's translation rows,
+//   strides (192, 4, 192 B), read as 3 rows x 9 strided floats on lanes
+//   0-2; the dense W (B, 3, 9), its v and the identity blocks' M (B, 9, 9)
+//   and v (B, 9) are contiguous, read along their rows. No layout needs
+//   staging through shared memory: the lanes of a group touch the same 128
+//   byte lines, which L1 keeps.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kGroup = 8;       // lanes per environment
+constexpr int kThreads = 128;   // 16 environments per CTA
+constexpr int kMaxBlocks = 16;  // descriptors per call
+constexpr int kIdentity = 0, kScalar = 1, kDense = 2;
+
+// One policy block: identity (M (B, n, n), v (B, n)), scalar (J (B, R, n),
+// m (B, R), v (B, R)) or dense (J (B, R, n), W (B, R, n), v (B, R)).
+struct Block {
+  int kind;
+  int rows;
+  const float* ptr[3];
+  long long stride[3][3];  // (batch, row, column) of each tensor, elements
+};
+
+struct Table {
+  int count;
+  Block block[kMaxBlocks];
+};
+
+// The wrapper's descriptor row: kind, rows, 3 pointers, 9 strides.
+constexpr int kRowWords = 14;
 
 __device__ __forceinline__ float safe_denom(float d) {
   const float eps = 1e-12f;
   return d >= 0.0f ? fmaxf(d, eps) : fminf(d, -eps);
 }
 
+__device__ __forceinline__ float at(const float* p, const long long* s,
+                                    long long b, long long r, long long c) {
+  return __ldg(p + b * s[0] + r * s[1] + c * s[2]);
+}
+
 template <int N>
 __global__ void __launch_bounds__(kThreads) pullback_resolve_kernel(
-    int B, const float* __restrict__ A0, const float* __restrict__ f0,
-    int Rd, const float* __restrict__ Jd, const float* __restrict__ Wd,
-    const float* __restrict__ vd, int Rs, const float* __restrict__ Js,
-    const float* __restrict__ ms, const float* __restrict__ vs, float ridge,
+    int B, const __grid_constant__ Table table, float ridge,
     float* __restrict__ out) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const size_t sB = static_cast<size_t>(B);
+  constexpr int kSeed = N * N + N;
+  __shared__ float seed[kThreads / kGroup][kSeed];
+  const int lane = threadIdx.x % kGroup;
+  const int group = threadIdx.x / kGroup;
+  const int env = blockIdx.x * (kThreads / kGroup) + group;
+  // the ragged tail computes on a valid env and stores nothing
+  const long long b = env < B ? env : B - 1;
 
   float A[N][N];
   float f[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    f[i] = A0 != nullptr ? f0[i * sB + b] : 0.0f;
+    f[i] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < N; ++j)
-      A[i][j] = A0 != nullptr ? A0[(i * N + j) * sB + b] : 0.0f;
+    for (int j = 0; j < N; ++j) A[i][j] = 0.0f;
   }
 
-  // dense block: A += J^T W, f += J^T v
-  for (int r = 0; r < Rd; ++r) {
-    float J[N], Wr[N];
+  // the identity seed, entry e (A row-major, then f) on lane e % kGroup,
+  // summed over the identity blocks in tag order; a block's kPerLane loads
+  // per lane are independent, so they are in flight together
+  constexpr int kPerLane = (kSeed + kGroup - 1) / kGroup;
+  float part[kPerLane];
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      J[i] = Jd[(static_cast<size_t>(r) * N + i) * sB + b];
-      Wr[i] = Wd[(static_cast<size_t>(r) * N + i) * sB + b];
+  for (int t = 0; t < kPerLane; ++t) part[t] = 0.0f;
+  bool has_identity = false;
+  for (int k = 0; k < table.count; ++k) {
+    const Block& blk = table.block[k];
+    if (blk.kind != kIdentity) continue;
+    has_identity = true;
+#pragma unroll
+    for (int t = 0; t < kPerLane; ++t) {
+      const int e = lane + kGroup * t;
+      if (e < N * N)
+        part[t] += at(blk.ptr[0], blk.stride[0], b, e / N, e % N);
+      else if (e < kSeed)
+        part[t] += at(blk.ptr[1], blk.stride[1], b, e - N * N, 0);
     }
-    const float v = vd[r * sB + b];
+  }
+  if (has_identity) {
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      f[i] += J[i] * v;
-#pragma unroll
-      for (int j = 0; j < N; ++j) A[i][j] += J[i] * Wr[j];
+    for (int t = 0; t < kPerLane; ++t) {
+      const int e = lane + kGroup * t;
+      if (e < kSeed) seed[group][e] = part[t];
     }
   }
 
-  // scalar block: A += J^T diag(m) J (upper triangle, mirrored), f += J^T v
-  for (int r = 0; r < Rs; ++r) {
-    float J[N];
+  // rows: lane r % kGroup takes row r of each block, blocks in tag order
+  for (int k = 0; k < table.count; ++k) {
+    const Block& blk = table.block[k];
+    if (blk.kind == kIdentity) continue;
+    const float* J = blk.ptr[0];
+    const float* X = blk.ptr[1];  // m (scalar) or W (dense)
+    const float* V = blk.ptr[2];
+    const long long* sJ = blk.stride[0];
+    const long long* sX = blk.stride[1];
+    const long long* sV = blk.stride[2];
+    if (blk.kind == kScalar) {
+#pragma unroll 2
+      for (int r = lane; r < blk.rows; r += kGroup) {
+        float Jr[N];
 #pragma unroll
-    for (int i = 0; i < N; ++i)
-      J[i] = Js[(static_cast<size_t>(r) * N + i) * sB + b];
-    const float m = ms[r * sB + b];
-    const float v = vs[r * sB + b];
+        for (int i = 0; i < N; ++i) Jr[i] = at(J, sJ, b, r, i);
+        const float m = at(X, sX, b, r, 0);
+        const float v = at(V, sV, b, r, 0);
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      f[i] += J[i] * v;
-      const float Jm = J[i] * m;
+        for (int i = 0; i < N; ++i) {
+          f[i] += Jr[i] * v;
+          const float Jm = Jr[i] * m;
 #pragma unroll
-      for (int j = i; j < N; ++j) {
-        const float a = Jm * J[j];
-        A[i][j] += a;
-        if (j > i) A[j][i] += a;
+          for (int j = i; j < N; ++j) {
+            const float a = Jm * Jr[j];
+            A[i][j] += a;
+            if (j > i) A[j][i] += a;
+          }
+        }
       }
+    } else if (blk.kind == kDense) {
+      for (int r = lane; r < blk.rows; r += kGroup) {
+        float Jr[N], Wr[N];
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          Jr[i] = at(J, sJ, b, r, i);
+          Wr[i] = at(X, sX, b, r, i);
+        }
+        const float v = at(V, sV, b, r, 0);
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          f[i] += Jr[i] * v;
+#pragma unroll
+          for (int j = 0; j < N; ++j) A[i][j] += Jr[i] * Wr[j];
+        }
+      }
+    }
+  }
+
+  // butterfly over the group's lanes: every lane ends with the same sums
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int off = kGroup / 2; off > 0; off /= 2)
+      f[i] += __shfl_xor_sync(0xffffffffu, f[i], off);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+#pragma unroll
+      for (int off = kGroup / 2; off > 0; off /= 2)
+        A[i][j] += __shfl_xor_sync(0xffffffffu, A[i][j], off);
+    }
+  }
+  if (has_identity) {
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      f[i] = seed[group][N * N + i] + f[i];
+#pragma unroll
+      for (int j = 0; j < N; ++j) A[i][j] = seed[group][N * i + j] + A[i][j];
     }
   }
 
@@ -136,41 +249,52 @@ __global__ void __launch_bounds__(kThreads) pullback_resolve_kernel(
     for (int j = i + 1; j < N; ++j) s -= A[i][j] * x[j];
     x[i] = s / safe_denom(A[i][i]);
   }
+  if (lane == 0 && env < B) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) out[static_cast<size_t>(b) * N + i] = x[i];
-}
-
-template <int N>
-void launch(int B, const float* A0, const float* f0, int Rd, const float* Jd,
-            const float* Wd, const float* vd, int Rs, const float* Js,
-            const float* ms, const float* vs, float ridge, float* out,
-            cudaStream_t stream) {
-  const int blocks = (B + kThreads - 1) / kThreads;
-  pullback_resolve_kernel<N><<<blocks, kThreads, 0, stream>>>(
-      B, A0, f0, Rd, Jd, Wd, vd, Rs, Js, ms, vs, ridge, out);
+    for (int i = 0; i < N; ++i) out[b * N + i] = x[i];
+  }
 }
 
 }  // namespace
 
-// Inputs are batch-minor: A0 (n, n, B), f0 (n, B), Jd/Wd/Js (R, n, B),
-// vd/ms/vs (R, B); A0/f0 may be null (no identity blocks) and R may be 0.
-// Output: (B, n). Launches on `stream` of GPU `device`. Returns
-// cudaGetLastError() after the launch, or -1 when no kernel is instantiated
-// for this n (nothing is launched then).
-extern "C" int rmp_pullback_resolve_f32(
-    int device, int n, int B, const float* A0, const float* f0, int Rd,
-    const float* Jd, const float* Wd, const float* vd, int Rs,
-    const float* Js, const float* ms, const float* vs, float ridge,
-    float* out, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  switch (n) {
-    case 9:
-      if (B > 0) launch<9>(B, A0, f0, Rd, Jd, Wd, vd, Rs, Js, ms, vs, ridge, out, s);
-      break;
-    default:
-      return -1;
+// `rows` is the wrapper's descriptor table, `count` rows of kRowWords
+// 64-bit words: kind, rows, the three tensors' addresses (0 for an absent
+// one), then their (batch, row, column) strides in elements. Output: (B, n)
+// contiguous. Launches on `stream` of GPU `device` (the caller's current
+// device is restored). Returns cudaGetLastError() after the launch, -1 when
+// no kernel is instantiated for this n, -2 when there are more than
+// kMaxBlocks blocks (nothing is launched then).
+extern "C" int rmp_pullback_resolve_f32(int device, int n, int B,
+                                        const long long* rows, int count,
+                                        float ridge, float* out,
+                                        void* stream) {
+  if (n != 9) return -1;
+  if (count > kMaxBlocks) return -2;
+  if (B <= 0) return 0;
+  Table table{};
+  table.count = count;
+  for (int k = 0; k < count; ++k) {
+    const long long* w = rows + k * kRowWords;
+    Block& blk = table.block[k];
+    blk.kind = static_cast<int>(w[0]);
+    blk.rows = static_cast<int>(w[1]);
+    for (int t = 0; t < 3; ++t) {
+      blk.ptr[t] = reinterpret_cast<const float*>(w[2 + t]);
+      for (int d = 0; d < 3; ++d) blk.stride[t][d] = w[5 + 3 * t + d];
+    }
   }
-  return static_cast<int>(cudaGetLastError());
+  int previous = device;
+  cudaGetDevice(&previous);
+  if (previous != device) {
+    const cudaError_t set = cudaSetDevice(device);
+    if (set != cudaSuccess) return static_cast<int>(set);
+  }
+  constexpr int envs_per_cta = kThreads / kGroup;
+  const int blocks = (B + envs_per_cta - 1) / envs_per_cta;
+  pullback_resolve_kernel<9><<<blocks, kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      B, table, ridge, out);
+  const int rc = static_cast<int>(cudaGetLastError());
+  if (previous != device) cudaSetDevice(previous);
+  return rc;
 }

@@ -72,19 +72,20 @@ def fk_derivatives_batched(model: KinematicModel, q: torch.Tensor,
 
     B, F = q.shape[0], model.n_frames
     tab = model_tables(model, q.device)
+    # separate allocations: views of one buffer would reach the policies'
+    # forward-mode jvp as a primal and a tangent that share a base, which
+    # PyTorch then copies (4 fills and 4 copies per tick)
     T16 = torch.empty(B, F, 16, dtype=torch.float32, device=q.device)
     Td16 = torch.empty_like(T16)
     c16 = torch.empty_like(T16)
     J16 = torch.empty(B, F, 16, n, dtype=torch.float32, device=q.device)
     fn = _build.c_function("rmp_fk_derivatives_f32", _ARGTYPES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.device.index, B, F, n, tab["parent"].data_ptr(),
-                tab["joint_type"].data_ptr(), tab["q_index"].data_ptr(),
-                tab["axis"].data_ptr(), tab["T_constant"].data_ptr(),
-                tab["anc"].data_ptr(), q.data_ptr(), qd.data_ptr(),
-                T16.data_ptr(), Td16.data_ptr(), J16.data_ptr(),
-                c16.data_ptr(), stream)
+    rc = fn(q.device.index, B, F, n, tab["parent"].data_ptr(),
+            tab["joint_type"].data_ptr(), tab["q_index"].data_ptr(),
+            tab["axis"].data_ptr(), tab["T_constant"].data_ptr(),
+            tab["anc"].data_ptr(), q.data_ptr(), qd.data_ptr(),
+            T16.data_ptr(), Td16.data_ptr(), J16.data_ptr(), c16.data_ptr(),
+            _build.raw_stream(q.device))
     if rc == -1:
         raise ValueError(f"model {model.name!r} ({F} frames, {n} motors) "
                          f"exceeds the K3 kernel's capacity")

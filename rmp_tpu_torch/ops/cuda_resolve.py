@@ -13,7 +13,9 @@ batch axis B on every tensor):
 give q̈ = (A + ridge I)^{-1} f with A = Σ identity M + Σ Jᵀ diag(m) J +
 Σ Jᵀ W and f = Σ v + Σ Jᵀ v. A CPU tensor takes the plain PyTorch version
 (`pullback_resolve_structured_plain`); a CUDA tensor launches the kernel of
-csrc/pullback_resolve.cu or raises.
+csrc/pullback_resolve.cu or raises. The kernel reads every block where it
+lies, through its strides (`block_table`): the call copies no operand and
+launches nothing else.
 
 K2a and K2b compute q̈ = (Σ Jᵀ W + ridge I)⁻¹ Σ Jᵀ v from dense rows only,
 as the TPU kernels `_kernel` and `_kernel_blocks` do: each launches K1's
@@ -22,6 +24,7 @@ counter, and takes the plain version on a CPU tensor.
 """
 from __future__ import annotations
 
+import array
 import ctypes
 
 import torch
@@ -30,10 +33,7 @@ from rmp_tpu_torch import _build
 from rmp_tpu_torch.ops.linalg import lu_solve_unrolled
 
 _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def assemble_structured(tags, blocks):
@@ -65,87 +65,73 @@ def pullback_resolve_structured_plain(tags, blocks,
     return lu_solve_unrolled(A, f)
 
 
+KINDS = {"identity": 0, "scalar": 1, "dense": 2}
+MAX_BLOCKS = 16      # descriptors the kernel takes per call
+ROW_WORDS = 14       # kind, rows, 3 addresses, 3 x 3 strides
+
+
 def _check_blocks(tags, blocks):
-    """(B, n, device) of validated float32 blocks; raises on anything else."""
+    """(B, n, device, table) of validated float32 blocks, `table` their
+    descriptors for the kernel (block_table); raises on anything else. One
+    pass over the tensors: the kernel's call is host-bound."""
     if len(tags) != len(blocks) or not tags:
         raise ValueError("tags and blocks must be non-empty and aligned")
     first = blocks[0][0]
     B, n, device = first.shape[0], first.shape[-1], first.device
+    index = first.get_device()      # the CUDA index; -1 off CUDA
+    words = []
     for tag, blk in zip(tags, blocks):
-        for x in blk:
-            if x.dtype != torch.float32:
-                raise TypeError(f"pullback_resolve_structured takes float32 "
-                                f"blocks, got {x.dtype} in a {tag!r} block")
-            if x.device != device:
-                raise ValueError(f"blocks on {device} and {x.device}")
         if tag == "identity":
             M, v = blk
-            ok = M.shape == (B, n, n) and v.shape == (B, n)
+            ok, rows = M.shape == (B, n, n) and v.shape == (B, n), 0
         elif tag in ("scalar", "dense"):
             J, X, v = blk
-            R = J.shape[1] if J.dim() == 3 else -1
-            want = (B, R) if tag == "scalar" else (B, R, n)
-            ok = J.shape == (B, R, n) and X.shape == want and v.shape == (B, R)
+            rows = J.shape[1] if J.dim() == 3 else -1
+            want = (B, rows) if tag == "scalar" else (B, rows, n)
+            ok = (J.shape == (B, rows, n) and X.shape == want
+                  and v.shape == (B, rows))
         else:
             raise ValueError(f"unknown block tag {tag!r}")
         if not ok:
             raise ValueError(f"bad {tag!r} block shapes "
                              f"{[tuple(x.shape) for x in blk]} for B={B}, n={n}")
-    return B, n, device
+        ptrs, strides = [0, 0, 0], []
+        for t, x in enumerate(blk):
+            if x.dtype != torch.float32:
+                raise TypeError(f"pullback_resolve_structured takes float32 "
+                                f"blocks, got {x.dtype} in a {tag!r} block")
+            if x.get_device() != index or (index < 0 and x.device != device):
+                raise ValueError(f"blocks on {device} and {x.device}")
+            ptrs[t] = x.data_ptr()
+            st = x.stride()
+            strides += st if len(st) == 3 else (*st, 0)
+        words += (KINDS[tag], rows, *ptrs, *strides,
+                  *(0,) * (9 - len(strides)))
+    return B, n, device, array.array("q", words)
 
 
-def _batch_minor(x: torch.Tensor) -> torch.Tensor:
-    """(B, ...) -> (..., B) contiguous: neighbouring threads of the kernel
-    (neighbouring envs) then read neighbouring addresses."""
-    return x.permute(*range(1, x.dim()), 0).contiguous()
+def block_table(tags, blocks) -> array.array:
+    """The kernel's descriptor table, int64 words, ROW_WORDS per block in
+    tag order: [kind, rows, 3 addresses, 3 x (batch, row, column) strides
+    in elements]. Identity blocks have 0 rows and no third tensor; a 2-D
+    tensor's column stride is 0. Nothing is copied: the addresses are the
+    blocks' own `data_ptr()`, views included."""
+    return _check_blocks(tags, blocks)[3]
 
 
-def kernel_inputs(tags, blocks) -> dict:
-    """The kernel's operands, batch-minor: the identity blocks pre-summed
-    into one Gram seed A0 (n, n, B), f0 (n, B), as the TPU kernel's wrapper
-    does; all dense blocks stacked by rows into Jd, Wd (Rd, n, B), vd
-    (Rd, B); all scalar blocks into Js (Rs, n, B), ms, vs (Rs, B). Absent
-    parts are None with zero rows. The stacking and the batch-minor copies
-    are one extra pass over the blocks."""
-    A0 = f0 = None
-    dense, scalar = [], []
-    for tag, blk in zip(tags, blocks):
-        if tag == "identity":
-            A0 = blk[0] if A0 is None else A0 + blk[0]
-            f0 = blk[1] if f0 is None else f0 + blk[1]
-        else:
-            (dense if tag == "dense" else scalar).append(blk)
-
-    def rows(group):
-        if not group:
-            return 0, None, None, None
-        parts = [torch.cat(p, dim=1) if len(group) > 1 else p[0]
-                 for p in zip(*group)]
-        return (parts[0].shape[1],) + tuple(_batch_minor(p) for p in parts)
-
-    Rd, Jd, Wd, vd = rows(dense)
-    Rs, Js, ms, vs = rows(scalar)
-    return dict(A0=None if A0 is None else _batch_minor(A0),
-                f0=None if f0 is None else _batch_minor(f0),
-                Rd=Rd, Jd=Jd, Wd=Wd, vd=vd, Rs=Rs, Js=Js, ms=ms, vs=vs)
-
-
-def _launch(tags, blocks, ridge: float, B: int, n: int, device):
-    """q̈ (B, n) from K1's CUDA kernel on validated blocks on `device`."""
+def _launch(table, count: int, ridge: float, B: int, n: int, device):
+    """q̈ (B, n) from K1's CUDA kernel on `count` validated blocks on
+    `device`, described by `table`: one launch on the blocks where they
+    lie."""
     if device.type != "cuda":
         raise ValueError(f"no K1 kernel for device {device}")
-    k = kernel_inputs(tags, blocks)
+    if count > MAX_BLOCKS:
+        raise ValueError(f"the K1 kernel takes at most {MAX_BLOCKS} blocks, "
+                         f"got {count}")
     out = torch.empty(B, n, dtype=torch.float32, device=device)
-
-    def ptr(name):
-        return None if k[name] is None else k[name].data_ptr()
-
     fn = _build.c_function("rmp_pullback_resolve_f32", _ARGTYPES)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(device.index, n, B, ptr("A0"), ptr("f0"), k["Rd"], ptr("Jd"),
-                ptr("Wd"), ptr("vd"), k["Rs"], ptr("Js"), ptr("ms"),
-                ptr("vs"), float(ridge), out.data_ptr(), stream)
+    rc = fn(device.index, n, B, table.buffer_info()[0], count, float(ridge),
+            out.data_ptr(), _build.raw_stream(device))
     if rc == -1:
         raise ValueError(f"no K1 kernel instantiated for n={n}")
     if rc != 0:
@@ -156,10 +142,10 @@ def _launch(tags, blocks, ridge: float, B: int, n: int, device):
 def pullback_resolve_structured(tags, blocks,
                                 ridge: float = 0.0) -> torch.Tensor:
     """q̈ (B, n) from structured per-policy blocks; see the module doc."""
-    B, n, device = _check_blocks(tags, blocks)
+    B, n, device, table = _check_blocks(tags, blocks)
     if device.type == "cpu":
         return pullback_resolve_structured_plain(tags, blocks, ridge)
-    out = _launch(tags, blocks, ridge, B, n, device)
+    out = _launch(table, len(tags), ridge, B, n, device)
     pullback_resolve_structured.launches += 1
     return out
 
@@ -207,10 +193,10 @@ def _dense_entry(entry, J_blocks, W_blocks, v_blocks, ridge: float):
     """q̈ of dense blocks: the plain version on the CPU, else K1's kernel,
     counted on `entry`."""
     tags, blocks = _dense(J_blocks, W_blocks, v_blocks)
-    B, n, device = _check_blocks(tags, blocks)
+    B, n, device, table = _check_blocks(tags, blocks)
     if device.type == "cpu":
         return pullback_resolve_structured_plain(tags, blocks, ridge)
-    out = _launch(tags, blocks, ridge, B, n, device)
+    out = _launch(table, len(tags), ridge, B, n, device)
     entry.launches += 1
     return out
 
@@ -218,8 +204,9 @@ def _dense_entry(entry, J_blocks, W_blocks, v_blocks, ridge: float):
 def pullback_resolve_blocks(J_blocks, W_blocks, v_blocks,
                             ridge: float = 0.0) -> torch.Tensor:
     """K2b: q̈ = (Σ_b J_bᵀ W_b + ridge I)⁻¹ Σ_b J_bᵀ v_b for lists of
-    J_b, W_b (B, R_b, n) and v_b (B, R_b) -> (B, n). The blocks are
-    stacked by rows into the kernel's operands."""
+    J_b, W_b (B, R_b, n) and v_b (B, R_b) -> (B, n), at most MAX_BLOCKS
+    blocks; the kernel reads each block, views included, through its
+    strides."""
     return _dense_entry(pullback_resolve_blocks, J_blocks, W_blocks, v_blocks,
                         ridge)
 
@@ -234,8 +221,8 @@ def pullback_resolve(J: torch.Tensor, W: torch.Tensor, v: torch.Tensor,
 def pullback_resolve_t(Jt: torch.Tensor, Wt: torch.Tensor, vt: torch.Tensor,
                        ridge: float = 1e-6) -> torch.Tensor:
     """K2a on the JAX package's batch-minor layout: Jt, Wt (n, R, B), vt
-    (R, B) -> (B, n). One permute copy makes the kernel's (R, n, B)
-    operand."""
+    (R, B) -> (B, n). The kernel reads the permuted (B, R, n) views
+    through their strides."""
     J, W, v = _from_batch_minor(Jt, Wt, vt)
     return _dense_entry(pullback_resolve_t, [J], [W], [v], ridge)
 

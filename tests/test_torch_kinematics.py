@@ -1,5 +1,9 @@
 """The port's FK and the plain version of its FK-derivative kernel (K3)
-against the JAX package, on the same numpy inputs."""
+against the JAX package, on the same numpy inputs, and the index map of
+its CUDA kernel's stores replayed against that plain version."""
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -104,3 +108,81 @@ def test_ancestor_table_matches_jacobian_columns():
                 if model.joint_type[j] != FIXED}
         got = {m: int(j) for m, j in enumerate(anc[f]) if j >= 0}
         assert got == want
+
+
+def _k3_tile_envs() -> int:
+    """kEnvs of csrc/fk_derivatives.cu (envs per CTA), read from the
+    source."""
+    src = os.path.join(os.path.dirname(cuda_fk.__file__), os.pardir, "csrc",
+                       "fk_derivatives.cu")
+    with open(src) as f:
+        return int(re.search(r"constexpr int kEnvs = (\d+);",
+                             f.read()).group(1))
+
+
+def replay_k3_stores(model, q: torch.Tensor, qd: torch.Tensor):
+    """K3's store pass, replayed in numpy. The tile's shared arrays (T, its
+    transpose, W, Wd + W W, G per (env, frame) row ef = e F + f) come from
+    the plain recursion; then, tile by tile, float4 v of each output's
+    contiguous range is mapped as the kernel maps it: T, Td, c -> (row ef,
+    matrix row i); J -> (row ef, frame f = ef % F, entry rr, motor m) and
+    the operands row rr / 4 of G[anc[f][m]] and row rr % 4 of T_f's
+    transpose. Elements no float4 reaches stay NaN."""
+    E = _k3_tile_envs()
+    rec = fkd.FkDerivatives(model, q, qd)
+    B, F, n = q.shape[0], model.n_frames, model.n_q
+
+    def frames(mats):
+        return np.stack([np.zeros((B, 4, 4), np.float32) if m is None
+                         else m.numpy() for m in mats], axis=1)
+    T, W, Wd, G = (frames(x) for x in (rec.T, rec.W, rec.Wd, rec.G))
+    C = Wd + W @ W
+    anc = cuda_fk.ancestor_table(model)
+    outs = [np.full(B * F * 16, np.nan, np.float32) for _ in range(3)]
+    J = np.full(B * F * 16 * n, np.nan, np.float32)
+    for b0 in range(0, B, E):
+        nv = min(E, B - b0)
+        rows, row0 = nv * F, b0 * F
+
+        def tile(x):
+            return x[b0:b0 + nv].reshape(rows, 16)
+        sT, sW, sC, sG = (tile(x) for x in (T, W, C, G))
+        sTt = tile(T.transpose(0, 1, 3, 2))
+        for v in range(rows * 4):
+            ef, i = v >> 2, v & 3
+            cols = [sTt[ef, 4 * j:4 * j + 4] for j in range(4)]
+            at = slice(row0 * 16 + 4 * v, row0 * 16 + 4 * v + 4)
+            outs[0][at] = sT[ef, 4 * i:4 * i + 4]
+            for out, left in ((outs[1], sW), (outs[2], sC)):
+                out[at] = [left[ef, 4 * i:4 * i + 4] @ c for c in cols]
+        per_row = 4 * n
+        for v in range(rows * per_row):
+            ef = v // per_row
+            f = ef % F
+            rr, m = divmod(4 * (v - ef * per_row), n)
+            for k in range(4):
+                a = anc[f, m]
+                J[row0 * 16 * n + 4 * v + k] = 0.0 if a < 0 else (
+                    sG[ef - f + a, 4 * (rr >> 2):4 * (rr >> 2) + 4]
+                    @ sTt[ef, 4 * (rr & 3):4 * (rr & 3) + 4])
+                m += 1
+                if m == n:
+                    m, rr = 0, rr + 1
+    return (outs[0].reshape(B, F, 16), outs[1].reshape(B, F, 16),
+            J.reshape(B, F, 16, n), outs[2].reshape(B, F, 16))
+
+
+@pytest.mark.parametrize("batch", [5, 13])
+def test_kernel_store_map_reassembles_the_outputs(inputs, batch):
+    """K3's index map from the tile's shared arrays to its coalesced stores
+    writes every element of the four outputs once and reassembles the plain
+    version's outputs: B = 5 is one ragged tile, B = 13 a full tile and a
+    ragged one."""
+    q, qd = (torch.tensor(x[:batch]) for x in inputs)
+    model = robots.franka_panda()
+    got = replay_k3_stores(model, q, qd)
+    want = fkd.fk_derivatives(model, q, qd)
+    for name, g, w in zip(("T16", "Td16", "J16", "c16"), got, want):
+        assert g.shape == tuple(w.shape), name
+        assert not np.isnan(g).any(), name
+        np.testing.assert_allclose(g, w.numpy(), atol=ATOL, err_msg=name)

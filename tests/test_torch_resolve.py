@@ -1,6 +1,10 @@
 """The plain version of the port's pullback + LU resolve kernel (K1), through
 its public wrapper on the CPU, against the JAX package's Pallas kernel (in
 interpret mode) and its unrolled LU, on the same numpy inputs."""
+import dataclasses
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -99,33 +103,136 @@ def test_singular_gram_stays_finite():
     assert torch.isfinite(out).all()
 
 
+def _kernel_constant(name: str) -> int:
+    """A constexpr int of csrc/pullback_resolve.cu, read from the source."""
+    src = os.path.join(os.path.dirname(cuda_resolve.__file__), os.pardir,
+                       "csrc", "pullback_resolve.cu")
+    with open(src) as f:
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             f.read()).group(1))
+
+
+def _described(ptr, strides, shape, pool):
+    """The tensor a descriptor names: the storage of the `pool` tensor that
+    holds address `ptr`, read from that offset with the descriptor's
+    strides (in elements)."""
+    for x in pool:
+        store = x.untyped_storage()
+        if store.data_ptr() <= ptr < store.data_ptr() + store.nbytes():
+            flat = torch.empty(0, dtype=x.dtype).set_(store)
+            return torch.as_strided(flat, shape, tuple(strides[:len(shape)]),
+                                    (ptr - store.data_ptr()) // x.itemsize)
+    raise AssertionError(f"descriptor address {ptr:#x} lies in no block")
+
+
+def replay_kernel(table, pool, B: int, n: int, ridge: float = 0.0):
+    """The CUDA kernel's order, in torch, from its descriptor table alone:
+    row r of each block on lane r % kGroup (blocks in tag order; a scalar
+    row adds its upper triangle and mirrors it), the butterfly (xor
+    kGroup / 2, ..., 1) over the lanes, the identity seed summed in tag
+    order and added to the reduced rows, the ridge, the pivoted LU."""
+    group = _kernel_constant("kGroup")
+    kinds = {v: k for k, v in cuda_resolve.KINDS.items()}
+    part_A = torch.zeros(group, B, n, n)
+    part_f = torch.zeros(group, B, n)
+    seed_A = seed = None
+    for row in np.frombuffer(table, np.int64).reshape(-1, cuda_resolve.ROW_WORDS).tolist():
+        kind, R, ptrs, st = kinds[row[0]], row[1], row[2:5], row[5:]
+        if kind == "identity":
+            M = _described(ptrs[0], st[0:3], (B, n, n), pool)
+            v = _described(ptrs[1], st[3:6], (B, n), pool)
+            seed_A = (torch.zeros(B, n, n) if seed_A is None else seed_A) + M
+            seed = (torch.zeros(B, n) if seed is None else seed) + v
+            continue
+        J = _described(ptrs[0], st[0:3], (B, R, n), pool)
+        X = _described(ptrs[1], st[3:6],
+                       (B, R) if kind == "scalar" else (B, R, n), pool)
+        V = _described(ptrs[2], st[6:9], (B, R), pool)
+        for r in range(R):
+            lane, Jr = r % group, J[:, r]
+            part_f[lane] += Jr * V[:, r, None]
+            if kind == "scalar":
+                a = torch.triu((Jr * X[:, r, None])[:, :, None] * Jr[:, None])
+                part_A[lane] += a + torch.triu(a, 1).transpose(1, 2)
+            else:
+                part_A[lane] += Jr[:, :, None] * X[:, r, None, :]
+    off = group // 2
+    while off:
+        swap = [lane ^ off for lane in range(group)]
+        part_A, part_f = part_A + part_A[swap], part_f + part_f[swap]
+        off //= 2
+    A, f = part_A[0], part_f[0]
+    if seed_A is not None:
+        A, f = seed_A + A, seed + f
+    return lu_solve_unrolled(A + ridge * torch.eye(n), f)
+
+
+def _strided(x: np.ndarray) -> torch.Tensor:
+    """x as a view of batch-minor storage (axes reversed), not contiguous."""
+    axes = tuple(reversed(range(x.ndim)))
+    return torch.tensor(np.ascontiguousarray(x.transpose(axes))).permute(axes)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "strided"])
 @pytest.mark.parametrize("tags", [
     ("dense", "identity", "scalar", "dense", "identity", "scalar"),
     ("scalar",),
     ("identity", "dense"),
 ])
-def test_kernel_operands_reassemble_the_system(tags):
-    """The batch-minor operands the wrapper hands the CUDA kernel (pre-summed
-    identity seed, row-stacked dense and scalar blocks) give the plain
-    version's q̈ when the kernel's arithmetic is replayed on them."""
+def test_kernel_operands_reassemble_the_system(tags, layout):
+    """The descriptor table the wrapper hands the CUDA kernel names every
+    block where it lies (address and strides, no copy), and the kernel's
+    order replayed through it (lane split of rows, butterfly, identity seed
+    in tag order, LU) gives the plain version's q̈."""
     base = flagship_blocks(2, 8)
     pick = {"dense": base[0], "identity": base[1], "scalar": base[4]}
-    blocks = _torch_blocks([pick[t] for t in tags])
-    k = cuda_resolve.kernel_inputs(tags, blocks)
-    B, n = 8, 9
-    A = torch.zeros(B, n, n) if k["A0"] is None else k["A0"].permute(2, 0, 1)
-    f = torch.zeros(B, n) if k["f0"] is None else k["f0"].permute(1, 0)
-    if k["Rd"]:
-        assert k["Jd"].shape == (k["Rd"], n, B) and k["Jd"].is_contiguous()
-        A = A + torch.einsum("rib,rjb->bij", k["Jd"], k["Wd"])
-        f = f + torch.einsum("rib,rb->bi", k["Jd"], k["vd"])
-    if k["Rs"]:
-        assert k["Js"].shape == (k["Rs"], n, B) and k["Js"].is_contiguous()
-        A = A + torch.einsum("rib,rb,rjb->bij", k["Js"], k["ms"], k["Js"])
-        f = f + torch.einsum("rib,rb->bi", k["Js"], k["vs"])
+    make = torch.tensor if layout == "contiguous" else _strided
+    blocks = [tuple(make(x) for x in pick[t]) for t in tags]
+    table = cuda_resolve.block_table(tags, blocks)
+    rows = np.frombuffer(table, np.int64).reshape(len(tags),
+                                                  cuda_resolve.ROW_WORDS)
+    for row, blk in zip(rows, blocks):
+        assert list(row[2:2 + len(blk)]) == [x.data_ptr() for x in blk]
+    pool = [x for blk in blocks for x in blk]
+    want = cuda_resolve.pullback_resolve_structured_plain(tags, blocks,
+                                                          ridge=1e-3)
+    got = replay_kernel(table, pool, 8, 9, ridge=1e-3)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL)
+
+
+def test_kernel_reads_the_real_tick_blocks_where_they_lie():
+    """One flagship tick's blocks on the CPU (B = 16): the scalar block's J
+    is motor-major and the dense J a strided view, and the descriptor
+    table points into the very tensors it was handed, with their own
+    strides; the kernel's order replayed through it gives the plain q̈."""
+    from rmp_tpu_torch import envs
+    from rmp_tpu_torch.core import policy_row_blocks_structured
+    from rmp_tpu_torch.envs.base import _policy_inputs
+
+    env = envs.make("franka/06_cluttered_environment", device="cpu")
+    B, rng = 16, np.random.default_rng(1)
+    states = envs.make_batched_reset(env, B)()
+    move = [torch.tensor(rng.uniform(-0.05, 0.05, (B, 9)), dtype=torch.float32)
+            for _ in range(2)]
+    states = dataclasses.replace(states, sim=dataclasses.replace(
+        states.sim, q=states.sim.q + move[0], qd=move[1]))
+    q, qd, params, ctxs, fk = _policy_inputs(env, states, env.gather_params())
+    tags, blocks = policy_row_blocks_structured(env.policies, q, qd, params,
+                                                ctxs, fk=fk)
+    assert tags == FLAGSHIP_TAGS
+    J_scalar, J_dense = blocks[4][0], blocks[0][0]
+    assert J_scalar.stride() == (70, 1, 70 * B)
+    assert not J_dense.is_contiguous()
+    table = cuda_resolve.block_table(tags, blocks)
+    for row, blk in zip(np.frombuffer(table, np.int64).reshape(5, -1), blocks):
+        for t, x in enumerate(blk):
+            assert row[2 + t] == x.data_ptr()
+            assert tuple(row[5 + 3 * t:5 + 3 * t + x.dim()]) == x.stride()
+    pool = [x for blk in blocks for x in blk]
     want = cuda_resolve.pullback_resolve_structured_plain(tags, blocks)
-    np.testing.assert_allclose(lu_solve_unrolled(A, f).numpy(), want.numpy(),
-                               atol=ATOL)
+    got = replay_kernel(table, pool, B, 9)
+    scale = max(1.0, float(want.abs().max()))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL * scale)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
