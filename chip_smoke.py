@@ -25,19 +25,31 @@ printing the result line:
   5. K3 (FK derivatives): the build's counts; kernel against its plain
      version at B = 4096, 1, 7 and 4093; one device kernel per call; timed
      as K1.
-  6. K4 (GJK, link hulls vs obstacles) against its plain version at the
-     flagship shapes (10 links x top-3 slots x 4096 envs, 96-vertex hulls),
-     from reset states moved by q ± 0.3: a cold 10-iteration query and a
-     warm 4-iteration one seeded from it. Tolerance (quantile-based, as in
-     tests/test_torch_gjk.py): |Δdist| p99 < 1e-4 and median < 1e-6;
-     where distances agree to 1e-5, witnesses p99 < 1e-4 and max < 5e-2;
-     every output finite. Then against a float64 run of the plain version
-     at 128 iterations and each pair's lower bound of its true distance
-     (k4_evidence): witnesses consistent with distances, no distance below
-     what the supports can reach, Minkowski points inside their balls, at
-     most 0.1% of pairs parting by more than 1e-3, and the kernel (and the
-     float32 plain version) at 128 iterations within 1e-4 of the float64
-     distances on all but 0.1% of the pairs.
+  6. K4 (GJK, link hulls vs obstacles): the build's counts; kernel
+     against its plain version at the flagship shapes (10 links x top-3
+     slots x 4096 envs, 96-vertex hulls), from reset states moved by
+     q ± 0.3: a cold 10-iteration query and a warm 4-iteration one seeded
+     from it. Tolerance (quantile-based, as in tests/test_torch_gjk.py):
+     |Δdist| p99 < 1e-4 and median < 1e-6; where distances agree to 1e-5,
+     witnesses p99 < 1e-4 and max < 5e-2; every output finite. Then
+     against a float64 run of the plain version at 128 iterations and each
+     pair's lower bound of its true distance (k4_evidence): witnesses
+     consistent with distances, no distance below what the supports can
+     reach, Minkowski points inside their balls, at most 0.1% of pairs
+     parting by more than 1e-3, and the kernel (and the float32 plain
+     version) at 128 iterations within 1e-4 of the float64 distances on all
+     but 0.1% of the pairs. The cold query at B = 1, 7 and 4093 (the first
+     envs of the same operands) against the plain version, and bit for bit
+     equal to the 4096-env call's first envs. Then the hull main path's own
+     warm operands (the phase-8 env 20 ticks in, its gjk_warm carry,
+     k4_main_path_operands): kernel against plain; the same operands with
+     the first half of the envs started at each pair's converged Minkowski
+     point (whole warps freeze at iteration 1 and leave the loop early)
+     against plain, 10 iterations; one device kernel per
+     call, the share of pairs still changing after iterations 1-4 (plain
+     runs at i and i + 1 iterations), and the kernel timed beside the bound
+     of what those pairs need (k4_bound_needed; the old every-iteration
+     count printed beside it).
   7. main path: franka/06_cluttered_environment, 4096 envs, resolve
      'solve': 2 warm-up ticks, then a timed 150-tick rollout; every launch
      counter is zeroed just before it and read after, and each kernel of
@@ -56,17 +68,18 @@ printing the result line:
      pair, cold) x 5 ticks in the hull tier, GPU against CPU, from
      q ± 0.1, q̇ ± 0.05.
  11. K5 (the fused v2 tick, ops/cuda_tick.make_fused_qdd), on scenes 06
-     and 05 at B = 4096: the build's registers and spills; kernel against
-     plain version near the ready pose (every env) and from the wide
-     states of tests/test_pallas_tick.py (envs that are finite, stable
-     under a one-ulp move of q and q̇, and within 1e-5 of a float64 plain
-     run), limit 2e-4 x max(1, |q̈|); kernel against the standard q̈
-     (evaluate_policies, 'cholesky') on the first-capsule model, and its
-     gap to the full 25-capsule model printed as a number. Timed: K5,
-     its plain version and the standard q̈ evaluation it stands in for
-     (FK bundle + context + blocks + K1). K5 runs on no main path: phases
-     7-8 hold its count at 0. Then scene 05 GPU/CPU parity, 128 envs x 5
-     ticks from q ± 0.1, q̇ ± 0.05.
+     and 05 at B = 4096: the build's counts and dynamic shared memory;
+     kernel against plain version near the ready pose (every env, and at
+     B = 1, 7 and 4093) and from the wide states of tests/test_pallas_tick.py
+     (envs that are finite, stable under a one-ulp move of q and q̇, and
+     within 1e-5 of a float64 plain run), limit 2e-4 x max(1, |q̈|); kernel
+     against the standard q̈ (evaluate_policies, 'cholesky') on the
+     first-capsule model, and its gap to the full 25-capsule model printed
+     as a number; one device kernel per call. Timed: K5 (idle stream and
+     stream kept busy), its plain version and the standard q̈ evaluation it
+     stands in for (FK bundle + context + blocks + K1). K5 runs on no main
+     path: phases 7-8 hold its count at 0. Then scene 05 GPU/CPU parity,
+     128 envs x 5 ticks from q ± 0.1, q̇ ± 0.05.
 Then one JSON line of per-kernel numbers ({"kernels": [...]}) and, last,
 {"ok": true, "device": {...}}. The full record also goes to
 chiprun_out/chip_smoke.json.
@@ -85,7 +98,7 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, schedule
 
 from rmp_tpu_torch import _build, envs
 from rmp_tpu_torch.core import policy_row_blocks_structured
@@ -96,7 +109,7 @@ from rmp_tpu_torch.models import kinematics
 from rmp_tpu_torch.models.urdf import FIXED
 from rmp_tpu_torch.ops import (cuda_fk, cuda_gjk, cuda_resolve, cuda_tick,
                                tick_ops)
-from rmp_tpu_torch.sim import collision
+from rmp_tpu_torch.sim import collision, data
 from rmp_tpu_torch.sim.world import SimState
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -137,6 +150,8 @@ K4_CERT_TOL = 1e-5         # float32 rounding slack of the bound checks
 PARITY_ATOL = 1e-3     # GPU vs CPU q after 5 ticks
 STABLE = 1e-5          # a one-ulp move of the start moves the CPU run less
 PROFILE_TICKS = 10
+TRACE_PAD_S = 0.02     # host wait on each side of a traced span
+TRACE_ATTEMPTS = 3     # traces of a span before its device records count
 
 
 def log(msg: str) -> None:
@@ -177,27 +192,69 @@ def time_ms(fn, reps: int = REPS, lead: bool = False) -> float:
     return float(np.median(times))
 
 
+def traced(fn, warm=None):
+    """Events of one torch.profiler trace of fn(). The profiler switches the
+    device activities on one step ahead, in a warm-up step that runs `warm`
+    (default fn) and is not kept, and the kept step waits TRACE_PAD_S on
+    each side of fn. A trace started and stopped around a short span alone
+    lost some and once all of its device records on the H100 (K5: 8, 9 and
+    0 of 10 kernels recorded, while the host saw 10 launch calls)."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        (warm or fn)()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(TRACE_PAD_S)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+    return prof.events()
+
+
+def device_kernels(events) -> list:
+    """The device records of a trace, less the profiler's own step spans."""
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith("ProfilerStep")]
+
+
 def device_launches(fn, kernel: str, what: str, calls: int = 10) -> float:
-    """Device kernels per call of fn, from a torch.profiler trace of
-    `calls` calls. Every traced kernel must be `kernel` (a substring of its
-    name). A trace that returns fewer events than calls (the profiler can
-    lose a short window's events) is taken again, at most twice."""
+    """Kernel launches per call of fn, from a torch.profiler trace of
+    `calls` calls: the runtime's launch calls (cudaLaunchKernel*) on the
+    host side, and every device kernel the trace recorded must be `kernel`
+    (a substring of its name). A trace that records fewer device kernels
+    than launch calls is taken again, up to TRACE_ATTEMPTS traces; the one
+    that recorded most is checked, and its device records must not exceed
+    the launch calls."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        log(f"{what} trace of {calls} calls: {len(names)} device kernels")
-        other = sorted({n[:80] for n in names if kernel not in n})
-        check(not other, f"{what}: the wrapper launches {other}")
-        if len(names) >= calls:
+
+    def calls_of_fn():
+        for _ in range(calls):
+            fn()
+
+    best = None
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        events = traced(calls_of_fn)
+        names = [e.name for e in device_kernels(events)]
+        runtime = sum(1 for e in events
+                      if e.device_type == torch.autograd.DeviceType.CPU
+                      and e.name.startswith(("cudaLaunchKernel",
+                                             "cuLaunchKernel")))
+        log(f"{what} trace {attempt} of {calls} calls: {runtime} launch "
+            f"calls, {len(names)} device kernels recorded")
+        if best is None or len(names) > len(best[0]):
+            best = names, runtime
+        if len(names) == runtime:
             break
-    return len(names) / calls
+    names, runtime = best
+    other = sorted({n[:80] for n in names if kernel not in n})
+    check(not other, f"{what}: the wrapper launches {other}")
+    check(0 < len(names) <= runtime, f"{what}: {len(names)} device kernels "
+          f"for {runtime} launch calls")
+    return runtime / calls
 
 
 def bound_ms(n_bytes: float, n_flops: float):
@@ -510,6 +567,7 @@ def phase_k3(device) -> dict:
 # ---------------------------------------------------------------- K4 ------
 
 K4_SUPPORT_VERTEX_FLOPS = 10   # dot (3 mul, 2 add), compare, 4 accumulates
+K4_VERTEX_FLOPS_NEEDED = 6     # dot (3 mul, 2 add) and the max
 K4_SUPPORT_FIXED_FLOPS = 37    # R^T d, 1 / count and scale, R s + t
 K4_OBSTACLE_FLOPS = 50         # both obstacle supports and the select
 K4_JOHNSON_NEWEST_FLOPS = 470  # Gram 50, 1 single, 3 pairs, 3 triples, tet
@@ -518,10 +576,10 @@ K4_STEP_FLOPS = 30             # gap test, eviction and slot selects
 
 
 def k4_bound(ops: dict, iters: int):
-    """Bound of one K4 call: reads the hull tables, each (link, env) pose
-    (12 floats) and each pair's operands (14 floats) once and writes 7
-    floats per pair; flops per pair by the counts above (the kernel runs
-    every iteration, frozen pairs too)."""
+    """Bound of one K4 call by the first count: reads the hull tables, each
+    (link, env) pose (12 floats) and each pair's operands (14 floats) once
+    and writes 7 floats per pair; flops per pair by the counts above, every
+    iteration of every pair, V vertices per support."""
     L, V, _ = ops["verts"].shape
     M, B = ops["p0"].shape[1], ops["p0"].shape[3]
     pairs = L * M * B
@@ -532,6 +590,47 @@ def k4_bound(ops: dict, iters: int):
                 + K4_JOHNSON_FULL_FLOPS + 30)
     floats = L * V * 3 + L * B * 12 + pairs * (14 + 7)
     return bound_ms(4.0 * floats, float(per_pair) * pairs)
+
+
+def k4_bound_needed(ops: dict, needed: torch.Tensor):
+    """Bound of one K4 call from the least arithmetic its outputs need: the
+    bytes of k4_bound; per support a dot and a max per distinct vertex of
+    the link (cuda_gjk.distinct_rows), and per pair only the iterations
+    `needed` (L, M, B) until it freezes (k4_needed_iterations)."""
+    L, V, _ = ops["verts"].shape
+    M, B = ops["p0"].shape[1], ops["p0"].shape[3]
+    rows = torch.tensor(cuda_gjk.distinct_rows(ops["verts"]),
+                        dtype=torch.float64)
+    hull = K4_VERTEX_FLOPS_NEEDED * rows + K4_SUPPORT_FIXED_FLOPS   # (L,)
+    n = needed.double().cpu()
+    flops = float(((hull[:, None, None] + K4_OBSTACLE_FLOPS) * (1 + n)
+                   + (K4_JOHNSON_NEWEST_FLOPS + K4_STEP_FLOPS) * n
+                   + K4_JOHNSON_FULL_FLOPS + 30).sum())
+    floats = L * V * 3 + L * B * 12 + L * M * B * (14 + 7)
+    return bound_ms(4.0 * floats, flops)
+
+
+def k4_needed_iterations(ops: dict, iters: int):
+    """(needed (L, M, B), live share per iteration) of a K4 call, from plain
+    runs at 0..iters + 1 iterations. A pair whose outputs move between
+    i - 1 and i iterations was live at iteration i; it needs the iterations
+    up to its last move and one more, whose gap test freezes it (at most
+    `iters`). live[i] is the share of pairs whose outputs still move
+    between i and i + 1 iterations, i = 1..iters."""
+    outs = [cuda_gjk.gjk_hull_obstacles_plain(**ops, iters=i)
+            for i in range(iters + 2)]
+
+    def moved(a, b):
+        return ((a[0] != b[0]).any(dim=2) | (a[1] != b[1]).any(dim=2)
+                | (a[2] != b[2]))
+    last = torch.zeros_like(outs[0][2], dtype=torch.long)
+    for i in range(1, iters + 1):
+        last = torch.where(moved(outs[i - 1], outs[i]),
+                           torch.full_like(last, i), last)
+    needed = torch.clamp(last + 1, max=iters)
+    live = {i: float(moved(outs[i], outs[i + 1]).double().mean())
+            for i in range(1, iters + 1)}
+    return needed, live
 
 
 def k4_compare(got, want, what: str) -> dict:
@@ -727,7 +826,33 @@ def k4_evidence(ops, got, plain, what: str) -> dict:
     return rec
 
 
+def k4_main_path_operands(ticks: int = 20):
+    """(operands, iters) of the hull main path's own K4 call: the phase-8 env
+    (scene 06, 4096 envs, hull tier) reset and rolled `ticks` ticks, then
+    collision.gjk_operands on its state with its gjk_warm carry (what the
+    next tick's call gets) and the warm iteration count the path runs."""
+    env = envs.make(SCENE)
+    env.resolve_method = "solve"
+    env.collision_geometry = "hull"
+    states = envs.make_batched_reset(env, BATCH)()
+    states, _ = envs.make_batched_rollout(env, ticks, with_aux=False)(
+        states, env.gather_params())
+    T_all = kinematics.fk_all(env.model, states.sim.q)
+    obstacles = states.sim.obstacles
+    cap = collision.robot_obstacle_distances(env.model, T_all, obstacles)
+    _, ops = collision.gjk_operands(env.model, T_all, obstacles, cap,
+                                    warm=states.gjk_warm)
+    return ops, env.hull_warm_iters or data.WARM_ITERS
+
+
+def k4_slice(ops: dict, B: int) -> dict:
+    """The operands of the first B envs, contiguous."""
+    return {k: v if k == "verts" else v[..., :B].contiguous()
+            for k, v in ops.items()}
+
+
 def phase_k4(env, device) -> dict:
+    build = build_counts("gjk_hull.cu", "K4")
     model = env.model
     states = perturbed_states(env, BATCH, 6, 0.3, 0.0)
     T_all = kinematics.fk_all(model, states.sim.q)
@@ -750,23 +875,94 @@ def phase_k4(env, device) -> dict:
         rec = k4_compare(got, want, f"K4 {mode} {iters} iterations")
         rec["evidence"] = k4_evidence(ops, got, want,
                                       f"K4 {mode} {iters} iterations")
-        rec["ms"] = time_ms(run)
+        rec["ms"], rec["device_ms"] = time_ms(run), time_ms(run, lead=True)
         rec["plain_ms"] = time_ms(plain, reps=5)
         rec["bound_ms"], rec["bound_by"] = k4_bound(ops, iters)
         log(f"K4 {mode} times at {tuple(ops['p0'].shape[:2])} x {BATCH} "
-            f"pairs: kernel "
-            f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
-            f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+            f"pairs: kernel {rec['ms']:.4f} ms (device alone "
+            f"{rec['device_ms']:.4f} ms), plain {rec['plain_ms']:.4f} ms, "
+            f"bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}, every "
+            f"iteration of every pair, the first count)")
         out[mode] = rec
-    # the main path's per-tick call is the warm one
-    w = out["warm"]
+
+    # ragged batches: against the plain version, and bit for bit the
+    # 4096-env call's first B envs (the tail's envs compute and store nothing)
+    full = cuda_gjk.gjk_hull_obstacles(**cold_ops, iters=10)
+    err = max(out["cold"]["dist_max"], out["warm"]["dist_max"])
+    for B in RAGGED:
+        ops = k4_slice(cold_ops, B)
+        got = cuda_gjk.gjk_hull_obstacles(**ops, iters=10)
+        rec = k4_compare(got, cuda_gjk.gjk_hull_obstacles_plain(**ops,
+                                                                iters=10),
+                         f"K4 cold 10 iterations, B={B}")
+        same = all(bool(torch.equal(g, f[..., :B]))
+                   for g, f in zip(got, full))
+        log(f"K4 B={B}: equal to the first {B} envs of the B={BATCH} call: "
+            f"{same}")
+        check(same, f"K4 B={B}: differs from the B={BATCH} call")
+        err = max(err, rec["dist_max"])
+
+    # the hull main path's own warm operands: the call the redesign is
+    # judged on
+    ops, iters = k4_main_path_operands()
+
+    def call():
+        return cuda_gjk.gjk_hull_obstacles(**ops, iters=iters)
+
+    def plain():
+        return cuda_gjk.gjk_hull_obstacles_plain(**ops, iters=iters)
+    main = k4_compare(call(), plain(), f"K4 main-path operands, {iters} "
+                      f"iterations")
+    # early exit: on the main path's operands (a warp's 32 envs hold the
+    # same pair) the first half of the envs starts at each pair's Minkowski
+    # point x* = pa - pb of a 64-iteration run, where many pairs, so whole
+    # warps, freeze at iteration 1; the rest keep the path's warm start
+    pa, pb, _ = cuda_gjk.gjk_hull_obstacles(**ops, iters=64)
+    half = BATCH // 2
+    d0 = ops["d0"].clone()
+    d0[..., :half] = (pa - pb)[..., :half]
+    mixed = dict(ops, d0=d0.contiguous())
+    one, two = (cuda_gjk.gjk_hull_obstacles_plain(**mixed, iters=i)
+                for i in (1, 2))
+    frozen = ((one[0] == two[0]).all(dim=2) & (one[1] == two[1]).all(dim=2)
+              & (one[2] == two[2]))
+    log(f"K4 mixed batch: share of pairs frozen at iteration 1, envs "
+        f"[0, {half}) {float(frozen[..., :half].double().mean()):.4f}, the "
+        f"rest {float(frozen[..., half:].double().mean()):.4f}")
+    rec = k4_compare(cuda_gjk.gjk_hull_obstacles(**mixed, iters=10),
+                     cuda_gjk.gjk_hull_obstacles_plain(**mixed, iters=10),
+                     "K4 mixed batch, 10 iterations")
+    err = max(err, rec["dist_max"])
+
+    per_call = device_launches(call, "gjk_hull_kernel", "K4")
+    log(f"K4 wrapper: {per_call} device launch(es) per call")
+    check(per_call == 1, "K4: not one launch per wrapper call")
+    needed, live = k4_needed_iterations(ops, iters)
+    main.update(iters=iters, ms=time_ms(call), device_ms=time_ms(call,
+                                                                 lead=True),
+                plain_ms=time_ms(plain, reps=5), live_share=live,
+                mean_needed_iterations=float(needed.double().mean()),
+                distinct_rows=cuda_gjk.distinct_rows(ops["verts"]))
+    main["bound_ms"], main["bound_by"] = k4_bound_needed(ops, needed)
+    main["bound_ms_every_iteration"], _ = k4_bound(ops, iters)
+    log(f"K4 main-path operands ({SCENE}, hull, {BATCH} envs, 20 ticks in, "
+        f"warm, {iters} iterations): share of pairs still changing after "
+        f"iteration i {json.dumps(live)}, mean iterations needed "
+        f"{main['mean_needed_iterations']:.4f}")
+    log(f"K4 main-path times: kernel {main['ms']:.4f} ms (device alone "
+        f"{main['device_ms']:.4f} ms), plain {main['plain_ms']:.4f} ms, bound "
+        f"{main['bound_ms']:.6f} ms ({main['bound_by']}: the supports and "
+        f"iterations each pair needs, 6 flops per distinct vertex "
+        f"{main['distinct_rows']}); by the first count "
+        f"{main['bound_ms_every_iteration']:.6f} ms")
     return dict(name="gjk_hull_obstacles", route="cuda",
                 source="rmp_tpu_torch/csrc/gjk_hull.cu",
                 replaces="rmp_tpu/ops/pallas_gjk.py:318",
-                max_abs_err=max(out["cold"]["dist_max"], w["dist_max"]),
-                ms=w["ms"], plain_ms=w["plain_ms"], bound_ms=w["bound_ms"],
-                bound_by=w["bound_by"], library_ms=None, cold=out["cold"],
-                warm=w)
+                max_abs_err=max(err, main["dist_max"]), ms=main["ms"], device_ms=main["device_ms"],
+                device_launches_per_call=per_call, plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=None, build=build, main_path_operands=main,
+                cold=out["cold"], warm=out["warm"])
 
 
 # ---------------------------------------------------------------- K5 ------
@@ -833,6 +1029,8 @@ def k5_check(what: str, err: torch.Tensor, limit: float) -> float:
 
 def phase_k5(device) -> dict:
     build = build_counts("fused_tick.cu", "K5")
+    shared = _build.c_function("rmp_fused_qdd_shared_bytes",
+                               [ctypes.c_int] * 3)
     rec = dict(name="fused_qdd", route="cuda",
                source="rmp_tpu_torch/csrc/fused_tick.cu",
                replaces="rmp_tpu/ops/pallas_tick.py:421", build=build)
@@ -841,6 +1039,10 @@ def phase_k5(device) -> dict:
         env = envs.make(scene)
         tick = cuda_tick.fused_tick(env)
         fn = cuda_tick.make_fused_qdd(env)
+        smem = shared(tick.model.n_frames, tick.model.n_q,
+                      len(tick.col_frames))
+        build[f"dynamic_smem_bytes_scene{tag}"] = smem
+        log(f"K5 {tag} dynamic shared memory per CTA: {smem} bytes")
         plain = functools.partial(cuda_tick.fused_qdd_plain, tick)
         near = k5_inputs(env, BATCH, 11, wide=False)
         got, want = fn(*near), plain(*near)
@@ -866,6 +1068,15 @@ def phase_k5(device) -> dict:
         err = max(err, k5_check(f"{tag} wide, kernel vs plain",
                                 k5_rel(w_got[held], w_want[held]), K1_TOL))
 
+        for B in RAGGED:
+            args = tuple(x[:B].contiguous() for x in near)
+            got_b = fn(*args)
+            check(bool(torch.isfinite(got_b).all()),
+                  f"K5 {tag} B={B}: non-finite")
+            err = max(err, k5_check(f"{tag} near ready, kernel vs plain, "
+                                    f"B={B}", k5_rel(got_b, plain(*args)),
+                                    K1_TOL))
+
         first = cuda_tick.standard_qdd(env, *near, first_capsule=True)
         full = cuda_tick.standard_qdd(env, *near, first_capsule=False)
         k5_check(f"{tag} kernel vs the standard q̈ on first capsules",
@@ -888,24 +1099,33 @@ def phase_k5(device) -> dict:
                                                             ridge=0.0)
 
         K = near[5].shape[1]
+        per_call = device_launches(lambda: fn(*near), "fused_qdd_kernel",
+                                   f"K5 {tag}")
+        log(f"K5 {tag} wrapper: {per_call} device launch(es) per call")
+        check(per_call == 1, "K5: not one launch per wrapper call")
         times = dict(ms=time_ms(lambda: fn(*near)),
+                     device_ms=time_ms(lambda: fn(*near), lead=True),
                      plain_ms=time_ms(lambda: plain(*near), reps=5),
                      standard_ms=time_ms(standard))
         b_ms, b_by = k5_bound(tick, BATCH, K)
         total, mirrored = tick_ops.fused_qdd_ops(tick, K)
         log(f"K5 {tag} times at B={BATCH}, K={K}: kernel {times['ms']:.4f} "
-            f"ms, plain {times['plain_ms']:.4f} ms, standard q̈ evaluation "
+            f"ms (device alone {times['device_ms']:.4f} ms), plain "
+            f"{times['plain_ms']:.4f} ms, standard q̈ evaluation "
             f"(FK + context + blocks + K1) {times['standard_ms']:.4f} ms, "
             f"bound {b_ms:.6f} ms ({b_by}, {total - mirrored} operations "
             f"per env: the reference body's {total} less {mirrored} on A's "
             f"mirrored upper triangle)")
         rec[f"scene{tag}"] = dict(
-            K=K, wide_compared=n_held, full_model_gap=gap, bound_ms=b_ms,
+            K=K, wide_compared=n_held, full_model_gap=gap,
+            device_launches_per_call=per_call, bound_ms=b_ms,
             bound_by=b_by, ops_per_env=total - mirrored,
             reference_ops_per_env=total, **times)
     main = rec["scene06"]
     # no single PyTorch call computes the fused tick
-    rec.update(max_abs_err=err, ms=main["ms"], plain_ms=main["plain_ms"],
+    rec.update(max_abs_err=err, ms=main["ms"], device_ms=main["device_ms"],
+               device_launches_per_call=main["device_launches_per_call"],
+               plain_ms=main["plain_ms"],
                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                library_ms=None)
     return rec
@@ -992,13 +1212,18 @@ def profile_ticks(env, states, params, tick_ms: float) -> dict:
     launches per tick, the port's own kernels' device time, and the
     kernels with the most device time."""
     step = envs.make_batched_control_step(env)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_TICKS):
+
+    def ticks(n: int) -> None:
+        nonlocal states
+        for _ in range(n):
             states, _ = step(states, params)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        kernels = device_kernels(traced(lambda: ticks(PROFILE_TICKS),
+                                        warm=lambda: ticks(1)))
+        if kernels:
+            break
+        log(f"main path trace {attempt}: no device activity recorded")
     check(bool(kernels), "main path trace: no device activity recorded")
     by_name: dict[str, list] = {}
     for e in kernels:

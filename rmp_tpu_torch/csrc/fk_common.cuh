@@ -1,5 +1,6 @@
 // Device code shared by K3 (fk_derivatives.cu) and K5 (fused_tick.cu): the
-// 4x4 helpers and one step of the world twist-generator FK recursion.
+// world twist-generator FK recursion of one environment, run by 16 lanes on
+// shared memory, and the per-frame pieces of its prologue.
 //
 // For frame f with parent p and parent-side rigid transform
 // A_f = T_p T_constant_f:
@@ -7,7 +8,8 @@
 //   G_f  = A_f E_f A_f^{-1}               (world twist generator, actuated)
 //   W_f  = W_p + qd G_f                   (velocity operator, Td = W T)
 //   Wd_f = Wd_p + qd (W_p G_f - G_f W_p)  (its drift)
-// A fixed frame inherits W and Wd and has no generator.
+// A fixed frame inherits W and Wd and has no generator. Every entry of a 4x4
+// product sums a[4i] b[j] first, then k = 1..3 (dot4).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,123 +21,171 @@ constexpr int kMaxMotors = 16;
 constexpr int kRevolute = 0;
 constexpr int kPrismatic = 1;
 constexpr int kFixed = 2;
+// Floats between an env's generators G_f and G_f+1. K3's store pass reads
+// row i of up to 8 generators in one quarter warp: at a pitch of 16 floats
+// those rows fall into 2 of the 8 16-byte bank groups, at 20 into 8.
+constexpr int kGPitch = 20;
 
-// c = a @ b for row-major 4x4 matrices; c must not alias a or b.
-__device__ __forceinline__ void mm44(const float* a, const float* b, float* c) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float s = a[4 * i] * b[j];
-#pragma unroll
-      for (int k = 1; k < 4; ++k) s += a[4 * i + k] * b[4 * k + j];
-      c[4 * i + j] = s;
-    }
-  }
+// Smallest stride >= s that is 16 mod 32 floats: the two envs of a warp
+// then read the same entry from opposite halves of the 32 banks.
+__host__ __device__ constexpr int odd_half(int s) {
+  return s + (48 - s % 32) % 32;
 }
 
-__device__ __forceinline__ void set_identity(float* m) {
-#pragma unroll
-  for (int r = 0; r < 16; ++r) m[r] = (r % 5 == 0) ? 1.0f : 0.0f;
+// a . b in the recursion's order (a.x b.x first): entry (i, j) of a 4x4
+// product from row i of the left factor and column j of the right one.
+__device__ __forceinline__ float dot4(float4 a, float4 b) {
+  float s = a.x * b.x;
+  s += a.y * b.y;
+  s += a.z * b.z;
+  s += a.w * b.w;
+  return s;
 }
 
-// Inverse of a rigid transform: [R t; 0 1]^-1 = [R^T, -R^T t; 0 1].
-__device__ __forceinline__ void rigid_inverse(const float* a, float* out) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) out[4 * i + j] = a[4 * j + i];
-    out[4 * i + 3] = -(a[i] * a[3] + a[4 + i] * a[7] + a[8 + i] * a[11]);
-  }
-  out[12] = 0.0f;
-  out[13] = 0.0f;
-  out[14] = 0.0f;
-  out[15] = 1.0f;
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
-// One step of the recursion: T[f], W[f], Wd[f] and, for an actuated joint,
-// G[f], from the parent's entries (already computed: frames come in BFS
-// order). q_row and qd_row are this environment's (n,) rows.
-__device__ __forceinline__ void fk_step(
-    int f, const int* __restrict__ parent, const int* __restrict__ joint_type,
-    const int* __restrict__ q_index, const float* __restrict__ axis,
-    const float* __restrict__ T_constant, const float* q_row,
-    const float* qd_row, float (*T)[16], float (*W)[16], float (*Wd)[16],
-    float (*G)[16]) {
-  float eye[16];
-  float zero[16];
-  set_identity(eye);
+// Column j of a row-major 4x4 matrix in shared memory.
+__device__ __forceinline__ float4 col4(const float* m, int j) {
+  return make_float4(m[j], m[4 + j], m[8 + j], m[12 + j]);
+}
+
+// The joint motion Tv of a frame of joint type jt: Rodrigues (identity for a
+// zero axis, as the plain version's rotation_matrix_from_axis_angle), a
+// translation, or the identity.
+__device__ __forceinline__ void joint_motion(float (&tv)[16], int jt,
+                                             float ax, float ay, float az,
+                                             float qv) {
 #pragma unroll
-  for (int r = 0; r < 16; ++r) zero[r] = 0.0f;
-
-  const int p = parent[f];
-  const float* Tp = p < 0 ? eye : T[p];
-  const float* Wp = p < 0 ? zero : W[p];
-  const float* Wdp = p < 0 ? zero : Wd[p];
-  const int jt = joint_type[f];
-  const float ax = axis[3 * f], ay = axis[3 * f + 1], az = axis[3 * f + 2];
-
-  float A[16];
-  mm44(Tp, T_constant + 16 * f, A);
-
-  // joint motion: Rodrigues (guarded to identity for a zero axis, as the
-  // plain version's rotation_matrix_from_axis_angle) or a translation
-  float Tv[16];
-  set_identity(Tv);
+  for (int k = 0; k < 16; ++k) tv[k] = (k % 5 == 0) ? 1.0f : 0.0f;
   if (jt == kRevolute) {
     float s, c;
-    sincosf(q_row[q_index[f]], &s, &c);
+    sincosf(qv, &s, &c);
     if (ax * ax + ay * ay + az * az > 0.5f) {
       const float oc = 1.0f - c;
-      Tv[0] = c + oc * (ax * ax);
-      Tv[1] = -s * az + oc * (ax * ay);
-      Tv[2] = s * ay + oc * (ax * az);
-      Tv[4] = s * az + oc * (ay * ax);
-      Tv[5] = c + oc * (ay * ay);
-      Tv[6] = -s * ax + oc * (ay * az);
-      Tv[8] = -s * ay + oc * (az * ax);
-      Tv[9] = s * ax + oc * (az * ay);
-      Tv[10] = c + oc * (az * az);
+      tv[0] = c + oc * (ax * ax);
+      tv[1] = -s * az + oc * (ax * ay);
+      tv[2] = s * ay + oc * (ax * az);
+      tv[4] = s * az + oc * (ay * ax);
+      tv[5] = c + oc * (ay * ay);
+      tv[6] = -s * ax + oc * (ay * az);
+      tv[8] = -s * ay + oc * (az * ax);
+      tv[9] = s * ax + oc * (az * ay);
+      tv[10] = c + oc * (az * az);
     }
   } else if (jt == kPrismatic) {
-    const float qv = q_row[q_index[f]];
-    Tv[3] = qv * ax;
-    Tv[7] = qv * ay;
-    Tv[11] = qv * az;
+    tv[3] = qv * ax;
+    tv[7] = qv * ay;
+    tv[11] = qv * az;
   }
-  mm44(A, Tv, T[f]);
+}
 
-  if (jt == kFixed) {
+// The generator E of a joint (skew(axis), or the axis as a translation).
+__device__ __forceinline__ void joint_generator(float (&E)[16], int jt,
+                                                float ax, float ay,
+                                                float az) {
 #pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      W[f][r] = Wp[r];
-      Wd[f][r] = Wdp[r];
-    }
-    return;
-  }
-  float E[16];
-#pragma unroll
-  for (int r = 0; r < 16; ++r) E[r] = 0.0f;
+  for (int k = 0; k < 16; ++k) E[k] = 0.0f;
   if (jt == kRevolute) {
     E[1] = -az; E[2] = ay;
     E[4] = az;  E[6] = -ax;
     E[8] = -ay; E[9] = ax;
-  } else {
+  } else if (jt == kPrismatic) {
     E[3] = ax; E[7] = ay; E[11] = az;
   }
-  float AE[16], Ainv[16];
-  mm44(A, E, AE);
-  rigid_inverse(A, Ainv);
-  mm44(AE, Ainv, G[f]);
-  const float qdv = qd_row[q_index[f]];
-  float WG[16], GW[16];
-  mm44(Wp, G[f], WG);
-  mm44(G[f], Wp, GW);
+}
+
+// m transposed into dst (16 floats).
+__device__ __forceinline__ void store_transposed(float* dst,
+                                                 const float (&m)[16]) {
 #pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    W[f][r] = Wp[r] + qdv * G[f][r];
-    Wd[f][r] = Wdp[r] + qdv * (WG[r] - GW[r]);
+  for (int k = 0; k < 16; ++k) dst[4 * (k % 4) + k / 4] = m[k];
+}
+
+// The model's tables in shared memory: parent, joint type and motor index
+// per frame, the constant transforms Tc (F x 16), the joint generators'
+// transposes Et (F x 16, from joint_generator) and `eye`, the identity
+// followed by the zero matrix.
+struct FkModel {
+  const int* parent;
+  const int* type;
+  const int* qidx;
+  const float* Tc;
+  const float* Et;
+  const float* eye;
+};
+
+// One environment's arrays in shared memory, 16 floats per frame (G at
+// kGPitch). C holds Wd during the recursion and Wd + W W after it. Tt, if
+// not null, receives T transposed. TvT holds the joint motions' transposes
+// (joint_motion), scratch 48 floats of the current frame's A, A E, A^{-1}.
+struct FkArrays {
+  float* T;
+  float* Tt;
+  float* W;
+  float* C;
+  float* G;
+  float* scratch;
+  const float* TvT;
+  const float* qd;  // the environment's joint velocities
+};
+
+// The recursion over frames 0..F-1 (BFS order) on the 16 lanes of one
+// environment, lane r owning entry (r / 4, r % 4) of every 4x4 product.
+// The 16 lanes sit in one half warp: __syncwarp orders them, so every lane
+// of the warp must call this.
+__device__ __forceinline__ void fk_recursion(int F, int r, const FkModel& m,
+                                             const FkArrays& a) {
+  const int i = r >> 2, j = r & 3;
+  float* sA = a.scratch;
+  float* sAE = sA + 16;
+  float* sAinv = sA + 32;
+  const float* zero = m.eye + 16;
+  for (int f = 0; f < F; ++f) {
+    // p and jt are the same for every env: branches on them are uniform
+    const int p = m.parent[f];
+    const float* Tp = p < 0 ? m.eye : a.T + 16 * p;
+    const float* Wp = p < 0 ? zero : a.W + 16 * p;
+    const float* Wdp = p < 0 ? zero : a.C + 16 * p;
+    const int jt = m.type[f];
+
+    sA[r] = dot4(ld4(Tp + 4 * i), col4(m.Tc + 16 * f, j));
+    __syncwarp();
+    const float4 arow = ld4(sA + 4 * i);
+    const float t = dot4(arow, ld4(a.TvT + 16 * f + 4 * j));  // A Tv
+    a.T[16 * f + r] = t;
+    if (a.Tt != nullptr) a.Tt[16 * f + 4 * j + i] = t;
+
+    if (jt == kFixed) {
+      a.W[16 * f + r] = Wp[r];
+      a.C[16 * f + r] = Wdp[r];
+    } else {
+      sAE[r] = dot4(arow, ld4(m.Et + 16 * f + 4 * j));  // A E
+      // entry (i, j) of the rigid inverse of A, without branches
+      const float rot = sA[4 * j + i];
+      const float trans = -(sA[i] * sA[3] + sA[4 + i] * sA[7] +
+                            sA[8 + i] * sA[11]);
+      sAinv[r] = i == 3 ? (j == 3 ? 1.0f : 0.0f) : (j < 3 ? rot : trans);
+      __syncwarp();
+      const float g = dot4(ld4(sAE + 4 * i), col4(sAinv, j));
+      float* Gf = a.G + kGPitch * f;
+      Gf[r] = g;
+      __syncwarp();
+      const float wg = dot4(ld4(Wp + 4 * i), col4(Gf, j));
+      const float gw = dot4(ld4(Gf + 4 * i), col4(Wp, j));
+      const float qdv = a.qd[m.qidx[f]];
+      a.W[16 * f + r] = Wp[r] + qdv * g;
+      a.C[16 * f + r] = Wdp[r] + qdv * (wg - gw);
+    }
+    __syncwarp();
   }
+  // C's left factor, in place: each lane reads W and its own C entry
+  for (int f = 0; f < F; ++f) {
+    const float ww = dot4(ld4(a.W + 16 * f + 4 * i), col4(a.W + 16 * f, j));
+    a.C[16 * f + r] = ww + a.C[16 * f + r];
+  }
+  __syncwarp();
 }
 
 }  // namespace rmp

@@ -28,10 +28,9 @@
 //   (i, j) of every 4x4 product; the 16 threads of an env sit in one half
 //   warp, so __syncwarp orders them. T (and its transpose), W, Wd and G of
 //   every frame live in shared memory (~5 x F x 16 floats per env), not
-//   in a per-thread local frame. Each entry sums in rmp::mm44's order
-//   (a[4i] b[j] first, then k = 1..3), so the result is today's to the
-//   rounding of contraction. fk_common.cuh's fk_step (one thread per env)
-//   stays as it is for K5. The per-frame work that all 16 lanes would
+//   in a per-thread local frame (fk_common.cuh's fk_recursion, which K5
+//   runs too). Each entry sums a[4i] b[j] first, then k = 1..3. The
+//   per-frame work that all 16 lanes would
 //   repeat (sincos, the joint motion Tv, the generator E) runs once per
 //   (env, frame) in a prologue, one lane each, and is kept transposed, so
 //   a step reads a column as one float4 and its lanes never diverge. The
@@ -55,27 +54,22 @@
 
 namespace {
 
+using rmp::col4;
+using rmp::dot4;
+using rmp::kGPitch;
 using rmp::kMaxFrames;
 using rmp::kMaxMotors;
+using rmp::ld4;
+using rmp::odd_half;
 
 constexpr int kEnvs = 8;              // envs per CTA
 constexpr int kThreads = 16 * kEnvs;  // one thread per 4x4 entry and env
-// Floats between an env's generators G_f and G_f+1. The store pass reads
-// row i of up to 8 generators in one quarter warp: at a pitch of 16 floats
-// those rows fall into 2 of the 8 16-byte bank groups, at 20 into 8.
-constexpr int kGPitch = 20;
-
-// Smallest stride >= s that is 16 mod 32 floats: the two envs of a warp
-// then read the same entry from opposite halves of the 32 banks.
-__host__ __device__ constexpr int odd_half(int s) {
-  return s + (48 - s % 32) % 32;
-}
-
 // Float offsets of the shared-memory arrays, then the int tables. Per env:
 // T, its transpose Tt, W, C (Wd, then Wd + W W) and the joint motions'
 // transposes Tv, F x 16 floats each at env stride `tstride`; the
 // generators at pitch kGPitch and env stride `gstride`. Per model: the
-// constant transforms Tc and the joint generators' transposes Et. The store pass's tables: goff[f n + m], the offset of
+// constant transforms Tc and the joint generators' transposes Et. The store
+// pass's tables: goff[f n + m], the offset of
 // G[anc[f][m]] among an env's generators (-1: no ancestor, a zero column);
 // for the tile's row ef = e F + f, frame[ef] = f, trow[ef] = its T/Tt/W/C
 // offset and gbase[ef] its env's generator offset; elem[w] = (rr << 8) | m,
@@ -99,76 +93,6 @@ struct Layout {
   }
 };
 
-// a . b in rmp::mm44's order (a.x b.x first): entry (i, j) of a 4x4
-// product from row i of the left factor and column j of the right one.
-__device__ __forceinline__ float dot4(float4 a, float4 b) {
-  float s = a.x * b.x;
-  s += a.y * b.y;
-  s += a.z * b.z;
-  s += a.w * b.w;
-  return s;
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// Column j of a row-major 4x4 matrix in shared memory.
-__device__ __forceinline__ float4 col4(const float* m, int j) {
-  return make_float4(m[j], m[4 + j], m[8 + j], m[12 + j]);
-}
-
-// The joint motion Tv of a frame of joint type jt, as fk_step builds it:
-// Rodrigues (identity for a zero axis), a translation, or the identity.
-__device__ __forceinline__ void joint_motion(float (&tv)[16], int jt,
-                                             float ax, float ay, float az,
-                                             float qv) {
-#pragma unroll
-  for (int k = 0; k < 16; ++k) tv[k] = (k % 5 == 0) ? 1.0f : 0.0f;
-  if (jt == rmp::kRevolute) {
-    float s, c;
-    sincosf(qv, &s, &c);
-    if (ax * ax + ay * ay + az * az > 0.5f) {
-      const float oc = 1.0f - c;
-      tv[0] = c + oc * (ax * ax);
-      tv[1] = -s * az + oc * (ax * ay);
-      tv[2] = s * ay + oc * (ax * az);
-      tv[4] = s * az + oc * (ay * ax);
-      tv[5] = c + oc * (ay * ay);
-      tv[6] = -s * ax + oc * (ay * az);
-      tv[8] = -s * ay + oc * (az * ax);
-      tv[9] = s * ax + oc * (az * ay);
-      tv[10] = c + oc * (az * az);
-    }
-  } else if (jt == rmp::kPrismatic) {
-    tv[3] = qv * ax;
-    tv[7] = qv * ay;
-    tv[11] = qv * az;
-  }
-}
-
-// The generator E of a joint (skew(axis), or the axis as a translation).
-__device__ __forceinline__ void joint_generator(float (&E)[16], int jt,
-                                                float ax, float ay,
-                                                float az) {
-#pragma unroll
-  for (int k = 0; k < 16; ++k) E[k] = 0.0f;
-  if (jt == rmp::kRevolute) {
-    E[1] = -az; E[2] = ay;
-    E[4] = az;  E[6] = -ax;
-    E[8] = -ay; E[9] = ax;
-  } else if (jt == rmp::kPrismatic) {
-    E[3] = ax; E[7] = ay; E[11] = az;
-  }
-}
-
-// m transposed into dst (16 floats).
-__device__ __forceinline__ void store_transposed(float* dst,
-                                                 const float (&m)[16]) {
-#pragma unroll
-  for (int k = 0; k < 16; ++k) dst[4 * (k % 4) + k / 4] = m[k];
-}
-
 __global__ void __launch_bounds__(kThreads) fk_derivatives_kernel(
     int B, int F, int n, const int* __restrict__ parent,
     const int* __restrict__ joint_type, const int* __restrict__ q_index,
@@ -182,7 +106,6 @@ __global__ void __launch_bounds__(kThreads) fk_derivatives_kernel(
   const Layout L(F, n);
   int* imem = reinterpret_cast<int*>(smem + L.floats);
   const int* s_parent = imem + L.parent;
-  const int* s_type = imem + L.type;
   const int* s_qidx = imem + L.qidx;
   const int* s_goff = imem + L.goff;
   const int* s_frame = imem + L.frame;
@@ -258,78 +181,28 @@ __global__ void __launch_bounds__(kThreads) fk_derivatives_kernel(
                 az = smem[L.axis + 3 * f + 2];
     float m[16];
     if (e == kEnvs) {
-      joint_generator(m, jt, ax, ay, az);
-      store_transposed(smem + L.Et + 16 * f, m);
+      rmp::joint_generator(m, jt, ax, ay, az);
+      rmp::store_transposed(smem + L.Et + 16 * f, m);
     } else {
       const int qi = imem[L.qidx + f];
-      joint_motion(m, jt, ax, ay, az,
+      rmp::joint_motion(m, jt, ax, ay, az,
                    jt == rmp::kFixed ? 0.0f : smem[L.q + e * n + qi]);
-      store_transposed(smem + L.Tv + e * L.tstride + 16 * f, m);
+      rmp::store_transposed(smem + L.Tv + e * L.tstride + 16 * f, m);
     }
   }
   __syncthreads();
 
-  // ---- the recursion (fk_common.cuh's fk_step): env e, entry (i, j) ----
+  // ---- the recursion (fk_common.cuh): env e, entry (i, j) ----
   {
     const int e = tid >> 4;
-    const int r = tid & 15;
-    const int i = r >> 2, j = r & 3;
-    float* T = smem + L.T + e * L.tstride;
-    float* Tt = smem + L.Tt + e * L.tstride;
-    float* W = smem + L.W + e * L.tstride;
-    float* C = smem + L.C + e * L.tstride;  // Wd, then Wd + W W
-    float* G = smem + L.G + e * L.gstride;
-    float* sA = smem + L.scratch + e * 48;
-    float* sAE = sA + 16;
-    float* sAinv = sA + 32;
-    const float* eye = smem + L.eye;
-    const float* zero = eye + 16;
-    const float* qd_row = smem + L.qd + e * n;
-
-    const float* TvT = smem + L.Tv + e * L.tstride;
-    for (int f = 0; f < F; ++f) {
-      // p and jt are the same for every env: branches on them are uniform
-      const int p = s_parent[f];
-      const float* Tp = p < 0 ? eye : T + 16 * p;
-      const float* Wp = p < 0 ? zero : W + 16 * p;
-      const float* Wdp = p < 0 ? zero : C + 16 * p;
-      const int jt = s_type[f];
-
-      sA[r] = dot4(ld4(Tp + 4 * i), col4(smem + L.Tc + 16 * f, j));
-      __syncwarp();
-      const float4 arow = ld4(sA + 4 * i);
-      const float t = dot4(arow, ld4(TvT + 16 * f + 4 * j));  // A Tv
-      T[16 * f + r] = t;
-      Tt[16 * f + 4 * j + i] = t;
-
-      if (jt == rmp::kFixed) {
-        W[16 * f + r] = Wp[r];
-        C[16 * f + r] = Wdp[r];
-      } else {
-        sAE[r] = dot4(arow, ld4(smem + L.Et + 16 * f + 4 * j));  // A E
-        // entry (i, j) of rmp::rigid_inverse(A), without branches
-        const float rot = sA[4 * j + i];
-        const float trans = -(sA[i] * sA[3] + sA[4 + i] * sA[7] +
-                              sA[8 + i] * sA[11]);
-        sAinv[r] = i == 3 ? (j == 3 ? 1.0f : 0.0f) : (j < 3 ? rot : trans);
-        __syncwarp();
-        const float g = dot4(ld4(sAE + 4 * i), col4(sAinv, j));
-        float* Gf = G + kGPitch * f;
-        Gf[r] = g;
-        __syncwarp();
-        const float wg = dot4(ld4(Wp + 4 * i), col4(Gf, j));
-        const float gw = dot4(ld4(Gf + 4 * i), col4(Wp, j));
-        const float qdv = qd_row[s_qidx[f]];
-        W[16 * f + r] = Wp[r] + qdv * g;
-        C[16 * f + r] = Wdp[r] + qdv * (wg - gw);
-      }
-      __syncwarp();
-    }
-    // c's left factor, in place: each thread reads W and its own C entry
-    for (int f = 0; f < F; ++f) {
-      const float ww = dot4(ld4(W + 16 * f + 4 * i), col4(W + 16 * f, j));
-      C[16 * f + r] = ww + C[16 * f + r];
-    }
+    const rmp::FkModel model{s_parent, imem + L.type, s_qidx, smem + L.Tc,
+                             smem + L.Et, smem + L.eye};
+    const rmp::FkArrays arrays{
+        smem + L.T + e * L.tstride,  smem + L.Tt + e * L.tstride,
+        smem + L.W + e * L.tstride,  smem + L.C + e * L.tstride,
+        smem + L.G + e * L.gstride,  smem + L.scratch + e * 48,
+        smem + L.Tv + e * L.tstride, smem + L.qd + e * n};
+    rmp::fk_recursion(F, tid & 15, model, arrays);
   }
   __syncthreads();
 

@@ -1,4 +1,5 @@
-// K5: the whole v2 tick in one kernel, one thread per environment.
+// K5: the whole v2 tick in one kernel, a tile of environments per CTA and
+// 16 lanes per environment.
 //
 // Replaces the TPU kernel rmp_tpu/ops/pallas_tick.py::make_fused_qdd
 // (_make_kernel, _seg_closest). Per env it computes
@@ -19,39 +20,56 @@
 //      1e-12, and its two triangular solves,
 // and writes only qdd (B, n). Plain version: ops/cuda_tick.fused_qdd_plain.
 //
-// The arithmetic follows the JAX body step by step, with its order of
-// accumulation: structural zeros are skipped, not multiplied (a Jacobian
-// column of a motor that is no ancestor of the frame, read from `anc`), so a
-// 0 * inf of the velocity cap's singularity never becomes a NaN where the
-// reference gives a number; max/min/clip propagate NaN as jnp's do; the
-// policy constants arrive folded in float64 and rounded once (consts).
-// nvcc contracts a * b + c into FMAs, which the JAX body does not: results
-// part from the plain version by rounding (chip_smoke.py holds them to
-// 2e-4 x max(1, |qdd|)), and the logistic is 1 / (1 + expf(-x)).
+// The arithmetic of each term follows the JAX body: structural zeros are
+// skipped, not multiplied (a Jacobian column of a motor that is no ancestor
+// of the frame, read from `anc`), so a 0 * inf of the velocity cap's
+// singularity never becomes a NaN where the reference gives a number;
+// max/min/clip propagate NaN as jnp's do; the policy constants arrive
+// folded in float64 and rounded once (consts). The sums of A and f take
+// another order than the JAX body's (below), and nvcc contracts a * b + c
+// into FMAs: results part from the plain version by rounding (chip_smoke.py
+// holds them to 2e-4 x max(1, |qdd|)), and the logistic is 1 / (1 + expf(-x)).
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32): operations. Per env it
 // reads 21 + 7K floats and writes n = 9 (316 B at K = 7) but does 23,269
 // operations at the flagship (10 collision frames x 7 obstacles): the
 // reference body's, constants folded, less A's mirrored upper triangle
-// (ops/tick_ops.fused_qdd_ops). This kernel folds no constant of the model
-// and does more. Design: one thread per env, as K1 and K3; the FK
-// arrays are indexed by a run-time frame number and live in local memory
-// (4 KB per thread, L1-cached); A (n x n), f and the per-pair rows are
-// indexed at compile time (n = 9 is a template parameter) so they can stay
-// in registers, at the price of register pressure (ptxas: 242 registers,
-// no spills; PERF.md). At B = 4096 only 32 blocks have work, and each
-// thread's chain of dependent operations sets the time: far above the
-// bound, which this first version accepts.
+// (ops/tick_ops.fused_qdd_ops). This kernel folds no constant of the model.
+//
+// Design, after K3's.
+// - A CTA takes kEnvs = 8 consecutive envs, 16 lanes each (512 CTAs at
+//   B = 4096); the last tile computes on its last env and stores nothing
+//   for the rest.
+// - The model's tables and the tile's q, qd go to shared memory; a prologue
+//   computes each (env, frame)'s joint motion and each frame's generator
+//   once; the env's 16 lanes run the recursion (rmp::fk_recursion) on
+//   shared memory, one lane per 4x4 entry.
+// - The lanes then write, per point frame (the EE, then each collision
+//   frame) and row i, the origin's position, velocity, curvature, Jacobian
+//   row and, for a collision frame, its capsule's two ends in world
+//   coordinates: a frame slot of 15 + 3n floats, over the memory the
+//   recursion's joint motions held.
+// - Work items: the n_col x K (frame, obstacle) pairs in order, then the
+//   attractor, then the identity-space leaves in policy order; item t runs
+//   on lane t % 16. Each lane accumulates the lower triangle of A (its ridge
+//   on lane 0) and f in registers; a butterfly of xor shuffles (8, 4, 2, 1)
+//   leaves the totals on all 16 lanes, bit for bit alike.
+// - Every lane runs the Cholesky (A is exactly symmetric, so 0.5 (A + A^T)
+//   is 0.5 (a + a) per entry, kept for its rounding at overflow); lane 0
+//   stores qdd.
 #include <cuda_runtime.h>
 
 #include "fk_common.cuh"
 
 namespace {
 
+using rmp::kGPitch;
 using rmp::kMaxFrames;
-using rmp::mm44;
+using rmp::odd_half;
 
-constexpr int kThreads = 128;
+constexpr int kEnvs = 8;              // envs per CTA
+constexpr int kLanes = 16;            // lanes per env
+constexpr int kThreads = kLanes * kEnvs;
 constexpr int kMaxCollision = 16;
 constexpr int kMaxIdentity = 8;
 constexpr float kSegEps = 1e-9f;   // sim/collision._EPS
@@ -66,6 +84,41 @@ enum : int {
   kObsDampStd, kObsRobustEps,
 };
 enum : int { kVelCap = 1, kDamping = 2, kCspace = 3 };
+
+// A point frame's slot: origin p, velocity pd, curvature c, the Jacobian
+// rows (3 x n, row-major; 0 on the motors that do not drive the frame) and
+// the first capsule's two ends a0, a1 in world coordinates.
+constexpr int kSlotP = 0, kSlotPd = 3, kSlotC = 6, kSlotJ = 9;
+__host__ __device__ constexpr int slot_a0(int n) { return 9 + 3 * n; }
+__host__ __device__ constexpr int slot_floats(int n) { return 15 + 3 * n; }
+
+// Float offsets of the shared-memory arrays, then the int tables. Per env:
+// T, W, C (Wd, then Wd + W W) at env stride `tstride` (F x 16 floats), the
+// generators at pitch kGPitch and stride `gstride`, and a union region at
+// stride `ustride`: the joint motions' transposes Tv (F x 16) and the
+// recursion's scratch (48) first, the n_col + 1 frame slots after. Per
+// model: the constant transforms Tc, the joint generators' transposes Et,
+// the identity and zero matrices, the axes and the collision capsules
+// (n_col x 7); per env q and qd.
+struct Layout {
+  int tstride, gstride, ustride;
+  int T, W, C, G, U, Tc, Et, eye, axis, caps, q, qd, floats;
+  int parent, type, qidx, anc, colf, ints;
+  __host__ __device__ constexpr Layout(int F, int n, int n_col)
+      : tstride(odd_half(16 * F)), gstride(odd_half(kGPitch * F)),
+        ustride(odd_half(16 * F + 48 > slot_floats(n) * (n_col + 1)
+                             ? 16 * F + 48
+                             : slot_floats(n) * (n_col + 1))),
+        T(0), W(kEnvs * tstride), C(2 * kEnvs * tstride),
+        G(3 * kEnvs * tstride), U(G + kEnvs * gstride), Tc(U + kEnvs * ustride),
+        Et(Tc + 16 * F), eye(Et + 16 * F), axis(eye + 32), caps(axis + 3 * F),
+        q(caps + 7 * n_col), qd(q + kEnvs * n), floats(qd + kEnvs * n),
+        parent(0), type(F), qidx(2 * F), anc(3 * F), colf(anc + F * n),
+        ints(colf + n_col) {}
+  __host__ __device__ constexpr int bytes() const {
+    return 4 * (floats + ints);
+  }
+};
 
 // jnp.maximum / jnp.minimum / jnp.clip(x, 0, 1): NaN in x stays NaN
 __device__ __forceinline__ float max_nan(float x, float c) {
@@ -85,48 +138,248 @@ __device__ __forceinline__ float dot3(const float* a, const float* b) {
   return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
 }
 
-// (p, pd, J on the ancestor columns, c) of the origin of frame f; act[m]
-// marks the motors that drive it (anc >= 0), J is 0 elsewhere.
+// Row i of a point frame's slot: frame f's origin (ph = its homogeneous
+// coordinates) and, where cap is not null, the capsule's ends.
 template <int N>
-__device__ __forceinline__ void point_derivs(
-    int f, const float (*T)[16], const float (*W)[16], const float (*Wd)[16],
-    const float (*G)[16], const int* __restrict__ anc, float p[3],
-    float pd[3], float J[3][N], float c[3], bool act[N]) {
-  const float ph[4] = {T[f][3], T[f][7], T[f][11], 1.0f};
-  float acc[16];
-  mm44(W[f], W[f], acc);
-#pragma unroll
-  for (int r = 0; r < 16; ++r) acc[r] = Wd[f][r] + acc[r];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    p[i] = ph[i];
-    pd[i] = W[f][4 * i] * ph[0] + W[f][4 * i + 1] * ph[1]
-            + W[f][4 * i + 2] * ph[2] + W[f][4 * i + 3];
-    c[i] = acc[4 * i] * ph[0] + acc[4 * i + 1] * ph[1]
-           + acc[4 * i + 2] * ph[2] + acc[4 * i + 3];
-  }
+__device__ __forceinline__ void frame_row(float* slot, int i, int f,
+                                          const float* T, const float* W,
+                                          const float* Cc, const float* G,
+                                          const int* anc, const float* cap) {
+  const float* Tf = T + 16 * f;
+  const float ph0 = Tf[3], ph1 = Tf[7], ph2 = Tf[11];
+  const float* Wf = W + 16 * f + 4 * i;
+  const float* Cf = Cc + 16 * f + 4 * i;
+  slot[kSlotP + i] = Tf[4 * i + 3];
+  slot[kSlotPd + i] = Wf[0] * ph0 + Wf[1] * ph1 + Wf[2] * ph2 + Wf[3];
+  slot[kSlotC + i] = Cf[0] * ph0 + Cf[1] * ph1 + Cf[2] * ph2 + Cf[3];
 #pragma unroll
   for (int m = 0; m < N; ++m) {
     const int j = anc[f * N + m];
-    act[m] = j >= 0;
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-      J[i][m] = j >= 0 ? G[j][4 * i] * ph[0] + G[j][4 * i + 1] * ph[1]
-                             + G[j][4 * i + 2] * ph[2] + G[j][4 * i + 3]
-                       : 0.0f;
+    const float* Gj = G + kGPitch * (j < 0 ? 0 : j) + 4 * i;
+    slot[kSlotJ + N * i + m] =
+        j >= 0 ? Gj[0] * ph0 + Gj[1] * ph1 + Gj[2] * ph2 + Gj[3] : 0.0f;
+  }
+  if (cap != nullptr) {
+    const float* Ti = Tf + 4 * i;
+    slot[slot_a0(N) + i] = Ti[0] * cap[0] + Ti[1] * cap[1] + Ti[2] * cap[2] + Ti[3];
+    slot[slot_a0(N) + 3 + i] =
+        Ti[0] * cap[3] + Ti[1] * cap[4] + Ti[2] * cap[5] + Ti[3];
   }
 }
 
-__device__ __forceinline__ void transform_point(const float* T,
-                                                const float* p, float* out) {
+// The attractor on the EE position: slot is the EE's, act its motors.
+template <int N>
+__device__ __forceinline__ void attractor(float (&A)[N][N], float (&fs)[N],
+                                          const float* __restrict__ C,
+                                          const float* slot, const int* anc,
+                                          const float* goal) {
+  float J[3][N];
+  bool act[N];
+#pragma unroll
+  for (int m = 0; m < N; ++m) {
+    act[m] = anc[m] >= 0;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) J[i][m] = slot[kSlotJ + N * i + m];
+  }
+  const float* x = slot + kSlotP;
+  const float* xd = slot + kSlotPd;
+  const float* cx = slot + kSlotC;
+  float delta[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) delta[i] = goal[i] - x[i];
+  const float dn = sqrtf(max_nan(dot3(delta, delta), 1e-20f));
+  const float soft = max_nan(dn, C[kAttSoft]);
+  float dhat[3], amc[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    dhat[i] = delta[i] / soft;
+    amc[i] = (C[kAttP] * delta[i] / (dn + C[kAttEps]) - C[kAttD] * xd[i])
+             - cx[i];
+  }
+  const float scaled = dn / C[kAttAlphaLs];
+  const float alpha = C[kAttOneMinusMinAlpha] * expf(-0.5f * scaled * scaled)
+                      + C[kAttMinAlpha];
+  const float bs = dn / C[kAttBoostLs];
+  const float boost_a = expf(-0.5f * bs * bs);
+  const float boost = boost_a * C[kAttBoost] + (1.0f - boost_a);
+  float M[3][3];
 #pragma unroll
   for (int i = 0; i < 3; ++i)
-    out[i] = T[4 * i] * p[0] + T[4 * i + 1] * p[1] + T[4 * i + 2] * p[2]
-             + T[4 * i + 3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      M[i][j] = boost * ((i == j ? alpha * C[kAttMaxS] : 0.0f)
+                         + (1.0f - alpha) * C[kAttMinS] * dhat[i] * dhat[j]);
+  float u[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    u[i] = M[i][0] * amc[0] + M[i][1] * amc[1] + M[i][2] * amc[2];
+  float Wa[3][N];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      Wa[i][j] = M[i][0] * J[0][j] + M[i][1] * J[1][j] + M[i][2] * J[2][j];
+#pragma unroll
+  for (int jc = 0; jc < N; ++jc) {
+    if (!act[jc]) continue;
+    fs[jc] += J[0][jc] * u[0] + J[1][jc] * u[1] + J[2][jc] * u[2];
+#pragma unroll
+    for (int ic = jc; ic < N; ++ic) {
+      if (!act[ic]) continue;
+      A[ic][jc] += J[0][ic] * Wa[0][jc] + J[1][ic] * Wa[1][jc]
+                   + J[2][ic] * Wa[2][jc];
+    }
+  }
+}
+
+// Identity-space leaf `kind` with its constants P, on the env's q and qd.
+template <int N>
+__device__ __forceinline__ void identity_leaf(float (&A)[N][N],
+                                              float (&fs)[N], int kind,
+                                              const float* __restrict__ P,
+                                              const float* qb,
+                                              const float* qdb) {
+  if (kind == kVelCap) {
+    const float cutoff = P[0], region = P[1], clip = P[2], wgt = P[3],
+                gain = P[4];
+    float a[N], m[N];
+    float s_all = 0.0f;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float v = qdb[j];
+      const float dv = fabsf(v) - cutoff;
+      a[j] = fabsf(v) < cutoff ? 0.0f : -fabsf(gain * dv) * sign_nan(v);
+      const float ratio = min_nan(dv, clip) / region;
+      m[j] = wgt / (1.0f - ratio * ratio);
+      s_all = j == 0 ? a[0] : s_all + a[j];
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      fs[i] += wgt * s_all + (m[i] - wgt) * a[i];
+      A[i][i] += m[i] - wgt;
+#pragma unroll
+      for (int j = 0; j <= i; ++j) A[i][j] += wgt;
+    }
+  } else if (kind == kDamping) {
+    float ss = qdb[0] * qdb[0];
+#pragma unroll
+    for (int j = 1; j < N; ++j) ss += qdb[j] * qdb[j];
+    const float xdn = sqrtf(max_nan(ss, 1e-20f));
+    const float e = P[0] * xdn + P[1];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      fs[j] += e * (-P[2] * xdn * qdb[j]);
+      A[j][j] += e;
+    }
+  } else {  // kCspace
+    const float thresh = P[0], pg = P[1], dg = P[2], e = P[3];
+    float xs[N];
+    float ss = 0.0f;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      xs[j] = qb[j] - P[4 + j];
+      ss = j == 0 ? xs[0] * xs[0] : ss + xs[j] * xs[j];
+    }
+    const float xn = sqrtf(max_nan(ss, 1e-24f));
+    const float xn_safe = max_nan(xn, 1e-12f);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float a_pos = xn < thresh ? -xs[j] * pg
+                                      : -thresh * (xs[j] / xn_safe) * pg;
+      fs[j] += e * (a_pos - dg * qdb[j]);
+      A[j][j] += e;
+    }
+  }
+}
+
+// The obstacle policy on one (collision frame, obstacle) pair: slot is the
+// frame's, act its motors, rad its capsule's radius, b0 / b1 / rk the
+// obstacle's segment ends and radius.
+template <int N>
+__device__ __forceinline__ void obstacle_pair(
+    float (&A)[N][N], float (&fs)[N], const float* __restrict__ C,
+    const float* slot, const int* anc, float rad, const float* b0,
+    const float* b1, float rk) {
+  const float* pd = slot + kSlotPd;
+  const float* co = slot + kSlotC;
+  const float* a0 = slot + slot_a0(N);
+  const float* a1 = a0 + 3;
+  float d1[3], d2[3], r[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    d1[i] = a1[i] - a0[i];
+    d2[i] = b1[i] - b0[i];
+    r[i] = a0[i] - b0[i];
+  }
+  const float pd_sq = dot3(pd, pd);
+  // clamped closest-point parameters (pallas_tick._seg_closest)
+  const float sa = dot3(d1, d1), se = dot3(d2, d2), sf = dot3(d2, r),
+              sc = dot3(d1, r), sb = dot3(d1, d2);
+  const float denom = sa * se - sb * sb;
+  float s = denom > kSegEps ? (sb * sf - sc * se) / (denom + kSegEps) : 0.0f;
+  s = se > kSegEps ? s : -sc / (sa + kSegEps);
+  s = clip01(s);
+  const float t = se > kSegEps ? (sb * s + sf) / (se + kSegEps) : 0.0f;
+  const float t_cl = clip01(t);
+  if (t != t_cl && sa > kSegEps) s = clip01((t_cl * sb - sc) / (sa + kSegEps));
+
+  float ca[3], cb[3], diff[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    ca[i] = a0[i] + s * d1[i];
+    cb[i] = b0[i] + t_cl * d2[i];
+    diff[i] = ca[i] - cb[i];
+  }
+  const float cdist = sqrtf(max_nan(dot3(diff, diff), 1e-18f));
+  float h[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float nv = diff[i] / cdist;
+    h[i] = (ca[i] - rad * nv) - (cb[i] + rk * nv);
+  }
+  const float d_c = sqrtf(max_nan(dot3(h, h), 1e-18f));
+  float nh[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) nh[i] = h[i] / d_c;
+
+  float Jd[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    Jd[j] = nh[0] * slot[kSlotJ + j] + nh[1] * slot[kSlotJ + N + j]
+            + nh[2] * slot[kSlotJ + 2 * N + j];
+  const float xd_d = dot3(nh, pd);
+  const float c_d = dot3(nh, co) + (pd_sq - xd_d * xd_d) / d_c;
+
+  // policy (v2 ObstacleAvoidance)
+  const float xdist = max_nan(d_c - C[kObsMargin], 0.0f);
+  const bool far = xdist > C[kObsRmod];
+  const float gate = far ? 0.0f
+                         : xdist * xdist / C[kObsRmodSq]
+                               - 2.0f * xdist / C[kObsRmod] + 1.0f;
+  const float base = C[kObsMetric]
+                     / (xdist / C[kObsExploderStd] + C[kObsExploderEps]);
+  const float a_rep = C[kObsRepGain] * expf(-xdist / C[kObsRepStd]);
+  const float sig = 1.0f / (1.0f + expf(-(xd_d / C[kObsGateLs])));
+  const float a_damp = -(1.0f - sig) * C[kObsDampGain] * xd_d
+                       / (xdist / C[kObsDampStd] + C[kObsRobustEps]);
+  const float metric = far ? 0.0f : (1.0f - sig) * (base * gate);
+  const float amc = a_rep + a_damp - c_d;
+
+#pragma unroll
+  for (int jc = 0; jc < N; ++jc) {
+    if (anc[jc] < 0) continue;
+    fs[jc] += Jd[jc] * metric * amc;
+    const float mj = metric * Jd[jc];
+#pragma unroll
+    for (int ic = jc; ic < N; ++ic) {
+      if (anc[ic] < 0) continue;
+      A[ic][jc] += Jd[ic] * mj;
+    }
+  }
 }
 
 template <int N>
-__global__ void __launch_bounds__(kThreads) fused_qdd_kernel(
+__global__ void __launch_bounds__(kThreads, 4) fused_qdd_kernel(
     int B, int F, int K, int n_col, int ee_frame, int n_ident,
     const int* __restrict__ parent, const int* __restrict__ joint_type,
     const int* __restrict__ q_index, const float* __restrict__ axis,
@@ -137,232 +390,123 @@ __global__ void __launch_bounds__(kThreads) fused_qdd_kernel(
     const float* __restrict__ goal, const float* __restrict__ obs_p0,
     const float* __restrict__ obs_p1, const float* __restrict__ obs_r,
     float* __restrict__ out) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const float* qb = q + (size_t)b * N;
-  const float* qdb = qd + (size_t)b * N;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const Layout L(F, N, n_col);
+  int* imem = reinterpret_cast<int*>(smem + L.floats);
+  const int tid = threadIdx.x;
+  const int b0 = blockIdx.x * kEnvs;
+  const int nv = min(kEnvs, B - b0);  // envs of this tile
 
-  float T[kMaxFrames][16];
-  float W[kMaxFrames][16];
-  float Wd[kMaxFrames][16];
-  float G[kMaxFrames][16];
-  for (int f = 0; f < F; ++f)
-    rmp::fk_step(f, parent, joint_type, q_index, axis, T_constant, qb, qdb,
-                 T, W, Wd, G);
+  // ---- the model's tables and the tile's q, qd ----
+  for (int k = tid; k < 16 * F; k += kThreads) smem[L.Tc + k] = T_constant[k];
+  for (int k = tid; k < F * N; k += kThreads) imem[L.anc + k] = anc[k];
+  for (int k = tid; k < 7 * n_col; k += kThreads) smem[L.caps + k] = caps[k];
+  for (int k = tid; k < kEnvs * N; k += kThreads) {
+    // a masked env computes on the tile's last one
+    const size_t at = static_cast<size_t>(b0 + min(k / N, nv - 1)) * N + k % N;
+    smem[L.q + k] = q[at];
+    smem[L.qd + k] = qd[at];
+  }
+  if (tid < 3 * F) smem[L.axis + tid] = axis[tid];
+  if (tid < F) {
+    imem[L.parent + tid] = parent[tid];
+    imem[L.type + tid] = joint_type[tid];
+    imem[L.qidx + tid] = q_index[tid];
+  }
+  if (tid < n_col) imem[L.colf + tid] = col_frames[tid];
+  if (tid < 16) {
+    smem[L.eye + tid] = (tid % 5 == 0) ? 1.0f : 0.0f;  // identity
+    smem[L.eye + 16 + tid] = 0.0f;                      // zero
+  }
+  __syncthreads();
 
-  float A[N][N];
+  // ---- per frame, once: the joint generators (per model) and the joint
+  // motions (per env), transposed so the recursion reads columns as float4
+  for (int k = tid; k < (kEnvs + 1) * F; k += kThreads) {
+    const int e = k / F, f = k % F;  // e == kEnvs: the model's generator
+    const int jt = imem[L.type + f];
+    const float ax = smem[L.axis + 3 * f], ay = smem[L.axis + 3 * f + 1],
+                az = smem[L.axis + 3 * f + 2];
+    float m[16];
+    if (e == kEnvs) {
+      rmp::joint_generator(m, jt, ax, ay, az);
+      rmp::store_transposed(smem + L.Et + 16 * f, m);
+    } else {
+      const int qi = imem[L.qidx + f];
+      rmp::joint_motion(m, jt, ax, ay, az,
+                        jt == rmp::kFixed ? 0.0f : smem[L.q + e * N + qi]);
+      rmp::store_transposed(smem + L.U + e * L.ustride + 16 * f, m);
+    }
+  }
+  __syncthreads();
+
+  // ---- the recursion (fk_common.cuh): env e, lane r ----
+  const int e = tid / kLanes;
+  const int r = tid % kLanes;
+  float* T = smem + L.T + e * L.tstride;
+  float* W = smem + L.W + e * L.tstride;
+  float* Cc = smem + L.C + e * L.tstride;
+  float* G = smem + L.G + e * L.gstride;
+  float* U = smem + L.U + e * L.ustride;
+  const float* qb = smem + L.q + e * N;
+  const float* qdb = smem + L.qd + e * N;
+  const int* s_anc = imem + L.anc;
+  const int* s_colf = imem + L.colf;
+  rmp::fk_recursion(
+      F, r,
+      rmp::FkModel{imem + L.parent, imem + L.type, imem + L.qidx,
+                   smem + L.Tc, smem + L.Et, smem + L.eye},
+      rmp::FkArrays{T, nullptr, W, Cc, G, U + 16 * F, U, qdb});
+
+  // ---- the point frames' slots, over the joint motions: row (u, i) ----
+  float* slots = U;
+  for (int it = r; it < 3 * (n_col + 1); it += kLanes) {
+    const int u = it / 3, i = it - 3 * u;
+    const int f = u == 0 ? ee_frame : s_colf[u - 1];
+    frame_row<N>(slots + slot_floats(N) * u, i, f, T, W, Cc, G, s_anc,
+                 u == 0 ? nullptr : smem + L.caps + 7 * (u - 1));
+  }
+  __syncwarp();
+
+  // ---- work items: pairs, the attractor, the identity leaves ----
+  const int b = b0 + min(e, nv - 1);
+  float A[N][N];  // lower triangle
   float fs[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     fs[i] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < N; ++j) A[i][j] = i == j ? C[kRidge] : 0.0f;
+    for (int j = 0; j <= i; ++j) A[i][j] = (i == j && r == 0) ? C[kRidge] : 0.0f;
   }
-
-  float J[3][N];
-  bool act[N];
-
-  // ---- attractor on the EE position ------------------------------------
-  {
-    float x[3], xd[3], cx[3];
-    point_derivs<N>(ee_frame, T, W, Wd, G, anc, x, xd, J, cx, act);
-    float delta[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) delta[i] = goal[(size_t)b * 3 + i] - x[i];
-    const float dn = sqrtf(max_nan(dot3(delta, delta), 1e-20f));
-    const float soft = max_nan(dn, C[kAttSoft]);
-    float dhat[3], amc[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      dhat[i] = delta[i] / soft;
-      amc[i] = (C[kAttP] * delta[i] / (dn + C[kAttEps]) - C[kAttD] * xd[i])
-               - cx[i];
-    }
-    const float scaled = dn / C[kAttAlphaLs];
-    const float alpha = C[kAttOneMinusMinAlpha] * expf(-0.5f * scaled * scaled)
-                        + C[kAttMinAlpha];
-    const float bs = dn / C[kAttBoostLs];
-    const float boost_a = expf(-0.5f * bs * bs);
-    const float boost = boost_a * C[kAttBoost] + (1.0f - boost_a);
-    float M[3][3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        M[i][j] = boost * ((i == j ? alpha * C[kAttMaxS] : 0.0f)
-                           + (1.0f - alpha) * C[kAttMinS] * dhat[i] * dhat[j]);
-    float u[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-      u[i] = M[i][0] * amc[0] + M[i][1] * amc[1] + M[i][2] * amc[2];
-    float Wa[3][N];
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < N; ++j)
-        Wa[i][j] = M[i][0] * J[0][j] + M[i][1] * J[1][j] + M[i][2] * J[2][j];
-#pragma unroll
-    for (int jc = 0; jc < N; ++jc) {
-      if (!act[jc]) continue;
-      fs[jc] += J[0][jc] * u[0] + J[1][jc] * u[1] + J[2][jc] * u[2];
-#pragma unroll
-      for (int ic = jc; ic < N; ++ic) {
-        if (!act[ic]) continue;
-        const float contrib = J[0][ic] * Wa[0][jc] + J[1][ic] * Wa[1][jc]
-                              + J[2][ic] * Wa[2][jc];
-        A[ic][jc] += contrib;
-        if (ic != jc) A[jc][ic] += contrib;
-      }
+  const int pairs = n_col * K;
+  for (int it = r; it < pairs + 1 + n_ident; it += kLanes) {
+    if (it < pairs) {
+      const int li = it / K, k = it - li * K;
+      const size_t o = static_cast<size_t>(b) * K + k;
+      obstacle_pair<N>(A, fs, C, slots + slot_floats(N) * (1 + li),
+                       s_anc + s_colf[li] * N, smem[L.caps + 7 * li + 6],
+                       obs_p0 + 3 * o, obs_p1 + 3 * o, obs_r[o]);
+    } else if (it == pairs) {
+      attractor<N>(A, fs, C, slots, s_anc + ee_frame * N,
+                   goal + static_cast<size_t>(b) * 3);
+    } else {
+      const int p = it - pairs - 1;
+      identity_leaf<N>(A, fs, ident[2 * p], C + ident[2 * p + 1], qb, qdb);
     }
   }
 
-  // ---- identity-space leaves, in policy order ----------------------------
-  for (int p = 0; p < n_ident; ++p) {
-    const int kind = ident[2 * p];
-    const float* P = C + ident[2 * p + 1];
-    if (kind == kVelCap) {
-      const float cutoff = P[0], region = P[1], clip = P[2], wgt = P[3],
-                  gain = P[4];
-      float a[N], m[N];
-      float s_all = 0.0f;
+  // ---- butterfly over the env's 16 lanes ----
 #pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const float v = qdb[j];
-        const float dv = fabsf(v) - cutoff;
-        a[j] = fabsf(v) < cutoff ? 0.0f : -fabsf(gain * dv) * sign_nan(v);
-        const float ratio = min_nan(dv, clip) / region;
-        m[j] = wgt / (1.0f - ratio * ratio);
-        s_all = j == 0 ? a[0] : s_all + a[j];
-      }
+  for (int i = 0; i < N; ++i) {
 #pragma unroll
-      for (int i = 0; i < N; ++i) {
-        fs[i] += wgt * s_all + (m[i] - wgt) * a[i];
-        A[i][i] += m[i] - wgt;
+    for (int off = kLanes / 2; off > 0; off /= 2)
+      fs[i] += __shfl_xor_sync(0xffffffffu, fs[i], off);
 #pragma unroll
-        for (int j = 0; j < N; ++j) A[i][j] += wgt;
-      }
-    } else if (kind == kDamping) {
-      float ss = qdb[0] * qdb[0];
+    for (int j = 0; j <= i; ++j) {
 #pragma unroll
-      for (int j = 1; j < N; ++j) ss += qdb[j] * qdb[j];
-      const float xdn = sqrtf(max_nan(ss, 1e-20f));
-      const float e = P[0] * xdn + P[1];
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        fs[j] += e * (-P[2] * xdn * qdb[j]);
-        A[j][j] += e;
-      }
-    } else {  // kCspace
-      const float thresh = P[0], pg = P[1], dg = P[2], e = P[3];
-      float xs[N];
-      float ss = 0.0f;
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        xs[j] = qb[j] - P[4 + j];
-        ss = j == 0 ? xs[0] * xs[0] : ss + xs[j] * xs[j];
-      }
-      const float xn = sqrtf(max_nan(ss, 1e-24f));
-      const float xn_safe = max_nan(xn, 1e-12f);
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const float a_pos = xn < thresh ? -xs[j] * pg
-                                        : -thresh * (xs[j] / xn_safe) * pg;
-        fs[j] += e * (a_pos - dg * qdb[j]);
-        A[j][j] += e;
-      }
-    }
-  }
-
-  // ---- grouped obstacle avoidance: first capsule of each frame ----------
-  for (int li = 0; li < n_col; ++li) {
-    const int fr = col_frames[li];
-    float porg[3], pd[3], co[3];
-    point_derivs<N>(fr, T, W, Wd, G, anc, porg, pd, J, co, act);
-    float a0[3], a1[3];
-    transform_point(T[fr], caps + 7 * li, a0);
-    transform_point(T[fr], caps + 7 * li + 3, a1);
-    const float rad = caps[7 * li + 6];
-    float d1[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) d1[i] = a1[i] - a0[i];
-    const float pd_sq = dot3(pd, pd);
-
-    for (int k = 0; k < K; ++k) {
-      const float* b0 = obs_p0 + ((size_t)b * K + k) * 3;
-      const float* b1 = obs_p1 + ((size_t)b * K + k) * 3;
-      float d2[3], r[3];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        d2[i] = b1[i] - b0[i];
-        r[i] = a0[i] - b0[i];
-      }
-      // clamped closest-point parameters (pallas_tick._seg_closest)
-      const float sa = dot3(d1, d1), se = dot3(d2, d2), sf = dot3(d2, r),
-                  sc = dot3(d1, r), sb = dot3(d1, d2);
-      const float denom = sa * se - sb * sb;
-      float s = denom > kSegEps ? (sb * sf - sc * se) / (denom + kSegEps)
-                                : 0.0f;
-      s = se > kSegEps ? s : -sc / (sa + kSegEps);
-      s = clip01(s);
-      const float t = se > kSegEps ? (sb * s + sf) / (se + kSegEps) : 0.0f;
-      const float t_cl = clip01(t);
-      if (t != t_cl && sa > kSegEps) s = clip01((t_cl * sb - sc) / (sa + kSegEps));
-
-      float ca[3], cb[3], diff[3];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        ca[i] = a0[i] + s * d1[i];
-        cb[i] = b0[i] + t_cl * d2[i];
-        diff[i] = ca[i] - cb[i];
-      }
-      const float cdist = sqrtf(max_nan(dot3(diff, diff), 1e-18f));
-      const float rk = obs_r[(size_t)b * K + k];
-      float h[3];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        const float nv = diff[i] / cdist;
-        h[i] = (ca[i] - rad * nv) - (cb[i] + rk * nv);
-      }
-      const float d_c = sqrtf(max_nan(dot3(h, h), 1e-18f));
-      float nh[3];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) nh[i] = h[i] / d_c;
-
-      float Jd[N];
-#pragma unroll
-      for (int j = 0; j < N; ++j)
-        Jd[j] = nh[0] * J[0][j] + nh[1] * J[1][j] + nh[2] * J[2][j];
-      const float xd_d = dot3(nh, pd);
-      const float c_d = dot3(nh, co) + (pd_sq - xd_d * xd_d) / d_c;
-
-      // policy (v2 ObstacleAvoidance)
-      const float xdist = max_nan(d_c - C[kObsMargin], 0.0f);
-      const bool far = xdist > C[kObsRmod];
-      const float gate = far ? 0.0f
-                             : xdist * xdist / C[kObsRmodSq]
-                                   - 2.0f * xdist / C[kObsRmod] + 1.0f;
-      const float base = C[kObsMetric]
-                         / (xdist / C[kObsExploderStd] + C[kObsExploderEps]);
-      const float a_rep = C[kObsRepGain] * expf(-xdist / C[kObsRepStd]);
-      const float sig = 1.0f / (1.0f + expf(-(xd_d / C[kObsGateLs])));
-      const float a_damp = -(1.0f - sig) * C[kObsDampGain] * xd_d
-                           / (xdist / C[kObsDampStd] + C[kObsRobustEps]);
-      const float metric = far ? 0.0f : (1.0f - sig) * (base * gate);
-      const float amc = a_rep + a_damp - c_d;
-
-#pragma unroll
-      for (int jc = 0; jc < N; ++jc) {
-        if (!act[jc]) continue;
-        fs[jc] += Jd[jc] * metric * amc;
-        const float mj = metric * Jd[jc];
-#pragma unroll
-        for (int ic = jc; ic < N; ++ic) {
-          if (!act[ic]) continue;
-          const float contrib = Jd[ic] * mj;
-          A[ic][jc] += contrib;
-          if (ic != jc) A[jc][ic] += contrib;
-        }
-      }
+      for (int off = kLanes / 2; off > 0; off /= 2)
+        A[i][j] += __shfl_xor_sync(0xffffffffu, A[i][j], off);
     }
   }
 
@@ -370,7 +514,7 @@ __global__ void __launch_bounds__(kThreads) fused_qdd_kernel(
 #pragma unroll
   for (int i = 0; i < N; ++i)
 #pragma unroll
-    for (int j = 0; j < i; ++j) A[i][j] = 0.5f * (A[i][j] + A[j][i]);
+    for (int j = 0; j < i; ++j) A[i][j] = 0.5f * (A[i][j] + A[i][j]);
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     float d = A[j][j];
@@ -403,16 +547,25 @@ __global__ void __launch_bounds__(kThreads) fused_qdd_kernel(
     for (int k = i + 1; k < N; ++k) s = s - A[k][i] * xs[k];
     xs[i] = s / A[i][i];
   }
+  if (r == 0 && e < nv) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) out[(size_t)b * N + i] = xs[i];
+    for (int i = 0; i < N; ++i) out[static_cast<size_t>(b) * N + i] = xs[i];
+  }
 }
 
 }  // namespace
 
-// Launches on `stream` of GPU `device`. Returns cudaGetLastError() after the
-// launch, or -1 when the model or env exceeds the kernel's capacity (n = 9
-// motors only, up to kMaxFrames frames, kMaxCollision collision frames and
-// kMaxIdentity identity-space leaves; nothing is launched then).
+// Dynamic shared memory of one CTA for a model of F frames, n motors and
+// n_col collision frames.
+extern "C" int rmp_fused_qdd_shared_bytes(int F, int n, int n_col) {
+  return Layout(F, n, n_col).bytes();
+}
+
+// Launches on `stream` of GPU `device` (the caller's current device is
+// restored). Returns cudaGetLastError() after the launch, or -1 when the
+// model or env exceeds the kernel's capacity (n = 9 motors only, up to
+// kMaxFrames frames, kMaxCollision collision frames and kMaxIdentity
+// identity-space leaves; nothing is launched then).
 extern "C" int rmp_fused_qdd_f32(
     int device, int B, int F, int n, int K, int n_col, int ee_frame,
     int n_ident, const int* parent, const int* joint_type,
@@ -425,13 +578,23 @@ extern "C" int rmp_fused_qdd_f32(
       n_ident > kMaxIdentity)
     return -1;
   if (B <= 0) return 0;
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  const int blocks = (B + kThreads - 1) / kThreads;
-  fused_qdd_kernel<9><<<blocks, kThreads, 0,
+  int previous = device;
+  cudaGetDevice(&previous);
+  if (previous != device) {
+    const cudaError_t set = cudaSetDevice(device);
+    if (set != cudaSuccess) return static_cast<int>(set);
+  }
+  const int bytes = Layout(F, 9, n_col).bytes();
+  if (bytes > 48 * 1024)  // above the default: opt in (up to 227 KB)
+    cudaFuncSetAttribute(fused_qdd_kernel<9>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const int blocks = (B + kEnvs - 1) / kEnvs;
+  fused_qdd_kernel<9><<<blocks, kThreads, bytes,
                         static_cast<cudaStream_t>(stream)>>>(
       B, F, K, n_col, ee_frame, n_ident, parent, joint_type, q_index, axis,
       T_constant, anc, col_frames, caps, ident, consts, q, qd, goal, obs_p0,
       obs_p1, obs_r, out);
-  return static_cast<int>(cudaGetLastError());
+  const int rc = static_cast<int>(cudaGetLastError());
+  if (previous != device) cudaSetDevice(previous);
+  return rc;
 }

@@ -12,29 +12,60 @@
 //   * a full Johnson solve, witnesses pa = sum lam_i Ya_i, pb likewise, and
 //     dist = |x|.
 // The link support is the TPU kernel's mask average: the mean of every
-// vertex whose dot with the link-local direction equals the maximum, here in
-// one pass over the vertices in index order as a running (max, count, sum),
-// then times 1 / count. Obstacle supports normalise as v / (|v| + 1e-12).
-// Plain version: ops/cuda_gjk.gjk_hull_obstacles_plain.
+// vertex whose dot with the link-local direction equals the maximum. Obstacle
+// supports normalise as v / (|v| + 1e-12). Plain version:
+// ops/cuda_gjk.gjk_hull_obstacles_plain.
 //
-// Bound on an H100 SXM: operations. At the flagship (10 links x 3 slots x
-// 4096 envs, 96 vertices) one iteration is ~1.5 kFLOP per pair, ~900 of them
-// the hull support, so a 4-iteration query is ~0.8 GFLOP (~12 us at
-// 67 TFLOP/s fp32) while its operands are ~12 MB (~4 us at 3.35 TB/s).
-// Design: a block is 128 envs of one (link, slot); the link's vertex table
-// sits in shared memory as float4 rows, so every thread of a warp reads the
-// same row (a broadcast) in the support loop. Per-pair operands come
-// batch-minor, so neighbouring threads read neighbouring addresses. The
-// simplex (2 x 4 slots) and Johnson's algebra stay in registers.
+// Bound on an H100 SXM: operations, and in practice instruction issue. At
+// the flagship (10 links x 3 slots x 4096 envs, 96-vertex tables whose two
+// finger links hold 18 distinct rows) a support needs a dot and a max per
+// distinct vertex (6 flops), a Johnson step on the newest subsets ~470, and
+// a pair needs only the iterations until it freezes; the operands are
+// ~12 MB (~4 us at 3.35 TB/s). chip_smoke.k4_bound counts what a call's
+// pairs need.
+//
+// Design.
+// - A block is 128 envs of one (link, slot). The link's vertex table sits in
+//   shared memory as float4 rows (x, y, z, row index), so a warp reads one
+//   row as a broadcast, and so do each thread's pose and obstacle operands
+//   (23 floats, [field][thread], conflict-free). The simplex (2 x 4 slots)
+//   and Johnson's algebra stay in registers: 92 per thread, 5 blocks per
+//   SM, so the flagship's 960 blocks take 1.45 waves. Capped at 64
+//   registers (__launch_bounds__(128, 8), one wave) the build spills and
+//   measured slower (PERF.md; kernel_probe.py's register_cap_64 variant);
+//   with the simplex in shared memory too it still spilled and was no
+//   faster. The kernel is issue-bound: ~10 instructions per vertex in the
+//   scan, ~700 per iteration outside it.
+// - The support scan is one pass over the table's distinct rows that keeps
+//   the running max m, the first maximiser and r, the largest of
+//   min(m_running, s) over the rows: r == m whenever the max is reached
+//   twice, so without a tie the support is the first maximiser itself,
+//   bit for bit the mask average of one vertex (x * (1 / 1)). Otherwise a
+//   second pass sums the tied rows in index order and divides by their
+//   count. The rows are the table's distinct ones: each block counts the
+//   trailing copies of row 0 (the loader's padding) once, and the tie pass
+//   adds them as one multiple of row 0 where row 0 is a maximiser. Both
+//   passes compute a dot with the same explicit roundings, so the second
+//   finds exactly the first one's maximisers.
+// - A warp leaves the iteration loop once every one of its pairs is frozen
+//   (__all_sync): a frozen pair's simplex never changes again, so the
+//   outputs are those of running every iteration. On the main path the warm
+//   start is the last tick's witness difference and most pairs freeze at
+//   the first iteration.
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kMaxVerts = 2048;  // 32 KB of float4 rows: below the 48 KB default
+constexpr int kMaxVerts = 2048;  // 32 KB of float4 rows
 constexpr float kEps = 1e-12f;
 constexpr float kFeas = -1e-6f;
+
+// A thread's operands in shared memory, field f at ops[f * kThreads + tid]:
+// R row-major, t, the obstacle's p0, p1, unit axis, radius and cylinder flag.
+enum : int { kR = 0, kT = 9, kP0 = 12, kP1 = 15, kAn = 18, kRad = 21,
+             kCyl = 22, kFields = 23 };
 
 struct V3 {
   float x, y, z;
@@ -189,35 +220,79 @@ __device__ __forceinline__ void johnson(const V3 y[4], V3& x, float lam[4]) {
   for (int i = 0; i < 4; ++i) lam[i] = b.lam[i];
 }
 
+// Field f of this thread's operands.
+__device__ __forceinline__ float op(const float* ops, int f) {
+  return ops[f * kThreads];
+}
+__device__ __forceinline__ V3 op3(const float* ops, int f) {
+  return v3(op(ops, f), op(ops, f + 1), op(ops, f + 2));
+}
+// Row . local direction, with explicit roundings: both scans of
+// support_link compute every row's value bit for bit alike.
+__device__ __forceinline__ float row_dot(float4 p, float d0, float d1,
+                                         float d2) {
+  return __fmaf_rn(p.z, d2, __fmaf_rn(p.y, d1, __fmul_rn(p.x, d0)));
+}
+
 // World support of the posed link hull in world direction d: R s_loc + t,
-// with s_loc the mask average over the maximisers of v . (R^T d).
-__device__ __forceinline__ V3 support_link(const float4* __restrict__ sv, int V,
-                                           const float R[3][3], V3 t, V3 d) {
-  const float dl0 = R[0][0] * d.x + R[1][0] * d.y + R[2][0] * d.z;
-  const float dl1 = R[0][1] * d.x + R[1][1] * d.y + R[2][1] * d.z;
-  const float dl2 = R[0][2] * d.x + R[1][2] * d.y + R[2][2] * d.z;
-  float m = -INFINITY, cnt = 0.0f, sx = 0.0f, sy = 0.0f, sz = 0.0f;
-  for (int i = 0; i < V; ++i) {
+// s_loc the mask average over the maximisers of v . (R^T d). sv holds the
+// table's n distinct rows; `pad` more rows (not stored) repeat row 0.
+__device__ __forceinline__ V3 support_link(const float4* __restrict__ sv,
+                                           int n, int pad, const float* ops,
+                                           V3 d) {
+  const float dl0 = op(ops, kR + 0) * d.x + op(ops, kR + 3) * d.y + op(ops, kR + 6) * d.z;
+  const float dl1 = op(ops, kR + 1) * d.x + op(ops, kR + 4) * d.y + op(ops, kR + 7) * d.z;
+  const float dl2 = op(ops, kR + 2) * d.x + op(ops, kR + 5) * d.y + op(ops, kR + 8) * d.z;
+  float m = -INFINITY, r = -INFINITY, first = 0.0f;
+#pragma unroll 4
+  for (int i = 0; i < n; ++i) {
     const float4 p = sv[i];
-    const float s = p.x * dl0 + p.y * dl1 + p.z * dl2;
+    const float s = row_dot(p, dl0, dl1, dl2);
     const bool more = s > m;
-    const bool tie = s == m;
+    r = fmaxf(r, fminf(m, s));
     m = more ? s : m;
-    cnt = more ? 1.0f : (tie ? cnt + 1.0f : cnt);
-    sx = more ? p.x : (tie ? sx + p.x : sx);
-    sy = more ? p.y : (tie ? sy + p.y : sy);
-    sz = more ? p.z : (tie ? sz + p.z : sz);
+    first = more ? p.w : first;
   }
-  const float inv = 1.0f / cnt;
-  const float l0 = sx * inv, l1 = sy * inv, l2 = sz * inv;
-  return v3(R[0][0] * l0 + R[0][1] * l1 + R[0][2] * l2 + t.x,
-            R[1][0] * l0 + R[1][1] * l1 + R[1][2] * l2 + t.y,
-            R[2][0] * l0 + R[2][1] * l1 + R[2][2] * l2 + t.z);
+  float l0, l1, l2;
+  if (r == m || (pad > 0 && first == 0.0f)) {
+    // a tie: the mean of the maximisers, summed in index order (from -0,
+    // so the first term is taken as it is), padding last
+    float cnt = 0.0f, sx = -0.0f, sy = -0.0f, sz = -0.0f;
+    for (int i = 0; i < n; ++i) {
+      const float4 p = sv[i];
+      const bool tie = row_dot(p, dl0, dl1, dl2) == m;
+      cnt = tie ? cnt + 1.0f : cnt;
+      sx = tie ? sx + p.x : sx;
+      sy = tie ? sy + p.y : sy;
+      sz = tie ? sz + p.z : sz;
+    }
+    const float4 p0 = sv[0];
+    if (pad > 0 && row_dot(p0, dl0, dl1, dl2) == m) {
+      const float k = static_cast<float>(pad);
+      cnt += k;
+      sx = fmaf(k, p0.x, sx);
+      sy = fmaf(k, p0.y, sy);
+      sz = fmaf(k, p0.z, sz);
+    }
+    const float inv = 1.0f / cnt;
+    l0 = sx * inv;
+    l1 = sy * inv;
+    l2 = sz * inv;
+  } else {
+    const float4 p = sv[static_cast<int>(first)];
+    l0 = p.x;
+    l1 = p.y;
+    l2 = p.z;
+  }
+  return v3(op(ops, kR + 0) * l0 + op(ops, kR + 1) * l1 + op(ops, kR + 2) * l2 + op(ops, kT),
+            op(ops, kR + 3) * l0 + op(ops, kR + 4) * l1 + op(ops, kR + 5) * l2 + op(ops, kT + 1),
+            op(ops, kR + 6) * l0 + op(ops, kR + 7) * l1 + op(ops, kR + 8) * l2 + op(ops, kT + 2));
 }
 
 // Capsule (segment + ball) or, where cyl, flat-capped cylinder support.
-__device__ __forceinline__ V3 support_obstacle(V3 p0, V3 p1, V3 an, float r,
-                                               bool cyl, V3 d) {
+__device__ __forceinline__ V3 support_obstacle(const float* ops, V3 d) {
+  const V3 p0 = op3(ops, kP0), p1 = op3(ops, kP1), an = op3(ops, kAn);
+  const float r = op(ops, kRad);
   const float inv_dn = 1.0f / (sqrtf(dot(d, d)) + kEps);
   const V3 end = sel(dot(d, sub(p1, p0)) > 0.0f, p1, p0);
   const V3 cap = add(end, scale(r * inv_dn, d));
@@ -226,7 +301,7 @@ __device__ __forceinline__ V3 support_obstacle(V3 p0, V3 p1, V3 an, float r,
   const float inv_p = 1.0f / (sqrtf(dot(d_perp, d_perp)) + kEps);
   const V3 end_c = sel(d_ax > 0.0f, p1, p0);
   const V3 cyl_pt = add(end_c, scale(r, scale(inv_p, d_perp)));
-  return sel(cyl, cyl_pt, cap);
+  return sel(op(ops, kCyl) > 0.5f, cyl_pt, cap);
 }
 
 __global__ void __launch_bounds__(kThreads) gjk_hull_kernel(
@@ -238,66 +313,84 @@ __global__ void __launch_bounds__(kThreads) gjk_hull_kernel(
     float* __restrict__ pa_out, float* __restrict__ pb_out,
     float* __restrict__ dist_out) {
   extern __shared__ float4 sv[];
+  __shared__ int s_rows;  // rows up to the last one that differs from row 0
+  const int tid = threadIdx.x;
   const int lm = blockIdx.y;  // link * M + slot
   const int l = lm / M;
-  for (int i = threadIdx.x; i < V; i += blockDim.x) {
-    const float* v = verts + (static_cast<size_t>(l) * V + i) * 3;
-    sv[i] = make_float4(v[0], v[1], v[2], 0.0f);
-  }
+  const float* vl = verts + static_cast<size_t>(l) * V * 3;
+  if (tid == 0) s_rows = 1;
   __syncthreads();
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  for (int i = tid; i < V; i += kThreads) {
+    const float x = vl[3 * i], y = vl[3 * i + 1], z = vl[3 * i + 2];
+    sv[i] = make_float4(x, y, z, static_cast<float>(i));
+    if (__float_as_int(x) != __float_as_int(vl[0]) ||
+        __float_as_int(y) != __float_as_int(vl[1]) ||
+        __float_as_int(z) != __float_as_int(vl[2]))
+      atomicMax(&s_rows, i + 1);
+  }
+
+  // the ragged tail computes on env B - 1 and stores nothing, so every warp
+  // is whole for __all_sync
+  const int b_raw = blockIdx.x * kThreads + tid;
+  const int b = b_raw < B ? b_raw : B - 1;
   const size_t sB = static_cast<size_t>(B);
-
-  float R[3][3];
-#pragma unroll
-  for (int r = 0; r < 3; ++r)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) R[r][c] = Rg[(static_cast<size_t>(l) * 9 + r * 3 + c) * sB + b];
-  const float* tl = tg + static_cast<size_t>(l) * 3 * sB + b;
-  const V3 t = v3(tl[0], tl[sB], tl[2 * sB]);
   const size_t pair_off = static_cast<size_t>(lm) * 3 * sB + b;
-  auto load3 = [&](const float* g) {
-    return v3(g[pair_off], g[pair_off + sB], g[pair_off + 2 * sB]);
-  };
-  const V3 p0 = load3(p0g), p1 = load3(p1g), an = load3(ang), d0 = load3(d0g);
-  const float r = radius[static_cast<size_t>(lm) * sB + b];
-  const bool cyl = is_cyl[static_cast<size_t>(lm) * sB + b] > 0.5f;
+  float* ops = reinterpret_cast<float*>(sv + V) + tid;
+#pragma unroll
+  for (int k = 0; k < 9; ++k)
+    ops[(kR + k) * kThreads] = Rg[(static_cast<size_t>(l) * 9 + k) * sB + b];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    ops[(kT + c) * kThreads] = tg[(static_cast<size_t>(l) * 3 + c) * sB + b];
+    ops[(kP0 + c) * kThreads] = p0g[pair_off + c * sB];
+    ops[(kP1 + c) * kThreads] = p1g[pair_off + c * sB];
+    ops[(kAn + c) * kThreads] = ang[pair_off + c * sB];
+  }
+  ops[kRad * kThreads] = radius[static_cast<size_t>(lm) * sB + b];
+  ops[kCyl * kThreads] = is_cyl[static_cast<size_t>(lm) * sB + b];
+  const V3 d0 = v3(d0g[pair_off], d0g[pair_off + sB], d0g[pair_off + 2 * sB]);
+  __syncthreads();
+  const int n = s_rows, pad = V - s_rows;
 
-  const V3 sa0 = support_link(sv, V, R, t, neg(d0));
-  const V3 sb0 = support_obstacle(p0, p1, an, r, cyl, d0);
+  const V3 sa0 = support_link(sv, n, pad, ops, neg(d0));
+  const V3 sb0 = support_obstacle(ops, d0);
   V3 Ya[4] = {sa0, sa0, sa0, sa0};
   V3 Yb[4] = {sb0, sb0, sb0, sb0};
   bool done = false;
 
   for (int it = 0; it < iters; ++it) {
+    // a frozen pair's simplex never changes again: the warp stops when all
+    // of its pairs are frozen, and a frozen pair idles until then
+    if (__all_sync(0xffffffffu, done)) break;
+    if (done) continue;
     V3 Yd[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) Yd[i] = sub(Ya[i], Yb[i]);
     V3 x;
     float lam[4];
     johnson<true>(Yd, x, lam);
-    const V3 sa = support_link(sv, V, R, t, neg(x));
-    const V3 sb = support_obstacle(p0, p1, an, r, cyl, x);
+    const V3 sa = support_link(sv, n, pad, ops, neg(x));
+    const V3 sb = support_obstacle(ops, x);
     const float n2 = dot(x, x);
     const float gap = n2 - dot(x, sub(sa, sb));
-    done = done || (gap <= 1e-5f * n2 + 1e-12f);
+    done = gap <= 1e-5f * n2 + 1e-12f;
+    if (done) continue;
     // evict the first minimum-weight slot, rotate the old slot 0 into it,
-    // insert the new support at slot 0 (live pairs only)
+    // insert the new support at slot 0
     const float m = fminf(fminf(lam[0], lam[1]), fminf(lam[2], lam[3]));
-    const bool live = !done;
     bool taken = false;
     const V3 old_a = Ya[0], old_b = Yb[0];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const bool e = (lam[i] <= m) && !taken;
       taken = taken || e;
-      Ya[i] = sel(e && live, old_a, Ya[i]);
-      Yb[i] = sel(e && live, old_b, Yb[i]);
+      Ya[i] = sel(e, old_a, Ya[i]);
+      Yb[i] = sel(e, old_b, Yb[i]);
     }
-    Ya[0] = sel(live, sa, Ya[0]);
-    Yb[0] = sel(live, sb, Yb[0]);
+    Ya[0] = sa;
+    Yb[0] = sb;
   }
+  if (b_raw >= B) return;
 
   V3 Yd[4];
 #pragma unroll
@@ -325,8 +418,9 @@ __global__ void __launch_bounds__(kThreads) gjk_hull_kernel(
 // Layouts (batch-minor, contiguous): verts (L, V, 3); R (L, 3, 3, B);
 // t (L, 3, B); p0, p1, an, d0 (L, M, 3, B); radius, is_cyl (L, M, B).
 // Outputs pa, pb (L, M, 3, B), dist (L, M, B). Launches on `stream` of GPU
-// `device`. Returns cudaGetLastError() after the launch, or -1 when V is
-// outside [1, 2048] (nothing is launched then).
+// `device` (the caller's current device is restored). Returns
+// cudaGetLastError() after the launch, or -1 when V is outside [1, 2048]
+// (nothing is launched then).
 extern "C" int rmp_gjk_hull_f32(int device, int L, int M, int V, int B,
                                 int iters, const float* verts, const float* R,
                                 const float* t, const float* p0,
@@ -335,13 +429,23 @@ extern "C" int rmp_gjk_hull_f32(int device, int L, int M, int V, int B,
                                 const float* d0, float* pa, float* pb,
                                 float* dist, void* stream) {
   if (V < 1 || V > kMaxVerts) return -1;
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
+  int previous = device;
+  cudaGetDevice(&previous);
+  if (previous != device) {
+    const cudaError_t set = cudaSetDevice(device);
+    if (set != cudaSuccess) return static_cast<int>(set);
+  }
   if (B > 0 && L > 0 && M > 0) {
     const dim3 grid((B + kThreads - 1) / kThreads, L * M);
-    const size_t shmem = static_cast<size_t>(V) * sizeof(float4);
+    const int shmem = V * static_cast<int>(sizeof(float4)) +
+                      static_cast<int>(sizeof(float)) * kFields * kThreads;
+    if (shmem > 48 * 1024)  // above the default: opt in (up to 227 KB)
+      cudaFuncSetAttribute(gjk_hull_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, shmem);
     gjk_hull_kernel<<<grid, kThreads, shmem, static_cast<cudaStream_t>(stream)>>>(
         M, V, B, iters, verts, R, t, p0, p1, an, radius, is_cyl, d0, pa, pb, dist);
   }
-  return static_cast<int>(cudaGetLastError());
+  const int rc = static_cast<int>(cudaGetLastError());
+  if (previous != device) cudaSetDevice(previous);
+  return rc;
 }

@@ -82,6 +82,18 @@ def gjk_hull_obstacles_plain(verts, R, t, p0, p1, an, radius, is_cyl, d0,
     return vec(pa).contiguous(), vec(pb).contiguous(), dist
 
 
+def distinct_rows(verts: torch.Tensor) -> list[int]:
+    """Per link of verts (L, V, 3), the rows up to the last one whose bits
+    differ from row 0's (at least 1). models/hulls.py pads each link's table
+    by repeating row 0; the kernel counts these rows the same way, scans only
+    them, and adds the padding as one multiple of row 0 where row 0 is a
+    maximiser."""
+    bits = verts.detach().cpu().contiguous().view(torch.int32)
+    differs = (bits != bits[:, :1]).any(dim=-1)               # (L, V)
+    last = torch.arange(1, bits.shape[1] + 1) * differs
+    return [max(1, int(x)) for x in last.amax(dim=-1)]
+
+
 def _check(verts, R, t, p0, p1, an, radius, is_cyl, d0):
     """(L, M, V, B) of valid operands; raises on any other dtype, shape or
     device mix, on every device."""
@@ -127,11 +139,9 @@ def gjk_hull_obstacles(verts, R, t, p0, p1, an, radius, is_cyl, d0,
     pb = torch.empty_like(pa)
     dist = torch.empty(L, M, B, dtype=torch.float32, device=device)
     fn = _build.c_function("rmp_gjk_hull_f32", _ARGTYPES)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(device.index, L, M, V, B, int(iters),
-                *(x.data_ptr() for x in args), pa.data_ptr(), pb.data_ptr(),
-                dist.data_ptr(), stream)
+    rc = fn(device.index, L, M, V, B, int(iters),
+            *(x.data_ptr() for x in args), pa.data_ptr(), pb.data_ptr(),
+            dist.data_ptr(), _build.raw_stream(device))
     if rc == -1:
         raise ValueError(f"K4 takes 1 to 2048 hull vertices per link, got {V}")
     if rc != 0:

@@ -381,16 +381,14 @@ def fused_qdd(tick: FusedTick, q, qd, goal, obs_p0, obs_p1, obs_r):
     tt = tick.tables(q.device)
     out = torch.empty(B, n, dtype=torch.float32, device=q.device)
     fn = _build.c_function("rmp_fused_qdd_f32", _ARGTYPES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.device.index, B, model.n_frames, n, K, len(tick.col_frames),
-                tick.ee_frame, len(tick.identity), mt["parent"].data_ptr(),
-                mt["joint_type"].data_ptr(), mt["q_index"].data_ptr(),
-                mt["axis"].data_ptr(), mt["T_constant"].data_ptr(),
-                mt["anc"].data_ptr(), tt["col_frames"].data_ptr(),
-                tt["caps"].data_ptr(), tt["identity"].data_ptr(),
-                tt["consts"].data_ptr(), *(t.data_ptr() for t in args),
-                out.data_ptr(), stream)
+    rc = fn(q.device.index, B, model.n_frames, n, K, len(tick.col_frames),
+            tick.ee_frame, len(tick.identity), mt["parent"].data_ptr(),
+            mt["joint_type"].data_ptr(), mt["q_index"].data_ptr(),
+            mt["axis"].data_ptr(), mt["T_constant"].data_ptr(),
+            mt["anc"].data_ptr(), tt["col_frames"].data_ptr(),
+            tt["caps"].data_ptr(), tt["identity"].data_ptr(),
+            tt["consts"].data_ptr(), *(t.data_ptr() for t in args),
+            out.data_ptr(), _build.raw_stream(q.device))
     if rc == -1:
         raise ValueError(f"model {model.name!r} ({model.n_frames} frames, "
                          f"{n} motors, {len(tick.col_frames)} collision "

@@ -1,8 +1,9 @@
 """The port's GJK pieces and its batched hull query (K4 through its plain
 version on the CPU) against the JAX package: `ops/gjk._johnson`, the lane
-port `pallas_gjk._johnson_lanes`, the obstacle and hull supports, and
+port `pallas_gjk._johnson_lanes`, the obstacle and hull supports,
 `sim/collision.robot_obstacle_distances_hull_batched` run on its Pallas
-kernel in interpret mode, on the same numpy inputs.
+kernel in interpret mode, and K4 alone against the Pallas kernel's body run
+eagerly on tie-heavy and odd-sized tables, on the same numpy inputs.
 
 The query tolerances are quantile-based, as in tests/test_pallas_gjk.py: the
 two support reduces break exact ties and sum in different orders, so a rare
@@ -238,6 +239,229 @@ def test_broad_phase_ties_pick_the_lowest_index():
         np.testing.assert_array_equal(C.broad_phase(t(d), 3)[..., m].numpy(),
                                       first)
         taken |= np.arange(7) == first[..., None]
+
+
+KERNEL_ARGS = ("verts", "R", "t", "p0", "p1", "an", "radius", "is_cyl",
+               "d0")
+
+
+def kernel_operands(verts, seed, B=128, M=2, unrotated=3):
+    """K4's batch-minor operands (float32 numpy) for the link tables verts
+    (L, V, 3): M slots per link, B envs with random poses (every
+    `unrotated`-th env keeps R = I, so face ties stay axis-aligned),
+    segments near the link, half of them cylinders, and random start
+    directions, every fourth along +x."""
+    rng = np.random.default_rng(seed)
+    L = verts.shape[0]
+    a, c = rng.uniform(-np.pi, np.pi, (2, L, B))
+    Rz = np.zeros((L, B, 3, 3))
+    Rz[..., 0, 0], Rz[..., 0, 1] = np.cos(a), -np.sin(a)
+    Rz[..., 1, 0], Rz[..., 1, 1], Rz[..., 2, 2] = np.sin(a), np.cos(a), 1.0
+    Ry = np.zeros((L, B, 3, 3))
+    Ry[..., 0, 0], Ry[..., 0, 2] = np.cos(c), np.sin(c)
+    Ry[..., 1, 1], Ry[..., 2, 0], Ry[..., 2, 2] = 1.0, -np.sin(c), np.cos(c)
+    R = Rz @ Ry
+    R[:, ::unrotated] = np.eye(3)
+    t = rng.uniform(-0.05, 0.05, (L, B, 3))
+    p0 = rng.uniform(-0.3, 0.3, (L, M, B, 3))
+    p1 = p0 + rng.normal(size=(L, M, B, 3)) * 0.1
+    an = (p1 - p0) / (np.linalg.norm(p1 - p0, axis=-1, keepdims=True)
+                      + 1e-12)
+    d0 = rng.normal(size=(L, M, B, 3))
+    d0[:, :, ::4] = (1.0, 0.0, 0.0)
+
+    def f(x):
+        return np.ascontiguousarray(x, dtype=np.float32)
+    return dict(verts=f(verts), R=f(R.transpose(0, 2, 3, 1)),
+                t=f(t.transpose(0, 2, 1)), p0=f(p0.transpose(0, 1, 3, 2)),
+                p1=f(p1.transpose(0, 1, 3, 2)), an=f(an.transpose(0, 1, 3, 2)),
+                radius=f(rng.uniform(0.02, 0.08, (L, M, 1, B))),
+                is_cyl=f(rng.uniform(size=(L, M, 1, B)) < 0.5),
+                d0=f(d0.transpose(0, 1, 3, 2)))
+
+
+class _OutRef:
+    """A Pallas output ref for JAX's kernel body run eagerly."""
+
+    def __init__(self, shape):
+        self.a = np.zeros(shape, np.float32)
+
+    def __setitem__(self, idx, value):
+        self.a[idx] = np.asarray(value)
+
+
+def jax_kernel_body(ops, iters):
+    """JAX's K4 body (pallas_gjk._kernel) run eagerly, op by op, one
+    (link, slot) block at a time, on jnp arrays standing in for its refs:
+    (pa, pb, dist) in the kernel's layout. Eagerly every op's result is
+    materialised once, so the mask average's max and its == test read the
+    same dots; the jitted interpret-mode kernel may round them apart where
+    vertices tie (it then misses tied maximisers: on a cube's faces 61 of
+    256 pairs ended more than 1e-4 from a float64 run, the port 2)."""
+    L, _, _ = ops["verts"].shape
+    M, B = ops["p0"].shape[1], ops["p0"].shape[3]
+    j = {k: jnp.asarray(v) for k, v in ops.items()}
+    pa = np.zeros((L, M, 3, B), np.float32)
+    pb = np.zeros_like(pa)
+    dist = np.zeros((L, M, B), np.float32)
+    with jax.disable_jit():
+        for l in range(L):
+            for k in range(M):
+                refs = [j["verts"][l:l + 1], j["R"][l:l + 1],
+                        j["t"][l:l + 1]]
+                refs += [j[name][l:l + 1, k:k + 1] for name in KERNEL_ARGS[3:]]
+                out = [_OutRef((1, 1, 3, B)), _OutRef((1, 1, 3, B)),
+                       _OutRef((1, 1, 1, B))]
+                jpg._kernel(*refs, *out, iters=iters, sub=B // jpg.LANES)
+                pa[l, k], pb[l, k] = out[0].a[0, 0], out[1].a[0, 0]
+                dist[l, k] = out[2].a[0, 0, 0]
+    return pa, pb, dist
+
+
+def plain_kernel(ops, iters=10):
+    """The port's K4 (its plain version on the CPU) on numpy operands."""
+    return [x.numpy() for x in cuda_gjk.gjk_hull_obstacles(
+        *(t(ops[k]) for k in KERNEL_ARGS), iters=iters)]
+
+
+def plain_and_jax(ops, iters=10):
+    """(port plain K4, JAX's K4 body run eagerly) on ops, each as (pa, pb,
+    dist) numpy arrays in the kernel's batch-minor layout."""
+    return plain_kernel(ops, iters), jax_kernel_body(ops, iters)
+
+
+def check_kernel_outputs(got, want):
+    """check_query on batch-minor (pa, pb, dist): pairs last."""
+    def pairs(x):
+        return np.moveaxis(x, 2, -1)
+    check_query([pairs(got[0]), pairs(got[1]), None, got[2]],
+                [pairs(want[0]), pairs(want[1]), None, want[2]])
+
+
+def link_dots(ops, direction):
+    """Each (link, slot, env) table's dots with R^T direction, direction
+    (L, M, 3, B): (L, M, B, V)."""
+    local = np.einsum("lrcb,lmrb->lmbc", ops["R"], direction)
+    return np.einsum("lvc,lmbc->lmbv", ops["verts"], local)
+
+
+def cube_table():
+    return np.array([[[x, y, z] for x in (-.05, .05) for y in (-.05, .05)
+                      for z in (-.05, .05)]], np.float32)
+
+
+def tie_case(name):
+    """(ops, the least number of maximisers the first support must tie)."""
+    rng = np.random.default_rng(7)
+    if name == "padded table, vertex 0 the maximiser":
+        verts = hulls_for(robots.franka_panda())[8:10]   # 18 rows + 78 copies
+        ops = kernel_operands(verts, 8)
+        # the first link support, at -d0, looks along vertex 0 (outward)
+        out = verts[:, 0] - verts[:, :18].mean(axis=1)              # (L, 3)
+        world = np.einsum("lrcb,lc->lrb", ops["R"], out)            # R out
+        ops["d0"] = np.ascontiguousarray(
+            -np.repeat(world[:, None], 2, axis=1), np.float32)
+        return ops, 79
+    if name == "cube, axis-aligned faces":
+        ops = kernel_operands(cube_table(), 9, unrotated=1)
+        axes = np.eye(3)[rng.integers(0, 3, 128)] * rng.choice([-1, 1],
+                                                                (128, 1))
+        ops["d0"] = np.ascontiguousarray(
+            np.broadcast_to(axes.T, (1, 2, 3, 128)), np.float32)
+        return ops, 4
+    V = int(name.split("=")[1])
+    return kernel_operands(rng.normal(size=(2, V, 3)).astype(np.float32)
+                           * 0.05, 10 + V), 1
+
+
+@pytest.mark.parametrize("name", ["padded table, vertex 0 the maximiser",
+                                  "cube, axis-aligned faces", "V=1", "V=5",
+                                  "V=97"])
+def test_plain_kernel_matches_jax_kernel_on_ties_and_sizes(name):
+    """Plain K4 against JAX's K4 body (run eagerly) where the mask
+    average meets ties (79 on the fingers' padded tables, 4 on a cube's
+    faces) and on tables that fill no unroll or chain split."""
+    ops, ties = tie_case(name)
+    dots = link_dots(ops, -ops["d0"])
+    count = (dots == dots.max(axis=-1, keepdims=True)).sum(axis=-1)
+    assert (count >= ties).mean() > 0.5, "the case does not reach its ties"
+    got, want = plain_and_jax(ops)
+    check_kernel_outputs(got, want)
+
+
+def test_plain_kernel_matches_jax_kernel_with_frozen_and_live_pairs():
+    """One batch whose first half starts at each pair's converged Minkowski
+    point x* = pa - pb (most freeze at iteration 1) and whose second half
+    starts at random directions (they run all 10 iterations)."""
+    ops = kernel_operands(hulls_for(robots.franka_panda())[:4], 11)
+    pa, pb, _ = plain_kernel(ops, iters=64)
+    d0 = ops["d0"].copy()
+    d0[..., :64] = (pa - pb)[..., :64]
+    ops["d0"] = d0
+    frozen = [plain_kernel(ops, iters) for iters in (1, 2)]
+    same = ((frozen[0][2] == frozen[1][2])
+            & (frozen[0][0] == frozen[1][0]).all(axis=2))
+    assert same[..., :64].mean() > 0.3 and same[..., 64:].mean() < 0.05
+    got, want = plain_and_jax(ops)
+    check_kernel_outputs(got, want)
+
+
+def scan_replay(rows, u):
+    """K4's support rule as csrc/gjk_hull.cu computes it, replayed in numpy:
+    one pass over the table's distinct rows keeps the max m, the first
+    maximiser and the runner-up r; without a tie (r < m, and row 0 not the
+    max where padding repeats it) the support is the first maximiser,
+    otherwise the tied rows summed in index order, the padding added as one
+    multiple of row 0, over their count."""
+    n = cuda_gjk.distinct_rows(torch.tensor(rows[None]))[0]
+    pad = rows.shape[0] - n
+    m, r, first = -np.inf, -np.inf, 0
+    for i in range(n):
+        s = np.float32(rows[i] @ u)
+        r = max(r, min(m, s))
+        if s > m:
+            m, first = s, i
+    if r < m and not (pad > 0 and first == 0):
+        return rows[first]
+    tied = [i for i in range(n) if np.float32(rows[i] @ u) == m]
+    total = np.sum(rows[tied], axis=0, dtype=np.float32)
+    if pad > 0 and 0 in tied:
+        total = total + np.float32(pad) * rows[0]
+    return total / np.float32(len(tied) + (pad if 0 in tied else 0))
+
+
+def test_scan_replay_is_the_mask_average():
+    """The two-pass support rule of the kernel gives the mask average of
+    ops/gjk.support_hull_avg on the padded tables (vertex-0 ties), a cube's
+    faces, edges and corners, and random directions."""
+    rng = np.random.default_rng(12)
+    fingers = hulls_for(robots.franka_panda())[8]
+    cube = cube_table()[0]
+    cases = [(fingers, fingers[0] - fingers[:18].mean(axis=0))]
+    cases += [(fingers, d) for d in rng.normal(size=(32, 3))]
+    cases += [(cube, np.array(d, np.float64))
+              for d in ((1, 0, 0), (0, -1, 0), (1, 1, 0), (0, 1, -1),
+                        (1, 1, 1), (-1, 0, 0))]
+    cases += [(cube, d) for d in rng.normal(size=(16, 3))]
+    for rows, u in cases:
+        u = u.astype(np.float32)
+        want = gjk.support_hull_avg(t(rows), t(u)).numpy()
+        np.testing.assert_allclose(scan_replay(rows, u), want, atol=1e-7)
+
+
+def test_distinct_rows_counts_the_padding():
+    """distinct_rows: rows up to the last one whose bits differ from row 0,
+    as the kernel counts them; the Panda's fingers hold 18."""
+    assert cuda_gjk.distinct_rows(t(hulls_for(robots.franka_panda()))) == [
+        96] * 8 + [18] * 2
+    rows = np.arange(12, dtype=np.float32).reshape(4, 3)
+    table = np.stack([rows, rows[[0, 1, 0, 0]], rows[[0, 0, 0, 0]],
+                      rows[[0, 0, 2, 0]], rows[[0, 1, 0, 3]]])
+    assert cuda_gjk.distinct_rows(t(table)) == [4, 2, 1, 3, 4]
+    signed = np.zeros((1, 3, 3), np.float32)
+    signed[0, 2, 1] = -0.0                       # equal as floats, not bits
+    assert cuda_gjk.distinct_rows(t(signed)) == [3]
+    assert cuda_gjk.distinct_rows(t(np.ones((1, 1, 3), np.float32))) == [1]
 
 
 def agreement(got, want) -> dict:
