@@ -80,6 +80,17 @@ printing the result line:
      stands in for (FK bundle + context + blocks + K1). K5 runs on no main
      path: phases 7-8 hold its count at 0. Then scene 05 GPU/CPU parity,
      128 envs x 5 ticks from q ± 0.1, q̇ ± 0.05.
+ 12. the sixth slice: K1 at n = 6 (the UR5's two layouts) and n = 2 (two
+     two-joint layouts) against its plain version on random contiguous
+     blocks and on a real tick's strided blocks at B = 4096, 1, 7 and 4093,
+     one device kernel per call, timed beside its bound; K3 on the
+     two-joint robot (F = 3, n = 2) and the UR5 (F = 7, n = 6) likewise;
+     ur5/01 and ur5/02 at 4096 envs x 150 ticks, K1 and K3 once per tick,
+     each with its 10-tick trace; GPU/CPU parity (128 envs x 5 ticks) of
+     the nine new scenes and of franka/01 in torque mode, on the envs whose
+     CPU run lies within 1e-5 of a float64 run (witness_q); the goldens
+     franka01, two_joint01 and franka01_torque reproduced through
+     RmpCore on the GPU.
 Then one JSON line of per-kernel numbers ({"kernels": [...]}) and, last,
 {"ok": true, "device": {...}}. The full record also goes to
 chiprun_out/chip_smoke.json.
@@ -100,16 +111,17 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, schedule
 
-from rmp_tpu_torch import _build, envs
+from rmp_tpu_torch import _build, core, envs
+from rmp_tpu_torch import taskmaps as tm
 from rmp_tpu_torch.core import policy_row_blocks_structured
 from rmp_tpu_torch.envs.base import _policy_inputs, make_batched_control_step
-from rmp_tpu_torch.models import robots
+from rmp_tpu_torch.models import kinematics, robots, urdf
 from rmp_tpu_torch.models.fk_derivatives import fk_derivatives
-from rmp_tpu_torch.models import kinematics
 from rmp_tpu_torch.models.urdf import FIXED
 from rmp_tpu_torch.ops import (cuda_fk, cuda_gjk, cuda_resolve, cuda_tick,
                                tick_ops)
-from rmp_tpu_torch.sim import collision, data
+from rmp_tpu_torch.policies import v1
+from rmp_tpu_torch.sim import collision, data, dynamics
 from rmp_tpu_torch.sim.world import SimState
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -297,28 +309,35 @@ def k1_library(tags, blocks):
     return torch.linalg.solve(A, f)
 
 
-def k1_random_blocks(seed: int, B: int, device):
-    """Seeded blocks in the flagship layout: a dense EE block (3 rows),
-    three identity blocks with SPD metrics, the scalar obstacle block (70
-    rows)."""
-    rng = np.random.default_rng(seed)
-    n, Rd, Rs = 9, 3, 70
+# the flagship's block layout: (tag, rows) of the EE attractor, the three
+# identity leaves and the grouped obstacle policy (70 rows)
+K1_FLAGSHIP_LAYOUT = (("dense", 3), ("identity", 0), ("identity", 0),
+                      ("identity", 0), ("scalar", 70))
 
-    def t(x):
-        return torch.tensor(np.asarray(x, np.float32), device=device)
+
+def k1_layout_blocks(seed: int, B: int, n: int, layout, device):
+    """Seeded blocks of `layout`, a sequence of (tag, rows): dense blocks
+    with W = S J (S SPD), identity blocks with SPD metrics, scalar blocks
+    with non-negative metrics."""
+    rng = np.random.default_rng(seed)
 
     def spd(d):
         L = rng.normal(size=(B, d, d)) * 0.3
         return L @ L.transpose(0, 2, 1) + 0.5 * np.eye(d)
 
-    Jd = rng.normal(size=(B, Rd, n))
-    blocks = [(t(Jd), t(spd(Rd) @ Jd), t(rng.normal(size=(B, Rd))))]
-    for _ in range(3):
-        blocks.append((t(spd(n)), t(rng.normal(size=(B, n)))))
-    blocks.append((t(rng.normal(size=(B, Rs, n)) * 0.3),
-                   t(rng.uniform(0.0, 2.0, (B, Rs))),
-                   t(rng.normal(size=(B, Rs)))))
-    return ("dense", "identity", "identity", "identity", "scalar"), blocks
+    blocks = []
+    for tag, R in layout:
+        if tag == "identity":
+            blk = (spd(n), rng.normal(size=(B, n)))
+        elif tag == "dense":
+            J = rng.normal(size=(B, R, n))
+            blk = (J, spd(R) @ J, rng.normal(size=(B, R)))
+        else:
+            blk = (rng.normal(size=(B, R, n)) * 0.3,
+                   rng.uniform(0.0, 2.0, (B, R)), rng.normal(size=(B, R)))
+        blocks.append(tuple(torch.tensor(np.asarray(x, np.float32),
+                                         device=device) for x in blk))
+    return tuple(tag for tag, _ in layout), blocks
 
 
 def k1_compare(tags, blocks, what: str) -> float:
@@ -335,14 +354,14 @@ def k1_compare(tags, blocks, what: str) -> float:
 
 
 def real_tick_blocks(env, B: int, seed: int):
-    """Structured blocks of one real tick of the flagship scene, from
-    mildly perturbed reset states (so the envs differ)."""
+    """Structured blocks of one real tick of the scene `env`, from mildly
+    perturbed reset states (so the envs differ)."""
     rng = np.random.default_rng(seed)
     states = envs.make_batched_reset(env, B)()
-    dev = states.sim.q.device
-    dq = torch.tensor(rng.uniform(-0.05, 0.05, (B, 9)), dtype=torch.float32,
+    dev, n = states.sim.q.device, env.model.n_q
+    dq = torch.tensor(rng.uniform(-0.05, 0.05, (B, n)), dtype=torch.float32,
                       device=dev)
-    dqd = torch.tensor(rng.uniform(-0.05, 0.05, (B, 9)), dtype=torch.float32,
+    dqd = torch.tensor(rng.uniform(-0.05, 0.05, (B, n)), dtype=torch.float32,
                        device=dev)
     sim = dataclasses.replace(states.sim, q=states.sim.q + dq, qd=dqd)
     states = dataclasses.replace(states, sim=sim)
@@ -362,7 +381,8 @@ def phase_k1(env, device) -> dict:
     build = build_counts("pullback_resolve.cu", "K1")
     err, real = 0.0, {}
     for B in (BATCH,) + RAGGED:
-        tags, blocks = k1_random_blocks(0 if B == BATCH else B, B, device)
+        tags, blocks = k1_layout_blocks(0 if B == BATCH else B, B, 9,
+                                        K1_FLAGSHIP_LAYOUT, device)
         err = max(err, k1_compare(tags, blocks,
                                   f"random contiguous blocks, B={B}"))
         real[B] = real_tick_blocks(env, B, 1)
@@ -1151,9 +1171,11 @@ PATH_KERNELS = {
 }
 
 
-def phase_main_path(card: str, geometry: str) -> tuple[dict, dict]:
-    what = "main path" if geometry == "capsule" else "hull main path"
-    env = envs.make(SCENE)                   # the GPU by default
+def phase_main_path(card: str, geometry: str, scene: str = SCENE
+                    ) -> tuple[dict, dict]:
+    what = ("main path" if geometry == "capsule" else "hull main path") \
+        if scene == SCENE else f"{scene} path"
+    env = envs.make(scene)                   # the GPU by default
     env.resolve_method = "solve"
     env.collision_geometry = geometry
     params = env.gather_params()
@@ -1170,11 +1192,12 @@ def phase_main_path(card: str, geometry: str) -> tuple[dict, dict]:
     seconds = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in COUNTERS.items()}
     steps_per_s = BATCH * TICKS / seconds
-    log(f"{what}: {SCENE} ({geometry}), {BATCH} envs x {TICKS} ticks in "
+    log(f"{what}: {scene} ({geometry}), {BATCH} envs x {TICKS} ticks in "
         f"{seconds:.3f} s = {steps_per_s:.1f} control steps/s [{card}]")
     log(f"{what} launches: {launches}")
     check(bool(torch.isfinite(final.sim.q).all()), f"{what}: non-finite q")
-    check(tuple(final.sim.q.shape) == (BATCH, 9), f"{what}: q shape")
+    check(tuple(final.sim.q.shape) == (BATCH, env.model.n_q),
+          f"{what}: q shape")
     for name, count in launches.items():
         want = TICKS if name in PATH_KERNELS[geometry] else 0
         check(count == want, f"{what}: {name} launched {count} times in "
@@ -1184,8 +1207,9 @@ def phase_main_path(card: str, geometry: str) -> tuple[dict, dict]:
         f"mean phase {float(final.phase.float().mean()):.3f}")
     trace = profile_ticks(env, final, params, seconds * 1e3 / TICKS)
     log(f"{what} trace: {json.dumps(trace)}")
-    return launches, dict(geometry=geometry, envs=BATCH, ticks=TICKS,
-                          seconds=seconds, control_steps_per_s=steps_per_s,
+    return launches, dict(scene=scene, geometry=geometry, envs=BATCH,
+                          ticks=TICKS, seconds=seconds,
+                          control_steps_per_s=steps_per_s,
                           goals_reached=solved, trace=trace)
 
 
@@ -1255,10 +1279,10 @@ def perturbed_states(env, B: int, seed: int, dq: float, dqd: float,
     then move up by one ulp."""
     rng = np.random.default_rng(seed)
     states = envs.make_batched_reset(env, B)()
-    dev = states.sim.q.device
-    q = states.sim.q + torch.tensor(rng.uniform(-dq, dq, (B, 9)),
+    dev, n = states.sim.q.device, env.model.n_q
+    q = states.sim.q + torch.tensor(rng.uniform(-dq, dq, (B, n)),
                                     dtype=torch.float32, device=dev)
-    qd = torch.tensor(rng.uniform(-dqd, dqd, (B, 9)), dtype=torch.float32,
+    qd = torch.tensor(rng.uniform(-dqd, dqd, (B, n)), dtype=torch.float32,
                       device=dev)
     if ulp:
         up = torch.tensor(float("inf"), device=dev)
@@ -1268,12 +1292,22 @@ def perturbed_states(env, B: int, seed: int, dq: float, dqd: float,
 
 
 def parity_q(dev: str, dq: float, dqd: float, ulp: bool = False,
-             geometry: str = "capsule", B: int = 128, scene: str = SCENE):
+             geometry: str = "capsule", B: int = 128, scene: str = SCENE,
+             method: str | None = "solve", torque: bool = False,
+             solved: bool = False):
+    """q after 5 ticks of `scene` on `dev` from perturbed reset states;
+    method None keeps the scene's resolve method. With `solved`, also the
+    (B,) flags of envs that reached a goal in those ticks (where the GPU's
+    and the CPU's random resampling part)."""
     env = envs.make(scene, device=dev)
-    env.resolve_method = "solve"
+    if method is not None:
+        env.resolve_method = method
     env.collision_geometry = geometry
-    final, _ = envs.make_batched_rollout(env, 5, with_aux=False)(
+    env.torque_mode = torque
+    final, aux = envs.make_batched_rollout(env, 5, with_aux=solved)(
         perturbed_states(env, B, 4, dq, dqd, ulp), env.gather_params())
+    if solved:
+        return final.sim.q.cpu(), aux["solved"].any(dim=1).cpu()
     return final.sim.q.cpu()
 
 
@@ -1353,6 +1387,290 @@ def phase_scene05_parity() -> float:
     return err
 
 
+# ------------------------------------- phase 12: the sixth slice's paths ---
+
+SCENES_UR5 = ("ur5/01_target_reaching", "ur5/02_obstacle_avoidance")
+NEW_SCENES = ("two_joint/01_target_rmp_only", "two_joint/02_jointspace_biasing",
+              "two_joint/03_jointlimit_avoiding",
+              "two_joint/04_driving_into_jointlimits",
+              "two_joint/05_obstacle_avoidance",
+              "two_joint/05_obstacle_avoidance_variant",
+              "franka/01_target_rmp_only") + SCENES_UR5
+# K1 at n = 6 and 2: each layout (tag, rows per block) and the scene whose
+# real tick has it (the UR5's scenes resolve with 'solve'; the two-joint
+# robot's would at a caller's request)
+K1_NEW_LAYOUTS = {
+    "ur5/01": (6, (("dense", 3), ("identity", 0), ("identity", 0)),
+               "ur5/01_target_reaching"),
+    "ur5/02": (6, (("dense", 3), ("identity", 0), ("dense", 18)),
+               "ur5/02_obstacle_avoidance"),
+    "two_joint/05": (2, (("dense", 3), ("dense", 9)),
+                     "two_joint/05_obstacle_avoidance"),
+    "two_joint/02": (2, (("dense", 3), ("identity", 0)),
+                     "two_joint/02_jointspace_biasing"),
+}
+GOLDEN_TOL = {"franka01": dict(qdd=2e-3, q=5e-3),
+              "two_joint01": dict(q_and_qdd=5e-3),
+              "franka01_torque": dict(tau=5e-3, q=5e-3)}
+
+
+def phase_k1_new_n(device) -> tuple[dict, float]:
+    """K1 at n = 6 and 2 against its plain version: random contiguous
+    blocks and a real tick's blocks (strided views) of each layout at
+    B = 4096, 1, 7 and 4093; one device kernel per call; timed at B = 4096
+    on the real tick's blocks beside its bound."""
+    out, err = {}, 0.0
+    for key, (n, layout, scene) in K1_NEW_LAYOUTS.items():
+        env = envs.make(scene)
+        for B in (BATCH,) + RAGGED:
+            tags, blocks = k1_layout_blocks(B, B, n, layout, device)
+            err = max(err, k1_compare(tags, blocks, f"{key} (n={n}) random "
+                                      f"contiguous blocks, B={B}"))
+            rtags, rblocks = real_tick_blocks(env, B, 1)
+            rows = tuple((t, b[0].shape[1] if t != "identity" else 0)
+                         for t, b in zip(rtags, rblocks))
+            check(rows == layout, f"K1 {key}: real tick layout {rows}")
+            err = max(err, k1_compare(rtags, rblocks,
+                                      f"{key} (n={n}) real tick, B={B}"))
+
+        def call():
+            return cuda_resolve.pullback_resolve_structured(rtags, rblocks)
+        per_call = device_launches(call, "pullback_resolve_kernel",
+                                   f"K1 {key}")
+        check(per_call == 1, f"K1 {key}: not one launch per wrapper call")
+        rec = dict(n=n, scene=scene, layout=[list(r) for r in layout],
+                   strides={f"{t} {k}": blk[0].stride() for k, (t, blk) in
+                            enumerate(zip(rtags, rblocks)) if t != "identity"},
+                   device_launches_per_call=per_call, ms=time_ms(call),
+                   device_ms=time_ms(call, lead=True),
+                   plain_ms=time_ms(lambda: cuda_resolve.
+                                    pullback_resolve_structured_plain(
+                                        rtags, rblocks)),
+                   library_ms=time_ms(lambda: k1_library(rtags, rblocks)))
+        rec["bound_ms"], rec["bound_by"] = k1_bound(rtags, rblocks)
+        log(f"K1 {key} (n={n}) times at B={BATCH} on the real tick's blocks "
+            f"{rec['strides']}: wrapper {rec['ms']:.4f} ms (device alone "
+            f"{rec['device_ms']:.4f} ms), plain {rec['plain_ms']:.4f} ms, "
+            f"einsum+linalg.solve {rec['library_ms']:.4f} ms, bound "
+            f"{rec['bound_ms']:.6f} ms ({rec['bound_by']})")
+        out[key] = rec
+    return out, err
+
+
+def phase_k3_new_models(device) -> tuple[dict, float]:
+    """K3 on the two-joint robot (F = 3, n = 2) and the UR5 (F = 7, n = 6)
+    against its plain version at B = 4096, 1, 7 and 4093; one device kernel
+    per call; timed at B = 4096 beside its bound."""
+    shared = _build.c_function("rmp_fk_derivatives_shared_bytes",
+                               [ctypes.c_int, ctypes.c_int])
+    out, err = {}, 0.0
+    for name, model in (("two_joint", robots.two_joint_robot()),
+                        ("ur5", robots.ur5())):
+        for B in (BATCH,) + RAGGED:
+            q, qd = k3_inputs(model, B, device)
+            got = cuda_fk.fk_derivatives_batched(model, q, qd)
+            want = fk_derivatives(model, q, qd)
+            torch.cuda.synchronize()
+            for what, g, w in zip(("T16", "Td16", "J16", "c16"), got, want):
+                check(g.shape == w.shape, f"K3 {name} {what}: shape")
+                e = float((g - w).abs().max())
+                log(f"K3 {name} {what}, B={B}: max|kernel - plain| {e:.3e} "
+                    f"(atol {K3_ATOL})")
+                check(e <= K3_ATOL, f"K3 {name} {what}: disagrees with plain "
+                      f"version")
+                err = max(err, e)
+        q, qd = k3_inputs(model, BATCH, device)
+
+        def call():
+            return cuda_fk.fk_derivatives_batched(model, q, qd)
+        per_call = device_launches(call, "fk_derivatives_kernel",
+                                   f"K3 {name}")
+        check(per_call == 1, f"K3 {name}: not one launch per wrapper call")
+        rec = dict(frames=model.n_frames, n=model.n_q,
+                   dynamic_smem_bytes=shared(model.n_frames, model.n_q),
+                   device_launches_per_call=per_call, ms=time_ms(call),
+                   device_ms=time_ms(call, lead=True),
+                   plain_ms=time_ms(lambda: fk_derivatives(model, q, qd)))
+        rec["bound_ms"], rec["bound_by"] = k3_bound(model, BATCH)
+        log(f"K3 {name} (F={model.n_frames}, n={model.n_q}) times at "
+            f"B={BATCH}: wrapper {rec['ms']:.4f} ms (device alone "
+            f"{rec['device_ms']:.4f} ms), plain {rec['plain_ms']:.4f} ms, "
+            f"bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}), dynamic "
+            f"shared memory {rec['dynamic_smem_bytes']} bytes")
+        out[name] = rec
+    return out, err
+
+
+def _as_dtype(x, dtype):
+    """Every floating tensor of a (nested) state or param tree as dtype."""
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: _as_dtype(getattr(x, f.name),
+                                                           dtype)
+                                         for f in dataclasses.fields(x)})
+    if isinstance(x, dict):
+        return {k: _as_dtype(v, dtype) for k, v in x.items()}
+    if isinstance(x, torch.Tensor) and x.is_floating_point():
+        return x.to(dtype)
+    return x
+
+
+def witness_q(scene: str, torque: bool):
+    """parity_q's CPU run of `scene` in float64: the plain versions of K1
+    and K3 (their wrappers take float32 only), and 'pinv' with the float32
+    run's cutoff, so it solves the same problem free of float32 rounding.
+    Returns q and the solved flags."""
+    env = envs.make(scene, device="cpu")
+    env.torque_mode = torque
+    states = _as_dtype(perturbed_states(env, 128, 4, 0.1, 0.05),
+                       torch.float64)
+    params = tuple(_as_dtype(p, torch.float64) for p in env.gather_params())
+
+    def resolve32(A, f, method):
+        if method != "pinv":
+            return core.resolve(A, f, method)
+        rtol = 10.0 * max(A.shape[-2:]) * torch.finfo(torch.float32).eps
+        return torch.linalg.pinv(A, rtol=rtol) @ f[..., None]
+
+    patches = ((envs.base, "pullback_resolve_structured",
+                cuda_resolve.pullback_resolve_structured_plain),
+               (core, "fk_derivatives_batched", fk_derivatives),
+               (envs.base, "resolve",
+                lambda A, f, m: resolve32(A, f, m).reshape(f.shape)))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    try:
+        for mod, name, fn in patches:
+            setattr(mod, name, fn)
+        final, aux = envs.make_batched_rollout(env, 5)(states, params)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    check(final.sim.q.dtype == torch.float64, f"witness of {scene}: dtype")
+    return final.sim.q, aux["solved"].any(dim=1)
+
+
+def phase_new_scene_parity() -> dict:
+    """Every new scene (its own resolve method) and franka/01 in torque
+    mode: 128 envs x 5 ticks from q ± 0.1, q̇ ± 0.05, GPU against CPU, on
+    the envs that reached no goal in any run (the two devices' random
+    resampling draws differ) and whose CPU run lies within STABLE of a
+    float64 run of the same problem (witness_q): near its straight reset
+    pose the two-joint arm's target metric is nearly singular, and two
+    float32 pseudo-inverses there part by up to ~2e-3 in q after 5 ticks
+    (the CPU's from float64 by 1.7e-3 on 3 of 128 envs, CPU run). A
+    one-ulp move of the start misses these envs: it leaves the rounding
+    inside the SVD alone. Every scene is run before any check."""
+    out, failed = {}, []
+    for scene, torque in ([(s, False) for s in NEW_SCENES]
+                          + [("franka/01_target_rmp_only", True)]):
+        runs = [parity_q(dev, 0.1, 0.05, scene=scene, method=None,
+                         torque=torque, solved=True)
+                for dev in ("cuda", "cpu")] + [witness_q(scene, torque)]
+        (gpu, _), (cpu, _), (exact, _) = runs
+        quiet = ~(runs[0][1] | runs[1][1] | runs[2][1])
+        rounding = (cpu.double() - exact).abs().amax(dim=1)
+        gap = (gpu - cpu).abs().amax(dim=1)
+        keep = quiet & (rounding <= STABLE)
+        rest = quiet & ~keep
+        what = scene + (" (torque mode)" if torque else "")
+        rec = dict(envs_compared=int(keep.sum()),
+                   envs_with_goal_event=int((~quiet).sum()),
+                   max_abs_q=float(gap[keep].max()),
+                   max_abs_q_rounding_bound=float(gap[rest].max()) if
+                   bool(rest.any()) else None,
+                   max_cpu_vs_float64=float(rounding[quiet].max()),
+                   max_gpu_vs_float64=float(
+                       (gpu.double() - exact).abs().amax(dim=1)[keep].max()))
+        log(f"parity {what}: 128 envs x 5 ticks from q ± 0.1, q̇ ± 0.05: "
+            f"{json.dumps(rec)} (atol {PARITY_ATOL} on the envs compared)")
+        if rec["envs_compared"] < 64:
+            failed.append(f"parity {what}: too few envs compared")
+        if rec["max_abs_q"] > PARITY_ATOL:
+            failed.append(f"GPU/CPU parity of {what}")
+        if rec["max_gpu_vs_float64"] > PARITY_ATOL:
+            failed.append(f"GPU against float64 on {what}")
+        out[what] = rec
+    check(not failed, "; ".join(failed))
+    return out
+
+
+def golden_rollout(name: str) -> dict:
+    """A committed golden of tests/test_golden.py that runs through RmpCore,
+    reproduced on the GPU with that file's loop: a v1 target on the EE,
+    'pinv', 40 ticks of 10 substeps; franka01_torque routes each substep
+    through τ = clip(ID(q, q̇, q̈_des), ±effort), q̈ = FD(τ) on the model
+    with PyBullet's collision-shape inertia. K3 runs at B = 1."""
+    data = np.load(os.path.join(ROOT, "tests", "golden",
+                                f"{name}_trajectory.npz"))
+    if name == "two_joint01":
+        model, ee, q0 = robots.two_joint_robot(), "link_23", data["q0"]
+    else:
+        model, ee, q0 = (robots.franka_panda(), robots.PANDA_EE_FRAME,
+                         robots.PANDA_Q_READY)
+    torque = name == "franka01_torque"
+    if torque:
+        model = urdf.pybullet_collision_inertia(model)
+    c = core.RmpCore(method="pinv")                      # the GPU by default
+    c.add_rmp(v1.target_policy(
+        goal=data["goal"], taskmap=tm.chain(tm.fk_frame(model, ee),
+                                            tm.to_position()),
+        alpha=0.1, beta=0.5, c=0.1, name="target"))
+    dev = c.device
+    q = torch.tensor(np.asarray(q0, np.float32), device=dev)
+    qd = torch.zeros_like(q)
+    effort = torch.tensor(model.effort_limit, device=dev)
+    err = dict(qdd=0.0, q=0.0, tau=0.0)
+    for t in range(data["qdd"].shape[0]):
+        qdd = c.evaluate(q, qd)
+        err["qdd"] = max(err["qdd"], float(np.abs(
+            qdd.cpu().numpy() - data["qdd"][t]).max()))
+        for s in range(10):
+            if torque:
+                tau = torch.clamp(dynamics.inverse_dynamics(model, q, qd, qdd),
+                                  -effort, effort)
+                err["tau"] = max(err["tau"], float(np.abs(
+                    tau.cpu().numpy() - data["tau"][t, s]).max()))
+                step_qdd = dynamics.forward_dynamics(model, q, qd, tau)
+            else:
+                step_qdd = qdd
+            q, qd = dynamics.semi_implicit_euler_step(model, q, qd, step_qdd,
+                                                      0.01)
+        err["q"] = max(err["q"], float(np.abs(
+            q.cpu().numpy() - data["q"][t + 1]).max()))
+    return err
+
+
+def phase_goldens() -> dict:
+    out = {}
+    for name, tol in GOLDEN_TOL.items():
+        t0 = time.perf_counter()
+        err = golden_rollout(name)
+        seconds = time.perf_counter() - t0
+        if name == "two_joint01":
+            ok = max(err["qdd"], err["q"]) < tol["q_and_qdd"]
+        elif name == "franka01":
+            ok = err["qdd"] < tol["qdd"] and err["q"] < tol["q"]
+        else:
+            ok = err["tau"] < tol["tau"] and err["q"] < tol["q"]
+        log(f"golden {name} on the GPU (RmpCore, K3 at B = 1): "
+            f"{json.dumps(err)} (limits {json.dumps(tol)}), {seconds:.1f} s")
+        check(ok, f"golden {name} on the GPU")
+        out[name] = dict(err, seconds=seconds)
+    return out
+
+
+def phase_slice6(card: str, device) -> dict:
+    """Phase 12: K1 at n = 6 and 2, K3 on the two new models, the UR5
+    rollouts (K1 and K3 once per tick), GPU/CPU parity of the new scenes
+    and of torque mode, and the three RmpCore goldens on the card."""
+    k1_new, k1_err = phase_k1_new_n(device)
+    k3_new, k3_err = phase_k3_new_models(device)
+    paths = {scene: phase_main_path(card, "capsule", scene)
+             for scene in SCENES_UR5}
+    return dict(k1=k1_new, k1_err=k1_err, k3=k3_new, k3_err=k3_err,
+                paths=paths, parity=phase_new_scene_parity(),
+                goldens=phase_goldens())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1388,18 +1706,36 @@ def main() -> int:
     scene05_parity = phase_scene05_parity()
     k5_s = time.perf_counter() - t0
     log(f"phase 11 and scene 05 parity: {k5_s:.1f} s")
+    t0 = time.perf_counter()
+    slice6 = phase_slice6(card, device)
+    slice6_s = time.perf_counter() - t0
+    log(f"phase 12: {slice6_s:.1f} s")
 
+    k1["per_layout"] = dict(flagship=dict(n=9, ms=k1["ms"],
+                                          device_ms=k1["device_ms"]),
+                            **slice6["k1"])
+    k1["max_abs_err"] = max(k1["max_abs_err"], slice6["k1_err"])
+    k3["per_model"] = dict(panda=dict(frames=12, n=9, ms=k3["ms"],
+                                      device_ms=k3["device_ms"]),
+                           **slice6["k3"])
+    k3["max_abs_err"] = max(k3["max_abs_err"], slice6["k3_err"])
+    path_launches = {"capsule": launches, "hull": hull_launches}
+    path_launches.update((scene, counts) for scene, (counts, _) in
+                         slice6["paths"].items())
     kernels = [k1, k2a, k2b, k3, k4, k5]
     for rec in kernels:
-        # each kernel's count from the path that runs it (K2a/K2b, K5: none)
-        rec["launches"] = max(launches[rec["name"]],
-                              hull_launches[rec["name"]])
-        rec["launches_capsule_path"] = launches[rec["name"]]
-        rec["launches_hull_path"] = hull_launches[rec["name"]]
+        # each kernel's count from the paths that run it (K2a/K2b, K5: none)
+        rec["launches"] = max(c[rec["name"]] for c in path_launches.values())
+        for path, counts in path_launches.items():
+            rec[f"launches_{path}_path"] = counts[rec["name"]]
     record = dict(card=card, torch=torch.__version__, build_s=build_s,
                   kernels=kernels, main_path=main_path, hull_path=hull_path,
                   parity=parity, hull_parity=hull_parity,
-                  scene05_parity=scene05_parity, phase11_s=k5_s)
+                  scene05_parity=scene05_parity, phase11_s=k5_s,
+                  ur5_paths={scene: path for scene, (_, path) in
+                             slice6["paths"].items()},
+                  new_scene_parity=slice6["parity"],
+                  rmpcore_goldens=slice6["goldens"], phase12_s=slice6_s)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

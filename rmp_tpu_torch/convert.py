@@ -1,7 +1,7 @@
 """Carry policy parameters and rollout state across from numpy.
 
-The flagship scene has no learned weights; these two functions are how the
-same inputs reach both packages: the JAX package's pytrees, mapped to numpy
+The scenes have no learned weights; these two functions are how the same
+inputs reach both packages: the JAX package's pytrees, mapped to numpy
 arrays (`jax.tree.map(np.asarray, ...)`), become the port's tensors.
 """
 from __future__ import annotations
@@ -9,14 +9,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rmp_tpu_torch.envs.base import EnvState
+from rmp_tpu_torch.envs.base import EnvState, generator
 from rmp_tpu_torch.sim.collision import ObstacleSet
 from rmp_tpu_torch.sim.world import SimState
 
 
 def params_from_numpy(params, device) -> tuple:
     """Per-policy param dicts: 0-d entries become Python floats (scalar
-    gains), arrays float32 tensors on `device` (goals)."""
+    gains), arrays float32 tensors on `device` (goals, the v1 joint limits
+    and preferred configuration)."""
     out = []
     for prm in params:
         converted = {}
@@ -36,7 +37,8 @@ def state_from_numpy(leaves: dict, device) -> EnvState:
     dict of p0, p1 (B, K, 3), radius (B, K) and an optional `kinds`
     sequence of strings (numpy 0-d string arrays, as a tree map leaves
     them, are taken too); gjk_warm (B, L, K, 3), the hull tier's warm
-    carry, or absent / None."""
+    carry, or absent / None. The resampling stream (EnvState.rng) is seeded
+    with 0."""
     def f32(x):
         return torch.tensor(np.asarray(x), dtype=torch.float32, device=device)
 
@@ -58,4 +60,5 @@ def state_from_numpy(leaves: dict, device) -> EnvState:
                     phase=i32(leaves["phase"]),
                     goal_best=f32(leaves["goal_best"]),
                     no_progress=i32(leaves["no_progress"]),
-                    gjk_warm=None if warm is None else f32(warm))
+                    gjk_warm=None if warm is None else f32(warm),
+                    rng=generator(device, 0))

@@ -17,6 +17,7 @@ from typing import Any, Sequence
 import torch
 from torch.func import jvp, vmap
 
+from rmp_tpu_torch import default_device
 from rmp_tpu_torch.models.kinematics import frame_indices
 from rmp_tpu_torch.ops import geom
 from rmp_tpu_torch.ops.cuda_fk import fk_derivatives_batched
@@ -40,9 +41,16 @@ def resolve(A: torch.Tensor, f: torch.Tensor, method: str = "pinv"):
 
     'pinv' (Moore-Penrose, reference parity), 'solve' (unrolled pivoted LU,
     valid for indefinite metrics) or 'cholesky' (ridge-regularised PSD
-    solve, valid only while the combined metric stays positive definite)."""
+    solve, valid only while the combined metric stays positive definite).
+
+    'pinv' drops the singular values below 10 max(m, n) eps of the largest,
+    the JAX package's cutoff (jnp.linalg.pinv's default), not torch's
+    default of max(m, n) eps: on a rank-deficient metric (a lone EE target
+    on the Panda has rank 3 of 9) the cutoff, not the solver, decides which
+    noise directions q̈ amplifies."""
     if method == "pinv":
-        return geom.mv(torch.linalg.pinv(A), f)
+        rtol = 10.0 * max(A.shape[-2:]) * torch.finfo(A.dtype).eps
+        return geom.mv(torch.linalg.pinv(A, rtol=rtol), f)
     if method == "solve":
         return lu_solve_unrolled(A, f)
     if method == "cholesky":
@@ -194,3 +202,77 @@ def evaluate_policies(policies: Sequence, q: torch.Tensor, qd: torch.Tensor,
         f_comb = f_comb + f
         A_comb = A_comb + A
     return resolve(A_comb, f_comb, method)
+
+
+def _on(tree, device):
+    """A param dict (or None) with its tensors on `device`."""
+    if tree is None:
+        return None
+    return {k: v.to(device) if isinstance(v, torch.Tensor) else v
+            for k, v in tree.items()}
+
+
+class RmpCore:
+    """Registry of named policies and their combined evaluation, after the
+    JAX package's RmpCore (the reference's add_rmp / remove_rmp_by_name /
+    evaluate / __str__ surface). It runs on the card unless `device` says
+    otherwise; the policies' params are moved there as they are gathered.
+    Only the closed-form FK derivatives are ported: derivatives='jacfwd'
+    raises."""
+
+    def __init__(self, rmps: dict | None = None, method: str = "pinv",
+                 derivatives: str = "analytic", device=None):
+        if derivatives != "analytic":
+            raise NotImplementedError(
+                f"derivatives={derivatives!r} is not ported; the port's "
+                f"RmpCore takes 'analytic' only")
+        self.rmps: dict[str, Any] = dict(rmps) if rmps else {}
+        self.method = method
+        self.derivatives = derivatives
+        self.device = default_device(device)
+
+    def __str__(self) -> str:
+        if not self.rmps:
+            return "no RMPs in use.\n"
+        out = "\nused RMPs:\n"
+        for i, rmp in enumerate(self.rmps.values()):
+            out += "\t".join([str(i), rmp.name, str(type(rmp))]) + "\n"
+        return out
+
+    def add_rmp(self, rmp) -> None:
+        self.rmps[rmp.name] = rmp
+
+    def remove_rmp_by_name(self, name: str) -> None:
+        self.rmps.pop(name)
+
+    @property
+    def policies(self) -> tuple:
+        return tuple(self.rmps.values())
+
+    def gather_params(self) -> tuple:
+        return tuple(_on(p.params, self.device) for p in self.policies)
+
+    def make_evaluate(self):
+        """fn(q, qd (B, n), params, ctxs) -> q̈ (B, n), batched."""
+        policies, method = self.policies, self.method
+
+        def fn(q, qd, params, ctxs):
+            return evaluate_policies(policies, q, qd, params, ctxs, method)
+        return fn
+
+    def evaluate(self, q, qd, context: dict | None = None, params=None):
+        """q̈ (n,) for one state q, q̇ (n,), run as a batch of one.
+
+        context: policy name -> that policy's per-tick ctx, unbatched (the
+        JAX package's per-env layout)."""
+        if params is None:
+            params = self.gather_params()
+        f32 = dict(dtype=torch.float32, device=self.device)
+        q = torch.as_tensor(q, **f32).reshape(1, -1)
+        qd = torch.as_tensor(qd, **f32).reshape(1, -1)
+        ctxs = tuple(
+            None if ctx is None else
+            {k: torch.as_tensor(v, device=self.device)[None]
+             for k, v in ctx.items()}
+            for ctx in ((context or {}).get(p.name) for p in self.policies))
+        return self.make_evaluate()(q, qd, params, ctxs)[0]

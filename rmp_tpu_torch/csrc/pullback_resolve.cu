@@ -20,6 +20,9 @@
 // block of 70 x 11, 9 out) the call moves 1,106 floats per env, 18.1 MB at
 // B = 4096, so 5.4 us; its ~12 kFLOP per env take ~0.7 us at the fp32 peak.
 //
+// The kernel is instantiated for n = 2 (the two-joint robot), 6 (the UR5)
+// and 9 (the Panda) and picked at run time; any other n is refused.
+//
 // Design.
 // - One launch, no operand copies. The wrapper hands the blocks over as a
 //   table of descriptors, by value (kind, rows, and for each tensor its
@@ -255,6 +258,15 @@ __global__ void __launch_bounds__(kThreads) pullback_resolve_kernel(
   }
 }
 
+template <int N>
+void launch(int B, const Table& table, float ridge, float* out,
+            cudaStream_t stream) {
+  constexpr int envs_per_cta = kThreads / kGroup;
+  const int blocks = (B + envs_per_cta - 1) / envs_per_cta;
+  pullback_resolve_kernel<N><<<blocks, kThreads, 0, stream>>>(B, table,
+                                                              ridge, out);
+}
+
 }  // namespace
 
 // `rows` is the wrapper's descriptor table, `count` rows of kRowWords
@@ -268,7 +280,7 @@ extern "C" int rmp_pullback_resolve_f32(int device, int n, int B,
                                         const long long* rows, int count,
                                         float ridge, float* out,
                                         void* stream) {
-  if (n != 9) return -1;
+  if (n != 2 && n != 6 && n != 9) return -1;
   if (count > kMaxBlocks) return -2;
   if (B <= 0) return 0;
   Table table{};
@@ -289,11 +301,13 @@ extern "C" int rmp_pullback_resolve_f32(int device, int n, int B,
     const cudaError_t set = cudaSetDevice(device);
     if (set != cudaSuccess) return static_cast<int>(set);
   }
-  constexpr int envs_per_cta = kThreads / kGroup;
-  const int blocks = (B + envs_per_cta - 1) / envs_per_cta;
-  pullback_resolve_kernel<9><<<blocks, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      B, table, ridge, out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (n == 2)
+    launch<2>(B, table, ridge, out, s);
+  else if (n == 6)
+    launch<6>(B, table, ridge, out, s);
+  else
+    launch<9>(B, table, ridge, out, s);
   const int rc = static_cast<int>(cudaGetLastError());
   if (previous != device) cudaSetDevice(previous);
   return rc;

@@ -1,13 +1,24 @@
-"""Scene registry: the flagship scene 06 and its sister scene 05."""
+"""Scene registry: the ported scenes of the JAX package's registry."""
 from rmp_tpu_torch import default_device
-from rmp_tpu_torch.envs import base, franka  # noqa: F401
+from rmp_tpu_torch.envs import base, franka, two_joint, ur5  # noqa: F401
 from rmp_tpu_torch.envs.base import (Env, EnvState, env_state,  # noqa: F401
                                      make_batched_control_step,
                                      make_batched_reset, make_batched_rollout)
 
 REGISTRY = {
+    "two_joint/01_target_rmp_only": two_joint.env_01_target_rmp_only,
+    "two_joint/02_jointspace_biasing": two_joint.env_02_jointspace_biasing,
+    "two_joint/03_jointlimit_avoiding": two_joint.env_03_jointlimit_avoiding,
+    "two_joint/04_driving_into_jointlimits":
+        two_joint.env_04_driving_into_jointlimits,
+    "two_joint/05_obstacle_avoidance": two_joint.env_05_obstacle_avoidance,
+    "two_joint/05_obstacle_avoidance_variant":
+        two_joint.env_05_obstacle_avoidance_variant,
+    "franka/01_target_rmp_only": franka.env_01_target_rmp_only,
     "franka/05_obstacle_avoidance": franka.env_05_obstacle_avoidance,
     "franka/06_cluttered_environment": franka.env_06_cluttered_environment,
+    "ur5/01_target_reaching": ur5.env_01_target_reaching,
+    "ur5/02_obstacle_avoidance": ur5.env_02_obstacle_avoidance,
 }
 
 

@@ -5,16 +5,24 @@ tick senses (closed-form FK through K3, the capsule or exact-hull distance
 context), builds the structured per-policy pullback blocks, resolves the
 whole batch at once (K1 for resolve_method 'solve'; einsum accumulation +
 core.resolve for 'pinv' and 'cholesky'), then runs `control_every`
-integrator substeps with the latched q̈ and the in-graph goal bookkeeping. A
+integrator substeps with the latched q̈ (realised exactly, or through the
+torque path with Env.torque_mode) and the in-graph goal bookkeeping. A
 rollout is a Python loop over ticks. In the hull tier a batch of a multiple
 of 128 envs carries the GJK warm start (EnvState.gjk_warm) from tick to
 tick, seeded by one cold query at reset.
+
+Scenes that resample at random draw from EnvState.rng, a torch.Generator on
+the env's device seeded at reset. A resampling scene draws for every env at
+every tick and keeps the draws only where a goal was reached, as the JAX
+package's `where` does, so the tick never waits on the host. The numbers
+are not JAX's: jax.random streams are not reproduced.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 
 from rmp_tpu_torch.core import fk_bundle, policy_row_blocks_structured, resolve
@@ -43,37 +51,57 @@ class EnvState:
     # hull tier, B % 128 == 0: the previous tick's GJK witness directions
     # (B, L, K, 3), the next tick's start; None elsewhere
     gjk_warm: torch.Tensor | None = None
+    # the random stream of the scene's resampling, on the envs' device
+    rng: torch.Generator | None = None
 
 
-def env_state(sim: SimState) -> EnvState:
+def generator(device, seed: int) -> torch.Generator:
+    """A torch.Generator on `device`, seeded."""
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def env_state(sim: SimState, seed: int = 0) -> EnvState:
+    """Fresh bookkeeping for the states `sim`, with the resampling stream
+    seeded by `seed`."""
     B = sim.q.shape[0]
     zero = torch.zeros(B, dtype=torch.int32, device=sim.q.device)
     return EnvState(sim=sim, steps=zero, solved_count=zero.clone(),
                     phase=zero.clone(),
                     goal_best=torch.full((B,), float("inf"),
                                          device=sim.q.device),
-                    no_progress=zero.clone())
+                    no_progress=zero.clone(),
+                    rng=generator(sim.q.device, seed))
 
 
 @dataclasses.dataclass
 class Env:
     """One scene on one device.
 
-    reset(batch) -> EnvState of `batch` environments; on_solved(state) ->
-    state is the scene's in-graph resampling (applied where a goal was
-    reached); bind_params(params, sim, policies) injects state-carried
-    quantities (the current goal) into the policy params each tick."""
+    reset(batch, seed=0) -> EnvState of `batch` environments;
+    on_solved(state) -> state is the scene's in-graph resampling (applied
+    where a goal was reached); bind_params(params, sim, policies) injects
+    state-carried quantities (the current goal) into the policy params each
+    tick."""
 
     name: str
     model: KinematicModel
     policies: tuple[Policy, ...]
-    reset: Callable[[int], EnvState]
+    reset: Callable[..., EnvState]
     ee_frame: int
     device: torch.device
     dt: float = 0.01
     control_every: int = 10
     solved_tol: float = 0.02
+    # the solved check reads the EE's x and y only (planar scenes)
+    solved_xy_only: bool = False
+    # the solved check also asks |q̇| < check_velocity
+    check_velocity: float | None = None
     resolve_method: str = "pinv"
+    # physics through τ = clip(ID(q̈), ±effort), q̈ = FD(τ) each substep
+    torque_mode: bool = False
+    # clamp q̇ to the URDF velocity limits each substep (off: PyBullet does
+    # not enforce them under torque control)
+    enforce_velocity_limits: bool = False
     on_solved: Callable[[EnvState], EnvState] | None = None
     bind_params: Callable | None = None
     # divergence guard: zero non-finite commands and clamp |q̈|
@@ -114,8 +142,39 @@ def bind_goal(policy_names: tuple[str, ...]):
     return bind
 
 
+def resample_goal(low, high, device):
+    """on_solved: a new goal drawn uniformly from the box spanned by the
+    corners low and high (3,), for every env; the tick keeps it where a
+    goal was reached."""
+    lo = torch.as_tensor(np.minimum(low, high), dtype=torch.float32,
+                         device=device)
+    span = torch.as_tensor(np.maximum(low, high), dtype=torch.float32,
+                           device=device) - lo
+
+    def on_solved(state: EnvState) -> EnvState:
+        u = torch.rand(state.sim.q.shape[0], 3, generator=state.rng,
+                       device=device)
+        return dataclasses.replace(
+            state, sim=dataclasses.replace(state.sim, goal=lo + span * u))
+    return on_solved
+
+
 def ee_position(env: Env, sim: SimState) -> torch.Tensor:
     return K.fk_frame(env.model, sim.q, env.ee_frame)[..., :3, 3]
+
+
+def is_solved(env: Env, sim: SimState, ee: torch.Tensor) -> torch.Tensor:
+    """(B,) bool: the EE at ee (B, 3) within solved_tol of the goal (in x
+    and y only with solved_xy_only), and |q̇| below check_velocity when
+    that is set."""
+    x, goal = ee, sim.goal
+    if env.solved_xy_only:
+        x, goal = x[:, :2], goal[:, :2]
+    ok = torch.linalg.vector_norm(x - goal, dim=-1) < env.solved_tol
+    if env.check_velocity is not None:
+        ok = ok & (torch.linalg.vector_norm(sim.qd, dim=-1)
+                   < env.check_velocity)
+    return ok
 
 
 def _world_transforms(env: Env, fk: dict, q: torch.Tensor) -> torch.Tensor:
@@ -172,14 +231,15 @@ def _advance(env: Env, state: EnvState, qdd: torch.Tensor):
                                            neginf=0.0),
                           -env.max_qdd, env.max_qdd)
     for _ in range(env.control_every):
-        sim = physics_step(model, sim, qdd, env.dt)
+        sim = physics_step(model, sim, qdd, env.dt,
+                           torque_mode=env.torque_mode,
+                           enforce_velocity_limits=env.enforce_velocity_limits)
 
     state = dataclasses.replace(state, sim=sim, steps=state.steps + 1)
     ee = None
     if sim.goal is not None:
         ee = ee_position(env, sim)
-        solved = torch.linalg.vector_norm(ee - sim.goal, dim=-1) \
-            < env.solved_tol
+        solved = is_solved(env, sim, ee)
     else:
         solved = torch.zeros_like(state.steps, dtype=torch.bool)
     solved_i = solved.to(torch.int32)
@@ -252,12 +312,12 @@ def _seed_gjk_warm(env: Env, states: EnvState) -> EnvState:
     return dataclasses.replace(states, gjk_warm=warm)
 
 
-def make_batched_reset(env: Env, batch: int):
-    """fn() -> EnvState of `batch` environments (the reset is
-    deterministic: no random draw), with the hull tier's warm carry
-    seeded."""
+def make_batched_reset(env: Env, batch: int, seed: int = 0):
+    """fn() -> EnvState of `batch` environments, with the hull tier's warm
+    carry seeded. The reset draws nothing; `seed` seeds the stream the
+    scene's resampling draws from (EnvState.rng)."""
     def reset():
-        states = env.reset(batch)
+        states = env.reset(batch, seed)
         if _wants_gjk_warm(env, states):
             states = _seed_gjk_warm(env, states)
         return states

@@ -1,10 +1,11 @@
-"""Franka Panda scenes: the flagship 06_cluttered_environment and its
-sister 05_obstacle_avoidance.
+"""Franka Panda scenes: 01_target_rmp_only, the flagship
+06_cluttered_environment and its sister 05_obstacle_avoidance.
 
-The port's part of `rmp_tpu/envs/franka.py`: the v2 policy stack, the
-grouped obstacle policy (one policy over all 10 collision frames x the
-scene's obstacles), the seven cylinders and six sequential goals of scene
-06, the one tilted cylinder of scene 05.
+The port's part of `rmp_tpu/envs/franka.py`: scene 01's lone v1 target with
+uniform goal resampling; the v2 policy stack, the grouped obstacle policy
+(one policy over all 10 collision frames x the scene's obstacles), the seven
+cylinders and six sequential goals of scene 06, the one tilted cylinder of
+scene 05.
 """
 from __future__ import annotations
 
@@ -15,9 +16,9 @@ import torch
 
 from rmp_tpu_torch import taskmaps as tm
 from rmp_tpu_torch.envs.base import (Env, EnvState, bind_goal, env_state,
-                                     take_row)
+                                     resample_goal, take_row)
 from rmp_tpu_torch.models import robots
-from rmp_tpu_torch.policies import v2
+from rmp_tpu_torch.policies import v1, v2
 from rmp_tpu_torch.sim.collision import ObstacleSet, cylinder_obstacle
 from rmp_tpu_torch.sim.data import PAIRS_KEY
 from rmp_tpu_torch.sim.world import init_state
@@ -28,6 +29,27 @@ Q_READY = robots.PANDA_Q_READY
 
 def _ee_pos_taskmap(model):
     return tm.chain(tm.fk_frame(model, EE), tm.to_position())
+
+
+def env_01_target_rmp_only(device) -> Env:
+    """experiments/franka_panda/01_target_rmp_only.py: a v1 target on the
+    EE, and a new uniform goal each time one is reached."""
+    device = torch.device(device)
+    model = robots.franka_panda()
+    goal = [0.6, 0.0, 0.4]
+    policies = (v1.target_policy(goal=goal, taskmap=_ee_pos_taskmap(model),
+                                 alpha=0.1, beta=0.5, c=0.1, name="target",
+                                 device=device),)
+
+    def reset(batch: int, seed: int = 0) -> EnvState:
+        return env_state(init_state(model, batch, device, q=Q_READY,
+                                    goal=goal), seed)
+
+    return Env(name="franka/01_target_rmp_only", model=model,
+               policies=policies, reset=reset, ee_frame=model.frame_index(EE),
+               device=device, bind_params=bind_goal(("target", "attractor")),
+               on_solved=resample_goal([0.3, -0.7, 0.3], [0.7, 0.7, 0.7],
+                                       device))
 
 
 def _v2_policy_stack(model, goal, attractor_p_gain, attractor_d_gain,
@@ -88,9 +110,9 @@ def env_05_obstacle_avoidance(device) -> Env:
     obstacle = cylinder_obstacle([0.3, -0.3, 0.5], [0.2, 0.0, 0.0], 0.025,
                                  0.3, device=device)
 
-    def reset(batch: int) -> EnvState:
+    def reset(batch: int, seed: int = 0) -> EnvState:
         return env_state(init_state(model, batch, device, q=Q_READY,
-                                    obstacles=obstacle, goal=goal))
+                                    obstacles=obstacle, goal=goal), seed)
 
     return Env(name="franka/05_obstacle_avoidance", model=model,
                policies=policies, reset=reset, ee_frame=model.frame_index(EE),
@@ -139,10 +161,10 @@ def env_06_cluttered_environment(device) -> Env:
         sim = dataclasses.replace(state.sim, goal=take_row(goals, nxt))
         return dataclasses.replace(state, sim=sim, phase=nxt)
 
-    def reset(batch: int) -> EnvState:
+    def reset(batch: int, seed: int = 0) -> EnvState:
         return env_state(init_state(model, batch, device, q=Q_READY,
                                     obstacles=obstacles,
-                                    goal=CLUTTERED_GOALS[0]))
+                                    goal=CLUTTERED_GOALS[0]), seed)
 
     # max_qdd: pure divergence guard, identity on nominal trajectories
     return Env(name="franka/06_cluttered_environment", model=model,

@@ -35,6 +35,12 @@ def model_constants(model: KinematicModel, device: torch.device,
                 **f)[:, None, None],
             q_lower=torch.as_tensor(model.q_lower, **f),
             q_upper=torch.as_tensor(model.q_upper, **f),
+            velocity_limit=torch.as_tensor(model.velocity_limit, **f),
+            effort_limit=torch.as_tensor(model.effort_limit, **f),
+            joint_damping=torch.as_tensor(model.joint_damping, **f),
+            mass=torch.as_tensor(model.mass, **f),
+            com=torch.as_tensor(model.com, **f),
+            inertia=torch.as_tensor(model.inertia, **f),
         )
     return model_cache(_CONSTS, model, (str(device), dtype), build)
 

@@ -1,9 +1,9 @@
 """Robot specifications as plain data, and the model builder.
 
-The port's copy of the Panda tables of `rmp_tpu/models/specs.py`: the link
-and joint table, and the 25-capsule mesh-fitted collision set. The other
-robots (the planar arm, UR5, multi-arm specs) and URDF export are not
-ported yet.
+The port's copy of the robot tables of `rmp_tpu/models/specs.py`: the
+planar two-joint arm, the Panda (its link and joint table and the 25-capsule
+mesh-fitted collision set) and the UR5. The multi-arm spec transforms and
+URDF export are not ported yet.
 """
 from __future__ import annotations
 
@@ -111,6 +111,38 @@ def build_model(spec: RobotSpec) -> KinematicModel:
         collision=tuple(tuple(links[j.child].collision) for j in order),
     )
 
+
+# ---------------------------------------------------------------------------
+# Planar 2-DOF arm (reference asset: urdf/TwoJointRobot_wo_fixedJoints.urdf)
+# ---------------------------------------------------------------------------
+
+_BOX_I = (0.00208333333333, 0.167083333333, 0.168333333333,
+          0.0125, 0.00625, 0.000625)
+_CYL_I = (0.000322916666667, 0.000322916666667, 0.0005625, 0.0, 0.0, 0.0)
+
+TWO_JOINT_SPEC = RobotSpec(
+    name="TwoJointRobot",
+    links=(
+        LinkSpec("base_link", 0.2, (0, 0, 0), _CYL_I,
+                 (CollisionPrimitive("capsule", (0, 0, 0.025), (0, 0, 0.025), 0.075),)),
+        LinkSpec("link_1", 0.5, (0, 0, 0), _BOX_I,
+                 (CollisionPrimitive("capsule", (0.05, 0, 0), (0.95, 0, 0), 0.05),)),
+        LinkSpec("link_2", 0.5, (0, 0, 0), _BOX_I,
+                 (CollisionPrimitive("capsule", (0.05, 0, 0), (0.95, 0, 0), 0.05),)),
+        LinkSpec("link_23_cyl", 0.2, (0, 0, 0), _CYL_I,
+                 (CollisionPrimitive("sphere", (0, 0, 0), (0, 0, 0), 0.075),)),
+    ),
+    joints=(
+        JointSpec("joint_1", "revolute", "base_link", "link_1",
+                  xyz=(0, 0, 0.075), axis=(0, 0, 1),
+                  lower=-3.14, upper=3.14, velocity=5, effort=10000),
+        JointSpec("joint_2", "revolute", "link_1", "link_2",
+                  xyz=(1.0, 0.0, 0.05), axis=(0, 0, 1),
+                  lower=-3.14, upper=3.14, velocity=5, effort=10000),
+        JointSpec("link_23", "fixed", "link_2", "link_23_cyl",
+                  xyz=(1.0, 0, 0)),
+    ),
+)
 
 # ---------------------------------------------------------------------------
 # Franka Panda (reference asset: urdf/franka_panda/panda.urdf)
@@ -226,5 +258,67 @@ PANDA_SPEC = RobotSpec(
                   lower=0.0, upper=0.04, velocity=0.2, effort=20),
         JointSpec("panda_grasptarget_hand", "fixed", "panda_hand", "panda_grasptarget",
                   xyz=(0, 0, 0.105)),
+    ),
+)
+
+
+# ---------------------------------------------------------------------------
+# Universal Robots UR5: kinematic frames of the public ur_description
+# ur5.urdf chain; inertials approximate (diagonal, CoM at link centroids).
+# ---------------------------------------------------------------------------
+
+_HPI = 1.570796325
+
+
+def _ur5_link(name, mass, com, caps):
+    return LinkSpec(name, mass, com, _DIAG01, caps)
+
+
+UR5_SPEC = RobotSpec(
+    name="UR5",
+    links=(
+        LinkSpec("base_link", 4.0, (0, 0, 0), _DIAG01,
+                 (CollisionPrimitive("capsule", (0, 0, 0.01), (0, 0, 0.06), 0.06),)),
+        _ur5_link("shoulder_link", 3.7, (0, 0, -0.02),
+                  (CollisionPrimitive("capsule", (0, 0, -0.04), (0, 0, 0.01), 0.06),)),
+        _ur5_link("upper_arm_link", 8.393, (0, -0.024, 0.2125),
+                  (CollisionPrimitive("capsule", (0, -0.045, 0.0), (0, -0.045, 0.425), 0.055),)),
+        _ur5_link("forearm_link", 2.275, (0, 0.0, 0.196),
+                  (CollisionPrimitive("capsule", (0, 0, 0.0), (0, 0, 0.39225), 0.045),)),
+        _ur5_link("wrist_1_link", 1.219, (0, 0.05, 0),
+                  (CollisionPrimitive("capsule", (0, 0.02, 0), (0, 0.08, 0), 0.04),)),
+        _ur5_link("wrist_2_link", 1.219, (0, 0, 0.05),
+                  (CollisionPrimitive("capsule", (0, 0, 0.02), (0, 0, 0.08), 0.04),)),
+        _ur5_link("wrist_3_link", 0.1879, (0, 0.03, 0),
+                  (CollisionPrimitive("capsule", (0, 0.01, 0), (0, 0.06, 0), 0.035),)),
+        LinkSpec("ee_link", 0.0, (0, 0, 0), (0.0,) * 6, ()),
+    ),
+    joints=(
+        JointSpec("shoulder_pan_joint", "revolute", "base_link",
+                  "shoulder_link", xyz=(0, 0, 0.089159), axis=(0, 0, 1),
+                  lower=-6.2832, upper=6.2832, velocity=3.15, effort=150,
+                  damping=0.1),
+        JointSpec("shoulder_lift_joint", "revolute", "shoulder_link",
+                  "upper_arm_link", xyz=(0, 0.13585, 0), rpy=(0, _HPI, 0),
+                  axis=(0, 1, 0), lower=-6.2832, upper=6.2832, velocity=3.15,
+                  effort=150, damping=0.1),
+        JointSpec("elbow_joint", "revolute", "upper_arm_link",
+                  "forearm_link", xyz=(0, -0.1197, 0.425), axis=(0, 1, 0),
+                  lower=-3.1416, upper=3.1416, velocity=3.15, effort=150,
+                  damping=0.1),
+        JointSpec("wrist_1_joint", "revolute", "forearm_link",
+                  "wrist_1_link", xyz=(0, 0, 0.39225), rpy=(0, _HPI, 0),
+                  axis=(0, 1, 0), lower=-6.2832, upper=6.2832, velocity=3.2,
+                  effort=28, damping=0.1),
+        JointSpec("wrist_2_joint", "revolute", "wrist_1_link",
+                  "wrist_2_link", xyz=(0, 0.093, 0), axis=(0, 0, 1),
+                  lower=-6.2832, upper=6.2832, velocity=3.2, effort=28,
+                  damping=0.1),
+        JointSpec("wrist_3_joint", "revolute", "wrist_2_link",
+                  "wrist_3_link", xyz=(0, 0, 0.09465), axis=(0, 1, 0),
+                  lower=-6.2832, upper=6.2832, velocity=3.2, effort=28,
+                  damping=0.1),
+        JointSpec("ee_fixed_joint", "fixed", "wrist_3_link", "ee_link",
+                  xyz=(0, 0.0823, 0), rpy=(0, 0, _HPI)),
     ),
 )

@@ -1,9 +1,9 @@
 """Static kinematic model: the numpy constants every batched function reads.
 
 The port's copy of `rmp_tpu/models/urdf.py` (joint-type codes, collision
-primitives, `KinematicModel` and the Rx·Ry·Rz rpy composition). URDF parsing
-(`parse_urdf`) is not ported yet; robots are built from the spec tables in
-`models/specs.py`.
+primitives, `KinematicModel`, the Rx·Ry·Rz rpy composition and PyBullet's
+collision-shape inertia). URDF parsing (`parse_urdf`) is not ported yet;
+robots are built from the spec tables in `models/specs.py`.
 """
 from __future__ import annotations
 
@@ -125,3 +125,38 @@ def model_cache(cache: dict, model: KinematicModel, key: tuple,
     if hit is None:
         hit = cache[k] = (model, build())
     return hit[1]
+
+
+def pybullet_collision_inertia(model: KinematicModel, hull_verts=None,
+                               margin: float = 1e-3) -> KinematicModel:
+    """The model with PyBullet's loadURDF inertia tensors.
+
+    Plain loadURDF ignores the URDF <inertia> tensor and recomputes it from
+    each link's collision shape, by Bullet's box-AABB approximation:
+
+        l = AABB extent of the collision geometry + 2 margin
+        I = diag(m/12 (ly² + lz², lx² + lz², lx² + ly²))
+
+    with the importer's default margin 1e-3. Mass and COM keep their URDF
+    values. Applied to every collision link from its hull vertices
+    (hull_verts (L, V, 3) in collision-frame order, default the robot's
+    asset, models/hulls.py); raises for a robot without one. Only
+    torque-mode trajectories feel the change: in contact-free motion
+    FD(ID(q̈)) = q̈ for any consistent model, so the torques change and the
+    path does not."""
+    if hull_verts is None:
+        from rmp_tpu_torch.models.hulls import hulls_for
+        hull_verts = hulls_for(model)
+        if hull_verts is None:
+            raise ValueError(
+                f"no hull asset for robot {model.name!r}: cannot "
+                "reconstruct PyBullet's collision-shape inertia")
+    inertia = np.array(model.inertia)
+    for row, frame in enumerate(model.collision_frames):
+        verts = np.asarray(hull_verts[row], np.float64)
+        ext = verts.max(axis=0) - verts.min(axis=0) + 2.0 * margin
+        x2, y2, z2 = ext * ext
+        m = float(model.mass[frame])
+        inertia[frame] = np.diag(m / 12.0 *
+                                 np.asarray([y2 + z2, x2 + z2, x2 + y2]))
+    return dataclasses.replace(model, inertia=inertia.astype(np.float32))

@@ -66,6 +66,7 @@ def pullback_resolve_structured_plain(tags, blocks,
 
 
 KINDS = {"identity": 0, "scalar": 1, "dense": 2}
+KERNEL_N = (2, 6, 9)  # the n the kernel is instantiated for
 MAX_BLOCKS = 16      # descriptors the kernel takes per call
 ROW_WORDS = 14       # kind, rows, 3 addresses, 3 x 3 strides
 
@@ -122,7 +123,10 @@ def block_table(tags, blocks) -> array.array:
 def _launch(table, count: int, ridge: float, B: int, n: int, device):
     """q̈ (B, n) from K1's CUDA kernel on `count` validated blocks on
     `device`, described by `table`: one launch on the blocks where they
-    lie."""
+    lie. Raises for an n the kernel is not instantiated for."""
+    if n not in KERNEL_N:
+        raise ValueError(f"no K1 kernel instantiated for n={n} (have "
+                         f"{KERNEL_N})")
     if device.type != "cuda":
         raise ValueError(f"no K1 kernel for device {device}")
     if count > MAX_BLOCKS:

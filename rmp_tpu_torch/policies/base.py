@@ -21,3 +21,13 @@ class Policy:
     # key into the per-tick context dict for policies that consume sensed
     # data; None otherwise
     ctx_key: str | None = None
+
+    def with_params(self, **updates) -> "Policy":
+        """A copy with some param entries replaced (a gain, a goal)."""
+        return dataclasses.replace(self, params={**self.params, **updates})
+
+
+def per_env(v):
+    """A (B, d) per-env vector as (B, 1, d), broadcasting against the P task
+    rows of x (B, P, d); a shared (d,) vector broadcasts as it is."""
+    return v[:, None, :] if v.dim() == 2 else v

@@ -14,14 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rmp_tpu_torch.policies.base import Policy
+from rmp_tpu_torch.policies.base import Policy, per_env
 from rmp_tpu_torch.taskmaps import identity
-
-
-def _per_env(v: torch.Tensor) -> torch.Tensor:
-    """A (B, d) per-env vector as (B, 1, d), broadcasting against the P task
-    rows of x (B, P, d); a shared (d,) vector broadcasts as it is."""
-    return v[:, None, :] if v.dim() == 2 else v
 
 
 def _eye_like(x: torch.Tensor) -> torch.Tensor:
@@ -31,7 +25,7 @@ def _eye_like(x: torch.Tensor) -> torch.Tensor:
 
 
 def _attractor_accel_metric(params, x, xd, ctx):
-    goal, eps = _per_env(params["goal"]), params["accel_norm_eps"]
+    goal, eps = per_env(params["goal"]), params["accel_norm_eps"]
     delta = goal - x                                          # (B, P, d)
     delta_norm = torch.linalg.vector_norm(delta, dim=-1, keepdim=True)
     soft = torch.clamp(delta_norm, min=eps / 10.0)
@@ -162,7 +156,7 @@ def obstacle_avoidance(taskmap, margin, damping_gain, damping_std_dev,
 
 
 def _cspace_biasing_accel_metric(params, x, xd, ctx):
-    x = x - _per_env(params["goal"])
+    x = x - per_env(params["goal"])
     x_norm = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
     x_hat = x / torch.clamp(x_norm, min=1e-12)
     thresh = params["robust_position_term_thresh"]

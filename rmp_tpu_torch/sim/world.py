@@ -1,9 +1,9 @@
 """Simulation world state, physics step and sensing, batched.
 
-The port's functional core of `rmp_tpu/sim/world.py`: `physics_step` on its
-default branch (the commanded acceleration is realised exactly; no torque
-path, no contact) and `sense`. The imperative `Simulation` wrapper is not
-ported yet."""
+The port's functional core of `rmp_tpu/sim/world.py`: `physics_step` (the
+commanded acceleration realised exactly, or through the torque path; no
+contact yet) and `sense`. The imperative `Simulation` wrapper is not ported
+yet."""
 from __future__ import annotations
 
 import dataclasses
@@ -47,12 +47,25 @@ def init_state(model: KinematicModel, batch: int, device, q=None,
 
 
 def physics_step(model: KinematicModel, state: SimState, qdd: torch.Tensor,
-                 dt: float) -> SimState:
-    """One physics step at dt with the commanded acceleration realised
-    exactly — the reference's inverse-dynamics torques followed by exact
-    forward dynamics, which cancel in contact-free motion."""
-    q, qd = dynamics.semi_implicit_euler_step(model, state.q, state.qd, qdd,
-                                              dt)
+                 dt: float, torque_mode: bool = False,
+                 enforce_velocity_limits: bool = False) -> SimState:
+    """One physics step at dt.
+
+    By default the commanded acceleration is realised exactly: the
+    reference's inverse-dynamics torques followed by exact forward
+    dynamics, which cancel in contact-free motion. torque_mode routes it
+    through the torque level, τ = clip(ID(q, q̇, q̈), ±effort) and
+    q̈ = FD(q, q̇, τ), where effort limits bite. enforce_velocity_limits
+    clamps q̇ to the URDF velocity limits (dynamics.semi_implicit_euler_step)."""
+    if torque_mode:
+        effort = K.model_constants(model, qdd.device, qdd.dtype)[
+            "effort_limit"]
+        tau = dynamics.inverse_dynamics(model, state.q, state.qd, qdd)
+        tau = torch.clamp(tau, -effort, effort)
+        qdd = dynamics.forward_dynamics(model, state.q, state.qd, tau)
+    q, qd = dynamics.semi_implicit_euler_step(
+        model, state.q, state.qd, qdd, dt,
+        enforce_velocity_limits=enforce_velocity_limits)
     return dataclasses.replace(state, q=q, qd=qd, t=state.t + dt)
 
 

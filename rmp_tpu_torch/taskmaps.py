@@ -1,6 +1,6 @@
 """Taskmap algebra — composable maps from configuration space, batched.
 
-The port's `rmp_tpu/taskmaps.py`, for the maps of the flagship scene: a
+The port's `rmp_tpu/taskmaps.py`, for the maps of the ported scenes: a
 taskmap maps q (B, n) to task coordinates x (B, P, d); `ctx` is the policy's
 per-tick context (B-leading tensors). An FK-rooted taskmap also exposes
 (model, frame_idx, post) so the combine engine runs the FK once for all
@@ -16,6 +16,7 @@ import torch
 
 from rmp_tpu_torch.models import kinematics
 from rmp_tpu_torch.models.urdf import KinematicModel
+from rmp_tpu_torch.ops import geom
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +94,20 @@ def frames_to_point_distance(link_field: str = "pos_on_link",
         B, L = x.shape[0], ctx[link_field].shape[1]
         return dist(x.reshape(B, L, 4, 4)[..., :3, 3], ctx)
     return Taskmap(fn, trans_fn=dist)
+
+
+def frames_relative_points(ctx_field: str = "relative_position") -> Taskmap:
+    """(B, L, 16) frames -> (B, L*K, 3): the world positions of each frame's
+    K offsets ctx[ctx_field] (B, L, K, 3), given in the frame's own
+    coordinates (x = R off + t)."""
+    def fn(x, ctx):
+        offs = ctx[ctx_field]                         # (B, L, K, 3)
+        B, L, K, _ = offs.shape
+        T = x.reshape(B, L, 1, 4, 4)
+        R = T[..., :3, :3].expand(B, L, K, 3, 3)
+        p = geom.mv(R, offs) + T[..., :3, 3]
+        return p.reshape(B, L * K, 3)
+    return Taskmap(fn)
 
 
 def to_position() -> Taskmap:

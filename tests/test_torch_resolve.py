@@ -61,20 +61,72 @@ def _assembled(tags, blocks):
     return A.astype(np.float32), f.astype(np.float32)
 
 
-def test_plain_k1_matches_jax_pallas_kernel_interpret():
+def layout_blocks(seed: int, B: int, n: int, layout):
+    """numpy blocks of `layout`, a sequence of (tag, rows): dense blocks
+    with W = S J (S SPD), identity blocks with SPD metrics, scalar blocks
+    with non-negative metrics."""
+    rng = np.random.default_rng(seed)
+
+    def spd(d):
+        L = rng.normal(size=(B, d, d)) * 0.3
+        return L @ L.transpose(0, 2, 1) + 0.5 * np.eye(d)
+
+    blocks = []
+    for tag, R in layout:
+        if tag == "identity":
+            blk = (spd(n), rng.normal(size=(B, n)))
+        elif tag == "dense":
+            J = rng.normal(size=(B, R, n))
+            blk = (J, spd(R) @ J, rng.normal(size=(B, R)))
+        else:
+            blk = (rng.normal(size=(B, R, n)) * 0.3,
+                   rng.uniform(0.0, 2.0, (B, R)), rng.normal(size=(B, R)))
+        blocks.append(tuple(np.asarray(x, np.float32) for x in blk))
+    return tuple(tag for tag, _ in layout), blocks
+
+
+# the layouts of the scenes that resolve with 'solve' at n = 6 (the UR5's
+# two scenes) and of the two-joint robot's (two_joint/05 and /02)
+K1_LAYOUTS = {
+    "ur5/01": (6, (("dense", 3), ("identity", 0), ("identity", 0))),
+    "ur5/02": (6, (("dense", 3), ("identity", 0), ("dense", 18))),
+    "two_joint/05": (2, (("dense", 3), ("dense", 9))),
+    "two_joint/02": (2, (("dense", 3), ("identity", 0))),
+}
+
+
+@pytest.mark.parametrize("layout", ["flagship"] + list(K1_LAYOUTS))
+def test_plain_k1_matches_jax_pallas_kernel_interpret(layout):
+    """K1's plain version at n = 9 (the flagship layout), 6 and 2 against
+    JAX's Pallas kernel in interpret mode, on the same blocks."""
     from jax.experimental.pallas import tpu as pltpu
 
     from rmp_tpu.ops.pallas_resolve import pullback_resolve_structured
-    blocks = flagship_blocks(0, 128)
+    if layout == "flagship":
+        tags, blocks = FLAGSHIP_TAGS, flagship_blocks(0, 128)
+    else:
+        tags, blocks = layout_blocks(0, 128, *K1_LAYOUTS[layout])
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(pullback_resolve_structured(
-            FLAGSHIP_TAGS, [tuple(jnp.asarray(x) for x in b) for b in blocks],
+            tags, [tuple(jnp.asarray(x) for x in b) for b in blocks],
             ridge=0.0))
     before = cuda_resolve.pullback_resolve_structured.launches
     got = cuda_resolve.pullback_resolve_structured(
-        FLAGSHIP_TAGS, _torch_blocks(blocks)).numpy()
+        tags, _torch_blocks(blocks)).numpy()
     assert cuda_resolve.pullback_resolve_structured.launches == before
     np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+@pytest.mark.parametrize("n", [3, 18])
+def test_k1_raises_for_an_n_without_a_kernel(n):
+    """The kernel is instantiated for n = 2, 6 and 9; off the CPU any other
+    n raises before a launch, with no fallback (meta tensors stand in for a
+    device here)."""
+    tags, blocks = layout_blocks(1, 4, n, (("dense", 3), ("identity", 0)))
+    meta = [tuple(torch.tensor(x).to("meta") for x in b) for b in blocks]
+    with pytest.raises(ValueError, match=f"no K1 kernel instantiated for n={n}"):
+        cuda_resolve.pullback_resolve_structured(tags, meta)
+    assert cuda_resolve.KERNEL_N == (2, 6, 9)
 
 
 @pytest.mark.parametrize("ridge", [0.0, 1e-3])
