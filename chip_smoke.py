@@ -91,12 +91,37 @@ printing the result line:
      CPU run lies within 1e-5 of a float64 run (witness_q); the goldens
      franka01, two_joint01 and franka01_torque reproduced through
      RmpCore on the GPU.
+ 13. the seventh slice: K1 on moving_goal's real-tick layout (a dense
+     3-row attractor and three identity leaves) against its plain version
+     at B = 4096, 1, 7 and 4093, one device kernel per call, timed beside
+     its bound; K4 on franka/moving_obstacles' own warm operands (hull
+     tier, 4096 envs 20 ticks in, the carry of the obstacles' previous
+     positions, the scene's 4 iterations) against its plain version with
+     phase 6's limits and float64 evidence, timed beside its bound;
+     4096-env rollouts of franka/moving_goal and
+     franka/moving_obstacles ('solve', 150 ticks; moving_obstacles also in
+     the hull tier, its warm carry following the moving cylinders) and of
+     franka/03_self_avoidance, franka/04_nullspace_control and
+     franka/pose_target ('pinv', PINV_TICKS ticks), K1 (where 'solve'),
+     K3 and K4 (hull) once per tick, each with its 10-tick trace; the
+     'pinv' resolve of a real tick timed alone (torch.linalg.pinv's batched
+     SVD), and its ticks one by one; GPU/CPU parity of the five scenes
+     (witness_q's screens); moving_obstacles in the hull tier at 128 envs
+     and the scene's 4 and 16 warm GJK iterations (moving_hull_parity):
+     every K4 call of the card's run against its plain version on the same
+     operands with phase 6's limits, and q within 1e-3 of the CPU and of
+     float64 on the envs that a one-ulp move, float64 and the card's run
+     with the plain version in K4's place each leave within 1e-5 of the
+     CPU; franka/04's IK start on the card against the CPU; the
+     Simulation wrapper's reference loop on the card (the EE ends nearer
+     its goal, q within 2e-3 of the CPU's).
 Then one JSON line of per-kernel numbers ({"kernels": [...]}) and, last,
 {"ok": true, "device": {...}}. The full record also goes to
 chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -121,7 +146,8 @@ from rmp_tpu_torch.models.urdf import FIXED
 from rmp_tpu_torch.ops import (cuda_fk, cuda_gjk, cuda_resolve, cuda_tick,
                                tick_ops)
 from rmp_tpu_torch.policies import v1
-from rmp_tpu_torch.sim import collision, data, dynamics
+from rmp_tpu_torch.sim import (FrankaPanda, Goal, Simulation, collision,
+                               data, dynamics)
 from rmp_tpu_torch.sim.world import SimState
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -846,13 +872,17 @@ def k4_evidence(ops, got, plain, what: str) -> dict:
     return rec
 
 
-def k4_main_path_operands(ticks: int = 20):
-    """(operands, iters) of the hull main path's own K4 call: the phase-8 env
-    (scene 06, 4096 envs, hull tier) reset and rolled `ticks` ticks, then
-    collision.gjk_operands on its state with its gjk_warm carry (what the
-    next tick's call gets) and the warm iteration count the path runs."""
-    env = envs.make(SCENE)
-    env.resolve_method = "solve"
+def k4_main_path_operands(scene: str = SCENE, method: str | None = "solve",
+                          ticks: int = 20):
+    """(operands, iters) of a hull main path's own K4 call: `scene` (resolve
+    `method`, None the scene's own) in the hull tier at BATCH envs, reset
+    and rolled `ticks` ticks, then collision.gjk_operands on its state with
+    its gjk_warm carry (what the next tick's call gets: in a scene with an
+    update_scene, the carry of the obstacles' previous positions) and the
+    warm iteration count the path runs."""
+    env = envs.make(scene)
+    if method is not None:
+        env.resolve_method = method
     env.collision_geometry = "hull"
     states = envs.make_batched_reset(env, BATCH)()
     states, _ = envs.make_batched_rollout(env, ticks, with_aux=False)(
@@ -1171,18 +1201,28 @@ PATH_KERNELS = {
 }
 
 
-def phase_main_path(card: str, geometry: str, scene: str = SCENE
+def phase_main_path(card: str, geometry: str, scene: str = SCENE,
+                    ticks: int = TICKS, method: str | None = "solve"
                     ) -> tuple[dict, dict]:
+    """A BATCH-env rollout of `scene` in `geometry` for `ticks` ticks, with
+    resolve `method` (None: the scene's own), every launch counter zeroed
+    just before it and read after: each kernel of the path once per tick
+    (K1 only where the scene resolves with 'solve'), every other counter 0.
+    Then its 10-tick trace."""
     what = ("main path" if geometry == "capsule" else "hull main path") \
-        if scene == SCENE else f"{scene} path"
+        if scene == SCENE else f"{scene} ({geometry}) path"
     env = envs.make(scene)                   # the GPU by default
-    env.resolve_method = "solve"
+    if method is not None:
+        env.resolve_method = method
     env.collision_geometry = geometry
+    path_kernels = tuple(k for k in PATH_KERNELS[geometry]
+                         if env.resolve_method == "solve"
+                         or k != "pullback_resolve_structured")
     params = env.gather_params()
     states = envs.make_batched_reset(env, BATCH)()
     states, _ = envs.make_batched_rollout(env, WARMUP_TICKS,
                                           with_aux=False)(states, params)
-    rollout = envs.make_batched_rollout(env, TICKS, with_aux=False)
+    rollout = envs.make_batched_rollout(env, ticks, with_aux=False)
     torch.cuda.synchronize()
     for fn in COUNTERS.values():
         fn.launches = 0
@@ -1191,24 +1231,26 @@ def phase_main_path(card: str, geometry: str, scene: str = SCENE
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in COUNTERS.items()}
-    steps_per_s = BATCH * TICKS / seconds
-    log(f"{what}: {scene} ({geometry}), {BATCH} envs x {TICKS} ticks in "
-        f"{seconds:.3f} s = {steps_per_s:.1f} control steps/s [{card}]")
+    steps_per_s = BATCH * ticks / seconds
+    log(f"{what}: {scene} ({geometry}, '{env.resolve_method}'), {BATCH} envs "
+        f"x {ticks} ticks in {seconds:.3f} s = {steps_per_s:.1f} control "
+        f"steps/s [{card}]")
     log(f"{what} launches: {launches}")
     check(bool(torch.isfinite(final.sim.q).all()), f"{what}: non-finite q")
     check(tuple(final.sim.q.shape) == (BATCH, env.model.n_q),
           f"{what}: q shape")
     for name, count in launches.items():
-        want = TICKS if name in PATH_KERNELS[geometry] else 0
+        want = ticks if name in path_kernels else 0
         check(count == want, f"{what}: {name} launched {count} times in "
-              f"{TICKS} ticks, want {want}")
+              f"{ticks} ticks, want {want}")
     solved = int(final.solved_count.sum())
     log(f"{what}: goals reached over the batch {solved}, "
         f"mean phase {float(final.phase.float().mean()):.3f}")
-    trace = profile_ticks(env, final, params, seconds * 1e3 / TICKS)
+    trace = profile_ticks(env, final, params, seconds * 1e3 / ticks)
     log(f"{what} trace: {json.dumps(trace)}")
-    return launches, dict(scene=scene, geometry=geometry, envs=BATCH,
-                          ticks=TICKS, seconds=seconds,
+    return launches, dict(scene=scene, geometry=geometry,
+                          resolve_method=env.resolve_method, envs=BATCH,
+                          ticks=ticks, seconds=seconds,
                           control_steps_per_s=steps_per_s,
                           goals_reached=solved, trace=trace)
 
@@ -1294,9 +1336,10 @@ def perturbed_states(env, B: int, seed: int, dq: float, dqd: float,
 def parity_q(dev: str, dq: float, dqd: float, ulp: bool = False,
              geometry: str = "capsule", B: int = 128, scene: str = SCENE,
              method: str | None = "solve", torque: bool = False,
-             solved: bool = False):
+             solved: bool = False, warm_iters: int | None = None):
     """q after 5 ticks of `scene` on `dev` from perturbed reset states;
-    method None keeps the scene's resolve method. With `solved`, also the
+    method None keeps the scene's resolve method; warm_iters sets the hull
+    tier's warm GJK iterations (None: the scene's). With `solved`, also the
     (B,) flags of envs that reached a goal in those ticks (where the GPU's
     and the CPU's random resampling part)."""
     env = envs.make(scene, device=dev)
@@ -1304,6 +1347,7 @@ def parity_q(dev: str, dq: float, dqd: float, ulp: bool = False,
         env.resolve_method = method
     env.collision_geometry = geometry
     env.torque_mode = torque
+    env.hull_warm_iters = warm_iters or env.hull_warm_iters
     final, aux = envs.make_batched_rollout(env, 5, with_aux=solved)(
         perturbed_states(env, B, 4, dq, dqd, ulp), env.gather_params())
     if solved:
@@ -1414,13 +1458,14 @@ GOLDEN_TOL = {"franka01": dict(qdd=2e-3, q=5e-3),
               "franka01_torque": dict(tau=5e-3, q=5e-3)}
 
 
-def phase_k1_new_n(device) -> tuple[dict, float]:
-    """K1 at n = 6 and 2 against its plain version: random contiguous
-    blocks and a real tick's blocks (strided views) of each layout at
-    B = 4096, 1, 7 and 4093; one device kernel per call; timed at B = 4096
-    on the real tick's blocks beside its bound."""
+def phase_k1_new_n(device, layouts=None) -> tuple[dict, float]:
+    """K1 on each of `layouts` (default K1_NEW_LAYOUTS: n = 6 and 2) against
+    its plain version: random contiguous blocks and a real tick's blocks
+    (strided views) of each layout at B = 4096, 1, 7 and 4093; one device
+    kernel per call; timed at B = 4096 on the real tick's blocks beside its
+    bound."""
     out, err = {}, 0.0
-    for key, (n, layout, scene) in K1_NEW_LAYOUTS.items():
+    for key, (n, layout, scene) in (layouts or K1_NEW_LAYOUTS).items():
         env = envs.make(scene)
         for B in (BATCH,) + RAGGED:
             tags, blocks = k1_layout_blocks(B, B, n, layout, device)
@@ -1514,13 +1559,16 @@ def _as_dtype(x, dtype):
     return x
 
 
-def witness_q(scene: str, torque: bool):
-    """parity_q's CPU run of `scene` in float64: the plain versions of K1
-    and K3 (their wrappers take float32 only), and 'pinv' with the float32
-    run's cutoff, so it solves the same problem free of float32 rounding.
-    Returns q and the solved flags."""
+def witness_q(scene: str, torque: bool, geometry: str = "capsule",
+              warm_iters: int | None = None):
+    """parity_q's CPU run of `scene` in float64: the plain versions of K1,
+    K3 and (hull tier) K4 (their wrappers take float32 only), and 'pinv'
+    with the float32 run's cutoff, so it solves the same problem free of
+    float32 rounding. Returns q and the solved flags."""
     env = envs.make(scene, device="cpu")
     env.torque_mode = torque
+    env.collision_geometry = geometry
+    env.hull_warm_iters = warm_iters or env.hull_warm_iters
     states = _as_dtype(perturbed_states(env, 128, 4, 0.1, 0.05),
                        torch.float64)
     params = tuple(_as_dtype(p, torch.float64) for p in env.gather_params())
@@ -1531,11 +1579,16 @@ def witness_q(scene: str, torque: bool):
         rtol = 10.0 * max(A.shape[-2:]) * torch.finfo(torch.float32).eps
         return torch.linalg.pinv(A, rtol=rtol) @ f[..., None]
 
+    hull_table = collision.hull_table
     patches = ((envs.base, "pullback_resolve_structured",
                 cuda_resolve.pullback_resolve_structured_plain),
                (core, "fk_derivatives_batched", fk_derivatives),
                (envs.base, "resolve",
-                lambda A, f, m: resolve32(A, f, m).reshape(f.shape)))
+                lambda A, f, m: resolve32(A, f, m).reshape(f.shape)),
+               (collision, "gjk_hull_obstacles",
+                cuda_gjk.gjk_hull_obstacles_plain),
+               (collision, "hull_table",
+                lambda model, dev: hull_table(model, dev).double()))
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     try:
         for mod, name, fn in patches:
@@ -1548,7 +1601,7 @@ def witness_q(scene: str, torque: bool):
     return final.sim.q, aux["solved"].any(dim=1)
 
 
-def phase_new_scene_parity() -> dict:
+def phase_new_scene_parity(runs=None) -> dict:
     """Every new scene (its own resolve method) and franka/01 in torque
     mode: 128 envs x 5 ticks from q ± 0.1, q̇ ± 0.05, GPU against CPU, on
     the envs that reached no goal in any run (the two devices' random
@@ -1558,10 +1611,12 @@ def phase_new_scene_parity() -> dict:
     float32 pseudo-inverses there part by up to ~2e-3 in q after 5 ticks
     (the CPU's from float64 by 1.7e-3 on 3 of 128 envs, CPU run). A
     one-ulp move of the start misses these envs: it leaves the rounding
-    inside the SVD alone. Every scene is run before any check."""
+    inside the SVD alone. Every scene is run before any check. runs:
+    (scene, torque mode) pairs, default NEW_SCENES and franka/01 in torque
+    mode."""
     out, failed = {}, []
-    for scene, torque in ([(s, False) for s in NEW_SCENES]
-                          + [("franka/01_target_rmp_only", True)]):
+    for scene, torque in runs or ([(s, False) for s in NEW_SCENES]
+                                  + [("franka/01_target_rmp_only", True)]):
         runs = [parity_q(dev, 0.1, 0.05, scene=scene, method=None,
                          torque=torque, solved=True)
                 for dev in ("cuda", "cpu")] + [witness_q(scene, torque)]
@@ -1671,6 +1726,350 @@ def phase_slice6(card: str, device) -> dict:
                 goldens=phase_goldens())
 
 
+# ------------------------------------ phase 13: the seventh slice's paths ---
+
+SCENES7_SOLVE = ("franka/moving_goal", "franka/moving_obstacles")
+SCENES7_PINV = ("franka/03_self_avoidance", "franka/04_nullspace_control",
+                "franka/pose_target")
+SCENES7 = SCENES7_PINV + SCENES7_SOLVE
+# the 'pinv' scenes resolve each tick by torch.linalg.pinv, a batched SVD:
+# their rollouts are cut to PINV_TICKS ticks to keep the phase near a minute
+PINV_TICKS = 30
+# K1 on moving_goal's real tick: a dense 3-row attractor and three identity
+# leaves, no scalar block (moving_obstacles has the flagship's layout)
+K1_SLICE7_LAYOUTS = {
+    "moving_goal": (9, (("dense", 3), ("identity", 0), ("identity", 0),
+                        ("identity", 0)), "franka/moving_goal"),
+}
+IK_ATOL = 1e-4         # franka/04's IK start, GPU against CPU
+MOVING = "franka/moving_obstacles"
+# warm GJK iterations of moving_obstacles' hull parity: the scene's own, and
+# 16, where the GJK has converged on most pairs
+HULL_PARITY_ITERS = (data.WARM_ITERS, 16)
+SIM_STEPS = 200        # tests/test_subsystems.py's wrapper loop
+# its final q, GPU against CPU (tests/test_torch_ik_sim.py's limit against
+# the JAX wrapper)
+SIM_Q_TOL = 2e-3
+
+
+def pinv_cost(scene: str) -> dict:
+    """What the 'pinv' resolve of one real tick of `scene` costs at BATCH
+    envs: core.resolve(A, f, 'pinv') (torch.linalg.pinv, a batched SVD)
+    from an idle stream and with the stream kept busy ahead, and the device
+    kernels of one call (one trace); then PINV_TICKS ticks of the scene
+    from its reset, each timed to a synchronize."""
+    env = envs.make(scene)
+    tags, blocks = real_tick_blocks(env, BATCH, 1)
+    A, f = cuda_resolve.assemble_structured(tags, blocks)
+
+    def call():
+        return core.resolve(A, f, "pinv")
+    rec = dict(ms=time_ms(call), device_ms=time_ms(call, lead=True))
+    kernels = device_kernels(traced(call))
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name[:60]] = (by_name.get(e.name[:60], 0.0)
+                                + e.time_range.elapsed_us())
+    rec.update(device_launches_per_call=len(kernels),
+               device_us=sum(by_name.values()),
+               top=sorted(((round(v, 1), k) for k, v in by_name.items()),
+                          reverse=True)[:5])
+    # the scene's ticks one by one, each ended by a synchronize: a tick
+    # far above the median points at work the trace's ticks did not show
+    step, params = make_batched_control_step(env), env.gather_params()
+    states = envs.make_batched_reset(env, BATCH)()
+    ticks = []
+    for _ in range(PINV_TICKS):
+        t0 = time.perf_counter()
+        states, _ = step(states, params)
+        torch.cuda.synchronize()
+        ticks.append((time.perf_counter() - t0) * 1e3)
+    rec["synced_tick_ms"] = dict(median=float(np.median(ticks)),
+                                 max=max(ticks),
+                                 slowest_tick=int(np.argmax(ticks)),
+                                 all=[round(t, 2) for t in ticks])
+    log(f"'pinv' resolve of a {scene} tick at B={BATCH}: {json.dumps(rec)}")
+    check(bool(torch.isfinite(call()).all()), f"{scene}: 'pinv' non-finite")
+    return rec
+
+
+def phase_ik_start() -> dict:
+    """franka/04's start pose: the scene's construction runs 200 DLS
+    iterations on the card; the result against the CPU's, joint 5 clipped
+    at its lower limit on both."""
+    name = "franka/04_nullspace_control"
+    t0 = time.perf_counter()
+    gpu_env = envs.make(name)
+    gpu = gpu_env.reset(1).sim.q[0]
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = envs.make(name, device="cpu").reset(1).sim.q[0]
+    cpu_s = time.perf_counter() - t0
+    err = float((gpu.cpu() - cpu).abs().max())
+    low = float(gpu_env.model.q_lower[4])
+    rec = dict(q_gpu=gpu.cpu().tolist(), max_abs_gpu_cpu=err,
+               scene_build_s_gpu=gpu_s, scene_build_s_cpu=cpu_s)
+    log(f"franka/04 IK start on the GPU against the CPU: {json.dumps(rec)} "
+        f"(atol {IK_ATOL})")
+    check(gpu.device.type == "cuda", "franka/04 IK: not on the card")
+    check(err <= IK_ATOL, "franka/04 IK start: GPU against CPU")
+    check(float(gpu[4]) == low and float(cpu[4]) == low,
+          "franka/04 IK start: joint 5 off its lower limit")
+    return rec
+
+
+def simulation_loop(device=None):
+    """tests/test_subsystems.py's wrapper loop: Simulation and RmpCore
+    ('cholesky') on `device` (default the card), a v1 EE target, a new q̈
+    every 10 of SIM_STEPS steps. Returns (final q, EE distance to the goal
+    at the start and at the end)."""
+    sim = Simulation(delta_t=0.01, device=device).connect()
+    robot = FrankaPanda()
+    sim.populate_scene([robot, Goal(base_position=(0.6, 0.0, 0.4),
+                                    radius=0.02)])
+    model = robot.model
+    c = core.RmpCore(method="cholesky", device=device)
+    c.add_rmp(v1.target_policy(
+        goal=[0.6, 0.0, 0.4],
+        taskmap=tm.chain(tm.fk_frame(model, robots.PANDA_EE_FRAME),
+                         tm.to_position()),
+        alpha=0.1, beta=0.5, c=0.1, name="target"))
+    ee = model.frame_index(robots.PANDA_EE_FRAME)
+    goal = torch.tensor([0.6, 0.0, 0.4])
+
+    def dist(q):
+        return float(torch.linalg.vector_norm(kinematics.fk_frame(
+            model, torch.as_tensor(q), ee)[:3, 3] - goal))
+    d0 = dist(sim.q)
+    qdd = None
+    for i in range(SIM_STEPS):
+        if i % 10 == 0:
+            q, qd, ctx = sim.state()
+            qdd = c.evaluate(q, qd, context=ctx)
+        sim.step(qdd)
+    check(sim.device == c.device, "Simulation and RmpCore on two devices")
+    return sim.q, d0, dist(sim.q)
+
+
+def phase_simulation() -> dict:
+    t0 = time.perf_counter()
+    q_gpu, d0, d_gpu = simulation_loop()
+    seconds = time.perf_counter() - t0
+    q_cpu, _, d_cpu = simulation_loop("cpu")
+    rec = dict(ee_goal_start=d0, ee_goal_end_gpu=d_gpu, ee_goal_end_cpu=d_cpu,
+               max_abs_q_gpu_cpu=float(np.abs(q_gpu - q_cpu).max()),
+               seconds_gpu=seconds)
+    log(f"Simulation wrapper on the GPU, {SIM_STEPS} steps: "
+        f"{json.dumps(rec)} (atol {SIM_Q_TOL} on q)")
+    check(d_gpu < d0, "Simulation wrapper: the EE did not near its goal")
+    check(rec["max_abs_q_gpu_cpu"] <= SIM_Q_TOL,
+          "Simulation wrapper: GPU against CPU")
+    return rec
+
+
+def phase_k4_moving() -> dict:
+    """K4 on moving_obstacles' own warm operands (k4_main_path_operands: the
+    hull tier at BATCH envs 20 ticks in, the obstacles moved every tick and
+    the warm start the carry of their previous positions) at the scene's
+    warm iteration count, against its plain version with phase 6's limits
+    (k4_compare, k4_evidence); timed beside the bound of what its pairs
+    need (k4_bound_needed)."""
+    ops, iters = k4_main_path_operands(MOVING, method=None)
+    check(iters == data.WARM_ITERS, f"K4 on {MOVING}: {iters} iterations")
+
+    def call():
+        return cuda_gjk.gjk_hull_obstacles(**ops, iters=iters)
+
+    def plain():
+        return cuda_gjk.gjk_hull_obstacles_plain(**ops, iters=iters)
+    what = f"K4 {MOVING} operands, {iters} iterations"
+    got, want = call(), plain()
+    rec = k4_compare(got, want, what)
+    rec["evidence"] = k4_evidence(ops, got, want, what)
+    needed, live = k4_needed_iterations(ops, iters)
+    rec.update(iters=iters, ms=time_ms(call),
+               device_ms=time_ms(call, lead=True),
+               plain_ms=time_ms(plain, reps=5), live_share=live,
+               mean_needed_iterations=float(needed.double().mean()))
+    rec["bound_ms"], rec["bound_by"] = k4_bound_needed(ops, needed)
+    log(f"{what}: kernel {rec['ms']:.4f} ms (device alone "
+        f"{rec['device_ms']:.4f} ms), plain {rec['plain_ms']:.4f} ms, bound "
+        f"{rec['bound_ms']:.6f} ms ({rec['bound_by']}); share of pairs still "
+        f"changing after iteration i {json.dumps(live)}")
+    return rec
+
+
+@contextlib.contextmanager
+def gjk_as(fn):
+    """collision.gjk_hull_obstacles replaced by fn while the block runs."""
+    saved = collision.gjk_hull_obstacles
+    collision.gjk_hull_obstacles = fn
+    try:
+        yield
+    finally:
+        collision.gjk_hull_obstacles = saved
+
+
+def k4_in_loop(calls: list, env_gaps: list, failed: list):
+    """A stand-in for collision.gjk_hull_obstacles in a run on the card:
+    each call launches K4 and its plain version on the same operands, holds
+    the two to phase 6's limits (k4_compare, k4_evidence; a miss goes to
+    `failed`), appends their record to `calls` and, per env, the largest
+    |Δdist| and witness gap over the env's pairs to `env_gaps`, and passes
+    K4's answer on."""
+    def call(verts, R, t, p0, p1, an, radius, is_cyl, d0, iters=10):
+        ops = dict(verts=verts, R=R, t=t, p0=p0, p1=p1, an=an,
+                   radius=radius, is_cyl=is_cyl, d0=d0)
+        got = cuda_gjk.gjk_hull_obstacles(**ops, iters=iters)
+        want = cuda_gjk.gjk_hull_obstacles_plain(**ops, iters=iters)
+        what = f"K4 in the loop, call {len(calls) + 1}, {iters} iterations"
+        rec = dict(iters=iters)
+        try:
+            rec.update(k4_compare(got, want, what))
+            rec["evidence"] = k4_evidence(ops, got, want, what)
+        except AssertionError as e:
+            failed.append(str(e))
+        calls.append(rec)
+        env_gaps.append((
+            (got[2] - want[2]).abs().amax(dim=(0, 1)).cpu(),
+            torch.maximum((got[0] - want[0]).abs().amax(dim=(0, 1, 2)),
+                          (got[1] - want[1]).abs().amax(dim=(0, 1, 2))
+                          ).cpu()))
+        return got
+    return call
+
+
+def moving_hull_parity(warm_iters: int) -> tuple[dict, list]:
+    """franka/moving_obstacles in the hull tier, 128 envs (broad phase, warm
+    carry following the moving obstacles) x 5 ticks from q ± 0.1,
+    q̇ ± 0.05 at `warm_iters` warm GJK iterations. Runs: the card with K4
+    checked in the loop (k4_in_loop: every call, the reset's cold one
+    included, against its plain version on the card's own operands), the
+    card with K4's plain version in its place, the CPU, the CPU from a start
+    moved by one ulp, float64 (witness_q), and the CPU at one more warm
+    iteration (printed only). Screened envs: no goal event in any run, and
+    a CPU run that each of three rounding-level changes leaves within
+    STABLE: the one-ulp move, float64, and the card's arithmetic outside K4
+    (the run with the plain version in K4's place). The truncated GJK turns
+    rounding into different answers on some envs, and the three changes
+    find different ones. Held:
+      - every K4 call within phase 6's limits;
+      - the card's run within PARITY_ATOL of the CPU and of float64 on the
+        screened envs: K4 is the only change there, so a gap is K4's;
+      - on every env where K4 and its plain version parted at some call
+        (a pair's |Δdist| above K4_AGREE or witnesses above
+        K4_WITNESS_P99), the witness gap within K4_WITNESS_MAX.
+    Returns the record and the failures."""
+    kw = dict(geometry="hull", scene=MOVING, method=None, solved=True)
+    calls, env_gaps, failed = [], [], []
+    with gjk_as(k4_in_loop(calls, env_gaps, failed)):
+        gpu, s0 = parity_q("cuda", 0.1, 0.05, warm_iters=warm_iters, **kw)
+    with gjk_as(cuda_gjk.gjk_hull_obstacles_plain):
+        gpu_plain, s1 = parity_q("cuda", 0.1, 0.05, warm_iters=warm_iters,
+                                 **kw)
+    cpu, s2 = parity_q("cpu", 0.1, 0.05, warm_iters=warm_iters, **kw)
+    ulp, s3 = parity_q("cpu", 0.1, 0.05, ulp=True, warm_iters=warm_iters,
+                       **kw)
+    more, s4 = parity_q("cpu", 0.1, 0.05, warm_iters=warm_iters + 1, **kw)
+    exact, s5 = witness_q(MOVING, False, "hull", warm_iters)
+
+    def gap(a, b):
+        return (a.double() - b.double()).abs().amax(dim=1)
+
+    def top(v, where):
+        return float(v[where].max()) if bool(where.any()) else None
+    quiet = ~(s0 | s1 | s2 | s3 | s4 | s5)
+    moves = dict(ulp=gap(ulp, cpu), float64=gap(cpu, exact),
+                 card_outside_k4=gap(gpu_plain, cpu))
+    keep = quiet.clone()
+    for m in moves.values():
+        keep &= m <= STABLE
+    env_dist = torch.stack([d for d, _ in env_gaps]).amax(dim=0)
+    env_wit = torch.stack([w for _, w in env_gaps]).amax(dim=0)
+    parted = (env_dist > K4_AGREE) | (env_wit > K4_WITNESS_P99)
+    q_gap, more_move = gap(gpu, cpu), gap(more, cpu)
+    rec = dict(
+        warm_iters=warm_iters, k4_calls=len(calls),
+        envs_with_goal_event=int((~quiet).sum()),
+        envs_kept_by_each_screen={k: int((quiet & (m <= STABLE)).sum())
+                                  for k, m in moves.items()},
+        envs_compared=int(keep.sum()),
+        max_abs_q=top(q_gap, keep),
+        max_gpu_vs_float64=top(gap(gpu, exact), keep),
+        max_abs_q_screened_out=top(q_gap, quiet & ~keep),
+        median_abs_q_all=float(q_gap[quiet].median()),
+        max_move={k: float(m[quiet].max()) for k, m in moves.items()},
+        k4_dist_gap_per_call=[c.get("dist_max") for c in calls],
+        k4_witness_gap_per_call=[c.get("witness_max") for c in calls],
+        envs_k4_parted=int(parted.sum()),
+        max_k4_witness_gap_parted=top(env_wit, parted),
+        max_abs_q_k4_parted=top(q_gap, parted),
+        one_more_iteration_move=dict(median=float(more_move[quiet].median()),
+                                     max=float(more_move[quiet].max())))
+    # the envs that part most, with what each run and screen says of them
+    worst = torch.argsort(torch.where(quiet, q_gap, torch.zeros_like(q_gap)),
+                          descending=True)[:8].tolist()
+    rec["worst_envs"] = [dict(
+        env=e, abs_q=float(q_gap[e]), compared=bool(keep[e]),
+        k4_dist_gap=float(env_dist[e]), k4_witness_gap=float(env_wit[e]),
+        one_more_iteration_move=float(more_move[e]),
+        **{f"{k}_move": float(m[e]) for k, m in moves.items()})
+        for e in worst]
+    rec["k4_calls_record"] = calls
+    what = f"hull parity of {MOVING} at {warm_iters} warm iterations"
+    if rec["envs_compared"] < 64:
+        failed.append(f"{what}: too few envs compared")
+    for key in ("max_abs_q", "max_gpu_vs_float64"):
+        if rec[key] is not None and rec[key] > PARITY_ATOL:
+            failed.append(f"{what}: {key} {rec[key]:.3e} > {PARITY_ATOL}")
+    if (rec["max_k4_witness_gap_parted"] or 0.0) > K4_WITNESS_MAX:
+        failed.append(f"{what}: K4's witnesses part from the plain "
+                      f"version's by more than {K4_WITNESS_MAX}")
+    return rec, failed
+
+
+def phase_moving_hull_parity() -> dict:
+    """moving_hull_parity at each of HULL_PARITY_ITERS; every run is made
+    before any check."""
+    out, failed = {}, []
+    for iters in HULL_PARITY_ITERS:
+        rec, miss = moving_hull_parity(iters)
+        out[f"warm_iters_{iters}"] = rec
+        failed += miss
+        shown = {k: v for k, v in rec.items() if k != "k4_calls_record"}
+        log(f"parity {MOVING} (hull, 128 envs, warm carry, {iters} warm GJK "
+            f"iterations) x 5 ticks from q ± 0.1, q̇ ± 0.05: "
+            f"{json.dumps(shown)} (atol {PARITY_ATOL})")
+    check(not failed, "; ".join(failed))
+    return out
+
+
+def phase_slice7(card: str, device) -> dict:
+    """Phase 13: K1 on moving_goal's layout, K4 on moving_obstacles' warm
+    operands, the five new scenes' rollouts
+    at BATCH envs (moving_obstacles in both tiers), the 'pinv' resolve's
+    cost, GPU/CPU parity of the five scenes and of moving_obstacles in the
+    hull tier, franka/04's IK start and the Simulation wrapper on the
+    card."""
+    k1_new, k1_err = phase_k1_new_n(device, K1_SLICE7_LAYOUTS)
+    k4_moving = phase_k4_moving()
+    paths = {}
+    for scene in SCENES7_SOLVE:
+        paths[scene] = phase_main_path(card, "capsule", scene, method=None)
+    paths[f"{MOVING} (hull)"] = phase_main_path(card, "hull", MOVING,
+                                                method=None)
+    for scene in SCENES7_PINV:
+        paths[scene] = phase_main_path(card, "capsule", scene,
+                                       ticks=PINV_TICKS, method=None)
+    pinv = {scene: pinv_cost(scene) for scene in SCENES7_PINV}
+    return dict(k1=k1_new, k1_err=k1_err, k4=k4_moving, paths=paths,
+                pinv=pinv,
+                parity=phase_new_scene_parity([(s, False) for s in SCENES7]),
+                hull_parity=phase_moving_hull_parity(),
+                ik_start=phase_ik_start(), simulation=phase_simulation())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1710,18 +2109,26 @@ def main() -> int:
     slice6 = phase_slice6(card, device)
     slice6_s = time.perf_counter() - t0
     log(f"phase 12: {slice6_s:.1f} s")
+    t0 = time.perf_counter()
+    slice7 = phase_slice7(card, device)
+    slice7_s = time.perf_counter() - t0
+    log(f"phase 13: {slice7_s:.1f} s")
 
     k1["per_layout"] = dict(flagship=dict(n=9, ms=k1["ms"],
                                           device_ms=k1["device_ms"]),
-                            **slice6["k1"])
-    k1["max_abs_err"] = max(k1["max_abs_err"], slice6["k1_err"])
+                            **slice6["k1"], **slice7["k1"])
+    k1["max_abs_err"] = max(k1["max_abs_err"], slice6["k1_err"],
+                            slice7["k1_err"])
+    k4["moving_obstacles_operands"] = slice7["k4"]
+    k4["max_abs_err"] = max(k4["max_abs_err"], slice7["k4"]["dist_max"])
     k3["per_model"] = dict(panda=dict(frames=12, n=9, ms=k3["ms"],
                                       device_ms=k3["device_ms"]),
                            **slice6["k3"])
     k3["max_abs_err"] = max(k3["max_abs_err"], slice6["k3_err"])
     path_launches = {"capsule": launches, "hull": hull_launches}
-    path_launches.update((scene, counts) for scene, (counts, _) in
-                         slice6["paths"].items())
+    for paths in (slice6["paths"], slice7["paths"]):
+        path_launches.update((scene, counts) for scene, (counts, _) in
+                             paths.items())
     kernels = [k1, k2a, k2b, k3, k4, k5]
     for rec in kernels:
         # each kernel's count from the paths that run it (K2a/K2b, K5: none)
@@ -1735,7 +2142,14 @@ def main() -> int:
                   ur5_paths={scene: path for scene, (_, path) in
                              slice6["paths"].items()},
                   new_scene_parity=slice6["parity"],
-                  rmpcore_goldens=slice6["goldens"], phase12_s=slice6_s)
+                  rmpcore_goldens=slice6["goldens"], phase12_s=slice6_s,
+                  slice7_paths={scene: path for scene, (_, path) in
+                                slice7["paths"].items()},
+                  slice7_pinv=slice7["pinv"],
+                  slice7_parity=slice7["parity"],
+                  slice7_hull_parity=slice7["hull_parity"],
+                  ik_start=slice7["ik_start"],
+                  simulation=slice7["simulation"], phase13_s=slice7_s)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

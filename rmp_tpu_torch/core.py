@@ -6,9 +6,13 @@ back to joint space and solves
 
     q̈ = (Σ J_iᵀ M_i J_i)⁺ Σ J_iᵀ M_i (a_i − c_i),    c_i = J̇_i q̇.
 
-The FK chain is differentiated in closed form once per tick (fk_bundle,
-through the K3 kernel wrapper); only each policy's small post map sees
-forward-mode autodiff (torch.func).
+derivatives='analytic' (the default) differentiates the FK chain in closed
+form once per tick (fk_bundle, through the K3 kernel wrapper); only each
+policy's small post map sees forward-mode autodiff (torch.func), and a
+taskmap that is neither FK-rooted nor the identity is differentiated whole.
+derivatives='jacfwd' differentiates every policy's whole taskmap, FK
+included, in one stacked forward-mode pass (no kernel): the generic path
+the closed form is checked against.
 """
 from __future__ import annotations
 
@@ -18,7 +22,8 @@ import torch
 from torch.func import jvp, vmap
 
 from rmp_tpu_torch import default_device
-from rmp_tpu_torch.models.kinematics import frame_indices
+from rmp_tpu_torch.models.kinematics import (differentiate, fk_all,
+                                             frame_indices)
 from rmp_tpu_torch.ops import geom
 from rmp_tpu_torch.ops.cuda_fk import fk_derivatives_batched
 from rmp_tpu_torch.ops.linalg import cholesky_solve_unrolled, lu_solve_unrolled
@@ -108,18 +113,58 @@ def fk_bundle(policies, q, qd) -> dict[int, FkBundle]:
     """{id(model): FkBundle} for every distinct FK model under `policies`:
     one K3 launch per model and tick, shared by all policies and by the
     distance context (FkBundle.T16)."""
+    return {mid: FkBundle(*fk_derivatives_batched(m, q, qd))
+            for mid, m in _fk_models(policies).items()}
+
+
+def _taskmap_derivatives(policies, q, qd, ctxs, derivatives, fk):
+    if derivatives == "jacfwd":
+        return _taskmap_derivatives_jacfwd(policies, q, qd, ctxs)
+    if derivatives == "analytic":
+        return _taskmap_derivatives_analytic(policies, q, qd, ctxs, fk=fk)
+    raise ValueError(f"unknown derivatives {derivatives!r}")
+
+
+def _fk_models(policies) -> dict[int, Any]:
+    """{id(model): model} of every FK model under `policies`."""
     models: dict[int, Any] = {}
     for p in policies:
         tmap = p.taskmap
         if tmap.fk_rooted:
             models.setdefault(id(tmap.model), tmap.model)
-    return {mid: FkBundle(*fk_derivatives_batched(m, q, qd))
-            for mid, m in models.items()}
+    return models
+
+
+def _taskmap_derivatives_jacfwd(policies, q, qd, ctxs):
+    """(x, ẋ, J, c) per policy by one stacked forward-mode pass over every
+    policy's taskmap (models/kinematics.differentiate), with one fk_all per
+    FK model shared by the FK-rooted maps."""
+    models = _fk_models(policies)
+
+    def stacked(qq):
+        T16 = {mid: fk_all(m, qq).reshape(*qq.shape[:-1], m.n_frames, 16)
+               for mid, m in models.items()}
+        outs = []
+        for p, ctx in zip(policies, ctxs):
+            tmap = p.taskmap
+            if tmap.fk_rooted:
+                i = tmap.frame_idx
+                frames = i if isinstance(i, tuple) else (i,)
+                T = T16[id(tmap.model)]
+                T = (T[:, frames[0]:frames[0] + 1] if len(frames) == 1 else
+                     T.index_select(1, frame_indices(frames, T.device)))
+                outs.append(tmap.post(T, ctx))
+            else:
+                outs.append(tmap(qq, ctx))
+        return tuple(outs)
+
+    return differentiate(stacked, q, qd)
 
 
 def _taskmap_derivatives_analytic(policies, q, qd, ctxs, fk=None):
     """(x, ẋ, J, c) per policy: FK-rooted taskmaps from the closed-form FK
-    rows plus their post map's autodiff, identity maps exactly."""
+    rows plus their post map's autodiff, identity maps exactly, any other
+    map by `differentiate` on its own."""
     if fk is None:
         fk = fk_bundle(policies, q, qd)
     B, n = q.shape
@@ -138,9 +183,7 @@ def _taskmap_derivatives_analytic(policies, q, qd, ctxs, fk=None):
         elif tmap.is_identity:
             x, xd, J, c = q[:, None, :], qd[:, None, :], eye, zeros
         else:
-            raise NotImplementedError(
-                f"policy {p.name!r}: only FK-rooted and identity taskmaps "
-                f"are ported")
+            x, xd, J, c = differentiate(lambda qq: tmap(qq, ctx), q, qd)
         x_all.append(x)
         xd_all.append(xd)
         J_all.append(J)
@@ -150,7 +193,8 @@ def _taskmap_derivatives_analytic(policies, q, qd, ctxs, fk=None):
 
 def policy_row_blocks_structured(policies: Sequence, q: torch.Tensor,
                                  qd: torch.Tensor, params: Sequence,
-                                 ctxs: Sequence, fk=None):
+                                 ctxs: Sequence, derivatives: str = "analytic",
+                                 fk=None):
     """(tags, blocks) of the structured per-policy pullback rows:
 
       'identity': (M (B, n, n), v (B, n))      J = I_n, no rows
@@ -158,9 +202,10 @@ def policy_row_blocks_structured(policies: Sequence, q: torch.Tensor,
       'dense':    (J (B, R, n), W (B, R, n), v (B, R))
 
     with W = M J and v = M (a − c) rows — the input of
-    ops/cuda_resolve.pullback_resolve_structured (K1)."""
-    x_all, xd_all, J_all, c_all = _taskmap_derivatives_analytic(
-        policies, q, qd, ctxs, fk=fk)
+    ops/cuda_resolve.pullback_resolve_structured (K1). derivatives:
+    'analytic' (fk: a precomputed fk_bundle) or 'jacfwd'."""
+    x_all, xd_all, J_all, c_all = _taskmap_derivatives(
+        policies, q, qd, ctxs, derivatives, fk)
     B, n = q.shape
     tags, blocks = [], []
     for p, prm, ctx, x, xd, J, c in zip(policies, params, ctxs, x_all, xd_all,
@@ -182,11 +227,12 @@ def policy_row_blocks_structured(policies: Sequence, q: torch.Tensor,
 
 def evaluate_policies(policies: Sequence, q: torch.Tensor, qd: torch.Tensor,
                       params: Sequence, ctxs: Sequence, method: str = "pinv",
+                      derivatives: str = "analytic",
                       fk=None) -> torch.Tensor:
     """Combined RMP evaluation q̈ (B, n) by the per-policy pullback and
-    core.resolve."""
-    x_all, xd_all, J_all, c_all = _taskmap_derivatives_analytic(
-        policies, q, qd, ctxs, fk=fk)
+    core.resolve; derivatives 'analytic' or 'jacfwd', both exact."""
+    x_all, xd_all, J_all, c_all = _taskmap_derivatives(
+        policies, q, qd, ctxs, derivatives, fk)
     B, n = q.shape
     f_comb = torch.zeros(B, n, dtype=q.dtype, device=q.device)
     A_comb = torch.zeros(B, n, n, dtype=q.dtype, device=q.device)
@@ -217,15 +263,12 @@ class RmpCore:
     JAX package's RmpCore (the reference's add_rmp / remove_rmp_by_name /
     evaluate / __str__ surface). It runs on the card unless `device` says
     otherwise; the policies' params are moved there as they are gathered.
-    Only the closed-form FK derivatives are ported: derivatives='jacfwd'
-    raises."""
+    derivatives: 'analytic' (closed-form FK through K3) or 'jacfwd'."""
 
     def __init__(self, rmps: dict | None = None, method: str = "pinv",
                  derivatives: str = "analytic", device=None):
-        if derivatives != "analytic":
-            raise NotImplementedError(
-                f"derivatives={derivatives!r} is not ported; the port's "
-                f"RmpCore takes 'analytic' only")
+        if derivatives not in ("analytic", "jacfwd"):
+            raise ValueError(f"unknown derivatives {derivatives!r}")
         self.rmps: dict[str, Any] = dict(rmps) if rmps else {}
         self.method = method
         self.derivatives = derivatives
@@ -255,9 +298,11 @@ class RmpCore:
     def make_evaluate(self):
         """fn(q, qd (B, n), params, ctxs) -> q̈ (B, n), batched."""
         policies, method = self.policies, self.method
+        derivatives = self.derivatives
 
         def fn(q, qd, params, ctxs):
-            return evaluate_policies(policies, q, qd, params, ctxs, method)
+            return evaluate_policies(policies, q, qd, params, ctxs, method,
+                                     derivatives)
         return fn
 
     def evaluate(self, q, qd, context: dict | None = None, params=None):

@@ -1,9 +1,11 @@
 """Scene registry: the ported scenes of the JAX package's registry."""
 from rmp_tpu_torch import default_device
-from rmp_tpu_torch.envs import base, franka, two_joint, ur5  # noqa: F401
+from rmp_tpu_torch.envs import (base, cameras, franka, two_joint,  # noqa: F401
+                                ur5)
 from rmp_tpu_torch.envs.base import (Env, EnvState, env_state,  # noqa: F401
                                      make_batched_control_step,
-                                     make_batched_reset, make_batched_rollout)
+                                     make_batched_reset, make_batched_rollout,
+                                     make_control_step, make_rollout)
 
 REGISTRY = {
     "two_joint/01_target_rmp_only": two_joint.env_01_target_rmp_only,
@@ -15,8 +17,13 @@ REGISTRY = {
     "two_joint/05_obstacle_avoidance_variant":
         two_joint.env_05_obstacle_avoidance_variant,
     "franka/01_target_rmp_only": franka.env_01_target_rmp_only,
+    "franka/03_self_avoidance": franka.env_03_self_avoidance,
+    "franka/04_nullspace_control": franka.env_04_nullspace_control,
     "franka/05_obstacle_avoidance": franka.env_05_obstacle_avoidance,
     "franka/06_cluttered_environment": franka.env_06_cluttered_environment,
+    "franka/pose_target": franka.env_pose_target,
+    "franka/moving_obstacles": franka.env_moving_obstacles,
+    "franka/moving_goal": franka.env_moving_goal,
     "ur5/01_target_reaching": ur5.env_01_target_reaching,
     "ur5/02_obstacle_avoidance": ur5.env_02_obstacle_avoidance,
 }

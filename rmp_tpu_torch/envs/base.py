@@ -1,15 +1,19 @@
 """Environment machinery: batched scenes and their control tick.
 
-The port's `rmp_tpu/envs/base.py` for the batched, fused path. One control
-tick senses (closed-form FK through K3, the capsule or exact-hull distance
-context), builds the structured per-policy pullback blocks, resolves the
-whole batch at once (K1 for resolve_method 'solve'; einsum accumulation +
-core.resolve for 'pinv' and 'cholesky'), then runs `control_every`
-integrator substeps with the latched q̈ (realised exactly, or through the
-torque path with Env.torque_mode) and the in-graph goal bookkeeping. A
-rollout is a Python loop over ticks. In the hull tier a batch of a multiple
-of 128 envs carries the GJK warm start (EnvState.gjk_warm) from tick to
-tick, seeded by one cold query at reset.
+The port's `rmp_tpu/envs/base.py`. One batched control tick
+(make_batched_control_step) senses (closed-form FK through K3, then the
+capsule or exact-hull distance context, or the scene's own context_fn),
+builds the structured per-policy pullback blocks, resolves the whole batch
+at once (K1 for resolve_method 'solve'; einsum accumulation + core.resolve
+for 'pinv' and 'cholesky'), applies the scene's update_scene, then runs
+`control_every` integrator substeps with the latched q̈ (realised exactly,
+or through the torque path with Env.torque_mode) and the in-graph goal
+bookkeeping. A rollout is a Python loop over ticks. In the hull tier a
+batch of a multiple of 128 envs carries the GJK warm start
+(EnvState.gjk_warm) from tick to tick, seeded by one cold query at reset.
+make_control_step / make_rollout take the same batched state with the JAX
+package's per-env semantics: evaluate_policies and core.resolve (never
+K1), and every hull pair cold.
 
 Scenes that resample at random draw from EnvState.rng, a torch.Generator on
 the env's device seeded at reset. A resampling scene draws for every env at
@@ -25,7 +29,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from rmp_tpu_torch.core import fk_bundle, policy_row_blocks_structured, resolve
+from rmp_tpu_torch.core import (evaluate_policies, fk_bundle,
+                                policy_row_blocks_structured, resolve)
 from rmp_tpu_torch.models import kinematics as K
 from rmp_tpu_torch.models.urdf import KinematicModel
 from rmp_tpu_torch.ops.cuda_resolve import (assemble_structured,
@@ -97,6 +102,9 @@ class Env:
     # the solved check also asks |q̇| < check_velocity
     check_velocity: float | None = None
     resolve_method: str = "pinv"
+    # taskmap derivatives: 'analytic' (closed-form FK through K3) or
+    # 'jacfwd' (forward-mode autodiff of each whole taskmap, no kernel)
+    derivatives: str = "analytic"
     # physics through τ = clip(ID(q̈), ±effort), q̈ = FD(τ) each substep
     torque_mode: bool = False
     # clamp q̇ to the URDF velocity limits each substep (off: PyBullet does
@@ -112,6 +120,14 @@ class Env:
     # hull tier: GJK iterations of the batched query (None: 10 without a
     # warm carry, 4 with one)
     hull_warm_iters: int | None = None
+    # context_fn(model, sim, T_all) -> per-policy ctx dict in place of the
+    # obstacle distance context, called on the whole batch; T_all is the
+    # tick's world transforms (B, F, 4, 4) from K3, or None
+    context_fn: Callable | None = None
+    # update_scene(sim) -> sim, once per tick after the resolve and before
+    # the substeps (moving goals and obstacles): the policies of tick k see
+    # the scene as tick k-1 left it
+    update_scene: Callable | None = None
 
     def gather_params(self) -> tuple:
         return tuple(p.params for p in self.policies)
@@ -177,31 +193,44 @@ def is_solved(env: Env, sim: SimState, ee: torch.Tensor) -> torch.Tensor:
     return ok
 
 
-def _world_transforms(env: Env, fk: dict, q: torch.Tensor) -> torch.Tensor:
-    """The tick's world transforms (B, F, 4, 4): from the K3 bundle of the
-    env's model, or by FK when no policy is FK-rooted on it."""
-    bundle = fk.get(id(env.model))
+def _bundle_transforms(env: Env, fk: dict | None):
+    """The tick's world transforms (B, F, 4, 4) from the K3 bundle of the
+    env's model, or None when the tick has none (no policy FK-rooted on
+    it, or derivatives 'jacfwd')."""
+    bundle = (fk or {}).get(id(env.model))
     if bundle is None:
-        return K.fk_all(env.model, q)
+        return None
     return bundle.T16.reshape(*bundle.T16.shape[:2], 4, 4)
+
+
+def _world_transforms(env: Env, fk: dict | None,
+                      q: torch.Tensor) -> torch.Tensor:
+    """The tick's world transforms (B, F, 4, 4): from the K3 bundle, or by
+    FK when there is none."""
+    T_all = _bundle_transforms(env, fk)
+    return K.fk_all(env.model, q) if T_all is None else T_all
 
 
 def _policy_inputs(env: Env, state: EnvState, params: tuple,
                    frame_ctx: dict | None = None, fk: dict | None = None):
     """(q, q̇, bound params, per-policy ctxs, fk bundle) for one tick. The
-    K3 transforms feed the distance context, so the tick runs one FK.
-    frame_ctx: a distance context the caller already built (the batched
-    hull tier), from the bundle `fk` it passes along."""
+    K3 transforms feed the distance context (or the scene's context_fn), so
+    the tick runs one FK. frame_ctx: a distance context the caller already
+    built (the batched hull tier), from the bundle `fk` it passes along.
+    With derivatives 'jacfwd' there is no bundle (fk None)."""
     sim = state.sim
     policies = env.policies
     if env.bind_params is not None:
         params = env.bind_params(params, sim, policies)
-    if fk is None:
+    if fk is None and env.derivatives == "analytic":
         fk = fk_bundle(policies, sim.q, sim.qd)
     if frame_ctx is None:
-        _, _, frame_ctx = sense(env.model, sim,
-                                _world_transforms(env, fk, sim.q),
-                                env.collision_geometry)
+        T_all = _bundle_transforms(env, fk)
+        if env.context_fn is not None:
+            frame_ctx = env.context_fn(env.model, sim, T_all)
+        else:
+            _, _, frame_ctx = sense(env.model, sim, T_all,
+                                    env.collision_geometry)
     ctxs = tuple(frame_ctx.get(p.ctx_key) if p.ctx_key else None
                  for p in policies)
     return sim.q, sim.qd, params, ctxs, fk
@@ -226,6 +255,8 @@ def _advance(env: Env, state: EnvState, qdd: torch.Tensor):
     """Physics substeps and goal bookkeeping for one tick."""
     model = env.model
     sim = state.sim
+    if env.update_scene is not None:
+        sim = env.update_scene(sim)
     if env.max_qdd is not None:
         qdd = torch.clamp(torch.nan_to_num(qdd, nan=0.0, posinf=0.0,
                                            neginf=0.0),
@@ -260,8 +291,9 @@ def _advance(env: Env, state: EnvState, qdd: torch.Tensor):
 def _batched_hull(env: Env, states: EnvState) -> bool:
     """True when the tick builds the hull context for the whole batch with
     the broad phase and the warm carry (sim.data.hull_batched); other
-    batches take the per-env semantics through sense."""
-    return (states.sim.obstacles is not None
+    batches take the per-env semantics through sense. A scene with its own
+    context_fn builds its context itself, as in the JAX package."""
+    return (env.context_fn is None and states.sim.obstacles is not None
             and hull_batched(env.collision_geometry, states.sim.q.shape[0]))
 
 
@@ -275,15 +307,17 @@ def make_batched_control_step(env: Env):
     def step(states: EnvState, params: tuple):
         fk = frame_ctx = warm_next = None
         if _batched_hull(env, states):
-            fk = fk_bundle(policies, states.sim.q, states.sim.qd)
+            if env.derivatives == "analytic":
+                fk = fk_bundle(policies, states.sim.q, states.sim.qd)
             frame_ctx, warm_next = distance_context_batched(
                 env.model, _world_transforms(env, fk, states.sim.q),
                 states.sim.obstacles, "hull",
                 warm=states.gjk_warm, iters=env.hull_warm_iters)
         q, qd, params_b, ctxs, fk = _policy_inputs(env, states, params,
                                                    frame_ctx, fk)
-        tags, blocks = policy_row_blocks_structured(policies, q, qd, params_b,
-                                                    ctxs, fk=fk)
+        tags, blocks = policy_row_blocks_structured(
+            policies, q, qd, params_b, ctxs, derivatives=env.derivatives,
+            fk=fk)
         if env.resolve_method == "solve":
             qdd = pullback_resolve_structured(tags, blocks, ridge=0.0)
         else:
@@ -324,22 +358,53 @@ def make_batched_reset(env: Env, batch: int, seed: int = 0):
     return reset
 
 
+def _run_ticks(step, states: EnvState, params: tuple, n_ticks: int,
+               with_aux: bool):
+    """n_ticks of `step`; aux stacks each per-tick entry along axis 1
+    (B, T, ...), or is None with with_aux=False."""
+    auxes = []
+    for _ in range(n_ticks):
+        states, aux = step(states, params)
+        if with_aux:
+            auxes.append(aux)
+    if not with_aux:
+        return states, None
+    return states, {k: torch.stack([a[k] for a in auxes], dim=1)
+                    for k, v in auxes[0].items() if v is not None}
+
+
 def make_batched_rollout(env: Env, n_ticks: int, with_aux: bool = True):
-    """fn(states, params) -> (final states, aux) over n_ticks ticks; aux
-    stacks each per-tick entry along axis 1 (B, T, ...), or is None with
-    with_aux=False."""
+    """fn(states, params) -> (final states, aux) over n_ticks batched ticks;
+    aux stacks each per-tick entry along axis 1 (B, T, ...), or is None
+    with with_aux=False."""
     step = make_batched_control_step(env)
 
     def rollout(states: EnvState, params: tuple):
         if _wants_gjk_warm(env, states):
             states = _seed_gjk_warm(env, states)
-        auxes = []
-        for _ in range(n_ticks):
-            states, aux = step(states, params)
-            if with_aux:
-                auxes.append(aux)
-        if not with_aux:
-            return states, None
-        return states, {k: torch.stack([a[k] for a in auxes], dim=1)
-                        for k, v in auxes[0].items() if v is not None}
+        return _run_ticks(step, states, params, n_ticks, with_aux)
+    return rollout
+
+
+def make_control_step(env: Env):
+    """fn(states, params) -> (states, aux) for one tick with the JAX
+    package's per-env semantics on a batched state: evaluate_policies and
+    core.resolve(env.resolve_method) (never K1), and the distance context
+    through sense (in the hull tier every pair cold, no warm carry)."""
+    def step(states: EnvState, params: tuple):
+        q, qd, params_b, ctxs, fk = _policy_inputs(env, states, params)
+        qdd = evaluate_policies(env.policies, q, qd, params_b, ctxs,
+                                method=env.resolve_method,
+                                derivatives=env.derivatives, fk=fk)
+        return _advance(env, states, qdd)
+    return step
+
+
+def make_rollout(env: Env, n_ticks: int, with_aux: bool = True):
+    """fn(states, params) -> (final states, aux): n_ticks of
+    make_control_step, aux as in make_batched_rollout."""
+    step = make_control_step(env)
+
+    def rollout(states: EnvState, params: tuple):
+        return _run_ticks(step, states, params, n_ticks, with_aux)
     return rollout

@@ -1,11 +1,13 @@
 """Forward kinematics on batch-first tensors.
 
 The port's `rmp_tpu/models/kinematics.py` (joint transforms, all-frame FK,
-single-frame FK). q: (..., n_q) with any leading batch axes.
+single-frame FK, and the generic forward-mode derivatives of any map of q).
+q: (..., n_q) with any leading batch axes.
 """
 from __future__ import annotations
 
 import torch
+from torch.func import jvp, vmap
 
 from rmp_tpu_torch.models.urdf import (PRISMATIC, REVOLUTE, ROOT,
                                        KinematicModel, model_cache)
@@ -99,3 +101,33 @@ def fk_frame(model: KinematicModel, q: torch.Tensor,
     for i in chain[1:]:
         T = T @ T_local[..., i, :, :]
     return T
+
+
+def differentiate(fn, q: torch.Tensor, qd: torch.Tensor):
+    """(x, ẋ, J, c) of a smooth map x = fn(q), given q̇, forward mode
+    throughout, nested as in the JAX package:
+
+        x, ẋ = jvp(fn, q; q̇)
+        J    = ∂fn/∂q: one jvp per joint (jacfwd), the n tangents vmapped
+        c    = J̇ q̇ = ∂(J q̇)/∂q q̇: a jvp of the jvp
+
+    q, qd: (..., n). fn maps each configuration on its own (a batch row
+    never reads another), so the basis tangent e_k, the same in every row,
+    gives column k of every row's Jacobian. fn may return a tensor or a
+    tuple of them; each x (..., d) gets J (..., d, n)."""
+    x, xd = jvp(fn, (q,), (qd,))
+    n = q.shape[-1]
+    basis = torch.eye(n, dtype=q.dtype, device=q.device).reshape(
+        n, *(1,) * (q.dim() - 1), n).expand(n, *q.shape)
+    J = vmap(lambda v: jvp(fn, (q,), (v,))[1], out_dims=-1)(basis)
+    _, c = jvp(lambda qq: jvp(fn, (qq,), (qd,))[1], (q,), (qd,))
+    return x, xd, J, c
+
+
+def fk_differentiate(model: KinematicModel, q: torch.Tensor,
+                     qd: torch.Tensor, frame_idx: int):
+    """(x16, ẋ16, J (16, n), c16) of the flattened world 4x4 of one frame,
+    each with q's leading axes, by `differentiate`."""
+    def fn(qq):
+        return fk_frame(model, qq, frame_idx).reshape(*qq.shape[:-1], 16)
+    return differentiate(fn, q, qd)

@@ -1,14 +1,17 @@
 """Static kinematic model: the numpy constants every batched function reads.
 
-The port's copy of `rmp_tpu/models/urdf.py` (joint-type codes, collision
-primitives, `KinematicModel`, the Rx·Ry·Rz rpy composition and PyBullet's
-collision-shape inertia). URDF parsing (`parse_urdf`) is not ported yet;
-robots are built from the spec tables in `models/specs.py`.
+The port's copy of `rmp_tpu/models/urdf.py`: joint-type codes, collision
+primitives, `KinematicModel`, the Rx·Ry·Rz rpy composition, URDF parsing
+(`parse_urdf`, `with_collision_primitives`) and PyBullet's collision-shape
+inertia. The shipped robots are built from the spec tables in
+`models/specs.py`; `parse_urdf` of the committed `assets/*.urdf` gives the
+same models.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
+from xml.etree import ElementTree
 
 import numpy as np
 
@@ -23,6 +26,10 @@ _JOINT_TYPES = {
     "prismatic": PRISMATIC,
     "fixed": FIXED,
 }
+
+
+def _floats(s: str) -> list[float]:
+    return [float(x) for x in s.split()]
 
 
 def _rpy_matrix(rpy: np.ndarray) -> np.ndarray:
@@ -113,6 +120,179 @@ class KinematicModel:
     @property
     def collision_frames(self) -> tuple[int, ...]:
         return tuple(i for i, h in enumerate(self.has_collision) if h)
+
+
+def _parse_inertial(link_elem) -> tuple[float, np.ndarray, np.ndarray]:
+    inertial = link_elem.find("inertial")
+    if inertial is None:
+        return 0.0, np.zeros(3), np.zeros((3, 3))
+    origin = inertial.find("origin")
+    xyz = np.array(_floats(origin.get("xyz", "0 0 0"))) if origin is not None else np.zeros(3)
+    rpy = np.array(_floats(origin.get("rpy", "0 0 0"))) if origin is not None else np.zeros(3)
+    mass = float(inertial.find("mass").get("value"))
+    in_el = inertial.find("inertia")
+    ixx = float(in_el.get("ixx", 0)); iyy = float(in_el.get("iyy", 0)); izz = float(in_el.get("izz", 0))
+    ixy = float(in_el.get("ixy", 0)); ixz = float(in_el.get("ixz", 0)); iyz = float(in_el.get("iyz", 0))
+    I = np.array([[ixx, ixy, ixz], [ixy, iyy, iyz], [ixz, iyz, izz]])
+    R = _rpy_matrix(rpy)
+    return mass, xyz, R @ I @ R.T
+
+
+def _parse_collision(link_elem) -> tuple[CollisionPrimitive, ...]:
+    prims = []
+    for col in link_elem.findall("collision"):
+        geom = col.find("geometry")
+        if geom is None:
+            continue
+        origin = col.find("origin")
+        xyz = np.array(_floats(origin.get("xyz", "0 0 0"))) if origin is not None else np.zeros(3)
+        rpy = np.array(_floats(origin.get("rpy", "0 0 0"))) if origin is not None else np.zeros(3)
+        R = _rpy_matrix(rpy)
+        sphere = geom.find("sphere")
+        cylinder = geom.find("cylinder")
+        box = geom.find("box")
+        if sphere is not None:
+            r = float(sphere.get("radius"))
+            prims.append(CollisionPrimitive("sphere", tuple(xyz), tuple(xyz), r))
+        elif cylinder is not None:
+            r = float(cylinder.get("radius"))
+            h = float(cylinder.get("length"))
+            axis = R @ np.array([0.0, 0.0, h / 2])
+            prims.append(
+                CollisionPrimitive("capsule", tuple(xyz - axis), tuple(xyz + axis), r))
+        elif box is not None:
+            size = np.array(_floats(box.get("size")))
+            # capsule along the longest box axis, radius = half of second-longest
+            order = np.argsort(size)[::-1]
+            half = size[order[0]] / 2
+            radius = size[order[1]] / 2
+            seg = np.zeros(3)
+            seg[order[0]] = half - radius if half > radius else 0.0
+            prims.append(
+                CollisionPrimitive("capsule", tuple(xyz - R @ seg), tuple(xyz + R @ seg),
+                                   float(radius)))
+        else:
+            # mesh: no analytic primitive; caller may override via
+            # robots.with_collision_capsules(...)
+            continue
+    return tuple(prims)
+
+
+def parse_urdf(filepath: str, motor_order: tuple[str, ...] | None = None) -> KinematicModel:
+    """Parse a URDF into a static KinematicModel.
+
+    motor_order: joint-name ordering of the actuated q-vector. Defaults to
+    document order of non-fixed joints (which is PyBullet's motor order for
+    the shipped assets — reference helper/pybullet_helper.py:8-19).
+    """
+    tree = ElementTree.parse(filepath)
+    root = tree.getroot()
+    links = {l.get("name"): l for l in root.findall("link")}
+    joints = root.findall("joint")
+
+    child_links = {j.find("child").get("link") for j in joints}
+    root_link = next(n for n in links if n not in child_links)
+
+    # BFS from root link, children in document order (matches reference
+    # UrdfTree._build, helper/urdf_parsing.py:57-97)
+    order: list = []
+    todo = [root_link]
+    while todo:
+        link_name = todo.pop(0)
+        for j in joints:
+            if j.find("parent").get("link") == link_name:
+                order.append(j)
+                todo.append(j.find("child").get("link"))
+
+    frame_names, link_names, parents, jtypes, axes = [], [], [], [], []
+    T_const, masses, coms, inertias, has_col, collisions = [], [], [], [], [], []
+    limits = {}
+    link_to_frame = {root_link: ROOT}
+    for j in order:
+        name = j.get("name")
+        child = j.find("child").get("link")
+        parent_link = j.find("parent").get("link")
+        jtype = _JOINT_TYPES[j.get("type")]
+        origin = j.find("origin")
+        xyz = np.array(_floats(origin.get("xyz", "0 0 0"))) if origin is not None else np.zeros(3)
+        rpy = np.array(_floats(origin.get("rpy", "0 0 0"))) if origin is not None else np.zeros(3)
+        axis_el = j.find("axis")
+        axis = (np.array(_floats(axis_el.get("xyz"))) if (axis_el is not None and jtype != FIXED)
+                else np.zeros(3))
+        limit_el = j.find("limit")
+        dyn_el = j.find("dynamics")
+        limits[name] = dict(
+            lower=float(limit_el.get("lower", "-1e9")) if limit_el is not None else -1e9,
+            upper=float(limit_el.get("upper", "1e9")) if limit_el is not None else 1e9,
+            velocity=float(limit_el.get("velocity", "1e9")) if limit_el is not None else 1e9,
+            effort=float(limit_el.get("effort", "1e9")) if limit_el is not None else 1e9,
+            damping=float(dyn_el.get("damping", "0")) if dyn_el is not None else 0.0,
+            friction=float(dyn_el.get("friction", "0")) if dyn_el is not None else 0.0,
+        )
+
+        frame_names.append(name)
+        link_names.append(child)
+        parents.append(link_to_frame[parent_link])
+        link_to_frame[child] = len(frame_names) - 1
+        jtypes.append(jtype)
+        axes.append(axis)
+        T_const.append(_hom(_rpy_matrix(rpy), xyz))
+        m, c, I = _parse_inertial(links[child])
+        masses.append(m)
+        coms.append(c)
+        inertias.append(I)
+        prims = _parse_collision(links[child])
+        has_col.append(links[child].find("collision") is not None)
+        collisions.append(prims)
+
+    if motor_order is None:
+        motor_order = tuple(j.get("name") for j in joints
+                            if _JOINT_TYPES[j.get("type")] != FIXED)
+    q_index = tuple(
+        motor_order.index(n) if (jt != FIXED and n in motor_order) else -1
+        for n, jt in zip(frame_names, jtypes))
+
+    return KinematicModel(
+        name=root.get("name", "robot"),
+        frame_names=tuple(frame_names),
+        link_names=tuple(link_names),
+        parent=tuple(parents),
+        joint_type=tuple(jtypes),
+        q_index=q_index,
+        motor_names=tuple(motor_order),
+        T_constant=np.asarray(T_const, dtype=np.float32),
+        axis=np.asarray(axes, dtype=np.float32),
+        mass=np.asarray(masses, dtype=np.float32),
+        com=np.asarray(coms, dtype=np.float32),
+        inertia=np.asarray(inertias, dtype=np.float32),
+        q_lower=np.asarray([limits[n]["lower"] for n in motor_order], dtype=np.float32),
+        q_upper=np.asarray([limits[n]["upper"] for n in motor_order], dtype=np.float32),
+        velocity_limit=np.asarray([limits[n]["velocity"] for n in motor_order], dtype=np.float32),
+        effort_limit=np.asarray([limits[n]["effort"] for n in motor_order], dtype=np.float32),
+        joint_damping=np.asarray([limits[n]["damping"] for n in motor_order], dtype=np.float32),
+        joint_friction=np.asarray([limits[n]["friction"] for n in motor_order], dtype=np.float32),
+        has_collision=tuple(has_col),
+        collision=tuple(collisions),
+    )
+
+
+def with_collision_primitives(
+    model: KinematicModel,
+    overrides: dict[str, tuple[CollisionPrimitive, ...]],
+) -> KinematicModel:
+    """Replace per-frame collision primitives (keyed by frame/joint name).
+
+    Used for mesh-based URDFs (Franka) where analytic capsule approximations
+    are supplied by hand (the spec tables of models/specs.py).
+    """
+    collisions = list(model.collision)
+    has_col = list(model.has_collision)
+    for name, prims in overrides.items():
+        i = model.frame_index(name)
+        collisions[i] = tuple(prims)
+        has_col[i] = len(prims) > 0
+    return dataclasses.replace(
+        model, collision=tuple(collisions), has_collision=tuple(has_col))
 
 
 def model_cache(cache: dict, model: KinematicModel, key: tuple,

@@ -7,7 +7,9 @@ the convex hull of its mesh (models/hulls.py), queried against capsules and
 flat-capped cylinders by the K4 GJK kernel. Each query returns what
 PyBullet's getClosestPoints does: (point on link, point on obstacle, normal
 on the obstacle pointing toward the link, signed distance). Self-distances
-(`robot_self_distances_hull`) are not ported yet.
+between the robot's own links are queried in the capsule tier
+(`self_collision_pairs`, `robot_self_distances`); their hull-tier form
+(`robot_self_distances_hull`) is not ported yet.
 """
 from __future__ import annotations
 
@@ -60,6 +62,13 @@ class ObstacleSet:
         return ObstacleSet(self.p0.expand(batch, -1, -1),
                            self.p1.expand(batch, -1, -1),
                            self.radius.expand(batch, -1), self.kinds)
+
+
+def sphere_obstacle(center, radius, device=None) -> ObstacleSet:
+    """A sphere: a capsule of zero length."""
+    c = torch.as_tensor(center, dtype=torch.float32, device=device)[None]
+    return ObstacleSet(c, c, torch.as_tensor([radius], dtype=torch.float32,
+                                             device=device))
 
 
 def cylinder_obstacle(base_position, base_orientation_euler, radius, height,
@@ -139,6 +148,14 @@ def _primitive_tables(model: KinematicModel, device, dtype):
                 torch.as_tensor(np.asarray(p1, np.float32), **f),
                 torch.as_tensor(radii, **f), tuple(rows))
     return model_cache(_PRIMS, model, (str(device), dtype), build)
+
+
+def link_world_capsules(model: KinematicModel, T_all: torch.Tensor):
+    """World-frame (p0, p1, radius) of the FIRST collision primitive of each
+    collision frame: T_all (B, F, 4, 4) -> (B, L, 3), (B, L, 3), (L,)."""
+    p0, p1, radius, rows = link_world_capsules_all(model, T_all)
+    first = [rows.index(r) for r in range(len(model.collision_frames))]
+    return p0[:, first], p1[:, first], radius[first]
 
 
 def link_world_capsules_all(model: KinematicModel, T_all: torch.Tensor):
@@ -315,3 +332,81 @@ def robot_obstacle_distances_hull_batched(model: KinematicModel,
     return (out_pa, out_pb, torch.where(n3, cap_n, n),
             torch.where(near, torch.minimum(cap_d, dist), dist),
             out_pb - out_pa)
+
+
+def self_collision_pairs(model: KinematicModel, n_neighbors: int = 3,
+                         exclude_below: float | None = None, q_ref=None):
+    """Static (frame_a, frame_b) pairs of collision frames at least
+    n_neighbors apart in the kinematic tree (either frame among the other's
+    last n_neighbors + 1 ancestors excludes the pair; siblings such as the
+    two fingers stay). exclude_below (with q_ref, default zeros): also drop
+    the pairs whose capsule distance at q_ref is below it, geometry that
+    sits close by construction (fingers, hand against wrist). Runs on the
+    host once, at scene construction."""
+    frames = model.collision_frames
+    pairs = []
+    for a in frames:
+        for b in frames:
+            if a == b:
+                continue
+            chain_a, chain_b = model.chain(a), model.chain(b)
+            if (a in chain_b[-n_neighbors - 1:]
+                    or b in chain_a[-n_neighbors - 1:]):
+                continue
+            if (b, a) in pairs:
+                continue
+            pairs.append((a, b))
+    if exclude_below is not None:
+        from rmp_tpu_torch.models.kinematics import fk_all
+        q = (torch.zeros(model.n_q) if q_ref is None
+             else torch.as_tensor(np.asarray(q_ref, np.float32)))
+        _, _, _, d = robot_self_distances(model, fk_all(model, q[None]),
+                                          tuple(pairs))
+        pairs = [p for p, dd in zip(pairs, d[0].tolist())
+                 if dd >= exclude_below]
+    return tuple(pairs)
+
+
+_SELF: dict[tuple, tuple] = {}
+
+
+def _self_pair_tables(model: KinematicModel, pairs, device):
+    """(IA, IB) (P, C) long tensors of primitive indices: row k lists the
+    primitive cross product of pair k, padded to the longest product by
+    repeating its last combination (harmless under the min). Built once per
+    (model, pairs, device) on the host."""
+    def build():
+        rows = _primitive_tables(model, torch.device("cpu"),
+                                 torch.float32)[4]
+        pos = {f: i for i, f in enumerate(model.collision_frames)}
+        groups: dict[int, list[int]] = {}
+        for i, r in enumerate(rows):
+            groups.setdefault(r, []).append(i)
+        combos = [[(i, j) for i in groups[pos[a]] for j in groups[pos[b]]]
+                  for a, b in pairs]
+        C = max(len(cs) for cs in combos)
+        IA = np.zeros((len(pairs), C), np.int64)
+        IB = np.zeros((len(pairs), C), np.int64)
+        for k, cs in enumerate(combos):
+            for c in range(C):
+                IA[k, c], IB[k, c] = cs[min(c, len(cs) - 1)]
+        return (torch.as_tensor(IA, device=device),
+                torch.as_tensor(IB, device=device))
+    return model_cache(_SELF, model, (tuple(pairs), str(device)), build)
+
+
+def robot_self_distances(model: KinematicModel, T_all: torch.Tensor,
+                         pairs: tuple[tuple[int, int], ...]):
+    """Closest points between the capsule sets of static frame pairs, the
+    min over each pair's primitive cross product (the first on a tie):
+    T_all (B, F, 4, 4) -> (pos_on_a, pos_on_b, normal) (B, P, 3) and
+    distance (B, P), P = len(pairs), in robot_obstacle_distances' layout
+    with frame a as the link and frame b as the obstacle."""
+    p0, p1, radius, _ = link_world_capsules_all(model, T_all)
+    IA, IB = _self_pair_tables(model, pairs, T_all.device)
+    pl, po, n, d = capsule_capsule_query(p0[:, IA], p1[:, IA], radius[IA],
+                                         p0[:, IB], p1[:, IB], radius[IB])
+    k = d.argmin(dim=-1, keepdim=True)           # (B, P, 1), first on a tie
+    k3 = k[..., None].expand(*k.shape, 3)
+    return (pl.gather(2, k3)[:, :, 0], po.gather(2, k3)[:, :, 0],
+            n.gather(2, k3)[:, :, 0], d.gather(2, k)[:, :, 0])

@@ -1,20 +1,25 @@
 """Simulation world state, physics step and sensing, batched.
 
-The port's functional core of `rmp_tpu/sim/world.py`: `physics_step` (the
+The port's `rmp_tpu/sim/world.py`: the functional core, `physics_step` (the
 commanded acceleration realised exactly, or through the torque path; no
-contact yet) and `sense`. The imperative `Simulation` wrapper is not ported
-yet."""
+contact yet) and `sense`, and the imperative `Simulation` wrapper with the
+reference's surface (connect / populate_scene / state / step / reset), a
+batch of one on the card unless the caller asks for the CPU. Animation
+capture is not ported (ROADMAP M17)."""
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from rmp_tpu_torch import default_device
 from rmp_tpu_torch.models import kinematics as K
 from rmp_tpu_torch.models.urdf import KinematicModel
 from rmp_tpu_torch.sim import dynamics
 from rmp_tpu_torch.sim.collision import ObstacleSet
 from rmp_tpu_torch.sim.data import distance_context
+from rmp_tpu_torch.sim.objects import Goal, Robot, SceneObject
 
 
 @dataclasses.dataclass
@@ -80,3 +85,122 @@ def sense(model: KinematicModel, state: SimState,
             T_all = K.fk_all(model, state.q)
         ctx = distance_context(model, T_all, state.obstacles, geometry)
     return state.q, state.qd, ctx
+
+
+def scene_to_obstacles(objects: list[SceneObject],
+                       device=None) -> ObstacleSet | None:
+    """The obstacle set of the objects that have a collision shape, or None
+    when none has."""
+    sets = [o.as_obstacle(device=device) for o in objects]
+    sets = [s for s in sets if s is not None]
+    return ObstacleSet.of(*sets) if sets else None
+
+
+class Simulation:
+    """Imperative wrapper with the reference Simulation surface, over a
+    batch of one on `device` (default: the GPU; raises without one).
+    connect() and disconnect() stay for familiarity: there is no physics
+    server. animation_save_path raises NotImplementedError: the frame
+    capture needs the renderers, which are not ported (ROADMAP M17)."""
+
+    def __init__(self, delta_t: float = 0.01, animation_save_path=None,
+                 torque_mode: bool = False, device=None):
+        if animation_save_path is not None:
+            raise NotImplementedError(
+                "Simulation(animation_save_path=...): animation capture is "
+                "not ported yet (ROADMAP M17, with utils/native.py and "
+                "utils/render.py)")
+        self.device = default_device(device)
+        self._delta_t = delta_t
+        self.t = 0.0
+        self.robot: Robot | None = None
+        self.goal: Goal | None = None
+        self.obstacles: list[SceneObject] = []
+        self.animation_save_path = None
+        self._torque_mode = torque_mode
+        self._state: SimState | None = None
+        self._model: KinematicModel | None = None
+
+    def connect(self):
+        return self
+
+    def disconnect(self):
+        self.clear_scene()
+
+    @property
+    def delta_t(self) -> float:
+        return self._delta_t
+
+    @property
+    def n_obstacles(self) -> int:
+        return len(self.obstacles)
+
+    def populate_scene(self, objects):
+        if not isinstance(objects, list):
+            objects = [objects]
+        for obj in objects:
+            if isinstance(obj, Robot):
+                self.robot = obj
+                self._model = obj.model
+            elif isinstance(obj, Goal):
+                self.goal = obj
+            else:
+                self.obstacles.append(obj)
+        self._rebuild_state()
+
+    def clear_scene(self):
+        self.obstacles = []
+        self.robot = None
+        self.goal = None
+        self._state = None
+
+    def reset(self):
+        self.t = 0.0
+        self._rebuild_state()
+
+    def _rebuild_state(self):
+        if self.robot is None:
+            return
+        state = init_state(
+            self._model, 1, self.device, q=self.robot.q,
+            obstacles=scene_to_obstacles(self.obstacles, self.device),
+            goal=None if self.goal is None else self.goal.base_position)
+        self._state = dataclasses.replace(state, qd=self._row(self.robot.qd))
+
+    def _row(self, value) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(value, np.float32),
+                               device=self.device).reshape(1, -1)
+
+    @property
+    def q(self) -> np.ndarray:
+        return self._state.q[0].cpu().numpy()
+
+    @q.setter
+    def q(self, value):
+        self._state = dataclasses.replace(self._state, q=self._row(value))
+
+    @property
+    def qd(self) -> np.ndarray:
+        return self._state.qd[0].cpu().numpy()
+
+    @qd.setter
+    def qd(self, value):
+        self._state = dataclasses.replace(self._state, qd=self._row(value))
+
+    def state(self):
+        """(q, q̇, distance context): q and q̇ as numpy vectors, the context
+        unbatched (per frame: fields (K, ...) on the device), the layout
+        RmpCore.evaluate takes."""
+        q, qd, ctx = sense(self._model, self._state)
+        ctx = {key: {name: v[0] for name, v in fields.items()}
+               for key, fields in ctx.items()}
+        return q[0].cpu().numpy(), qd[0].cpu().numpy(), ctx
+
+    def step(self, qdd_desired):
+        """Advance one physics step of delta_t with the commanded q̈."""
+        qdd = torch.as_tensor(qdd_desired, dtype=torch.float32,
+                              device=self.device).reshape(1, -1)
+        self._state = physics_step(self._model, self._state, qdd,
+                                   self._delta_t,
+                                   torque_mode=self._torque_mode)
+        self.t += self._delta_t

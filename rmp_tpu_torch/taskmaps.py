@@ -1,11 +1,13 @@
 """Taskmap algebra — composable maps from configuration space, batched.
 
-The port's `rmp_tpu/taskmaps.py`, for the maps of the ported scenes: a
-taskmap maps q (B, n) to task coordinates x (B, P, d); `ctx` is the policy's
-per-tick context (B-leading tensors). An FK-rooted taskmap also exposes
-(model, frame_idx, post) so the combine engine runs the FK once for all
-policies and differentiates only the small post map; `post_trans` is the
-post map on frame translations (B, L, 3) for maps that read nothing else.
+The port's `rmp_tpu/taskmaps.py`: a taskmap maps q (B, n) to task
+coordinates x (B, P, d); `ctx` is the policy's per-tick context (B-leading
+tensors). An FK-rooted taskmap also exposes (model, frame_idx, post) so the
+combine engine runs the FK once for all policies and differentiates only
+the small post map; `post_trans` is the post map on frame translations
+(B, L, 3) for maps that read nothing else. Any other map (from_function,
+or a chain that does not start at an FK frame) is differentiated whole by
+forward-mode autodiff (`differentiate`).
 """
 from __future__ import annotations
 
@@ -59,6 +61,14 @@ def fk_frame(model: KinematicModel, frame: str | int) -> Taskmap:
                    post=lambda T16, ctx: T16, post_passthrough=True)
 
 
+def from_function(forward_fn) -> Taskmap:
+    """Wrap an arbitrary (v, ctx) -> (B, P, d) map; a Taskmap is returned
+    as it is."""
+    if isinstance(forward_fn, Taskmap):
+        return forward_fn
+    return Taskmap(forward_fn)
+
+
 def multi_fk_frames(model: KinematicModel, frames) -> Taskmap:
     """q -> flattened world 4x4s of several frames: (B, L, 16)."""
     idxs = tuple(model.frame_index(f) if isinstance(f, str) else f
@@ -110,11 +120,101 @@ def frames_relative_points(ctx_field: str = "relative_position") -> Taskmap:
     return Taskmap(fn)
 
 
+def _frames(x: torch.Tensor) -> torch.Tensor:
+    """(B, P, 16) flattened 4x4s as (B, P, 4, 4)."""
+    return x.reshape(*x.shape[:-1], 4, 4)
+
+
+def frames_relative_offsets(ctx_field: str = "relative_position") -> Taskmap:
+    """(B, L, 16) frames -> (B, L*K, 16): each frame composed with its K
+    pure-translation offsets ctx[ctx_field] (B, L, K, 3), given in the
+    frame's own coordinates; the grouped form of relative_offsets."""
+    def fn(x, ctx):
+        offs = ctx[ctx_field]                         # (B, L, K, 3)
+        B, L, K, _ = offs.shape
+        eye = torch.eye(3, dtype=x.dtype, device=x.device).expand(
+            B, L, K, 3, 3)
+        T = x.reshape(B, L, 1, 4, 4) @ geom.hom(eye, offs)
+        return T.reshape(B, L * K, 16)
+    return Taskmap(fn)
+
+
+def relative_offsets(ctx_field: str = "relative_position") -> Taskmap:
+    """(B, 1, 16) frame -> (B, P, 16): the frame composed with P
+    pure-translation offsets ctx[ctx_field] (B, P, 3), given in the frame."""
+    def fn(x, ctx):
+        offs = ctx[ctx_field]                         # (B, P, 3)
+        eye = torch.eye(3, dtype=x.dtype, device=x.device).expand(
+            *offs.shape[:-1], 3, 3)
+        T = _frames(x) @ geom.hom(eye, offs)          # (B, P, 4, 4)
+        return T.reshape(*offs.shape[:-1], 16)
+    return Taskmap(fn)
+
+
+def relative_points(ctx_field: str = "relative_position") -> Taskmap:
+    """(B, 1, 16) frame -> (B, P, 3): the world positions of P offsets
+    ctx[ctx_field] (B, P, 3) given in the frame, x = R off + t; the fused
+    form of chain(relative_offsets, to_position), with the same derivatives.
+    It reads the rotation, so a chain through it takes the full 16 rows."""
+    def fn(x, ctx):
+        offs = ctx[ctx_field]                         # (B, P, 3)
+        T = _frames(x)                                # (B, 1, 4, 4)
+        R = T[..., :3, :3].expand(*offs.shape[:-1], 3, 3)
+        return geom.mv(R, offs) + T[..., :3, 3]
+    return Taskmap(fn)
+
+
+def frame_to_point_distance(link_field: str = "pos_on_link",
+                            obstacle_field: str = "pos_on_obstacle"
+                            ) -> Taskmap:
+    """(B, 1, 16) frame -> (B, P, 1) distances from per-pair body points to
+    per-pair obstacle points (ctx fields (B, P, 3), base frame): the
+    per-frame form of frames_to_point_distance, with the same frozen offset
+    (`.detach()`), so the body point moves as if rigidly attached to the
+    frame origin."""
+    def dist(p, ctx):
+        pos_on_link = ctx[link_field]                 # (B, P, 3)
+        p_joint = p[:, :1, :].expand_as(pos_on_link)
+        offset = (pos_on_link - p_joint).detach()
+        critical = p_joint + offset
+        d = torch.linalg.vector_norm(critical - ctx[obstacle_field], dim=-1)
+        return d[..., None]
+
+    def fn(x, ctx):
+        return dist(_frames(x)[..., :3, 3], ctx)
+    return Taskmap(fn, trans_fn=dist)
+
+
 def to_position() -> Taskmap:
     """(B, P, 16) flattened 4x4 -> (B, P, 3) translation."""
     def fn(x, ctx):
         return x.reshape(*x.shape[:-1], 4, 4)[..., :3, 3]
     return Taskmap(fn, trans_fn=lambda p, ctx: p)
+
+
+def to_euler() -> Taskmap:
+    """(B, P, 16) flattened 4x4 -> (B, P, 3) extrinsic-XYZ euler angles."""
+    def fn(x, ctx):
+        return geom.euler_from_rotation_matrix(_frames(x)[..., :3, :3])
+    return Taskmap(fn)
+
+
+def to_quaternion() -> Taskmap:
+    """(B, P, 16) flattened 4x4 -> (B, P, 4) quaternion (x, y, z, w), by the
+    branch-free Shepperd conversion."""
+    def fn(x, ctx):
+        return geom.quaternion_from_rotation_matrix(_frames(x)[..., :3, :3])
+    return Taskmap(fn)
+
+
+def to_rotation6() -> Taskmap:
+    """(B, P, 16) flattened 4x4 -> (B, P, 6): the first two rotation columns,
+    a continuous rotation coordinate (no euler wrap, no quaternion double
+    cover)."""
+    def fn(x, ctx):
+        R = _frames(x)[..., :3, :3]
+        return torch.cat([R[..., :, 0], R[..., :, 1]], dim=-1)
+    return Taskmap(fn)
 
 
 def chain(*maps) -> Taskmap:
@@ -125,6 +225,8 @@ def chain(*maps) -> Taskmap:
     reads only translations, the composite also gets `post_trans`, so the
     combine engine propagates 3-row FK derivative blocks instead of 16-row
     ones."""
+    maps = tuple(from_function(m) for m in maps)
+
     def fn(v, ctx):
         for m in maps:
             v = m.fn(v, ctx)
@@ -149,3 +251,10 @@ def chain(*maps) -> Taskmap:
             return v
     return Taskmap(fn, model=head.model, frame_idx=head.frame_idx,
                    post=post, post_trans=post_trans)
+
+
+def differentiate(taskmap_fn, q: torch.Tensor, qd: torch.Tensor, ctx=None):
+    """(x, ẋ, J, c) of a taskmap at (q, q̇) (B, n): shapes (B, P, d),
+    (B, P, d), (B, P, d, n), (B, P, d), by forward-mode autodiff
+    (models/kinematics.differentiate)."""
+    return kinematics.differentiate(lambda qq: taskmap_fn(qq, ctx), q, qd)

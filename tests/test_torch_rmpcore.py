@@ -115,8 +115,42 @@ def test_rmpcore_registry_surface():
     qdd = tc.make_evaluate()(torch.zeros(3, 2), torch.zeros(3, 2), params,
                              (None,))
     assert qdd.shape == (3, 2)
-    with pytest.raises(NotImplementedError):
-        core.RmpCore(derivatives="jacfwd", device="cpu")
+    assert core.RmpCore(derivatives="jacfwd", device="cpu").derivatives \
+        == "jacfwd"
+    with pytest.raises(ValueError, match="derivatives"):
+        core.RmpCore(derivatives="finite_differences", device="cpu")
+
+
+@pytest.mark.parametrize("method", ["pinv", "solve"])
+def test_rmpcore_jacfwd_matches_jax(method):
+    """RmpCore(derivatives='jacfwd') on the two-joint stack of
+    test_rmpcore_evaluate_matches_jax, with its obstacle context, against
+    the JAX package's RmpCore(derivatives='jacfwd'), and against the port's
+    own 'analytic' core."""
+    rng = np.random.default_rng(2)
+    jmodel, model = jrobots.two_joint_robot(), robots.two_joint_robot()
+    jc = jcore.RmpCore(method=method, derivatives="jacfwd")
+    tc = core.RmpCore(method=method, derivatives="jacfwd", device="cpu")
+    ta = core.RmpCore(method=method, device="cpu")
+    for p in _two_joint_policies("jax", jmodel, True):
+        jc.add_rmp(p)
+    for p in _two_joint_policies("torch", model, True):
+        tc.add_rmp(p)
+        ta.add_rmp(p)
+    obstacle = jcylinder([1.6, -0.8, 0.0], [0.0, 0.0, 0.0], radius=0.1,
+                         height=0.8)
+    for _ in range(4):
+        q = rng.uniform(-2.0, 2.0, 2).astype(np.float32)
+        qd = rng.uniform(-0.5, 0.5, 2).astype(np.float32)
+        ctx = jdata.distance_context(jmodel, jK.fk_all(jmodel, q),
+                                     obstacle)[jdata.PAIRS_KEY]
+        want = np.asarray(jc.evaluate(q, qd, {"collision_avoidance": ctx}))
+        tctx = {"collision_avoidance": {k: np.array(v)
+                                        for k, v in ctx.items()}}
+        got = tc.evaluate(q, qd, tctx)
+        assert_close_scaled(got.numpy(), want, f"jacfwd q̈ at q={q}")
+        assert_close_scaled(got.numpy(), ta.evaluate(q, qd, tctx).numpy(),
+                            f"jacfwd against analytic at q={q}")
 
 
 def test_rmpcore_runs_on_the_card_by_default(monkeypatch):

@@ -210,3 +210,151 @@ def test_resampling_draws_in_the_box_and_touches_only_solved_envs(name):
     pick = (lambda s: s.sim.goal) if field == "goal" else (lambda s: s.sim.q)
     assert torch.equal(pick(again), pick(out))
     assert not torch.equal(pick(other)[solved], new)
+
+
+# ------------------------------------------ the seventh slice's scenes ----
+
+SCENES7 = ("franka/03_self_avoidance", "franka/04_nullspace_control",
+           "franka/pose_target", "franka/moving_goal",
+           "franka/moving_obstacles")
+
+
+def _jax_rollout(jenv, states, params):
+    return jax.jit(jenvs.make_batched_rollout(jenv, T))(states, params)
+
+
+@pytest.mark.parametrize("name", SCENES7)
+def test_seventh_slice_scene_tick_parity_with_jax(name):
+    """T ticks of each new scene's batched rollout against the JAX batched
+    rollout (per env at B = 8) from the same perturbed states: the
+    update_scene scenes move their goal or obstacles on both sides, franka/03
+    builds its context by its context_fn, franka/04 starts from its IK pose.
+    No env reaches a goal in these ticks. The moved obstacles too."""
+    jenv = jenvs.make(name)
+    states = perturbed_jax_states(jenv, 7)
+    params = jenv.gather_params()
+    jfinal, jaux = _jax_rollout(jenv, states, params)
+    assert not np.asarray(jaux["solved"]).any()
+    env, state, tparams = port_inputs(name, states, params)
+    assert env.resolve_method == jenv.resolve_method
+    final, aux = envs.make_batched_rollout(env, T)(state, tparams)
+    assert not aux["solved"].any()
+    assert_tick_parity(aux, jaux, final, jfinal)
+    if jfinal.sim.obstacles is not None:
+        for field in ("p0", "p1", "radius"):
+            np.testing.assert_allclose(
+                getattr(final.sim.obstacles, field).numpy(),
+                np.asarray(getattr(jfinal.sim.obstacles, field)), atol=1e-6)
+        assert final.sim.obstacles.kinds == jfinal.sim.obstacles.kinds
+
+
+def test_moving_obstacles_hull_tier_tick_parity_with_jax():
+    """franka/moving_obstacles with collision_geometry 'hull' at B = 8: the
+    per-env semantics in both packages (every pair, cold), the obstacles
+    moving under the GJK queries."""
+    name = "franka/moving_obstacles"
+    jenv = jenvs.make(name)
+    jenv.collision_geometry = "hull"
+    states = perturbed_jax_states(jenv, 8)
+    params = jenv.gather_params()
+    jfinal, jaux = _jax_rollout(jenv, states, params)
+    env, state, tparams = port_inputs(name, states, params)
+    env.collision_geometry = "hull"
+    final, aux = envs.make_batched_rollout(env, T)(state, tparams)
+    assert final.gjk_warm is None
+    assert not aux["solved"].any() and not np.asarray(jaux["solved"]).any()
+    assert_tick_parity(aux, jaux, final, jfinal)
+
+
+def test_self_avoidance_hull_tier_raises():
+    env = envs.make("franka/03_self_avoidance", device="cpu")
+    env.collision_geometry = "hull"
+    state = envs.make_batched_reset(env, 2)()
+    with pytest.raises(NotImplementedError, match="M12"):
+        envs.make_batched_control_step(env)(state, env.gather_params())
+
+
+@pytest.mark.parametrize("name", ["franka/pose_target", "franka/moving_goal"])
+def test_per_env_control_step_matches_jax(name):
+    """make_rollout (make_control_step T times: evaluate_policies and
+    core.resolve, never K1) against the JAX package's per-env rollout, one
+    scene of each resolve method ('pinv', 'solve')."""
+    jenv = jenvs.make(name)
+    states = perturbed_jax_states(jenv, 9)
+    params = jenv.gather_params()
+    jfinal, jaux = _jax_rollout(jenv, states, params)
+    env, state, tparams = port_inputs(name, states, params)
+    final, aux = envs.make_rollout(env, T)(state, tparams)
+    assert_tick_parity(aux, jaux, final, jfinal)
+    one, _ = envs.make_control_step(env)(
+        port_inputs(name, states, params)[1], tparams)
+    assert int(one.steps[0]) == 1
+
+
+def test_moving_goal_scene_lags_one_tick():
+    """update_scene runs after the tick's resolve: the goal a rollout of T
+    ticks leaves is the circle's point at the last tick's start time,
+    (T - 1) control periods, while sim time has run T periods."""
+    env = envs.make("franka/moving_goal", device="cpu")
+    final, _ = envs.make_batched_rollout(env, T)(
+        envs.make_batched_reset(env, 2)(), env.gather_params())
+    period = env.dt * env.control_every
+    t_last = torch.full((2,), (T - 1) * period)
+    wt = 0.4 * t_last
+    want = torch.tensor([0.5, 0.0, 0.45]) + 0.15 * torch.stack(
+        [torch.zeros(2), torch.cos(wt), torch.sin(wt)], dim=-1)
+    np.testing.assert_allclose(final.sim.goal.numpy(), want.numpy(),
+                               atol=1e-6)
+    np.testing.assert_allclose(final.sim.t.numpy(), T * period, atol=1e-5)
+
+
+def test_per_frame_obstacle_policies_match_grouped_and_jax():
+    """_obstacle_policies(grouped=False), one policy per collision frame on
+    fk_frame∘frame_to_point_distance, gives the grouped policy's q̈ and the
+    JAX package's per-frame q̈ on the flagship's perturbed states."""
+    from rmp_tpu.envs import franka as jfranka
+    from rmp_tpu_torch.core import evaluate_policies
+    from rmp_tpu_torch.envs import franka
+    from rmp_tpu_torch.envs.base import _policy_inputs
+    name = "franka/06_cluttered_environment"
+    jenv = jenvs.make(name)
+    states = perturbed_jax_states(jenv, 10)
+    params = jenv.gather_params()
+    env, state, tparams = port_inputs(name, states, params)
+    per_frame = franka._obstacle_policies(env.model, grouped=False)
+    assert len(per_frame) == len(env.model.collision_frames)
+    ungrouped = env.policies[:-1] + tuple(per_frame)
+    env_u = dataclasses.replace(env, policies=ungrouped)
+    prm_u = tparams[:-1] + tuple(p.params for p in per_frame)
+    outs = {}
+    for key, e, prm in (("grouped", env, tparams), ("per_frame", env_u, prm_u)):
+        q, qd, prm_b, ctxs, fk = _policy_inputs(e, state, prm)
+        outs[key] = evaluate_policies(e.policies, q, qd, prm_b, ctxs,
+                                      "solve", fk=fk).numpy()
+    np.testing.assert_allclose(outs["per_frame"], outs["grouped"], atol=1e-4)
+
+    jper = jfranka._obstacle_policies(jenv.model, grouped=False)
+    jenv_u = dataclasses.replace(jenv, policies=jenv.policies[:-1]
+                                 + tuple(jper))
+    jprm = jenv_u.gather_params()
+
+    def command(s):
+        q, qd, prm_b, ctxs, fk = jbase._policy_inputs(jenv_u, s, jprm)
+        return jcore.evaluate_policies(jenv_u.policies, q, qd, prm_b, ctxs,
+                                       method="solve", fk=fk)
+    want = np.asarray(jax.jit(jax.vmap(command))(states))
+    err = np.abs(outs["per_frame"] - want).max(axis=1)
+    assert (err <= QDD_TOL * np.maximum(1.0, np.abs(want).max(axis=1))).all()
+
+
+def test_registry_holds_sixteen_scenes_on_the_card_by_default(monkeypatch):
+    """The registry's 16 scenes, the five new ones among them; envs.make
+    builds a scene on the GPU unless device='cpu' is passed, and raises
+    without one (franka/04's IK runs on the scene's device)."""
+    assert len(envs.REGISTRY) == 16
+    assert set(SCENES7) <= set(envs.REGISTRY)
+    assert set(envs.REGISTRY) <= set(jenvs.REGISTRY)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in SCENES7:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            envs.make(name)
