@@ -115,6 +115,25 @@ printing the result line:
      CPU; franka/04's IK start on the card against the CPU; the
      Simulation wrapper's reference loop on the card (the EE ends nearer
      its goal, q within 2e-3 of the CPU's).
+ 14. the eighth slice, franka/randomized_cluttered: K1 on its real tick 60
+     ticks into a rollout (dense 3 + three identities + scalar 80, per-env
+     gains) against its plain version at B = 4096, 1, 7 and 4093, one
+     device kernel per call, timed beside its bound; K4 on its own warm
+     operands (hull tier, 4096 envs 20 ticks in, per-env random cylinders
+     and 50 m pad slots, 8 iterations) with phase 6's limits and float64
+     evidence, timed beside its bound; 4096 envs x 300 ticks from the
+     reset of seed 0 in the capsule and the hull tier: one tick first with
+     the sync debug mode on (no synchronizing call), then the rollout
+     timed, K1 once per tick, K3 1 + 8 times per tick (the detour IK's 8
+     DLS steps, the first sharing the EE's launch), K4 once per hull tick;
+     the task statistics held against reports/eval_randomized.json and
+     reports/eval_randomized_hull.json within 3 sigma of the difference of
+     two 4096-env samples, nan_rate 0; each with its 10-tick trace; GPU/CPU
+     parity, 128 envs of one CPU reset moved to the card, 60 ticks, per
+     (env, tick) before the env's first detour or resample and while the
+     one-ulp, float64 (and in the hull tier card-without-K4) screens hold
+     (randomized_parity), every K4 call of the hull run against its plain
+     version.
 Then one JSON line of per-kernel numbers ({"kernels": [...]}) and, last,
 {"ok": true, "device": {...}}. The full record also goes to
 chiprun_out/chip_smoke.json.
@@ -131,6 +150,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -139,7 +159,11 @@ from torch.profiler import ProfilerActivity, profile, schedule
 from rmp_tpu_torch import _build, core, envs
 from rmp_tpu_torch import taskmaps as tm
 from rmp_tpu_torch.core import policy_row_blocks_structured
-from rmp_tpu_torch.envs.base import _policy_inputs, make_batched_control_step
+from rmp_tpu_torch.envs import franka
+from rmp_tpu_torch.envs.base import (_policy_inputs, _seed_gjk_warm,
+                                     _wants_gjk_warm,
+                                     make_batched_control_step)
+from rmp_tpu_torch.evaluate import task_statistics
 from rmp_tpu_torch.models import kinematics, robots, urdf
 from rmp_tpu_torch.models.fk_derivatives import fk_derivatives
 from rmp_tpu_torch.models.urdf import FIXED
@@ -185,6 +209,7 @@ K4_CONVERGED_ITERS = 128
 K4_CONVERGED_DIST = 1e-4   # kernel vs float64 plain, both converged ...
 K4_CONVERGED_SHARE = 1e-3  # ... on all but this share of the pairs
 K4_CERT_TOL = 1e-5         # float32 rounding slack of the bound checks
+K4_CAP_COS = 0.99          # |cos(x*, cylinder axis)| of an end-cap contact
 PARITY_ATOL = 1e-3     # GPU vs CPU q after 5 ticks
 STABLE = 1e-5          # a one-ulp move of the start moves the CPU run less
 PROFILE_TICKS = 10
@@ -366,15 +391,30 @@ def k1_layout_blocks(seed: int, B: int, n: int, layout, device):
     return tuple(tag for tag, _ in layout), blocks
 
 
-def k1_compare(tags, blocks, what: str) -> float:
+def k1_compare(tags, blocks, what: str, nonfinite_ok: bool = False) -> float:
+    """Max |kernel - plain| of K1 on the blocks, held to K1_TOL x
+    max(1, |q̈|). nonfinite_ok: envs whose plain q̈ is not finite (a real
+    tick of the randomized scene can put a velocity-cap metric at its
+    singularity, |q̇| = max_velocity - 2 region, where both packages give a
+    non-finite q̈ and the max_qdd guard zeros it) are left out of the
+    comparison and counted; the kernel must be finite wherever the plain
+    version is."""
     got = cuda_resolve.pullback_resolve_structured(tags, blocks)
     want = cuda_resolve.pullback_resolve_structured_plain(tags, blocks)
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    scale = max(1.0, float(want.abs().max()))
+    finite = torch.isfinite(want).all(dim=1)
+    bad = int((~finite).sum())
+    both = int((~finite & ~torch.isfinite(got).all(dim=1)).sum())
+    keep = finite[:, None]
+    err = float((got - want).masked_fill(~keep, 0.0).abs().max())
+    scale = max(1.0, float(want.masked_fill(~keep, 0.0).abs().max()))
     log(f"K1 {what}: max|kernel - plain| {err:.3e} (limit "
-        f"{K1_TOL * scale:.3e}, max|q̈| {scale:.3e})")
-    check(bool(torch.isfinite(got).all()), f"K1 {what}: non-finite output")
+        f"{K1_TOL * scale:.3e}, max|q̈| {scale:.3e})"
+        + (f"; {bad} envs with a non-finite plain q̈, the kernel's non-finite "
+           f"there too on {both}" if bad else ""))
+    check(nonfinite_ok or bad == 0, f"K1 {what}: non-finite plain q̈")
+    check(bool(torch.isfinite(got[finite]).all()),
+          f"K1 {what}: non-finite output")
     check(err <= K1_TOL * scale, f"K1 {what}: disagrees with plain version")
     return err
 
@@ -679,9 +719,15 @@ def k4_needed_iterations(ops: dict, iters: int):
     return needed, live
 
 
-def k4_compare(got, want, what: str) -> dict:
+def k4_compare(got, want, what: str, witness_quantile: bool = True) -> dict:
     """Quantile agreement of K4 outputs (pa, pb, dist) with the plain
-    version's."""
+    version's: the distances, and where they agree the witnesses. With
+    witness_quantile False the witnesses are held at the max only, and the
+    caller holds every pair's Minkowski point to its ball (k4_evidence)
+    where their p99 is missed: a pair the fixed iteration count leaves
+    short of convergence may end anywhere within its ball, with distances
+    that agree to second order, and scenes of random cylinders leave more
+    than 1% of the pairs of a 128-env call so."""
     torch.cuda.synchronize()
     for g in got:
         check(bool(torch.isfinite(g).all()), f"{what}: non-finite output")
@@ -697,7 +743,8 @@ def k4_compare(got, want, what: str) -> dict:
     log(f"{what}: {json.dumps(rec)}")
     check(q99 < K4_DIST_P99 and med < K4_DIST_MEDIAN,
           f"{what}: distances disagree with the plain version")
-    check(rec["witness_p99"] < K4_WITNESS_P99
+    rec["witness_quantile_met"] = rec["witness_p99"] < K4_WITNESS_P99
+    check((rec["witness_quantile_met"] or not witness_quantile)
           and rec["witness_max"] < K4_WITNESS_MAX,
           f"{what}: witnesses disagree with the plain version")
     return rec
@@ -742,7 +789,7 @@ def k4_lower_bound(ops, pa, pb):
             bound(n))
 
 
-def k4_evidence(ops, got, plain, what: str) -> dict:
+def k4_evidence(ops, got, plain, what: str, cap_fault: bool = False) -> dict:
     """Which of two parting answers is right, pair by pair, held against
     bounds of the true distance. A float64 run of the plain version at
     K4_CONVERGED_ITERS iterations gives x_ref; k4_lower_bound of it gives
@@ -769,6 +816,14 @@ def k4_evidence(ops, got, plain, what: str) -> dict:
         K4_CONVERGED_DIST from the reference stays within
         K4_CONVERGED_SHARE: the float32 algorithm stalls on a few pairs,
         or leaves the cylinder.
+    cap_fault (the randomized scene's randomly tilted cylinders): the
+    checks take the form that the reference's own cap fault allows, where
+    it shows on more pairs than the flagship's limits (ROADMAP Queue 3):
+    the balls hold the pairs but the cylinders met on their end caps
+    (whose iterates may leave the shape without falling below lo; their
+    excess is recorded), the far share counts the pairs on the shape, and
+    the kernel may stay apart from float64 on no more pairs than the plain
+    version (plus K4_FAR_SHARE of them), each a cylinder pair.
     On the tail (pairs whose distances part by more than 1e-4, or whose
     witnesses part by more than 1e-4 where the distances agree) it reports
     how many are off-shape, how far each answer stands above lo, and how
@@ -795,6 +850,10 @@ def k4_evidence(ops, got, plain, what: str) -> dict:
                 / (torch.linalg.vector_norm(x_ref, dim=-1)
                    * torch.linalg.vector_norm(p1 - p0, dim=-1)
                    ).clamp_min(1e-30))
+    # a cylinder met on its end cap: the nearest point's direction within
+    # ~8 degrees of the axis, where the reference's support can leave the
+    # shape
+    cap_contact = cyl & (axis_cos > K4_CAP_COS)
 
     def r(d):
         return ((d + tol) ** 2 - lo * lo).clamp_min(0.0).sqrt()
@@ -833,7 +892,10 @@ def k4_evidence(ops, got, plain, what: str) -> dict:
         off_shape_below_lo_kernel=umax(lo - d_k, off),
         off_shape_below_lo_plain=umax(lo - d_p, off),
         off_shape_below_lo_converged=umax(lo - d_c, off),
-        ball_excess=umax(norm(x_k - x_ref) - r(d_k) - r(d_ref), on),
+        ball_excess=umax(norm(x_k - x_ref) - r(d_k) - r(d_ref),
+                         on & ~cap_contact if cap_fault else on),
+        ball_excess_cap_contact=umax(norm(x_k - x_ref) - r(d_k) - r(d_ref),
+                                     on & cap_contact),
         far_share=float((ddist > K4_FAR).double().mean()),
         far_pairs=int((ddist > K4_FAR).sum()),
         far_off_shape=int((off & (ddist > K4_FAR)).sum()),
@@ -853,7 +915,10 @@ def k4_evidence(ops, got, plain, what: str) -> dict:
         converged_dist_max_other=umax((d_c - d_ref).abs(), on & ~apart),
         tail_converged_dist=umax((d_c - d_ref).abs(), tail & ~apart),
         tail_converged_dx=umax(norm(x_c - x_ref), tail & ~apart),
-        tail_converged_dwitness=umax(wdiff(conv, ref), tail & ~apart))
+        tail_converged_dwitness=umax(wdiff(conv, ref), tail & ~apart),
+        far_on_shape_share=float((~off & (ddist > K4_FAR)).double().mean()),
+        converged_apart_not_cylinder=int((apart & ~cyl).sum()),
+        converged_plain_apart_not_cylinder=int((apart_plain & ~cyl).sum()))
     log(f"{what} against float64 at {K4_CONVERGED_ITERS} iterations: "
         f"{json.dumps(rec)}")
     check(rec["witness_vs_dist"] <= tol,
@@ -864,6 +929,24 @@ def k4_evidence(ops, got, plain, what: str) -> dict:
           f"{what}: a capsule pair falls below its lower bound")
     check(rec["ball_excess"] <= tol,
           f"{what}: a Minkowski point lies outside its ball around x*")
+    if cap_fault:
+        # the reference's float32 cylinder support leaves the end cap (ROADMAP
+        # Queue 3) on more of these pairs than the flagship's limits allow,
+        # in the plain version as in the kernel: such off-shape pairs may
+        # part, and the kernel stays apart from float64 on no more pairs
+        # than the plain version, every one of them a cylinder pair
+        check(rec["far_on_shape_share"] <= K4_FAR_SHARE,
+              f"{what}: too many pairs on the shape part by more than "
+              f"{K4_FAR}")
+        check(int(apart.sum()) <= int(apart_plain.sum())
+              + K4_FAR_SHARE * n_used,
+              f"{what}: the kernel stays apart from the float64 reference "
+              f"on more pairs than the plain version")
+        check(rec["converged_apart_not_cylinder"] == 0
+              and rec["converged_plain_apart_not_cylinder"] == 0,
+              f"{what}: a capsule pair stays apart from the float64 "
+              f"reference")
+        return rec
     check(rec["far_share"] <= K4_FAR_SHARE,
           f"{what}: too many pairs part by more than {K4_FAR}")
     check(max(int(apart.sum()), int(apart_plain.sum())) / n_used
@@ -1546,33 +1629,32 @@ def phase_k3_new_models(device) -> tuple[dict, float]:
     return out, err
 
 
-def _as_dtype(x, dtype):
-    """Every floating tensor of a (nested) state or param tree as dtype."""
+def _tree_map(fn, x):
+    """fn applied to every leaf of a (nested) state or param tree, through
+    its dataclasses and dicts."""
     if dataclasses.is_dataclass(x):
-        return dataclasses.replace(x, **{f.name: _as_dtype(getattr(x, f.name),
-                                                           dtype)
+        return dataclasses.replace(x, **{f.name: _tree_map(fn, getattr(x,
+                                                                       f.name))
                                          for f in dataclasses.fields(x)})
     if isinstance(x, dict):
-        return {k: _as_dtype(v, dtype) for k, v in x.items()}
-    if isinstance(x, torch.Tensor) and x.is_floating_point():
-        return x.to(dtype)
-    return x
+        return {k: _tree_map(fn, v) for k, v in x.items()}
+    return fn(x)
 
 
-def witness_q(scene: str, torque: bool, geometry: str = "capsule",
-              warm_iters: int | None = None):
-    """parity_q's CPU run of `scene` in float64: the plain versions of K1,
-    K3 and (hull tier) K4 (their wrappers take float32 only), and 'pinv'
-    with the float32 run's cutoff, so it solves the same problem free of
-    float32 rounding. Returns q and the solved flags."""
-    env = envs.make(scene, device="cpu")
-    env.torque_mode = torque
-    env.collision_geometry = geometry
-    env.hull_warm_iters = warm_iters or env.hull_warm_iters
-    states = _as_dtype(perturbed_states(env, 128, 4, 0.1, 0.05),
-                       torch.float64)
-    params = tuple(_as_dtype(p, torch.float64) for p in env.gather_params())
+def _as_dtype(x, dtype):
+    """Every floating tensor of a (nested) state or param tree as dtype."""
+    return _tree_map(lambda t: t.to(dtype) if isinstance(t, torch.Tensor)
+                     and t.is_floating_point() else t, x)
 
+
+@contextlib.contextmanager
+def plain_kernels(float64: bool = False):
+    """While the block runs, the kernel wrappers of K1, K3 (the tick's and
+    the randomized scene's detour IK's) and K4 are replaced by their plain
+    versions, on whatever device the tensors lie. With float64 (the
+    wrappers take float32 only; the plain versions run in float64 too)
+    'pinv' also takes the float32 run's cutoff: a float64 run then solves
+    the float32 run's problem free of its rounding."""
     def resolve32(A, f, method):
         if method != "pinv":
             return core.resolve(A, f, method)
@@ -1583,20 +1665,38 @@ def witness_q(scene: str, torque: bool, geometry: str = "capsule",
     patches = ((envs.base, "pullback_resolve_structured",
                 cuda_resolve.pullback_resolve_structured_plain),
                (core, "fk_derivatives_batched", fk_derivatives),
-               (envs.base, "resolve",
-                lambda A, f, m: resolve32(A, f, m).reshape(f.shape)),
+               (franka, "fk_derivatives_batched", fk_derivatives),
                (collision, "gjk_hull_obstacles",
-                cuda_gjk.gjk_hull_obstacles_plain),
-               (collision, "hull_table",
-                lambda model, dev: hull_table(model, dev).double()))
+                cuda_gjk.gjk_hull_obstacles_plain))
+    if float64:
+        patches += ((envs.base, "resolve",
+                     lambda A, f, m: resolve32(A, f, m).reshape(f.shape)),
+                    (collision, "hull_table",
+                     lambda model, dev: hull_table(model, dev).double()))
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     try:
         for mod, name, fn in patches:
             setattr(mod, name, fn)
-        final, aux = envs.make_batched_rollout(env, 5)(states, params)
+        yield
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+def witness_q(scene: str, torque: bool, geometry: str = "capsule",
+              warm_iters: int | None = None):
+    """parity_q's CPU run of `scene` in float64 (plain_kernels), so it
+    solves the same problem free of float32 rounding. Returns q and the
+    solved flags."""
+    env = envs.make(scene, device="cpu")
+    env.torque_mode = torque
+    env.collision_geometry = geometry
+    env.hull_warm_iters = warm_iters or env.hull_warm_iters
+    states = _as_dtype(perturbed_states(env, 128, 4, 0.1, 0.05),
+                       torch.float64)
+    params = tuple(_as_dtype(p, torch.float64) for p in env.gather_params())
+    with plain_kernels(float64=True):
+        final, aux = envs.make_batched_rollout(env, 5)(states, params)
     check(final.sim.q.dtype == torch.float64, f"witness of {scene}: dtype")
     return final.sim.q, aux["solved"].any(dim=1)
 
@@ -1868,25 +1968,26 @@ def phase_simulation() -> dict:
     return rec
 
 
-def phase_k4_moving() -> dict:
-    """K4 on moving_obstacles' own warm operands (k4_main_path_operands: the
-    hull tier at BATCH envs 20 ticks in, the obstacles moved every tick and
-    the warm start the carry of their previous positions) at the scene's
+def phase_k4_scene(scene: str = MOVING, want_iters: int = data.WARM_ITERS,
+                   cap_fault: bool = False) -> dict:
+    """K4 on `scene`'s own warm operands (k4_main_path_operands: the hull
+    tier at BATCH envs 20 ticks in, the carry of the previous tick; under
+    moving obstacles the carry of their previous positions) at the scene's
     warm iteration count, against its plain version with phase 6's limits
     (k4_compare, k4_evidence); timed beside the bound of what its pairs
     need (k4_bound_needed)."""
-    ops, iters = k4_main_path_operands(MOVING, method=None)
-    check(iters == data.WARM_ITERS, f"K4 on {MOVING}: {iters} iterations")
+    ops, iters = k4_main_path_operands(scene, method=None)
+    check(iters == want_iters, f"K4 on {scene}: {iters} iterations")
 
     def call():
         return cuda_gjk.gjk_hull_obstacles(**ops, iters=iters)
 
     def plain():
         return cuda_gjk.gjk_hull_obstacles_plain(**ops, iters=iters)
-    what = f"K4 {MOVING} operands, {iters} iterations"
+    what = f"K4 {scene} operands, {iters} iterations"
     got, want = call(), plain()
     rec = k4_compare(got, want, what)
-    rec["evidence"] = k4_evidence(ops, got, want, what)
+    rec["evidence"] = k4_evidence(ops, got, want, what, cap_fault)
     needed, live = k4_needed_iterations(ops, iters)
     rec.update(iters=iters, ms=time_ms(call),
                device_ms=time_ms(call, lead=True),
@@ -1911,13 +2012,18 @@ def gjk_as(fn):
         collision.gjk_hull_obstacles = saved
 
 
-def k4_in_loop(calls: list, env_gaps: list, failed: list):
+def k4_in_loop(calls: list, env_gaps: list, failed: list,
+               evidence_every: int = 1, random_cylinders: bool = False):
     """A stand-in for collision.gjk_hull_obstacles in a run on the card:
     each call launches K4 and its plain version on the same operands, holds
-    the two to phase 6's limits (k4_compare, k4_evidence; a miss goes to
-    `failed`), appends their record to `calls` and, per env, the largest
-    |Δdist| and witness gap over the env's pairs to `env_gaps`, and passes
-    K4's answer on."""
+    the two to phase 6's limits (k4_compare on every call, k4_evidence on
+    the first and every evidence_every-th; with random_cylinders the
+    witnesses' p99 is held by k4_evidence's balls on the calls that miss
+    it, and k4_evidence takes its cap_fault form; a miss goes to
+    `failed`),
+    appends their record to `calls` and, per env, the largest |Δdist| and
+    witness gap over the env's pairs to `env_gaps`, and passes K4's answer
+    on."""
     def call(verts, R, t, p0, p1, an, radius, is_cyl, d0, iters=10):
         ops = dict(verts=verts, R=R, t=t, p0=p0, p1=p1, an=an,
                    radius=radius, is_cyl=is_cyl, d0=d0)
@@ -1926,8 +2032,12 @@ def k4_in_loop(calls: list, env_gaps: list, failed: list):
         what = f"K4 in the loop, call {len(calls) + 1}, {iters} iterations"
         rec = dict(iters=iters)
         try:
-            rec.update(k4_compare(got, want, what))
-            rec["evidence"] = k4_evidence(ops, got, want, what)
+            rec.update(k4_compare(got, want, what,
+                                  witness_quantile=not random_cylinders))
+            if (len(calls) % evidence_every == 0
+                    or not rec["witness_quantile_met"]):
+                rec["evidence"] = k4_evidence(ops, got, want, what,
+                                              cap_fault=random_cylinders)
         except AssertionError as e:
             failed.append(str(e))
         calls.append(rec)
@@ -2053,7 +2163,7 @@ def phase_slice7(card: str, device) -> dict:
     hull tier, franka/04's IK start and the Simulation wrapper on the
     card."""
     k1_new, k1_err = phase_k1_new_n(device, K1_SLICE7_LAYOUTS)
-    k4_moving = phase_k4_moving()
+    k4_moving = phase_k4_scene()
     paths = {}
     for scene in SCENES7_SOLVE:
         paths[scene] = phase_main_path(card, "capsule", scene, method=None)
@@ -2068,6 +2178,419 @@ def phase_slice7(card: str, device) -> dict:
                 parity=phase_new_scene_parity([(s, False) for s in SCENES7]),
                 hull_parity=phase_moving_hull_parity(),
                 ik_start=phase_ik_start(), simulation=phase_simulation())
+
+
+# ------------------------------------ phase 14: the eighth slice's paths ---
+
+RANDOMIZED = "franka/randomized_cluttered"
+RANDOMIZED_TICKS = 300
+RANDOMIZED_SEED = 0          # the rollouts' reset, fixed before any run
+# the JAX package's statistics of this scene at 4096 envs x 300 ticks
+REPORTS = {"capsule": "reports/eval_randomized.json",
+           "hull": "reports/eval_randomized_hull.json"}
+STAT_KEYS = ("first_goal_success_rate", "success_rate",
+             "final_penetration_rate")
+# K1 on a real tick 60 ticks into a rollout, where pushes and detours give
+# the envs their own gains; (tag, rows): the attractor, three identity
+# leaves and the grouped obstacle policy over 10 links x 8 obstacle slots
+K1_RANDOMIZED_TICKS = 60
+K1_RANDOMIZED_LAYOUT = (("dense", 3), ("identity", 0), ("identity", 0),
+                        ("identity", 0), ("scalar", 80))
+PARITY_B = 128
+PARITY_TICKS = 60
+PARITY_SEED = 1
+# least share of the (env, tick) pairs before each env's first event that
+# the rounding screens keep: a floor on what the parity covers, not a
+# tolerance (PERF.md gives the shares measured)
+KEPT_SHARE = 0.1
+K4_EVIDENCE_EVERY = 10       # k4_evidence on every 10th K4 call of a run
+
+
+def stat_limit(p: float) -> float:
+    """3 sigma of the difference of two independent BATCH-env samples of a
+    rate p."""
+    return 3.0 * float(np.sqrt(2.0 * p * (1.0 - p) / BATCH))
+
+
+def _take(x, B: int):
+    """A (nested) state with every tensor's leading env axis cut to B."""
+    return _tree_map(lambda t: t[:B] if isinstance(t, torch.Tensor) else t,
+                     x)
+
+
+def _to_device(x, device):
+    """A (nested) state on `device`; its generator a new one seeded 0 (the
+    runs compared never use its draws: they stop at the first event)."""
+    def move(t):
+        if isinstance(t, torch.Tensor):
+            return t.to(device)
+        if isinstance(t, torch.Generator):
+            return envs.base.generator(device, 0)
+        return t
+    return _tree_map(move, x)
+
+
+def sync_free_tick(env, states, params, what: str) -> list:
+    """One tick with torch.cuda.set_sync_debug_mode('warn'): the
+    synchronizing calls it made (copies from the host included), which
+    must be none, so that the tick never waits on the device."""
+    step = make_batched_control_step(env)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(states, params)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message)[:160] for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    log(f"{what}: synchronizing calls in one tick: {len(syncs)} {syncs[:3]}")
+    return syncs
+
+
+def phase_k1_randomized(device) -> tuple[dict, float]:
+    """K1 on the randomized scene's real tick (pre_tick, the state-aware
+    bind, the blocks) K1_RANDOMIZED_TICKS ticks into a BATCH-env rollout,
+    against its plain version at B = 4096 and the first 1, 7 and 4093 envs;
+    one device kernel per call; timed beside its bound."""
+    env = envs.make(RANDOMIZED)
+    params = env.gather_params()
+    states = envs.make_batched_reset(env, BATCH, RANDOMIZED_SEED + 2)()
+    states, _ = envs.make_batched_rollout(env, K1_RANDOMIZED_TICKS,
+                                          with_aux=False)(states, params)
+    states = env.pre_tick(states)
+    sc = states.scratch
+    escaping = sc["man_ticks"] > 0
+    pushing = ~escaping & sc["push_on"]
+    log(f"K1 randomized real tick, {K1_RANDOMIZED_TICKS} ticks in: "
+        f"{int(escaping.sum())} envs in a detour, {int(pushing.sum())} "
+        f"pushing, of {BATCH}")
+    err = 0.0
+    for B in RAGGED + (BATCH,):
+        q, qd, prm, ctxs, fk = _policy_inputs(env, _take(states, B), params)
+        tags, blocks = policy_row_blocks_structured(env.policies, q, qd, prm,
+                                                    ctxs, fk=fk)
+        rows = tuple((t, b[0].shape[1] if t != "identity" else 0)
+                     for t, b in zip(tags, blocks))
+        check(rows == K1_RANDOMIZED_LAYOUT, f"K1 randomized layout {rows}")
+        err = max(err, k1_compare(tags, blocks,
+                                  f"randomized real tick, B={B}",
+                                  nonfinite_ok=True))
+
+    # timed on the last blocks, BATCH envs
+    def call():
+        return cuda_resolve.pullback_resolve_structured(tags, blocks)
+    per_call = device_launches(call, "pullback_resolve_kernel",
+                               "K1 randomized")
+    check(per_call == 1, "K1 randomized: not one launch per wrapper call")
+    rec = dict(n=9, scene=RANDOMIZED,
+               layout=[list(r) for r in K1_RANDOMIZED_LAYOUT],
+               envs_in_a_detour=int(escaping.sum()),
+               envs_pushing=int(pushing.sum()),
+               device_launches_per_call=per_call, ms=time_ms(call),
+               device_ms=time_ms(call, lead=True),
+               plain_ms=time_ms(lambda: cuda_resolve.
+                                pullback_resolve_structured_plain(tags,
+                                                                  blocks)),
+               library_ms=time_ms(lambda: k1_library(tags, blocks)))
+    rec["bound_ms"], rec["bound_by"] = k1_bound(tags, blocks)
+    log(f"K1 randomized (n=9, dense 3 + 3 identities + scalar 80) times at "
+        f"B={BATCH}: wrapper {rec['ms']:.4f} ms (device alone "
+        f"{rec['device_ms']:.4f} ms), plain {rec['plain_ms']:.4f} ms, "
+        f"einsum+linalg.solve {rec['library_ms']:.4f} ms, bound "
+        f"{rec['bound_ms']:.6f} ms ({rec['bound_by']})")
+    return {"randomized": rec}, err
+
+
+def randomized_path(card: str, geometry: str, failed: list):
+    """RANDOMIZED at BATCH envs x RANDOMIZED_TICKS ticks in `geometry` from
+    the reset of RANDOMIZED_SEED, timed, with every launch counter zeroed
+    just before the rollout and read after: K1 once per tick, K3 1 +
+    IK_STEPS times (the tick's FK and the detour IK's), K4 once per hull
+    tick (the reset's cold seeding query comes before), every other counter
+    0. Before it, on a reset of another seed, one tick with the sync debug
+    mode on (sync_free_tick). After it, the task statistics
+    (evaluate.task_statistics) against the JAX package's report within
+    stat_limit, nan_rate 0 (a miss goes to `failed`), and a 10-tick
+    trace."""
+    what = f"{RANDOMIZED} ({geometry})"
+    env = envs.make(RANDOMIZED)
+    env.collision_geometry = geometry
+    params = env.gather_params()
+    warm = envs.make_batched_reset(env, BATCH, RANDOMIZED_SEED + 1)()
+    warm, _ = envs.make_batched_rollout(env, WARMUP_TICKS, with_aux=False)(
+        warm, params)
+    syncs = sync_free_tick(env, warm, params, what)
+    if syncs:
+        failed.append(f"{what}: the tick synchronizes with the device")
+    initial = envs.make_batched_reset(env, BATCH, RANDOMIZED_SEED)()
+    rollout = envs.make_batched_rollout(env, RANDOMIZED_TICKS)
+    torch.cuda.synchronize()
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    final, aux = rollout(initial, params)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    steps_per_s = BATCH * RANDOMIZED_TICKS / seconds
+    log(f"{what}: {BATCH} envs x {RANDOMIZED_TICKS} ticks in {seconds:.3f} s "
+        f"= {steps_per_s:.1f} control steps/s [{card}]")
+    log(f"{what} launches: {launches}")
+    per_tick = dict(pullback_resolve_structured=1,
+                    fk_derivatives_batched=1 + franka.IK_STEPS,
+                    gjk_hull_obstacles=int(geometry == "hull"))
+    for name, count in launches.items():
+        want = RANDOMIZED_TICKS * per_tick.get(name, 0)
+        check(count == want, f"{what}: {name} launched {count} times in "
+              f"{RANDOMIZED_TICKS} ticks, want {want}")
+    check(tuple(final.sim.q.shape) == (BATCH, 9), f"{what}: q shape")
+    stats = task_statistics(env, initial, final, aux)
+    with open(os.path.join(ROOT, REPORTS[geometry])) as f:
+        report = json.load(f)
+    against = {}
+    for key in STAT_KEYS:
+        p = report[key]
+        against[key] = dict(port=stats[key], report=p,
+                            diff=stats[key] - p, limit=stat_limit(p))
+        if abs(stats[key] - p) > stat_limit(p):
+            failed.append(f"{what}: {key} {stats[key]:.5f} against the "
+                          f"report's {p:.5f} (limit {stat_limit(p):.5f})")
+    if stats["nan_rate"] != 0.0:
+        failed.append(f"{what}: nan_rate {stats['nan_rate']}")
+    log(f"{what} statistics: {json.dumps(stats)}")
+    log(f"{what} against {REPORTS[geometry]}: {json.dumps(against)}")
+    trace = profile_ticks(env, final, params, seconds * 1e3 /
+                          RANDOMIZED_TICKS)
+    log(f"{what} trace: {json.dumps(trace)}")
+    return launches, dict(scene=RANDOMIZED, geometry=geometry, envs=BATCH,
+                          ticks=RANDOMIZED_TICKS, seed=RANDOMIZED_SEED,
+                          seconds=seconds, control_steps_per_s=steps_per_s,
+                          sync_calls_per_tick=len(syncs), statistics=stats,
+                          against_report=against, trace=trace)
+
+
+DISCRETE = ("no_progress", "push_on", "man_ticks", "man_count")
+
+
+@contextlib.contextmanager
+def resolve_recorded(flags: list):
+    """While the block runs, the tick's resolve (K1's wrapper or whatever
+    stands in its place) appends the (B,) flags of its non-finite q̈ rows
+    to `flags`: where the velocity cap's metric meets its singularity,
+    |q̇| = max_velocity - 2 region, q̈ is not finite and the max_qdd guard
+    zeros it."""
+    resolve = envs.base.pullback_resolve_structured
+
+    def recorded(tags, blocks, ridge=0.0):
+        out = resolve(tags, blocks, ridge=ridge)
+        flags.append(~torch.isfinite(out).all(dim=1))
+        return out
+    envs.base.pullback_resolve_structured = recorded
+    try:
+        yield
+    finally:
+        envs.base.pullback_resolve_structured = resolve
+
+
+def randomized_run(device, start, geometry: str, plain: bool = False,
+                   float64: bool = False, k4=None) -> dict:
+    """Per-tick records (T, B, ...) of PARITY_TICKS ticks of RANDOMIZED from
+    the CPU state `start`, moved to `device`: q (float64), the largest
+    |q̈| (after the max_qdd guard), the discrete bookkeeping DISCRETE,
+    `event`, a resample or a new detour (the count rises) at that tick,
+    `singular`, a non-finite q̈ of the resolve (resolve_recorded), and
+    `to_singular`, the least | |q̇_j| - (max_velocity - 2 region) | over
+    the joints after the tick, how near the velocity cap's metric is to its
+    singularity at the next tick. plain / float64 run plain_kernels; k4
+    stands in for K4 (gjk_as)."""
+    env = envs.make(RANDOMIZED, device=device)
+    env.collision_geometry = geometry
+    state, params = _to_device(start, device), env.gather_params()
+    if float64:
+        state = _as_dtype(state, torch.float64)
+        params = tuple(_as_dtype(p, torch.float64) for p in params)
+    step = make_batched_control_step(env)
+    cap = next(p.params for p in env.policies
+               if p.name == "joint_velocity_cap")
+    singular_speed = (cap["max_velocity"]
+                      - 2.0 * cap["velocity_damping_region"])
+    out = dict(q=[], qdd=[], event=[], discrete=[], singular=[],
+               to_singular=[])
+    with (plain_kernels(float64) if plain or float64 else
+          gjk_as(k4) if k4 is not None else contextlib.nullcontext()), \
+            resolve_recorded(out["singular"]):
+        if _wants_gjk_warm(env, state):
+            state = _seed_gjk_warm(env, state)
+        for _ in range(PARITY_TICKS):
+            count = state.scratch["man_count"]
+            state, aux = step(state, params)
+            sc = state.scratch
+            out["q"].append(state.sim.q.double().cpu())
+            out["to_singular"].append((state.sim.qd.abs() - singular_speed)
+                                      .abs().amin(dim=1).double().cpu())
+            out["qdd"].append(aux["qdd"].abs().amax(dim=1).double().cpu())
+            out["event"].append((aux["resample"]
+                                 | (sc["man_count"] > count)).cpu())
+            out["discrete"].append(torch.stack(
+                [state.no_progress, sc["push_on"].int(), sc["man_ticks"],
+                 sc["man_count"]], dim=-1).cpu())
+    out["singular"] = [f.cpu() for f in out["singular"]]
+    return {k: torch.stack(v) for k, v in out.items()}
+
+
+def randomized_parity(geometry: str, failed: list) -> dict:
+    """GPU/CPU parity of RANDOMIZED: PARITY_B envs of one CPU reset, moved
+    to the card, PARITY_TICKS ticks on each. The scene is chaotic in
+    float32 (a one-ulp move of the start parts q by up to ~1.8 rad in 60
+    ticks on some envs of a CPU run), and its bookkeeping has thresholds
+    (the progress window's 1 cm, the push's 8 cm) that rounding can tip,
+    and the velocity cap's metric has a singularity at |q̇| = 0.5 rad/s,
+    which its dynamics approach, where one run's q̈ turns non-finite (the
+    max_qdd guard zeros it) and another's stays finite. So each env is
+    compared up to the tick before its first event in any run (a
+    resample, or a new detour: the runs' random draws differ from there),
+    before its first non-finite q̈ in any run, and before the card's
+    discrete bookkeeping (DISCRETE) first parts from the CPU's, and each
+    (env, tick) there while the rounding
+    screens hold: the CPU run from a start moved by one ulp, the float64
+    run and the card's run with the plain versions in the kernels' places
+    (its rounding outside the kernels) have each stayed within STABLE of
+    the CPU run. Held on those pairs: the card within PARITY_ATOL of the
+    CPU and of float64, so that a gap there is the kernels'; at least
+    KEPT_SHARE of the (env, tick) pairs before the events kept. In the
+    hull tier every K4 call of the card's run is held against its plain
+    version on the same operands (k4_in_loop, random_cylinders;
+    k4_evidence on the first and every K4_EVIDENCE_EVERY-th call). A miss
+    goes to `failed`."""
+    env = envs.make(RANDOMIZED, device="cpu")
+    env.collision_geometry = geometry
+    start = env.reset(PARITY_B, PARITY_SEED)
+    up = torch.tensor(float("inf"))
+    moved = dataclasses.replace(start, sim=dataclasses.replace(
+        start.sim, q=torch.nextafter(start.sim.q, up),
+        qd=torch.nextafter(start.sim.qd, up)))
+    calls, env_gaps, k4_failed = [], [], []
+    k4 = (k4_in_loop(calls, env_gaps, k4_failed, K4_EVIDENCE_EVERY,
+                     random_cylinders=True) if geometry == "hull" else None)
+    runs = dict(gpu=randomized_run("cuda", start, geometry, k4=k4),
+                card_plain=randomized_run("cuda", start, geometry,
+                                          plain=True),
+                cpu=randomized_run("cpu", start, geometry),
+                ulp=randomized_run("cpu", moved, geometry),
+                float64=randomized_run("cpu", start, geometry, float64=True))
+    T = PARITY_TICKS
+    ticks = torch.arange(T)[:, None]
+
+    def first(flags):                          # (T, B) -> (B,)
+        return torch.where(flags.any(dim=0), flags.int().argmax(dim=0),
+                           torch.tensor(T))
+    first_event = first(torch.stack([r["event"] for r in runs.values()])
+                        .any(dim=0))
+    first_singular = first(torch.stack([r["singular"] for r in
+                                        runs.values()]).any(dim=0))
+    parted = (runs["gpu"]["discrete"] != runs["cpu"]["discrete"]).any(-1)
+    first_part = first(parted)
+    events = ticks < first_event[None]
+    window = (events & (ticks < first_singular[None])
+              & (ticks < first_part[None]))
+
+    def gap(a, b):
+        return (runs[a]["q"] - runs[b]["q"]).abs().amax(dim=-1)   # (T, B)
+    screens = ("ulp", "float64", "card_plain")
+    moves = {k: torch.cummax(gap(k, "cpu"), dim=0).values for k in screens}
+    keep = window.clone()
+    for m in moves.values():
+        keep &= m <= STABLE
+    g_cpu, g_f64 = gap("gpu", "cpu"), gap("gpu", "float64")
+
+    def top(v, where):
+        return float(v[where].max()) if bool(where.any()) else None
+    split = (first_part < first_event)
+    before = torch.clamp(first_part - 1, min=0)
+    rec = dict(
+        envs=PARITY_B, ticks=T,
+        envs_with_an_event=int((first_event < T).sum()),
+        event_pairs=int(events.sum()), window_pairs=int(window.sum()),
+        kept_pairs=int(keep.sum()),
+        envs_with_kept_ticks=int(keep.any(dim=0).sum()),
+        kept_by_each_screen={k: int((window & (m <= STABLE)).sum())
+                             for k, m in moves.items()},
+        envs_discrete_parted=int(split.sum()),
+        envs_singular_in_window=int((first_singular < first_event).sum()),
+        envs_singular_by_run={k: int(r["singular"].any(dim=0).sum())
+                              for k, r in runs.items()},
+        # each run's envs whose q̈ turned non-finite: the tick, and how near
+        # a joint's |q̇| stood to the singular speed just before it
+        singular=[dict(run=k, env=e, tick=int(t), qd_to_singular=float(
+            r["to_singular"][t - 1, e]) if t > 0 else None)
+            for k, r in runs.items()
+            for e in r["singular"].any(dim=0).nonzero()[:, 0].tolist()
+            for t in [first(r["singular"])[e]]],
+        max_abs_q_before_discrete_part=top(
+            g_cpu.gather(0, before[None])[0], split & (first_part > 0)),
+        max_abs_q=top(g_cpu, keep), max_gpu_vs_float64=top(g_f64, keep),
+        max_abs_q_window=top(g_cpu, window),
+        median_abs_q_window=float(g_cpu[window].median()))
+    # the kept pairs where the card parts most, with the tick its gap
+    # first passed STABLE and the largest |q̈| of each run there
+    onset = first(g_cpu > STABLE)
+    worst = torch.argsort(torch.where(keep, g_cpu, torch.zeros_like(g_cpu))
+                          .amax(dim=0), descending=True)[:5].tolist()
+    rec["worst_envs"] = []
+    for e in worst:
+        o = int(min(int(onset[e]), T - 1))
+        rec["worst_envs"].append(dict(
+            env=e, abs_q=top(g_cpu[:, e], keep[:, e]),
+            kept_ticks=int(keep[:, e].sum()), window_end=int(
+                min(first_event[e], first_part[e], first_singular[e])),
+            onset_tick=o,
+            qdd_gpu=float(runs["gpu"]["qdd"][o, e]),
+            qdd_cpu=float(runs["cpu"]["qdd"][o, e]),
+            **{f"{k}_move": float(m[o, e]) for k, m in moves.items()}))
+    if geometry == "hull":
+        failed.extend(k4_failed)
+        env_dist = torch.stack([d for d, _ in env_gaps]).amax(dim=0)
+        env_wit = torch.stack([w for _, w in env_gaps]).amax(dim=0)
+        k4_parted = (env_dist > K4_AGREE) | (env_wit > K4_WITNESS_P99)
+        rec.update(k4_calls=len(calls),
+                   k4_calls_with_evidence=sum("evidence" in c
+                                              for c in calls),
+                   k4_dist_gap_max=max(c.get("dist_max", 0.0)
+                                       for c in calls),
+                   k4_witness_gap_max=max(c.get("witness_max", 0.0)
+                                          for c in calls),
+                   k4_witness_p99_max=max(c.get("witness_p99", 0.0)
+                                          for c in calls),
+                   envs_k4_parted=int(k4_parted.sum()),
+                   envs_k4_parted_with_kept_ticks=int(
+                       (k4_parted & keep.any(dim=0)).sum()))
+    what = f"parity {RANDOMIZED} ({geometry}, {PARITY_B} envs)"
+    log(f"{what} x {T} ticks: {json.dumps(rec)} (atol {PARITY_ATOL} on the "
+        f"kept (env, tick) pairs)")
+    if rec["kept_pairs"] < KEPT_SHARE * rec["event_pairs"]:
+        failed.append(f"{what}: too few (env, tick) pairs kept")
+    for key in ("max_abs_q", "max_gpu_vs_float64"):
+        if rec[key] is None or rec[key] > PARITY_ATOL:
+            failed.append(f"{what}: {key} {rec[key]} > {PARITY_ATOL}")
+    return rec
+
+
+def phase_slice8(card: str, device) -> dict:
+    """Phase 14: K1 on the randomized scene's layout, K4 on its warm
+    operands at 8 iterations, its 4096-env x 300-tick rollouts in both
+    tiers with their statistics, and its GPU/CPU parity in both tiers.
+    Every part runs before the statistics' and parities' checks."""
+    k1_new, k1_err = phase_k1_randomized(device)
+    k4_rand = phase_k4_scene(RANDOMIZED, 8, cap_fault=True)
+    failed: list = []
+    paths = {f"{RANDOMIZED} ({g})": randomized_path(card, g, failed)
+             for g in ("capsule", "hull")}
+    parity = {g: randomized_parity(g, failed) for g in ("capsule", "hull")}
+    check(not failed, "; ".join(failed))
+    return dict(k1=k1_new, k1_err=k1_err, k4=k4_rand, paths=paths,
+                parity=parity)
 
 
 def main() -> int:
@@ -2113,20 +2636,26 @@ def main() -> int:
     slice7 = phase_slice7(card, device)
     slice7_s = time.perf_counter() - t0
     log(f"phase 13: {slice7_s:.1f} s")
+    t0 = time.perf_counter()
+    slice8 = phase_slice8(card, device)
+    slice8_s = time.perf_counter() - t0
+    log(f"phase 14: {slice8_s:.1f} s")
 
     k1["per_layout"] = dict(flagship=dict(n=9, ms=k1["ms"],
                                           device_ms=k1["device_ms"]),
-                            **slice6["k1"], **slice7["k1"])
+                            **slice6["k1"], **slice7["k1"], **slice8["k1"])
     k1["max_abs_err"] = max(k1["max_abs_err"], slice6["k1_err"],
-                            slice7["k1_err"])
+                            slice7["k1_err"], slice8["k1_err"])
     k4["moving_obstacles_operands"] = slice7["k4"]
-    k4["max_abs_err"] = max(k4["max_abs_err"], slice7["k4"]["dist_max"])
+    k4["randomized_operands"] = slice8["k4"]
+    k4["max_abs_err"] = max(k4["max_abs_err"], slice7["k4"]["dist_max"],
+                            slice8["k4"]["dist_max"])
     k3["per_model"] = dict(panda=dict(frames=12, n=9, ms=k3["ms"],
                                       device_ms=k3["device_ms"]),
                            **slice6["k3"])
     k3["max_abs_err"] = max(k3["max_abs_err"], slice6["k3_err"])
     path_launches = {"capsule": launches, "hull": hull_launches}
-    for paths in (slice6["paths"], slice7["paths"]):
+    for paths in (slice6["paths"], slice7["paths"], slice8["paths"]):
         path_launches.update((scene, counts) for scene, (counts, _) in
                              paths.items())
     kernels = [k1, k2a, k2b, k3, k4, k5]
@@ -2149,7 +2678,10 @@ def main() -> int:
                   slice7_parity=slice7["parity"],
                   slice7_hull_parity=slice7["hull_parity"],
                   ik_start=slice7["ik_start"],
-                  simulation=slice7["simulation"], phase13_s=slice7_s)
+                  simulation=slice7["simulation"], phase13_s=slice7_s,
+                  slice8_paths={scene: path for scene, (_, path) in
+                                slice8["paths"].items()},
+                  slice8_parity=slice8["parity"], phase14_s=slice8_s)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

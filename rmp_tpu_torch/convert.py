@@ -37,13 +37,23 @@ def state_from_numpy(leaves: dict, device) -> EnvState:
     dict of p0, p1 (B, K, 3), radius (B, K) and an optional `kinds`
     sequence of strings (numpy 0-d string arrays, as a tree map leaves
     them, are taken too); gjk_warm (B, L, K, 3), the hull tier's warm
-    carry, or absent / None. The resampling stream (EnvState.rng) is seeded
-    with 0."""
+    carry, or absent / None; scratch, the scene's private state (nested
+    dicts of arrays: float ones become float32, integer ones int32, bool
+    ones bool), or absent / None. The resampling stream (EnvState.rng) is
+    seeded with 0."""
     def f32(x):
         return torch.tensor(np.asarray(x), dtype=torch.float32, device=device)
 
     def i32(x):
         return torch.tensor(np.asarray(x), dtype=torch.int32, device=device)
+
+    def tree(x):
+        if isinstance(x, dict):
+            return {k: tree(v) for k, v in x.items()}
+        a = np.asarray(x)
+        if a.dtype == np.bool_:
+            return torch.tensor(a, device=device)
+        return i32(a) if np.issubdtype(a.dtype, np.integer) else f32(a)
 
     obs = leaves.get("obstacles")
     kinds = None if obs is None else obs.get("kinds")
@@ -61,4 +71,6 @@ def state_from_numpy(leaves: dict, device) -> EnvState:
                     goal_best=f32(leaves["goal_best"]),
                     no_progress=i32(leaves["no_progress"]),
                     gjk_warm=None if warm is None else f32(warm),
-                    rng=generator(device, 0))
+                    rng=generator(device, 0),
+                    scratch=None if leaves.get("scratch") is None
+                    else tree(leaves["scratch"]))

@@ -20,10 +20,18 @@ the env's device seeded at reset. A resampling scene draws for every env at
 every tick and keeps the draws only where a goal was reached, as the JAX
 package's `where` does, so the tick never waits on the host. The numbers
 are not JAX's: jax.random streams are not reproduced.
+
+A scene may also carry per-env private state (EnvState.scratch), a pre_tick
+hook run at the start of every tick (escape maneuvers), a state-aware
+bind_params and a stuck predicate (Env.stuck_fn): a stuck env resamples as
+a solved one does, without counting a goal, and _advance keeps the
+progress window (EnvState.goal_best, no_progress) that predicates read.
 """
 from __future__ import annotations
 
 import dataclasses
+import inspect
+import weakref
 from typing import Callable
 
 import numpy as np
@@ -49,8 +57,10 @@ class EnvState:
     steps: torch.Tensor          # (B,) int32 control ticks taken
     solved_count: torch.Tensor   # (B,) int32 goals reached
     phase: torch.Tensor          # (B,) int32 env-specific goal index
-    # progress bookkeeping of the JAX package's stuck detection; carried
-    # for state parity (no ported scene sets a stuck predicate)
+    # progress window of the stuck detection (kept by _advance when the
+    # scene sets Env.stuck_fn): the best EE-goal distance since the last
+    # goal event, and the ticks since it last improved by more than
+    # Env.progress_eps
     goal_best: torch.Tensor      # (B,) float32, +inf after each goal event
     no_progress: torch.Tensor    # (B,) int32
     # hull tier, B % 128 == 0: the previous tick's GJK witness directions
@@ -58,6 +68,10 @@ class EnvState:
     gjk_warm: torch.Tensor | None = None
     # the random stream of the scene's resampling, on the envs' device
     rng: torch.Generator | None = None
+    # the scene's private per-env state: nested dicts of (B, ...) tensors
+    # (escape timers, waypoints, per-env knobs), kept by its pre_tick and
+    # read by its bind_params, stuck_fn and on_solved; None if unused
+    scratch: object = None
 
 
 def generator(device, seed: int) -> torch.Generator:
@@ -65,9 +79,10 @@ def generator(device, seed: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def env_state(sim: SimState, seed: int = 0) -> EnvState:
+def env_state(sim: SimState, seed: int = 0, scratch=None,
+              rng: torch.Generator | None = None) -> EnvState:
     """Fresh bookkeeping for the states `sim`, with the resampling stream
-    seeded by `seed`."""
+    `rng` (default: a new one seeded by `seed`)."""
     B = sim.q.shape[0]
     zero = torch.zeros(B, dtype=torch.int32, device=sim.q.device)
     return EnvState(sim=sim, steps=zero, solved_count=zero.clone(),
@@ -75,7 +90,9 @@ def env_state(sim: SimState, seed: int = 0) -> EnvState:
                     goal_best=torch.full((B,), float("inf"),
                                          device=sim.q.device),
                     no_progress=zero.clone(),
-                    rng=generator(sim.q.device, seed))
+                    rng=rng if rng is not None
+                    else generator(sim.q.device, seed),
+                    scratch=scratch)
 
 
 @dataclasses.dataclass
@@ -84,9 +101,11 @@ class Env:
 
     reset(batch, seed=0) -> EnvState of `batch` environments;
     on_solved(state) -> state is the scene's in-graph resampling (applied
-    where a goal was reached); bind_params(params, sim, policies) injects
-    state-carried quantities (the current goal) into the policy params each
-    tick."""
+    where a goal was reached, or where stuck_fn says the env is stuck);
+    bind_params(params, sim, policies) injects state-carried quantities
+    (the current goal) into the policy params each tick, and a
+    bind_params(params, sim, policies, state) of four arguments also reads
+    the EnvState (a detour goal from EnvState.scratch)."""
 
     name: str
     model: KinematicModel
@@ -128,6 +147,20 @@ class Env:
     # the substeps (moving goals and obstacles): the policies of tick k see
     # the scene as tick k-1 left it
     update_scene: Callable | None = None
+    # stuck_fn(state) -> (B,) bool: where true, on_solved fires without a
+    # goal counted (goal-timeout resampling); needs on_solved
+    stuck_fn: Callable | None = None
+    # pre_tick(state) -> state at the start of every tick, before the
+    # policies (escape timers and waypoints). It must not touch sim.q or
+    # sim.qd (the batched hull context is built after it from the same q)
+    # nor move sim.goal to a temporary target (the solved check reads it):
+    # a detour is bound through a state-aware bind_params
+    pre_tick: Callable | None = None
+    # EE-goal improvement (m) that resets EnvState.no_progress
+    progress_eps: float = 0.01
+    # goal_distance_fn(env, sim) -> (B,) distance of the progress window;
+    # None: |EE - goal|
+    goal_distance_fn: Callable | None = None
 
     def gather_params(self) -> tuple:
         return tuple(p.params for p in self.policies)
@@ -173,6 +206,22 @@ def resample_goal(low, high, device):
         return dataclasses.replace(
             state, sim=dataclasses.replace(state.sim, goal=lo + span * u))
     return on_solved
+
+
+_BIND_ARITY: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def call_bind(bind, params, sim, policies, state):
+    """bind_params in either form: (params, sim, policies), or the
+    state-aware (params, sim, policies, state). The arity is read once per
+    function object (held weakly, so a new env never meets a stale entry of
+    a collected one)."""
+    arity = _BIND_ARITY.get(bind)
+    if arity is None:
+        arity = _BIND_ARITY[bind] = len(inspect.signature(bind).parameters)
+    if arity >= 4:
+        return bind(params, sim, policies, state)
+    return bind(params, sim, policies)
 
 
 def ee_position(env: Env, sim: SimState) -> torch.Tensor:
@@ -221,7 +270,7 @@ def _policy_inputs(env: Env, state: EnvState, params: tuple,
     sim = state.sim
     policies = env.policies
     if env.bind_params is not None:
-        params = env.bind_params(params, sim, policies)
+        params = call_bind(env.bind_params, params, sim, policies, state)
     if fk is None and env.derivatives == "analytic":
         fk = fk_bundle(policies, sim.q, sim.qd)
     if frame_ctx is None:
@@ -237,14 +286,20 @@ def _policy_inputs(env: Env, state: EnvState, params: tuple,
 
 
 def _select(event: torch.Tensor, new, old):
-    """Leafwise where(event, new, old) over (nested) state dataclasses;
-    leaves the update did not touch (`new is old`) are kept as they are."""
+    """Leafwise where(event, new, old) over (nested) state dataclasses,
+    dicts and tuples of (B, ...) tensors; leaves the update did not touch
+    (`new is old`) are kept as they are, and so is any leaf that is not a
+    tensor (kinds, the generator)."""
     if new is old:
         return old
     if dataclasses.is_dataclass(old):
         return dataclasses.replace(old, **{
             f.name: _select(event, getattr(new, f.name), getattr(old, f.name))
             for f in dataclasses.fields(old)})
+    if isinstance(old, dict):
+        return {k: _select(event, new[k], v) for k, v in old.items()}
+    if isinstance(old, tuple):
+        return tuple(_select(event, a, b) for a, b in zip(new, old))
     if isinstance(old, torch.Tensor):
         e = event.reshape(event.shape + (1,) * (old.dim() - 1))
         return torch.where(e, new, old)
@@ -273,18 +328,40 @@ def _advance(env: Env, state: EnvState, qdd: torch.Tensor):
         solved = is_solved(env, sim, ee)
     else:
         solved = torch.zeros_like(state.steps, dtype=torch.bool)
+    event = solved
+    if env.stuck_fn is not None:
+        if env.on_solved is None:
+            raise ValueError(
+                "Env.stuck_fn requires on_solved: the stuck signal fires "
+                "the resampling hook and is dead without one")
+        if sim.goal is not None:
+            d = (env.goal_distance_fn(env, sim)
+                 if env.goal_distance_fn is not None
+                 else torch.linalg.vector_norm(ee - sim.goal, dim=-1))
+            improved = d < state.goal_best - env.progress_eps
+            state = dataclasses.replace(
+                state, goal_best=torch.minimum(state.goal_best, d),
+                no_progress=torch.where(improved, 0, state.no_progress + 1))
+        event = solved | env.stuck_fn(state)
     solved_i = solved.to(torch.int32)
     if env.on_solved is not None:
         resampled = env.on_solved(dataclasses.replace(
             state, solved_count=state.solved_count + solved_i))
-        state = _select(solved, resampled, state)
+        state = _select(event, resampled, state)
+        if env.stuck_fn is not None:
+            # a fresh goal opens a fresh progress window
+            state = dataclasses.replace(
+                state,
+                goal_best=torch.where(event, float("inf"), state.goal_best),
+                no_progress=torch.where(event, 0, state.no_progress))
     else:
         # no resampling: solved_count saturates at 1 (the goal was reached)
         state = dataclasses.replace(
             state, solved_count=torch.maximum(state.solved_count, solved_i))
     aux = dict(solved=solved, qdd=qdd, ee=ee)
     if env.on_solved is not None:
-        aux["resample"] = solved
+        # the ticks where on_solved fired (a goal reached or a stuck env)
+        aux["resample"] = event
     return state, aux
 
 
@@ -305,6 +382,10 @@ def make_batched_control_step(env: Env):
     policies = env.policies
 
     def step(states: EnvState, params: tuple):
+        if env.pre_tick is not None:
+            # before the hull context, as in the JAX package: pre_tick
+            # leaves q alone, and its scratch must reach bind_params
+            states = env.pre_tick(states)
         fk = frame_ctx = warm_next = None
         if _batched_hull(env, states):
             if env.derivatives == "analytic":
@@ -392,6 +473,8 @@ def make_control_step(env: Env):
     core.resolve(env.resolve_method) (never K1), and the distance context
     through sense (in the hull tier every pair cold, no warm carry)."""
     def step(states: EnvState, params: tuple):
+        if env.pre_tick is not None:
+            states = env.pre_tick(states)
         q, qd, params_b, ctxs, fk = _policy_inputs(env, states, params)
         qdd = evaluate_policies(env.policies, q, qd, params_b, ctxs,
                                 method=env.resolve_method,

@@ -1,6 +1,7 @@
 """Franka Panda scenes: 01_target_rmp_only, 03_self_avoidance,
 04_nullspace_control, 05_obstacle_avoidance, the flagship
-06_cluttered_environment, pose_target, moving_goal and moving_obstacles.
+06_cluttered_environment, pose_target, moving_goal, moving_obstacles and
+randomized_cluttered.
 
 The port's part of `rmp_tpu/envs/franka.py`: scene 01's lone v1 target with
 uniform goal resampling; scene 03's per-frame self-avoidance fed by a
@@ -8,8 +9,10 @@ batched context_fn; scene 04's c-space bias from an IK start; the v2 policy
 stack, the obstacle policies (one grouped policy over all 10 collision
 frames x the scene's obstacles, or one per frame), the seven cylinders and
 six sequential goals of scene 06, the one tilted cylinder of scene 05; the
-orientation hold of pose_target; and the two scenes moved by update_scene,
-a goal on a circle and the cluttered scene's cylinders swaying.
+orientation hold of pose_target; the two scenes moved by update_scene,
+a goal on a circle and the cluttered scene's cylinders swaying; and the
+domain-randomized scene with its escape maneuvers, final push and stall
+timeout (pre_tick, a state-aware bind, stuck_fn).
 """
 from __future__ import annotations
 
@@ -19,18 +22,21 @@ import numpy as np
 import torch
 
 from rmp_tpu_torch import taskmaps as tm
+from rmp_tpu_torch.envs import maneuver as mv
 from rmp_tpu_torch.envs.base import (Env, EnvState, bind_goal, env_state,
                                      resample_goal, take_row)
 from rmp_tpu_torch.models import kinematics as K
 from rmp_tpu_torch.models import robots
 from rmp_tpu_torch.models.ik import inverse_kinematics
 from rmp_tpu_torch.ops import geom
+from rmp_tpu_torch.ops.cuda_fk import fk_derivatives_batched
 from rmp_tpu_torch.policies import v1, v2
+from rmp_tpu_torch.sim import randomizer as rnd
 from rmp_tpu_torch.sim.collision import (ObstacleSet, cylinder_obstacle,
-                                         robot_self_distances,
+                                         pad_obstacles, robot_self_distances,
                                          self_collision_pairs)
 from rmp_tpu_torch.sim.data import PAIRS_KEY
-from rmp_tpu_torch.sim.world import init_state
+from rmp_tpu_torch.sim.world import SimState, init_state
 
 EE = robots.PANDA_EE_FRAME
 Q_READY = robots.PANDA_Q_READY
@@ -425,3 +431,308 @@ def env_moving_obstacles(device, amplitude: float = 0.1,
                device=device, bind_params=bind_goal(("target", "attractor")),
                on_solved=on_solved, update_scene=update_scene, max_qdd=100.0,
                resolve_method="solve")
+
+
+def bucket_capacity(n: int, buckets=(8, 16)) -> int:
+    """Smallest standard capacity bucket holding n obstacles: scenes with
+    different obstacle counts within one bucket share one state shape."""
+    for b in buckets:
+        if n <= b:
+            return b
+    return n
+
+
+# The randomized scene's escape and push knobs, per env in
+# EnvState.scratch['cfg'] (maneuver.cfg_scratch): the JAX package's r5
+# defaults, which its sweeps chose (rmp_tpu/envs/franka.py:388-518 gives
+# the measurements behind each).
+RANDOMIZED_CFG = dict(
+    esc_trigger=40.0,      # no-progress ticks before a detour fires
+    man_ticks=22.0,        # detour duration (the stall counter frozen)
+    man_budget=2.0,        # detours per goal
+    man_first_only=1.0,    # detours only before the first goal event ...
+    man_budget_late=0.0,   # ... and this many per later goal
+    esc_back=0.15,         # m, the detour's retreat from the goal
+    esc_side=0.30,         # m, its sideways component
+    esc_axis1=1.0,         # legacy waypoint: detour 1 slides along the
+    #                        blocking cylinder's axis (0: random tangent)
+    esc_cand=1.0,          # 1: the waypoint of four scored candidates
+    #                        (± the axis, ± a random tangent); 0: legacy
+    man_arrive=1.0,        # 1: a detour ends within 6 cm of its waypoint
+    esc_cspace=1.0,        # c-space bias metric and gain scale in a detour
+    esc_qspace=0.0,        # 1: bind the c-space goal to a DLS-IK pose at
+    #                        the waypoint; 2: reverse out to the pose of
+    #                        ~32 ticks ago (q_hist)
+    esc_gate=999.0,        # m: detour only once this close (off)
+    timeout=80.0,          # no-progress ticks before the goal resamples
+    timeout_spent=50.0,    # ... once the detour budget is spent
+    push_trigger=20.0,     # final push on a stall of this many ticks ...
+    push_near=0.08,        # ... within this many m of the goal
+    push_boost=3.0,        # attractor p-gain scale (d-gain by its sqrt)
+    push_latch=0.0,        # 1: the push stays on until a detour or goal
+    push_metric=1.0,       # attractor metric scale in the push
+    push_relax=4.0,        # obstacle repulsion and metric / this in it
+    push_relax_metric=0.0,  # 1: relax the obstacle metric only
+    esc_relax=10.0,        # obstacle metric / this during a detour
+    obs_margin=0.005,      # m added to the obstacle policy's margin
+)
+_WS_LO = np.asarray([-0.85, -0.85, 0.15], np.float32)
+_WS_HI = np.asarray([0.85, 0.85, 0.95], np.float32)
+HIST_EVERY = 8          # q_hist takes the pose every 8 ticks ...
+HIST_SLOTS = 4          # ... in 4 slots: the last ~32 ticks old
+IK_STEPS = 8            # DLS steps of the detour's configuration waypoint
+ARRIVE_TOL = 0.06       # m: a detour within this of its waypoint ends
+
+
+def randomized_scratch(q0: torch.Tensor) -> dict:
+    """EnvState.scratch of the randomized scene for the start poses q0
+    (B, n): no detour, no push, the q_hist ring filled with q0, and the
+    knobs of RANDOMIZED_CFG."""
+    B = q0.shape[0]
+    zero = torch.zeros(B, dtype=torch.int32, device=q0.device)
+    return dict(man_ticks=zero, man_count=zero.clone(),
+                wp=torch.zeros(B, 3, dtype=q0.dtype, device=q0.device),
+                q_wp=q0.clone(),
+                q_hist=q0[:, None].repeat(1, HIST_SLOTS, 1),
+                push_on=torch.zeros(B, dtype=torch.bool, device=q0.device),
+                cfg=mv.cfg_scratch(RANDOMIZED_CFG, B, q0.device))
+
+
+def ee_rows(model, q: torch.Tensor):
+    """(EE position (B, 3), its Jacobian ∂p/∂q (B, 3, n)) at q (B, n), from
+    one K3 launch (translation rows of the EE's flattened transform)."""
+    ee = model.frame_index(EE)
+    T16, _, J16, _ = fk_derivatives_batched(model, q, torch.zeros_like(q))
+    return T16[:, ee, 3:12:4], J16[:, ee, 3:12:4]
+
+
+def ik_toward(model, q: torch.Tensor, target: torch.Tensor, first=None):
+    """The detour's configuration waypoint: IK_STEPS position-only DLS
+    steps from q (B, n) toward the EE at target (B, 3),
+    q - 0.5 Jeᵀ (Je Jeᵀ + 1e-4 I)⁻¹ e with e = target - p(q) and
+    Je = -∂p/∂q, each clipped to the joint limits; one K3 launch per step
+    (first: (p, ∂p/∂q) at q when the caller has them). From the wedged q
+    the solution stays on the env's branch of the redundancy; it only
+    steers a low-gain c-space bias."""
+    c = K.model_constants(model, q.device, q.dtype)
+    ridge = 1e-4 * torch.eye(3, dtype=q.dtype, device=q.device)
+    for k in range(IK_STEPS):
+        p, Jp = first if (k == 0 and first is not None) else ee_rows(model, q)
+        e = target - p
+        A = Jp @ Jp.transpose(-1, -2) + ridge
+        # solve_ex: no error check, so no wait on the device
+        x = torch.linalg.solve_ex(A, e[..., None])[0]
+        q = torch.clamp(q + 0.5 * (Jp.transpose(-1, -2) @ x)[..., 0],
+                        c["q_lower"], c["q_upper"])
+    return q
+
+
+def env_randomized_cluttered(device, n_obstacles: int = 7,
+                             obstacle_capacity: int | None = "auto") -> Env:
+    """Domain-randomized cluttered scenes (rmp_tpu/envs/franka.py:359-760):
+    every env draws its own cylinders, robot jitter and goal from the
+    reference's randomization spaces, and a new goal clear of its
+    obstacles at each goal event (a goal reached, or stuck_fn's timeout).
+
+    obstacle_capacity: the obstacle count every scene is padded to with
+    inert far obstacles (pad_obstacles); "auto" takes the 8/16 bucket
+    holding n_obstacles, None keeps n_obstacles.
+
+    The escape maneuver (pre_tick): after esc_trigger ticks without
+    progress the attractor is bound to a detour waypoint for man_ticks
+    ticks (ended on arrival), chosen from four candidates scored on
+    clearance and detour length; sim.goal is never touched, so the solved
+    check and first-goal accounting stay exact. A near-goal stall first
+    engages the final push (attractor gains up, obstacle policy relaxed).
+    Per tick pre_tick launches K3 IK_STEPS times: once at [q, the pose of
+    the q_hist ring] (the EE, the detour's reverse-out point and the first
+    DLS Jacobian), then once per further DLS step."""
+    device = torch.device(device)
+    if obstacle_capacity == "auto":
+        obstacle_capacity = bucket_capacity(n_obstacles)
+    model = robots.franka_panda()
+    ee_idx = model.frame_index(EE)
+    ws_lo = torch.as_tensor(_WS_LO, device=device)
+    ws_hi = torch.as_tensor(_WS_HI, device=device)
+
+    def pre_tick(state: EnvState) -> EnvState:
+        """The escape trigger and waypoint, the q_hist ring, the detour
+        timers and the push latch, for every env (the JAX package's
+        pre_tick under its vmap)."""
+        sc = state.scratch
+        cfg = sc["cfg"]
+        sim = state.sim
+        q = sim.q
+        B = q.shape[0]
+        trigger = ((state.no_progress >= cfg["esc_trigger"])
+                   & (state.goal_best < cfg["esc_gate"])
+                   & mv.budget_free(cfg, sc["man_ticks"], sc["man_count"],
+                                    state.phase))
+        q_past = sc["q_hist"][:, -1]
+        p2, J2 = ee_rows(model, torch.cat([q, q_past]))
+        ee, ee_past, J0 = p2[:B], p2[B:], J2[:B]
+        to_goal = sim.goal - ee
+        dist = torch.linalg.vector_norm(to_goal, dim=-1, keepdim=True)
+        away = -to_goal / (dist + 1e-9)
+        # a normal draw for every env each tick, kept where the trigger
+        # fires (JAX splits each env's key and keeps the split there)
+        v = torch.randn(B, 3, generator=state.rng, device=q.device,
+                        dtype=q.dtype)
+        tang = v - torch.sum(v * away, dim=-1, keepdim=True) * away
+        tang = tang / (torch.linalg.vector_norm(tang, dim=-1, keepdim=True)
+                       + 1e-9)
+
+        # candidate directions: ± the nearest cylinder's axis (the shortest
+        # way around it) and ± the random tangent
+        obs = sim.obstacles
+        seg = obs.p1 - obs.p0                                  # (B, K, 3)
+        seg_len2 = torch.sum(seg * seg, dim=-1)
+        t_seg = torch.clamp(torch.sum((ee[:, None] - obs.p0) * seg, dim=-1)
+                            / (seg_len2 + 1e-12), 0.0, 1.0)
+        closest = obs.p0 + t_seg[..., None] * seg
+        d_obs = (torch.linalg.vector_norm(ee[:, None] - closest, dim=-1)
+                 - obs.radius)
+        hot = d_obs <= d_obs.amin(dim=-1, keepdim=True)        # (B, K)
+        axis = torch.sum(hot.to(q.dtype)[..., None] * seg, dim=1)
+        axis = axis / (torch.linalg.vector_norm(axis, dim=-1, keepdim=True)
+                       + 1e-9)
+        back = cfg["esc_back"][:, None] * away
+        side_len = cfg["esc_side"][:, None]
+
+        def waypoint(direction):
+            return torch.clamp(ee + back + side_len * direction, ws_lo, ws_hi)
+        best_wp, _ = mv.score_candidates(
+            [waypoint(s) for s in (axis, -axis, tang, -tang)], sim.goal,
+            lambda c: mv.point_clearance(obs, c))
+
+        # the legacy guessed direction (esc_cand 0): the axis slide signed
+        # toward the goal on detour 1, the random tangent on retries
+        adot = torch.sum(axis * to_goal, dim=-1, keepdim=True)
+        v0 = v[:, :1]
+        sign = torch.where(torch.abs(adot) < 0.05,
+                           torch.sign(v0) + (v0 == 0).to(q.dtype),
+                           torch.sign(adot))
+        side = torch.where(((sc["man_count"] == 0)
+                            & (cfg["esc_axis1"] > 0.5))[:, None],
+                           sign * axis, tang)
+        wp = torch.where((cfg["esc_cand"] > 0.5)[:, None], best_wp,
+                         waypoint(side))
+
+        # the reverse-out ring: the pose every HIST_EVERY ticks
+        shift = (state.steps % HIST_EVERY) == 0
+        hist_next = torch.where(
+            shift[:, None, None],
+            torch.cat([q[:, None], sc["q_hist"][:, :-1]], dim=1),
+            sc["q_hist"])
+        mode2 = cfg["esc_qspace"] > 1.5
+        wp = torch.where(mode2[:, None], ee_past, wp)
+
+        ticks_next, count_next, wp_next = mv.maneuver_timers(
+            cfg, sc["man_ticks"], sc["man_count"], trigger, ee, sc["wp"],
+            wp, arrive_tol=ARRIVE_TOL)
+        # the configuration waypoint, computed for every env each tick and
+        # kept where the trigger fires: no wait on the device
+        q_cand = torch.where(mode2[:, None], q_past,
+                             ik_toward(model, q, wp, first=(ee, J0)))
+        q_wp = torch.where(trigger[:, None], q_cand, sc["q_wp"])
+        engage = mv.push_engaged(cfg, state.no_progress, state.goal_best)
+        push_on = torch.where(
+            cfg["push_latch"] > 0.5,
+            (sc["push_on"] | engage) & ~trigger
+            & (dist[:, 0] < 4.0 * cfg["push_near"]),
+            engage)
+        scratch = dict(sc, man_ticks=ticks_next, man_count=count_next,
+                       wp=wp_next, q_wp=q_wp, q_hist=hist_next,
+                       push_on=push_on)
+        no_progress, goal_best = mv.freeze_progress(state, trigger,
+                                                    ticks_next > 0)
+        return dataclasses.replace(state, scratch=scratch,
+                                   no_progress=no_progress,
+                                   goal_best=goal_best)
+
+    def bind(params, sim, pols, state):
+        """During a detour the attractor chases the waypoint (the solved
+        check keeps reading sim.goal); a near-miss stall engages the push
+        gains. Every bound gain is a per-env (B,) tensor."""
+        sc = state.scratch
+        cfg = sc["cfg"]
+        escaping = sc["man_ticks"] > 0
+        goal = torch.where(escaping[:, None], sc["wp"], sim.goal)
+        push = ~escaping & sc["push_on"]
+        boost = torch.where(push, cfg["push_boost"], 1.0)
+        mscale = torch.where(push, cfg["push_metric"], 1.0)
+        relax = torch.where(push, cfg["push_relax"], 1.0)
+        relax_rep = torch.where(cfg["push_relax_metric"] > 0.5, 1.0, relax)
+        out = []
+        for p, prm in zip(pols, params):
+            if p.name == "attractor":
+                prm = mv.scaled_attractor(prm, goal=goal, gain_boost=boost,
+                                          metric_scale=mscale)
+            elif p.name == "collision_avoidance":
+                # the push's relax and the detour's metric relax exclude
+                # each other (push = ~escaping & push_on)
+                mrelax = relax * torch.where(escaping, cfg["esc_relax"], 1.0)
+                prm = mv.relaxed_obstacle(prm, relax_rep, mrelax)
+                prm["margin"] = prm["margin"] + cfg["obs_margin"]
+            elif p.name == "cspace_target":
+                cspace = torch.where(escaping, cfg["esc_cspace"], 1.0)
+                qgoal = torch.where(
+                    (escaping & (cfg["esc_qspace"] > 0.5))[:, None],
+                    sc["q_wp"], prm["goal"])
+                prm = dict(prm, goal=qgoal,
+                           metric_scalar=prm["metric_scalar"] * cspace,
+                           position_gain=prm["position_gain"] * cspace)
+            out.append(prm)
+        return tuple(out)
+
+    # gains of the JAX package's sweep for this workload (p 2.5 / d 1.5 /
+    # cap 0.8; the flagship keeps the reference's 0.3 / 0.6 / 0.5)
+    policies = tuple(
+        _v2_policy_stack(model, goal=[0.5, 0.0, 0.5], attractor_p_gain=2.5,
+                         attractor_d_gain=1.5, with_cspace_bias=True,
+                         device=device, max_velocity=0.8)
+        + _obstacle_policies(model))
+
+    def on_solved(state: EnvState) -> EnvState:
+        """A goal event (reached or stuck): a new goal clear of the env's
+        obstacles, a fresh detour budget, the push released; phase records
+        the tick of the event."""
+        B = state.sim.q.shape[0]
+        goal = rnd.randomize_goal(state.rng, B,
+                                  obstacles=state.sim.obstacles)
+        zero = torch.zeros(B, dtype=torch.int32, device=goal.device)
+        scratch = dict(state.scratch, man_ticks=zero, man_count=zero,
+                       push_on=torch.zeros(B, dtype=torch.bool,
+                                           device=goal.device))
+        return dataclasses.replace(
+            state, sim=dataclasses.replace(state.sim, goal=goal),
+            phase=state.steps, scratch=scratch)
+
+    def stuck_fn(state: EnvState) -> torch.Tensor:
+        """No progress for the goal's stall window (spent_timeout)."""
+        sc = state.scratch
+        return state.no_progress >= mv.spent_timeout(
+            sc["cfg"], sc["man_count"], state.phase)
+
+    def reset(batch: int, seed: int = 0) -> EnvState:
+        """Obstacles (padded to obstacle_capacity), robot jitter, then a
+        goal clear of the obstacles, all from one generator on the env's
+        device seeded by `seed`, which goes on as EnvState.rng."""
+        gen = torch.Generator(device=device).manual_seed(seed)
+        obstacles = rnd.randomize_obstacles(gen, batch, n_obstacles)
+        if obstacle_capacity is not None:
+            obstacles = pad_obstacles(obstacles, obstacle_capacity)
+        q, qd = rnd.randomize_robot_config(gen, batch)
+        goal = rnd.randomize_goal(gen, batch, obstacles=obstacles)
+        sim = SimState(q=q, qd=qd, t=torch.zeros(batch, device=device),
+                       obstacles=obstacles, goal=goal)
+        return env_state(sim, scratch=randomized_scratch(q), rng=gen)
+
+    return Env(name="franka/randomized_cluttered", model=model,
+               policies=policies, reset=reset, ee_frame=ee_idx,
+               device=device, bind_params=bind, on_solved=on_solved,
+               stuck_fn=stuck_fn, pre_tick=pre_tick, max_qdd=100.0,
+               enforce_velocity_limits=True,
+               # fast randomized motion needs 8 warm GJK iterations in the
+               # hull tier (reports/gjk_warm_accuracy.json)
+               hull_warm_iters=8, resolve_method="solve")

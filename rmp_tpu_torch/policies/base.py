@@ -8,6 +8,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
+import torch
+
 
 @dataclasses.dataclass
 class Policy:
@@ -31,3 +33,12 @@ def per_env(v):
     """A (B, d) per-env vector as (B, 1, d), broadcasting against the P task
     rows of x (B, P, d); a shared (d,) vector broadcasts as it is."""
     return v[:, None, :] if v.dim() == 2 else v
+
+
+def per_env_scalar(v, ndim: int):
+    """A per-env scalar param (B,) as (B, 1, ..., 1) of `ndim` axes, to
+    broadcast against a leaf's (B, P, d) or (B, P, d, d) operands; a Python
+    number (a gain shared by the batch) as it is."""
+    if isinstance(v, torch.Tensor):
+        return v.reshape(v.shape[0], *(1,) * (ndim - 1))
+    return v

@@ -6,15 +6,19 @@ of the scalar by the full matrix, which leaves `weight` on every
 off-diagonal entry and can make the combined metric indefinite (which is
 why the resolve is a pivoted LU, not a Cholesky solve).
 
-Leaves take x, ẋ (B, P, d). Scalar gains are Python floats; a goal is a
-(d,) tensor shared by the batch or a (B, d) tensor of per-env goals.
+Leaves take x, ẋ (B, P, d). A scalar param is a Python float shared by
+the batch or, where a scene binds it per env (the attractor's gains and
+metric scalars, the obstacle policy's repulsion gain, metric scalar and
+margin, the c-space bias's metric scalar and position gain), a (B,) tensor;
+a goal is a (d,) tensor shared by the batch or a (B, d) tensor of per-env
+goals. The velocity cap's params stay Python floats.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from rmp_tpu_torch.policies.base import Policy, per_env
+from rmp_tpu_torch.policies.base import Policy, per_env, per_env_scalar
 from rmp_tpu_torch.taskmaps import identity
 
 
@@ -31,8 +35,9 @@ def _attractor_accel_metric(params, x, xd, ctx):
     soft = torch.clamp(delta_norm, min=eps / 10.0)
     delta_hat = delta / soft
 
-    a = params["accel_p_gain"] * delta / (delta_norm + eps) \
-        - params["accel_d_gain"] * xd
+    p_gain = per_env_scalar(params["accel_p_gain"], 3)
+    a = p_gain * delta / (delta_norm + eps) \
+        - per_env_scalar(params["accel_d_gain"], 3) * xd
 
     eye = _eye_like(x)
     S = delta_hat[..., :, None] * delta_hat[..., None, :]
@@ -40,8 +45,8 @@ def _attractor_accel_metric(params, x, xd, ctx):
     alpha = (1.0 - params["min_metric_alpha"]) * torch.exp(-0.5 * scaled * scaled) \
         + params["min_metric_alpha"]                          # (B, P, 1)
     alpha = alpha[..., None]                                  # (B, P, 1, 1)
-    M = alpha * params["max_metric_scalar"] * eye \
-        + (1.0 - alpha) * params["min_metric_scalar"] * S
+    M = alpha * per_env_scalar(params["max_metric_scalar"], 4) * eye \
+        + (1.0 - alpha) * per_env_scalar(params["min_metric_scalar"], 4) * S
 
     boost_scaled = delta_norm / params["proximity_metric_boost_length_scale"]
     boost_a = torch.exp(-0.5 * boost_scaled * boost_scaled)
@@ -78,6 +83,11 @@ def _velocity_cap_accel_metric(params, x, xd, ctx):
     # and ratio is a true division (CUDA divides by a host scalar as a
     # reciprocal multiply).
     eps = 1e-6
+    for k in ("velocity_damping_region", "max_velocity", "damping_gain",
+              "metric_weight"):
+        if isinstance(params[k], torch.Tensor):
+            raise TypeError(f"the velocity cap's {k} must be a Python "
+                            f"float, got a tensor")
     s = np.float32 if xd.dtype == torch.float32 else np.float64
     region = s(params["velocity_damping_region"])
     cutoff = float(s(params["max_velocity"]) - region)
@@ -116,15 +126,16 @@ def joint_damping(accel_d_gain, metric_scalar, inertia,
 
 def _obstacle_accel_metric(params, x, xd, ctx):
     # x: (B, P, 1) distances; 1-D task space per pair
-    x = torch.clamp(x - params["margin"], min=0.0)
+    x = torch.clamp(x - per_env_scalar(params["margin"], 3), min=0.0)
     r = params["metric_modulation_radius"]
     far = x > r
     gate = x * x / (r * r) - 2.0 * x / r + 1.0
     gate = torch.where(far, torch.zeros_like(gate), gate)
-    base = params["metric_scalar"] / (
+    base = per_env_scalar(params["metric_scalar"], 3) / (
         x / params["metric_exploder_std_dev"] + params["metric_exploder_eps"])
     metric = base * gate                                      # (B, P, 1)
-    a_repel = params["repulsion_gain"] * torch.exp(-x / params["repulsion_std_dev"])
+    a_repel = per_env_scalar(params["repulsion_gain"], 3) * torch.exp(
+        -x / params["repulsion_std_dev"])
     sig = torch.sigmoid(xd / params["damping_velocity_gate_length_scale"])
     divisor = x / params["damping_std_dev"] + params["damping_robustness_eps"]
     a_damp = -(1.0 - sig) * params["damping_gain"] * xd / divisor
@@ -160,11 +171,11 @@ def _cspace_biasing_accel_metric(params, x, xd, ctx):
     x_norm = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
     x_hat = x / torch.clamp(x_norm, min=1e-12)
     thresh = params["robust_position_term_thresh"]
-    a_pos = torch.where(x_norm < thresh,
-                        -x * params["position_gain"],
-                        -thresh * x_hat * params["position_gain"])
+    gain = per_env_scalar(params["position_gain"], 3)
+    a_pos = torch.where(x_norm < thresh, -x * gain, -thresh * x_hat * gain)
     a = a_pos - params["damping_gain"] * xd
-    M = _eye_like(x) * (params["metric_scalar"] + params["inertia"])
+    M = _eye_like(x) * (per_env_scalar(params["metric_scalar"], 4)
+                        + params["inertia"])
     return a, M
 
 

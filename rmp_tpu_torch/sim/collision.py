@@ -64,6 +64,36 @@ class ObstacleSet:
                            self.radius.expand(batch, -1), self.kinds)
 
 
+def pad_obstacles(obstacles: ObstacleSet, capacity: int,
+                  far: float = 50.0) -> ObstacleSet:
+    """The set padded to `capacity` obstacles with inert ones far away: each
+    pad is the segment (far, far, far) -> (far, far, far + 0.1) of radius
+    0.01, where every obstacle policy's metric is exactly zero and the
+    broad phase never picks it while a real obstacle is nearer. The pads
+    take the set's own kind where the set is uniform, else 'capsule'.
+    Works on (K, ...) and batched (B, K, ...) leaves."""
+    K = obstacles.count
+    if capacity < K:
+        raise ValueError(f"capacity {capacity} < obstacle count {K}")
+    if capacity == K:
+        return obstacles
+    pad = capacity - K
+    f32 = dict(dtype=obstacles.p0.dtype, device=obstacles.p0.device)
+    lead = obstacles.p0.shape[:-2]
+    p0 = torch.tensor([far, far, far], **f32).expand(*lead, pad, 3)
+    p1 = torch.tensor([far, far, far + 0.1], **f32).expand(*lead, pad, 3)
+    kinds = obstacles.kinds
+    if kinds is not None:
+        kinds = kinds + ((kinds[0] if len(set(kinds)) == 1 else "capsule"),
+                         ) * pad
+    return ObstacleSet(
+        p0=torch.cat([obstacles.p0, p0], dim=-2),
+        p1=torch.cat([obstacles.p1, p1], dim=-2),
+        radius=torch.cat([obstacles.radius,
+                          torch.full((*lead, pad), 0.01, **f32)], dim=-1),
+        kinds=kinds)
+
+
 def sphere_obstacle(center, radius, device=None) -> ObstacleSet:
     """A sphere: a capsule of zero length."""
     c = torch.as_tensor(center, dtype=torch.float32, device=device)[None]

@@ -119,6 +119,41 @@ def test_batched_step_honours_resolve_method(method):
                                atol=1e-3 * scale)
 
 
+def test_goal_event_select_reaches_nested_scratch():
+    """_advance's select by the goal event recurses into EnvState.scratch:
+    an on_solved that edits nested dicts and a tuple of (B, ...) tensors
+    changes them on the envs that reached their goal and nowhere else, and
+    a leaf it leaves alone stays the same object."""
+    env = envs.make("franka/01_target_rmp_only", device="cpu")
+    state = envs.make_batched_reset(env, 4)()
+    ee = envs.base.ee_position(env, state.sim)
+    at_goal = torch.tensor([True, False, True, False])
+    sim = dataclasses.replace(state.sim, goal=torch.where(
+        at_goal[:, None], ee, state.sim.goal))
+    kept = torch.arange(4.0)
+    state = dataclasses.replace(state, sim=sim, scratch=dict(
+        timers=dict(left=torch.zeros(4, dtype=torch.int32),
+                    inner=dict(wp=torch.zeros(4, 3))),
+        pair=(torch.zeros(4), torch.ones(4, 2)), kept=kept))
+
+    def on_solved(s):
+        sc = s.scratch
+        return dataclasses.replace(s, scratch=dict(
+            sc, timers=dict(left=sc["timers"]["left"] + 7,
+                            inner=dict(wp=sc["timers"]["inner"]["wp"] + 1.0)),
+            pair=(sc["pair"][0] - 1.0, sc["pair"][1] * 3.0)))
+    env.on_solved = on_solved
+    out, aux = envs.base._advance(env, state, torch.zeros(4, 9))
+    assert aux["solved"].tolist() == at_goal.tolist()
+    sc = out.scratch
+    assert sc["timers"]["left"].tolist() == [7, 0, 7, 0]
+    assert sc["timers"]["inner"]["wp"][:, 0].tolist() == [1.0, 0, 1.0, 0]
+    assert sc["pair"][0].tolist() == [-1.0, 0, -1.0, 0]
+    assert sc["pair"][1][:, 1].tolist() == [3.0, 1.0, 3.0, 1.0]
+    assert sc["kept"] is kept
+    assert out.solved_count.tolist() == [1, 0, 1, 0]
+
+
 def test_default_device_is_the_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -348,13 +348,14 @@ def test_per_frame_obstacle_policies_match_grouped_and_jax():
 
 
 def test_registry_holds_sixteen_scenes_on_the_card_by_default(monkeypatch):
-    """The registry's 16 scenes, the five new ones among them; envs.make
-    builds a scene on the GPU unless device='cpu' is passed, and raises
-    without one (franka/04's IK runs on the scene's device)."""
-    assert len(envs.REGISTRY) == 16
+    """The registry's scenes: the 16 of the seventh slice, the five new
+    ones among them, and since the eighth franka/randomized_cluttered;
+    envs.make builds a scene on the GPU unless device='cpu' is passed, and
+    raises without one (franka/04's IK runs on the scene's device)."""
+    assert len(envs.REGISTRY) == 17
     assert set(SCENES7) <= set(envs.REGISTRY)
     assert set(envs.REGISTRY) <= set(jenvs.REGISTRY)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for name in SCENES7:
+    for name in SCENES7 + ("franka/randomized_cluttered",):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             envs.make(name)
