@@ -134,6 +134,26 @@ printing the result line:
      one-ulp, float64 (and in the hull tier card-without-K4) screens hold
      (randomized_parity), every K4 call of the hull run against its plain
      version.
+ 15. the ninth slice, the dual-arm Panda (26 frames, 18 motors): K1 at
+     n = 18 (its own warp-per-env kernel; the build's registers, shared
+     memory and spills) on both dual layouts against its plain version,
+     random contiguous blocks and each scene's real tick 60 ticks into a
+     rollout, at B = 4096, 1, 7 and 4093 (envs with a non-finite plain q̈
+     left out and counted), one device kernel per call, timed beside its
+     bound; K3 on the dual model likewise, then the Panda's K3 timed again;
+     the dual handover golden on the card (q within 1e-4, solved_count
+     exact); K4 on the randomized dual scene's cold operands (20 links x 8
+     slots x 4096 envs, 10 iterations) with phase 6's distance limits and
+     k4_evidence's cap_fault form on every pair; dual_panda/
+     randomized_clutter at 4096 envs x 300 ticks in both tiers (a tick
+     under the sync debug mode first; K1 and K3 once per tick, K4 once per
+     hull tick; the statistics against reports/eval_dual_randomized*.json
+     within 3 sigma, nan_rate 0; 10-tick traces); dual_panda/handover at
+     4096 x 150 with its trace; GPU/CPU parity of the randomized scene in
+     both tiers and of the handover in the hull tier per (env, tick)
+     behind the one-ulp, float64 and card-with-plain-kernels screens
+     (randomized_parity, cut to DUAL_PARITY and HANDOVER_HULL_PARITY), of
+     the handover and of franka/03 in the hull tier behind witness_q.
 Then one JSON line of per-kernel numbers ({"kernels": [...]}) and, last,
 {"ok": true, "device": {...}}. The full record also goes to
 chiprun_out/chip_smoke.json.
@@ -436,15 +456,17 @@ def real_tick_blocks(env, B: int, seed: int):
                                         fk=fk)
 
 
-def build_counts(source: str, what: str) -> dict:
-    build = ptxas_counts(source)
-    log(f"{what} build ({source}): {json.dumps(build)}")
+def build_counts(source: str, what: str, kernel: str | None = None) -> dict:
+    build = ptxas_counts(source, kernel)
+    log(f"{what} build ({source}{', ' + kernel if kernel else ''}): "
+        f"{json.dumps(build)}")
     check(build["registers"] is not None, f"{what}: no ptxas line in build.log")
     return build
 
 
 def phase_k1(env, device) -> dict:
-    build = build_counts("pullback_resolve.cu", "K1")
+    build = build_counts("pullback_resolve.cu", "K1",
+                         "pullback_resolve_kernel")
     err, real = 0.0, {}
     for B in (BATCH,) + RAGGED:
         tags, blocks = k1_layout_blocks(0 if B == BATCH else B, B, 9,
@@ -1138,10 +1160,14 @@ def k5_rel(got, want) -> torch.Tensor:
     return (got - want).abs().amax(dim=1) / scale
 
 
-def ptxas_counts(source: str) -> dict:
+def ptxas_counts(source: str, kernel: str | None = None) -> dict:
     """Registers, static shared memory, stack frame and spill bytes of
-    `source` from build.log (the largest over its kernels)."""
+    `source` from build.log (the largest over its kernels, or over those
+    whose name holds `kernel`)."""
     text = _build.build_log().split(f"== {source}\n", 1)[-1].split("\n== ")[0]
+    if kernel is not None:
+        text = "\n".join(c for c in text.split("Compiling entry function")
+                         if kernel in c.split("\n", 1)[0])
 
     def num(pattern):
         found = re.findall(pattern, text)
@@ -1391,6 +1417,7 @@ def profile_ticks(env, states, params, tick_ms: float) -> dict:
         port_kernels_us_per_tick={
             k[:60]: sum(v) / PROFILE_TICKS for k, v in by_name.items()
             if any(n in k for n in ("pullback_resolve_kernel",
+                                    "pullback_resolve_wide_kernel",
                                     "fk_derivatives_kernel",
                                     "gjk_hull_kernel"))},
         top_kernels=[dict(name=k[:80], us_per_tick=t / PROFILE_TICKS,
@@ -1712,21 +1739,24 @@ def phase_new_scene_parity(runs=None) -> dict:
     (the CPU's from float64 by 1.7e-3 on 3 of 128 envs, CPU run). A
     one-ulp move of the start misses these envs: it leaves the rounding
     inside the SVD alone. Every scene is run before any check. runs:
-    (scene, torque mode) pairs, default NEW_SCENES and franka/01 in torque
-    mode."""
+    (scene, torque mode) pairs or (scene, torque mode, geometry) triples,
+    default NEW_SCENES and franka/01 in torque mode."""
     out, failed = {}, []
-    for scene, torque in runs or ([(s, False) for s in NEW_SCENES]
-                                  + [("franka/01_target_rmp_only", True)]):
-        runs = [parity_q(dev, 0.1, 0.05, scene=scene, method=None,
-                         torque=torque, solved=True)
-                for dev in ("cuda", "cpu")] + [witness_q(scene, torque)]
+    for run in runs or ([(s, False) for s in NEW_SCENES]
+                        + [("franka/01_target_rmp_only", True)]):
+        scene, torque, geometry = (*run, "capsule")[:3]
+        runs = [parity_q(dev, 0.1, 0.05, geometry=geometry, scene=scene,
+                         method=None, torque=torque, solved=True)
+                for dev in ("cuda", "cpu")] + [witness_q(scene, torque,
+                                                         geometry)]
         (gpu, _), (cpu, _), (exact, _) = runs
         quiet = ~(runs[0][1] | runs[1][1] | runs[2][1])
         rounding = (cpu.double() - exact).abs().amax(dim=1)
         gap = (gpu - cpu).abs().amax(dim=1)
         keep = quiet & (rounding <= STABLE)
         rest = quiet & ~keep
-        what = scene + (" (torque mode)" if torque else "")
+        what = scene + (" (torque mode)" if torque else "") + (
+            f" ({geometry})" if geometry != "capsule" else "")
         rec = dict(envs_compared=int(keep.sum()),
                    envs_with_goal_event=int((~quiet).sum()),
                    max_abs_q=float(gap[keep].max()),
@@ -1978,15 +2008,24 @@ def phase_k4_scene(scene: str = MOVING, want_iters: int = data.WARM_ITERS,
     need (k4_bound_needed)."""
     ops, iters = k4_main_path_operands(scene, method=None)
     check(iters == want_iters, f"K4 on {scene}: {iters} iterations")
+    return k4_operands_check(ops, iters, f"K4 {scene} operands, {iters} "
+                             f"iterations", cap_fault)
 
+
+def k4_operands_check(ops: dict, iters: int, what: str, cap_fault: bool,
+                      witness_quantile: bool = True) -> dict:
+    """K4 on `ops` at `iters` iterations against its plain version with
+    phase 6's limits (k4_compare, its witness quantiles or, with
+    witness_quantile False, as k4_in_loop holds random cylinders, each
+    pair's ball in k4_evidence), timed beside the bound of what its pairs
+    need (k4_bound_needed)."""
     def call():
         return cuda_gjk.gjk_hull_obstacles(**ops, iters=iters)
 
     def plain():
         return cuda_gjk.gjk_hull_obstacles_plain(**ops, iters=iters)
-    what = f"K4 {scene} operands, {iters} iterations"
     got, want = call(), plain()
-    rec = k4_compare(got, want, what)
+    rec = k4_compare(got, want, what, witness_quantile)
     rec["evidence"] = k4_evidence(ops, got, want, what, cap_fault)
     needed, live = k4_needed_iterations(ops, iters)
     rec.update(iters=iters, ms=time_ms(call),
@@ -2303,19 +2342,23 @@ def phase_k1_randomized(device) -> tuple[dict, float]:
     return {"randomized": rec}, err
 
 
-def randomized_path(card: str, geometry: str, failed: list):
-    """RANDOMIZED at BATCH envs x RANDOMIZED_TICKS ticks in `geometry` from
-    the reset of RANDOMIZED_SEED, timed, with every launch counter zeroed
-    just before the rollout and read after: K1 once per tick, K3 1 +
-    IK_STEPS times (the tick's FK and the detour IK's), K4 once per hull
-    tick (the reset's cold seeding query comes before), every other counter
-    0. Before it, on a reset of another seed, one tick with the sync debug
+def randomized_path(card: str, geometry: str, failed: list,
+                    scene: str = RANDOMIZED,
+                    k3_per_tick: int = 1 + franka.IK_STEPS,
+                    reports: dict = REPORTS):
+    """`scene` (a randomized scene) at BATCH envs x RANDOMIZED_TICKS ticks
+    in `geometry` from the reset of RANDOMIZED_SEED, timed, with every
+    launch counter zeroed just before the rollout and read after: K1 once
+    per tick, K3 k3_per_tick times (RANDOMIZED: 1 + IK_STEPS, the tick's
+    FK and the detour IK's), K4 once per hull tick (in RANDOMIZED the
+    reset's cold seeding query comes before), every other counter 0.
+    Before it, on a reset of another seed, one tick with the sync debug
     mode on (sync_free_tick). After it, the task statistics
-    (evaluate.task_statistics) against the JAX package's report within
-    stat_limit, nan_rate 0 (a miss goes to `failed`), and a 10-tick
-    trace."""
-    what = f"{RANDOMIZED} ({geometry})"
-    env = envs.make(RANDOMIZED)
+    (evaluate.task_statistics) against the JAX package's report
+    (reports[geometry]) within stat_limit, nan_rate 0 (a miss goes to
+    `failed`), and a 10-tick trace."""
+    what = f"{scene} ({geometry})"
+    env = envs.make(scene)
     env.collision_geometry = geometry
     params = env.gather_params()
     warm = envs.make_batched_reset(env, BATCH, RANDOMIZED_SEED + 1)()
@@ -2339,15 +2382,16 @@ def randomized_path(card: str, geometry: str, failed: list):
         f"= {steps_per_s:.1f} control steps/s [{card}]")
     log(f"{what} launches: {launches}")
     per_tick = dict(pullback_resolve_structured=1,
-                    fk_derivatives_batched=1 + franka.IK_STEPS,
+                    fk_derivatives_batched=k3_per_tick,
                     gjk_hull_obstacles=int(geometry == "hull"))
     for name, count in launches.items():
         want = RANDOMIZED_TICKS * per_tick.get(name, 0)
         check(count == want, f"{what}: {name} launched {count} times in "
               f"{RANDOMIZED_TICKS} ticks, want {want}")
-    check(tuple(final.sim.q.shape) == (BATCH, 9), f"{what}: q shape")
+    check(tuple(final.sim.q.shape) == (BATCH, env.model.n_q),
+          f"{what}: q shape")
     stats = task_statistics(env, initial, final, aux)
-    with open(os.path.join(ROOT, REPORTS[geometry])) as f:
+    with open(os.path.join(ROOT, reports[geometry])) as f:
         report = json.load(f)
     against = {}
     for key in STAT_KEYS:
@@ -2360,18 +2404,21 @@ def randomized_path(card: str, geometry: str, failed: list):
     if stats["nan_rate"] != 0.0:
         failed.append(f"{what}: nan_rate {stats['nan_rate']}")
     log(f"{what} statistics: {json.dumps(stats)}")
-    log(f"{what} against {REPORTS[geometry]}: {json.dumps(against)}")
+    log(f"{what} against {reports[geometry]}: {json.dumps(against)}")
     trace = profile_ticks(env, final, params, seconds * 1e3 /
                           RANDOMIZED_TICKS)
     log(f"{what} trace: {json.dumps(trace)}")
-    return launches, dict(scene=RANDOMIZED, geometry=geometry, envs=BATCH,
+    return launches, dict(scene=scene, geometry=geometry, envs=BATCH,
                           ticks=RANDOMIZED_TICKS, seed=RANDOMIZED_SEED,
                           seconds=seconds, control_steps_per_s=steps_per_s,
                           sync_calls_per_tick=len(syncs), statistics=stats,
                           against_report=against, trace=trace)
 
 
-DISCRETE = ("no_progress", "push_on", "man_ticks", "man_count")
+# the scratch entries of each randomized scene's discrete bookkeeping, beside
+# EnvState.no_progress (the dual arm's per arm, (B, 2)); a scene without a
+# scratch has no_progress alone
+DISCRETE = {RANDOMIZED: ("push_on", "man_ticks", "man_count")}
 
 
 @contextlib.contextmanager
@@ -2395,17 +2442,19 @@ def resolve_recorded(flags: list):
 
 
 def randomized_run(device, start, geometry: str, plain: bool = False,
-                   float64: bool = False, k4=None) -> dict:
-    """Per-tick records (T, B, ...) of PARITY_TICKS ticks of RANDOMIZED from
-    the CPU state `start`, moved to `device`: q (float64), the largest
-    |q̈| (after the max_qdd guard), the discrete bookkeeping DISCRETE,
-    `event`, a resample or a new detour (the count rises) at that tick,
+                   float64: bool = False, k4=None, scene: str = RANDOMIZED,
+                   ticks: int = PARITY_TICKS) -> dict:
+    """Per-tick records (T, B, ...) of `ticks` ticks of `scene` from the
+    CPU state `start`, moved to `device`: q (float64), the largest |q̈|
+    (after the max_qdd guard), the discrete bookkeeping (no_progress and
+    DISCRETE[scene]), `event`, a resample or a new maneuver (a count rises)
+    at that tick,
     `singular`, a non-finite q̈ of the resolve (resolve_recorded), and
     `to_singular`, the least | |q̇_j| - (max_velocity - 2 region) | over
     the joints after the tick, how near the velocity cap's metric is to its
     singularity at the next tick. plain / float64 run plain_kernels; k4
     stands in for K4 (gjk_as)."""
-    env = envs.make(RANDOMIZED, device=device)
+    env = envs.make(scene, device=device)
     env.collision_geometry = geometry
     state, params = _to_device(start, device), env.gather_params()
     if float64:
@@ -2423,26 +2472,36 @@ def randomized_run(device, start, geometry: str, plain: bool = False,
             resolve_recorded(out["singular"]):
         if _wants_gjk_warm(env, state):
             state = _seed_gjk_warm(env, state)
-        for _ in range(PARITY_TICKS):
-            count = state.scratch["man_count"]
+        for _ in range(ticks):
+            sc = state.scratch or {}
+            count = sc.get("man_count")
             state, aux = step(state, params)
-            sc = state.scratch
+            sc = state.scratch or {}
+            B = state.sim.q.shape[0]
             out["q"].append(state.sim.q.double().cpu())
             out["to_singular"].append((state.sim.qd.abs() - singular_speed)
                                       .abs().amin(dim=1).double().cpu())
             out["qdd"].append(aux["qdd"].abs().amax(dim=1).double().cpu())
-            out["event"].append((aux["resample"]
-                                 | (sc["man_count"] > count)).cpu())
-            out["discrete"].append(torch.stack(
-                [state.no_progress, sc["push_on"].int(), sc["man_ticks"],
-                 sc["man_count"]], dim=-1).cpu())
+            event = aux["resample"]
+            if count is not None:
+                event = event | (sc["man_count"] > count).reshape(
+                    B, -1).any(dim=1)
+            out["event"].append(event.cpu())
+            out["discrete"].append(torch.cat(
+                [state.no_progress[:, None]] + [
+                    sc[k].int().reshape(B, -1)
+                    for k in DISCRETE.get(scene, ())], dim=1).cpu())
     out["singular"] = [f.cpu() for f in out["singular"]]
     return {k: torch.stack(v) for k, v in out.items()}
 
 
-def randomized_parity(geometry: str, failed: list) -> dict:
-    """GPU/CPU parity of RANDOMIZED: PARITY_B envs of one CPU reset, moved
-    to the card, PARITY_TICKS ticks on each. The scene is chaotic in
+def randomized_parity(geometry: str, failed: list, scene: str = RANDOMIZED,
+                      B: int = PARITY_B, ticks: int = PARITY_TICKS,
+                      spread: tuple | None = None) -> dict:
+    """GPU/CPU parity of `scene` (RANDOMIZED, or another scene with its
+    DISCRETE entry, or none): B envs of one CPU reset (a scene whose reset
+    is deterministic moved by spread = (dq, dqd), perturbed_states),
+    moved to the card, `ticks` ticks on each. The scene is chaotic in
     float32 (a one-ulp move of the start parts q by up to ~1.8 rad in 60
     ticks on some envs of a CPU run), and its bookkeeping has thresholds
     (the progress window's 1 cm, the push's 8 cm) that rounding can tip,
@@ -2464,9 +2523,10 @@ def randomized_parity(geometry: str, failed: list) -> dict:
     version on the same operands (k4_in_loop, random_cylinders;
     k4_evidence on the first and every K4_EVIDENCE_EVERY-th call). A miss
     goes to `failed`."""
-    env = envs.make(RANDOMIZED, device="cpu")
+    env = envs.make(scene, device="cpu")
     env.collision_geometry = geometry
-    start = env.reset(PARITY_B, PARITY_SEED)
+    start = (env.reset(B, PARITY_SEED) if spread is None
+             else perturbed_states(env, B, PARITY_SEED, *spread))
     up = torch.tensor(float("inf"))
     moved = dataclasses.replace(start, sim=dataclasses.replace(
         start.sim, q=torch.nextafter(start.sim.q, up),
@@ -2474,13 +2534,13 @@ def randomized_parity(geometry: str, failed: list) -> dict:
     calls, env_gaps, k4_failed = [], [], []
     k4 = (k4_in_loop(calls, env_gaps, k4_failed, K4_EVIDENCE_EVERY,
                      random_cylinders=True) if geometry == "hull" else None)
-    runs = dict(gpu=randomized_run("cuda", start, geometry, k4=k4),
-                card_plain=randomized_run("cuda", start, geometry,
-                                          plain=True),
-                cpu=randomized_run("cpu", start, geometry),
-                ulp=randomized_run("cpu", moved, geometry),
-                float64=randomized_run("cpu", start, geometry, float64=True))
-    T = PARITY_TICKS
+    run = functools.partial(randomized_run, geometry=geometry, scene=scene,
+                            ticks=ticks)
+    runs = dict(gpu=run("cuda", start, k4=k4),
+                card_plain=run("cuda", start, plain=True),
+                cpu=run("cpu", start), ulp=run("cpu", moved),
+                float64=run("cpu", start, float64=True))
+    T = ticks
     ticks = torch.arange(T)[:, None]
 
     def first(flags):                          # (T, B) -> (B,)
@@ -2510,7 +2570,7 @@ def randomized_parity(geometry: str, failed: list) -> dict:
     split = (first_part < first_event)
     before = torch.clamp(first_part - 1, min=0)
     rec = dict(
-        envs=PARITY_B, ticks=T,
+        envs=B, ticks=T,
         envs_with_an_event=int((first_event < T).sum()),
         event_pairs=int(events.sum()), window_pairs=int(window.sum()),
         kept_pairs=int(keep.sum()),
@@ -2549,7 +2609,7 @@ def randomized_parity(geometry: str, failed: list) -> dict:
             qdd_gpu=float(runs["gpu"]["qdd"][o, e]),
             qdd_cpu=float(runs["cpu"]["qdd"][o, e]),
             **{f"{k}_move": float(m[o, e]) for k, m in moves.items()}))
-    if geometry == "hull":
+    if calls:                                  # the hull tier's K4 calls
         failed.extend(k4_failed)
         env_dist = torch.stack([d for d, _ in env_gaps]).amax(dim=0)
         env_wit = torch.stack([w for _, w in env_gaps]).amax(dim=0)
@@ -2566,7 +2626,7 @@ def randomized_parity(geometry: str, failed: list) -> dict:
                    envs_k4_parted=int(k4_parted.sum()),
                    envs_k4_parted_with_kept_ticks=int(
                        (k4_parted & keep.any(dim=0)).sum()))
-    what = f"parity {RANDOMIZED} ({geometry}, {PARITY_B} envs)"
+    what = f"parity {scene} ({geometry}, {B} envs)"
     log(f"{what} x {T} ticks: {json.dumps(rec)} (atol {PARITY_ATOL} on the "
         f"kept (env, tick) pairs)")
     if rec["kept_pairs"] < KEPT_SHARE * rec["event_pairs"]:
@@ -2590,6 +2650,232 @@ def phase_slice8(card: str, device) -> dict:
     parity = {g: randomized_parity(g, failed) for g in ("capsule", "hull")}
     check(not failed, "; ".join(failed))
     return dict(k1=k1_new, k1_err=k1_err, k4=k4_rand, paths=paths,
+                parity=parity)
+
+
+# ------------------------------------- phase 15: the ninth slice's paths ---
+
+DUAL_HANDOVER = "dual_panda/handover"
+DUAL_RANDOMIZED = "dual_panda/randomized_clutter"
+# the JAX package's statistics of the randomized dual scene at 4096 envs x
+# 300 ticks
+DUAL_REPORTS = {"capsule": "reports/eval_dual_randomized.json",
+                "hull": "reports/eval_dual_randomized_hull.json"}
+DISCRETE[DUAL_RANDOMIZED] = ("noprog", "man_ticks", "man_count")
+# K1 at n = 18 on each dual scene's layout, (tag, rows): the two arms'
+# attractors, three identity leaves, (randomized) each arm's grouped
+# obstacle policy over its 10 links x 8 obstacle slots, and the inter-arm
+# avoidance of the five distal left links (5 right links x 3 rows each)
+_DUAL_HEAD = (("dense", 3), ("dense", 3), ("identity", 0), ("identity", 0),
+              ("identity", 0))
+_INTER_ARM = (("dense", 15),) * 5
+K1_DUAL_LAYOUTS = {
+    "dual handover": (_DUAL_HEAD + _INTER_ARM, DUAL_HANDOVER),
+    "dual randomized": (_DUAL_HEAD + (("scalar", 80),) * 2 + _INTER_ARM,
+                        DUAL_RANDOMIZED),
+}
+DUAL_K1_TICKS = 60           # the real ticks' blocks, this far in
+DUAL_HANDOVER_TICKS = 150
+DUAL_GOLDEN_ATOL = 1e-4      # tests/test_envs.py's limit on q (solved exact)
+# the randomized dual parity, cut for time: a CPU tick of 64 envs takes
+# ~0.2 s in the capsule tier and ~0.8 s in the hull tier on an 8-core host
+DUAL_PARITY = {"capsule": (32, 25), "hull": (16, 12)}   # (envs, ticks)
+# the handover in the hull tier, from reset states moved by q ± 0.1,
+# q̇ ± 0.05: its arms meet at the centre, where the 10-iteration hull GJK
+# turns rounding into different witnesses, so it is held per (env, tick)
+# behind the one-ulp, float64 and card-with-plain-kernels screens
+HANDOVER_HULL_PARITY = (32, 8)                           # (envs, ticks)
+
+
+def dual_tick_blocks(scene: str) -> dict:
+    """{B: (tags, blocks)} of real ticks of `scene` on the card,
+    DUAL_K1_TICKS ticks into a BATCH-env rollout (the handover from reset
+    states moved by q ± 0.05, q̇ ± 0.05 so the envs differ; the randomized
+    scene from the reset of RANDOMIZED_SEED + 2), pre_tick applied, for the
+    first B envs, B in RAGGED and BATCH."""
+    env = envs.make(scene)
+    params = env.gather_params()
+    states = (perturbed_states(env, BATCH, 7, 0.05, 0.05)
+              if scene == DUAL_HANDOVER else
+              envs.make_batched_reset(env, BATCH, RANDOMIZED_SEED + 2)())
+    states, _ = envs.make_batched_rollout(env, DUAL_K1_TICKS,
+                                          with_aux=False)(states, params)
+    if env.pre_tick is not None:
+        states = env.pre_tick(states)
+    out = {}
+    for B in RAGGED + (BATCH,):
+        q, qd, prm, ctxs, fk = _policy_inputs(env, _take(states, B), params)
+        out[B] = policy_row_blocks_structured(env.policies, q, qd, prm, ctxs,
+                                              fk=fk)
+    return out
+
+
+def phase_k1_dual(device) -> tuple[dict, dict, float]:
+    """K1 at n = 18 (its own warp-per-env kernel) on both dual layouts
+    against its plain version: random contiguous blocks and the real
+    ticks' blocks (dual_tick_blocks, at their real strides; envs whose
+    plain q̈ is not finite left out and counted) at B = 4096, 1, 7 and
+    4093; one device kernel per call; timed at B = 4096 on the real blocks
+    beside its bound and the einsum + torch.linalg.solve yardstick."""
+    build = build_counts("pullback_resolve.cu", "K1 n=18",
+                         "pullback_resolve_wide_kernel")
+    out, err = {}, 0.0
+    for key, (layout, scene) in K1_DUAL_LAYOUTS.items():
+        for B in (BATCH,) + RAGGED:
+            tags, blocks = k1_layout_blocks(18 + B, B, 18, layout, device)
+            err = max(err, k1_compare(tags, blocks, f"{key} (n=18) random "
+                                      f"contiguous blocks, B={B}"))
+        real = dual_tick_blocks(scene)
+        for B, (tags, blocks) in real.items():
+            rows = tuple((t, b[0].shape[1] if t != "identity" else 0)
+                         for t, b in zip(tags, blocks))
+            check(rows == layout, f"K1 {key}: real tick layout {rows}")
+            err = max(err, k1_compare(tags, blocks, f"{key} (n=18) real "
+                                      f"tick {DUAL_K1_TICKS} ticks in, "
+                                      f"B={B}", nonfinite_ok=True))
+        tags, blocks = real[BATCH]
+
+        def call():
+            return cuda_resolve.pullback_resolve_structured(tags, blocks)
+        per_call = device_launches(call, "pullback_resolve_wide_kernel",
+                                   f"K1 {key}")
+        check(per_call == 1, f"K1 {key}: not one launch per wrapper call")
+        rec = dict(n=18, scene=scene, layout=[list(r) for r in layout],
+                   strides={f"{t} {k}": blk[0].stride() for k, (t, blk) in
+                            enumerate(zip(tags, blocks)) if t != "identity"},
+                   device_launches_per_call=per_call, ms=time_ms(call),
+                   device_ms=time_ms(call, lead=True),
+                   plain_ms=time_ms(lambda: cuda_resolve.
+                                    pullback_resolve_structured_plain(
+                                        tags, blocks)),
+                   library_ms=time_ms(lambda: k1_library(tags, blocks)))
+        rec["bound_ms"], rec["bound_by"] = k1_bound(tags, blocks)
+        log(f"K1 {key} (n=18) times at B={BATCH} on the real tick's blocks "
+            f"{rec['strides']}: wrapper {rec['ms']:.4f} ms (device alone "
+            f"{rec['device_ms']:.4f} ms), plain {rec['plain_ms']:.4f} ms, "
+            f"einsum+linalg.solve {rec['library_ms']:.4f} ms, bound "
+            f"{rec['bound_ms']:.6f} ms ({rec['bound_by']})")
+        out[key] = rec
+    return out, build, err
+
+
+def phase_k3_dual(device) -> tuple[dict, float]:
+    """K3 on the dual-arm Panda (F = 26, n = 18) against its plain version
+    at B = 4096, 1, 7 and 4093; one device kernel per call; timed at
+    B = 4096 beside its bound; then the Panda's K3 timed again."""
+    model = robots.dual_panda()
+    shared = _build.c_function("rmp_fk_derivatives_shared_bytes",
+                               [ctypes.c_int, ctypes.c_int])
+    err = 0.0
+    for B in (BATCH,) + RAGGED:
+        q, qd = k3_inputs(model, B, device)
+        got = cuda_fk.fk_derivatives_batched(model, q, qd)
+        want = fk_derivatives(model, q, qd)
+        torch.cuda.synchronize()
+        for what, g, w in zip(("T16", "Td16", "J16", "c16"), got, want):
+            check(g.shape == w.shape, f"K3 dual {what}: shape")
+            e = float((g - w).abs().max())
+            log(f"K3 dual {what}, B={B}: max|kernel - plain| {e:.3e} (atol "
+                f"{K3_ATOL})")
+            check(e <= K3_ATOL, f"K3 dual {what}: disagrees with plain "
+                  f"version")
+            err = max(err, e)
+    q, qd = k3_inputs(model, BATCH, device)
+
+    def call():
+        return cuda_fk.fk_derivatives_batched(model, q, qd)
+    per_call = device_launches(call, "fk_derivatives_kernel", "K3 dual")
+    check(per_call == 1, "K3 dual: not one launch per wrapper call")
+    panda = robots.franka_panda()
+    pq, pqd = k3_inputs(panda, BATCH, device)
+    rec = dict(frames=model.n_frames, n=model.n_q,
+               dynamic_smem_bytes=shared(model.n_frames, model.n_q),
+               device_launches_per_call=per_call, ms=time_ms(call),
+               device_ms=time_ms(call, lead=True),
+               plain_ms=time_ms(lambda: fk_derivatives(model, q, qd)),
+               panda_device_ms=time_ms(lambda: cuda_fk.fk_derivatives_batched(
+                   panda, pq, pqd), lead=True))
+    rec["bound_ms"], rec["bound_by"] = k3_bound(model, BATCH)
+    log(f"K3 dual (F={model.n_frames}, n={model.n_q}) times at B={BATCH}: "
+        f"wrapper {rec['ms']:.4f} ms (device alone {rec['device_ms']:.4f} "
+        f"ms), plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms "
+        f"({rec['bound_by']}), dynamic shared memory "
+        f"{rec['dynamic_smem_bytes']} bytes; the Panda's K3 again: device "
+        f"{rec['panda_device_ms']:.4f} ms")
+    return rec, err
+
+
+def phase_dual_golden() -> dict:
+    """The committed dual handover golden (tests/golden/dual_handover_30t.npz:
+    q, q̇ and solved_count after 30 ticks at B = 2) on the card: q within
+    DUAL_GOLDEN_ATOL, solved_count exact."""
+    data_ = np.load(os.path.join(ROOT, "tests", "golden",
+                                 "dual_handover_30t.npz"))
+    env = envs.make(DUAL_HANDOVER)
+    final, _ = envs.make_batched_rollout(env, 30, with_aux=False)(
+        envs.make_batched_reset(env, 2)(), env.gather_params())
+    rec = dict(q=float(np.abs(final.sim.q.cpu().numpy() - data_["q"]).max()),
+               qd=float(np.abs(final.sim.qd.cpu().numpy()
+                               - data_["qd"]).max()),
+               solved_count=final.solved_count.cpu().tolist())
+    log(f"dual handover golden on the card: {json.dumps(rec)} (q atol "
+        f"{DUAL_GOLDEN_ATOL}, solved_count {data_['solved_count'].tolist()})")
+    check(rec["q"] <= DUAL_GOLDEN_ATOL, "dual handover golden: q")
+    check(rec["solved_count"] == data_["solved_count"].tolist(),
+          "dual handover golden: solved_count")
+    return rec
+
+
+def phase_k4_dual() -> dict:
+    """K4 on the randomized dual scene's own operands (hull tier, BATCH
+    envs 20 ticks in: every (link, obstacle slot) pair, cold, 10
+    iterations, as its context_fn queries them) with phase 6's distance
+    limits and its witnesses held as k4_in_loop holds random cylinders
+    (k4_evidence's cap_fault form, each pair in its ball), timed beside its
+    bound."""
+    env = envs.make(DUAL_RANDOMIZED)
+    env.collision_geometry = "hull"
+    states = envs.make_batched_reset(env, BATCH, RANDOMIZED_SEED + 3)()
+    states, _ = envs.make_batched_rollout(env, 20, with_aux=False)(
+        states, env.gather_params())
+    T_all = kinematics.fk_all(env.model, states.sim.q)
+    obstacles = states.sim.obstacles
+    cap = collision.robot_obstacle_distances(env.model, T_all, obstacles)
+    _, ops = collision.gjk_operands(env.model, T_all, obstacles, cap,
+                                    top_m=obstacles.count)
+    return k4_operands_check(ops, data.COLD_ITERS,
+                             f"K4 {DUAL_RANDOMIZED} operands, cold",
+                             cap_fault=True, witness_quantile=False)
+
+
+def phase_slice9(card: str, device) -> dict:
+    """Phase 15: K1 at n = 18 and K3 on the dual-arm Panda against their
+    plain versions, the dual handover golden on the card, K4 on the
+    randomized dual scene's operands, its 4096-env x 300-tick rollouts in
+    both tiers with their statistics, the handover's 4096 x 150 rollout,
+    and GPU/CPU parity of both scenes (and of franka/03 in the hull tier).
+    Every part runs before the statistics' and parities' checks."""
+    k1, k1_build, k1_err = phase_k1_dual(device)
+    k3, k3_err = phase_k3_dual(device)
+    golden = phase_dual_golden()
+    k4 = phase_k4_dual()
+    failed: list = []
+    paths = {f"{DUAL_RANDOMIZED} ({g})": randomized_path(
+        card, g, failed, scene=DUAL_RANDOMIZED, k3_per_tick=1,
+        reports=DUAL_REPORTS) for g in ("capsule", "hull")}
+    paths[DUAL_HANDOVER] = phase_main_path(card, "capsule", DUAL_HANDOVER,
+                                           ticks=DUAL_HANDOVER_TICKS,
+                                           method=None)
+    parity = {g: randomized_parity(g, failed, DUAL_RANDOMIZED, *DUAL_PARITY[g])
+              for g in ("capsule", "hull")}
+    parity["handover (hull)"] = randomized_parity(
+        "hull", failed, DUAL_HANDOVER, *HANDOVER_HULL_PARITY,
+        spread=(0.1, 0.05))
+    parity["witness_q"] = phase_new_scene_parity(
+        [(DUAL_HANDOVER, False), ("franka/03_self_avoidance", False, "hull")])
+    check(not failed, "; ".join(failed))
+    return dict(k1=k1, k1_build=k1_build, k1_err=k1_err, k3=k3,
+                k3_err=k3_err, golden=golden, k4=k4, paths=paths,
                 parity=parity)
 
 
@@ -2640,6 +2926,10 @@ def main() -> int:
     slice8 = phase_slice8(card, device)
     slice8_s = time.perf_counter() - t0
     log(f"phase 14: {slice8_s:.1f} s")
+    t0 = time.perf_counter()
+    slice9 = phase_slice9(card, device)
+    slice9_s = time.perf_counter() - t0
+    log(f"phase 15: {slice9_s:.1f} s")
 
     k1["per_layout"] = dict(flagship=dict(n=9, ms=k1["ms"],
                                           device_ms=k1["device_ms"]),
@@ -2654,16 +2944,45 @@ def main() -> int:
                                       device_ms=k3["device_ms"]),
                            **slice6["k3"])
     k3["max_abs_err"] = max(k3["max_abs_err"], slice6["k3_err"])
+    k4["dual_randomized_operands"] = slice9["k4"]
+    k4["max_abs_err"] = max(k4["max_abs_err"], slice9["k4"]["dist_max"])
+    k1_dual = dict(name="pullback_resolve_structured (n=18)", route="cuda",
+                   source="rmp_tpu_torch/csrc/pullback_resolve.cu",
+                   replaces="rmp_tpu/ops/pallas_resolve.py:226",
+                   max_abs_err=slice9["k1_err"], build=slice9["k1_build"],
+                   per_layout=slice9["k1"], counter=k1["name"], dual=True,
+                   **{k: slice9["k1"]["dual randomized"][k] for k in
+                      ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                       "library_ms", "device_launches_per_call")})
+    k3_dual = dict(name="fk_derivatives_batched (dual-arm Panda)",
+                   route="cuda",
+                   source="rmp_tpu_torch/csrc/fk_derivatives.cu",
+                   replaces="rmp_tpu/ops/pallas_fk.py:218",
+                   max_abs_err=slice9["k3_err"], library_ms=None,
+                   counter=k3["name"], dual=True,
+                   build=dict(k3["build"], dynamic_smem_bytes=slice9["k3"][
+                       "dynamic_smem_bytes"]),
+                   **{k: slice9["k3"][k] for k in
+                      ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                       "device_launches_per_call", "panda_device_ms")})
+    k1["dual"] = k3["dual"] = False
     path_launches = {"capsule": launches, "hull": hull_launches}
-    for paths in (slice6["paths"], slice7["paths"], slice8["paths"]):
+    for paths in (slice6["paths"], slice7["paths"], slice8["paths"],
+                  slice9["paths"]):
         path_launches.update((scene, counts) for scene, (counts, _) in
                              paths.items())
-    kernels = [k1, k2a, k2b, k3, k4, k5]
+    kernels = [k1, k2a, k2b, k3, k4, k5, k1_dual, k3_dual]
     for rec in kernels:
-        # each kernel's count from the paths that run it (K2a/K2b, K5: none)
-        rec["launches"] = max(c[rec["name"]] for c in path_launches.values())
-        for path, counts in path_launches.items():
-            rec[f"launches_{path}_path"] = counts[rec["name"]]
+        # each kernel's count from the paths that run it (K2a/K2b, K5:
+        # none); K1 and K3 on the dual-arm Panda (n = 18, F = 26) apart
+        # from their single-arm entries
+        counter = rec.pop("counter", rec["name"])
+        dual = rec.pop("dual", None)
+        own = {p: c for p, c in path_launches.items()
+               if dual is None or ("dual_panda" in p) == dual}
+        rec["launches"] = max(c[counter] for c in own.values())
+        for path, counts in own.items():
+            rec[f"launches_{path}_path"] = counts[counter]
     record = dict(card=card, torch=torch.__version__, build_s=build_s,
                   kernels=kernels, main_path=main_path, hull_path=hull_path,
                   parity=parity, hull_parity=hull_parity,
@@ -2681,7 +3000,11 @@ def main() -> int:
                   simulation=slice7["simulation"], phase13_s=slice7_s,
                   slice8_paths={scene: path for scene, (_, path) in
                                 slice8["paths"].items()},
-                  slice8_parity=slice8["parity"], phase14_s=slice8_s)
+                  slice8_parity=slice8["parity"], phase14_s=slice8_s,
+                  slice9_paths={scene: path for scene, (_, path) in
+                                slice9["paths"].items()},
+                  slice9_parity=slice9["parity"],
+                  dual_golden=slice9["golden"], phase15_s=slice9_s)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

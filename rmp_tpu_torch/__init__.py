@@ -16,10 +16,11 @@ __version__ = "0.1.0"
 
 import torch as _torch
 
-# The workload is small-matrix fp32 numerics (4x4 chain products, <=16x9
-# pullbacks, 9x9 solves); reduced-precision matmul passes broke trajectory
-# parity in the JAX package, which pins full fp32 for the same reason. TF32
-# keeps about three decimal digits, so it is off for matmuls and cuDNN.
+# The workload is small-matrix fp32 numerics (4x4 chain products, small
+# pullbacks, up to 18x18 solves); reduced-precision matmul passes broke
+# trajectory parity in the JAX package, which pins full fp32 for the same
+# reason. TF32 keeps about three decimal digits, so it is off for matmuls and
+# cuDNN.
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")

@@ -32,7 +32,8 @@ def params_from_numpy(params, device) -> tuple:
 
 def state_from_numpy(leaves: dict, device) -> EnvState:
     """EnvState of B environments from numpy arrays with leading axis B:
-    q, qd (B, n); t, goal_best (B,); goal (B, 3) or None; steps,
+    q, qd (B, n); t, goal_best (B,); goal (B, 3), one per arm (B, A, 3)
+    (the dual arm's (B, 2, 3)) or None; steps,
     solved_count, phase, no_progress (B,) integers; obstacles None or a
     dict of p0, p1 (B, K, 3), radius (B, K) and an optional `kinds`
     sequence of strings (numpy 0-d string arrays, as a tree map leaves

@@ -16,8 +16,6 @@
 
 namespace rmp {
 
-constexpr int kMaxFrames = 16;
-constexpr int kMaxMotors = 16;
 constexpr int kRevolute = 0;
 constexpr int kPrismatic = 1;
 constexpr int kFixed = 2;

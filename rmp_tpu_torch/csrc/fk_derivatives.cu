@@ -23,7 +23,14 @@
 // - The model's tables (parent, joint type, motor index, axis, constant
 //   transforms, ancestor table anc[f][m]) and the tile's q, qd are loaded
 //   into shared memory once per CTA, so one kernel serves every robot up to
-//   kMaxFrames frames and kMaxMotors motors.
+//   kMaxFrames = 32 frames and kMaxMotors = 18 motors (the dual-arm Panda:
+//   F = 26, n = 18), each thread issuing its loads of every table before
+//   its first shared store.
+// - Shared memory is ~12 KB per env at the dual-arm Panda (Layout(26, 18):
+//   97,440 bytes per CTA, opted in above the 48 KB default), so 2 CTAs, 16
+//   envs, fit an SM; a CTA of 4 envs would fit 4 CTAs, the same 16 envs,
+//   so the tile stays 8 envs for every model: occupancy is set by the
+//   bytes per env, not by the CTA's size.
 // - The recursion runs on 16 threads per env, thread (i, j) owning entry
 //   (i, j) of every 4x4 product; the 16 threads of an env sit in one half
 //   warp, so __syncwarp orders them. T (and its transpose), W, Wd and G of
@@ -57,13 +64,17 @@ namespace {
 using rmp::col4;
 using rmp::dot4;
 using rmp::kGPitch;
-using rmp::kMaxFrames;
-using rmp::kMaxMotors;
 using rmp::ld4;
 using rmp::odd_half;
 
+constexpr int kMaxFrames = 32;
+constexpr int kMaxMotors = 18;
 constexpr int kEnvs = 8;              // envs per CTA
 constexpr int kThreads = 16 * kEnvs;  // one thread per 4x4 entry and env
+
+__host__ __device__ constexpr int cdiv(int a, int b) {
+  return (a + b - 1) / b;
+}
 // Float offsets of the shared-memory arrays, then the int tables. Per env:
 // T, its transpose Tt, W, C (Wd, then Wd + W W) and the joint motions'
 // transposes Tv, F x 16 floats each at env stride `tstride`; the
@@ -118,22 +129,29 @@ __global__ void __launch_bounds__(kThreads) fk_derivatives_kernel(
   const int nv = min(kEnvs, B - b0);  // envs of this tile
 
   // the model's tables and the tile's q, qd: every global load is issued
-  // before the first shared store, so they are in flight together (at most
-  // kLoads per thread and table)
-  constexpr int kLoads = 2;
-  static_assert(3 * kMaxFrames <= kThreads &&
-                    16 * kMaxFrames <= kLoads * kThreads &&
-                    kMaxFrames * kMaxMotors <= kLoads * kThreads &&
-                    kEnvs * kMaxMotors <= kLoads * kThreads,
-                "a thread loads at most kLoads entries of a table");
+  // before the first shared store, so they are in flight together (a
+  // table's kL* loads per thread, those past its end predicated off)
+  constexpr int kLTc = cdiv(16 * kMaxFrames, kThreads);
+  constexpr int kLAnc = cdiv(kMaxFrames * kMaxMotors, kThreads);
+  constexpr int kLQ = cdiv(kEnvs * kMaxMotors, kThreads);
+  static_assert(3 * kMaxFrames <= kThreads,
+                "one thread per axis entry of the model");
   const size_t q0 = static_cast<size_t>(b0) * n;
-  float tc[kLoads], qv[kLoads], qdv[kLoads];
-  int an[kLoads];
+  float tc[kLTc], qv[kLQ], qdv[kLQ];
+  int an[kLAnc];
 #pragma unroll
-  for (int t = 0; t < kLoads; ++t) {
+  for (int t = 0; t < kLTc; ++t) {
     const int k = tid + t * kThreads;
     tc[t] = k < F * 16 ? T_constant[k] : 0.0f;
+  }
+#pragma unroll
+  for (int t = 0; t < kLAnc; ++t) {
+    const int k = tid + t * kThreads;
     an[t] = k < F * n ? anc[k] : -1;
+  }
+#pragma unroll
+  for (int t = 0; t < kLQ; ++t) {
+    const int k = tid + t * kThreads;
     const bool in = k < nv * n;  // masked envs run on zeros, store nothing
     qv[t] = in ? q[q0 + k] : 0.0f;
     qdv[t] = in ? qd[q0 + k] : 0.0f;
@@ -143,10 +161,18 @@ __global__ void __launch_bounds__(kThreads) fk_derivatives_kernel(
   const int typ = tid < F ? joint_type[tid] : 0;
   const int qix = tid < F ? q_index[tid] : 0;
 #pragma unroll
-  for (int t = 0; t < kLoads; ++t) {
+  for (int t = 0; t < kLTc; ++t) {
     const int k = tid + t * kThreads;
     if (k < F * 16) smem[L.Tc + k] = tc[t];
+  }
+#pragma unroll
+  for (int t = 0; t < kLAnc; ++t) {
+    const int k = tid + t * kThreads;
     if (k < F * n) imem[L.goff + k] = an[t] >= 0 ? kGPitch * an[t] : -1;
+  }
+#pragma unroll
+  for (int t = 0; t < kLQ; ++t) {
+    const int k = tid + t * kThreads;
     if (k < kEnvs * n) {
       smem[L.q + k] = qv[t];
       smem[L.qd + k] = qdv[t];

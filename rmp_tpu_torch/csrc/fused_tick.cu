@@ -64,9 +64,9 @@
 namespace {
 
 using rmp::kGPitch;
-using rmp::kMaxFrames;
 using rmp::odd_half;
 
+constexpr int kMaxFrames = 16;
 constexpr int kEnvs = 8;              // envs per CTA
 constexpr int kLanes = 16;            // lanes per env
 constexpr int kThreads = kLanes * kEnvs;

@@ -21,7 +21,8 @@
 // B = 4096, so 5.4 us; its ~12 kFLOP per env take ~0.7 us at the fp32 peak.
 //
 // The kernel is instantiated for n = 2 (the two-joint robot), 6 (the UR5)
-// and 9 (the Panda) and picked at run time; any other n is refused.
+// and 9 (the Panda), and a second kernel of its own serves n = 18 (the
+// dual-arm Panda, below); picked at run time, any other n is refused.
 //
 // Design.
 // - One launch, no operand copies. The wrapper hands the blocks over as a
@@ -258,6 +259,229 @@ __global__ void __launch_bounds__(kThreads) pullback_resolve_kernel(
   }
 }
 
+// ---- n = 18: one warp per environment -------------------------------------
+//
+// The n <= 9 design above keeps all of A and f on every lane of a group; at
+// n = 18 that is 342 accumulators per lane, which spill. Here a warp takes
+// an env.
+// - Rows: each block's rows are staged kTileRows at a time into the warp's
+//   shared tile, read where they lie through the block's strides, with the
+//   lanes running along whichever of the row and column axes is contiguous
+//   in memory (the motor-major scalar J of the obstacle policies: rows; a
+//   (B, R, n) dense block: columns), so the warp's loads coalesce. Lane
+//   t < 18 owns a 3 x 6 tile of A (rows 3 (t / 3).., columns 6 (t % 3)..)
+//   in registers and adds J[i][r] W[i][c] (dense) or (J[i][r] m[i]) J[i][c]
+//   (scalar) for each staged row i, reading its 3 + 6 factors from the
+//   tile; the column-0 lanes also add J[i][r] v[i] to f. The tiles go
+//   through shared memory into rows, lane r holding row r of [A | f].
+//   Then the identity blocks are summed in tag order into a seed, row r
+//   on lane r, read only now so that its 19 sums hold no registers
+//   through the rows, and A = seed + rows, as at n <= 9. Lanes 18-31
+//   idle. The kernel is latency-bound, far from its byte bound: on the
+//   randomized dual layout (H100 80GB HBM3, 700 W) a first design, lane r
+//   owning row r of A through the rows and reading a row's 18 factors as
+//   broadcast float4s, took 0.160 ms at 80 registers; the tiles at 64
+//   registers (8 CTAs an SM, no spill) 0.127 ms, at 80 (6 CTAs) 0.132.
+// - Elimination: the reference's pivot rule is a sequential scan. At
+//   column k the running pivot starts as row k; each row i > k whose
+//   |a_ik| is STRICTLY greater than every magnitude before it (rows k..i-1)
+//   takes the pivot's place, and the displaced candidate moves into row
+//   i. So the rows that take form a chain k -> i1 -> ... -> im: row k goes
+//   to i1, i1 to i2, ..., im becomes the pivot. A warp prefix maximum of
+//   the magnitudes (NaN-propagating, as the reference's running maximum)
+//   finds the rows that take, a ballot their chain, and one shuffle per
+//   column moves every row at once. Then the pivot row is broadcast by
+//   shuffles and lanes i > k eliminate, with safe_denom on the pivot.
+// - Back substitution in the reference's order: x_i = (f_i - sum over j
+//   = i+1..n-1 of a_ij x_j) / safe_denom(a_ii), every lane on its own row,
+//   lane i's value broadcast; lane r stores x_r.
+constexpr int kWideN = 18;
+constexpr int kWideEnvs = 4;    // warps, one env each, per CTA
+// resident CTAs per SM asked of the compiler: 64 registers a thread, 32
+// warps an SM (9 or 10 CTAs spill)
+constexpr int kWideCtas = 8;
+constexpr int kTileRows = 32;   // rows staged per pass
+constexpr int kPitch = 20;      // floats per staged row (16-byte rows)
+
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
+}
+
+// Stage rows r0..r0+nr-1 (all kWideN columns) of tensor p into tile.
+__device__ __forceinline__ void stage_rows(float (*tile)[kPitch],
+                                           const float* p,
+                                           const long long* s, long long b,
+                                           int r0, int nr, int lane) {
+  const long long srow = s[1] < 0 ? -s[1] : s[1];
+  const long long scol = s[2] < 0 ? -s[2] : s[2];
+  if (srow <= scol) {  // rows contiguous: lane i takes row i
+    if (lane < nr) {
+#pragma unroll
+      for (int c = 0; c < kWideN; ++c)
+        tile[lane][c] = at(p, s, b, r0 + lane, c);
+    }
+  } else {  // columns contiguous: element e is (e / n, e % n)
+    for (int e = lane; e < nr * kWideN; e += 32) {
+      const int i = e / kWideN;
+      const int c = e - i * kWideN;
+      tile[i][c] = at(p, s, b, r0 + i, c);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(32 * kWideEnvs, kWideCtas)
+    pullback_resolve_wide_kernel(
+    int B, const __grid_constant__ Table table, float ridge,
+    float* __restrict__ out) {
+  constexpr int N = kWideN;
+  __shared__ __align__(16) float sJ[kWideEnvs][kTileRows][kPitch];
+  __shared__ __align__(16) float sX[kWideEnvs][kTileRows][kPitch];
+  __shared__ float sM[kWideEnvs][kTileRows];
+  __shared__ float sV[kWideEnvs][kTileRows];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int env = blockIdx.x * kWideEnvs + w;
+  // the ragged tail computes on a valid env and stores nothing
+  const long long b = env < B ? env : B - 1;
+  const int r = lane < N ? lane : N - 1;  // lanes >= N shadow row N - 1
+
+  // the rows of every other block, in tag order, into lane t's tile of
+  // A: rows kTileA g + a, columns kTileB h + c (t = 3 g + h < 18; lanes
+  // 18-31 shadow lane 0); the h = 0 lanes also sum f of their rows
+  constexpr int kTileA = 3, kTileB = 6;
+  const int t = lane < N ? lane : 0;
+  const int ra = kTileA * (t / 3), cb = kTileB * (t % 3);
+  float acc[kTileA][kTileB], facc[kTileA];
+#pragma unroll
+  for (int a = 0; a < kTileA; ++a) {
+    facc[a] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kTileB; ++c) acc[a][c] = 0.0f;
+  }
+  for (int k = 0; k < table.count; ++k) {
+    const Block& blk = table.block[k];
+    if (blk.kind == kIdentity) continue;
+    const bool scalar = blk.kind == kScalar;
+    for (int r0 = 0; r0 < blk.rows; r0 += kTileRows) {
+      const int nr = min(kTileRows, blk.rows - r0);
+      __syncwarp();
+      stage_rows(sJ[w], blk.ptr[0], blk.stride[0], b, r0, nr, lane);
+      if (!scalar)
+        stage_rows(sX[w], blk.ptr[1], blk.stride[1], b, r0, nr, lane);
+      if (lane < nr) {
+        sM[w][lane] = scalar ? at(blk.ptr[1], blk.stride[1], b, r0 + lane, 0)
+                             : 0.0f;
+        sV[w][lane] = at(blk.ptr[2], blk.stride[2], b, r0 + lane, 0);
+      }
+      __syncwarp();
+      for (int i = 0; i < nr; ++i) {
+        const float* Jrow = sJ[w][i];
+        // the other factor: J itself (scalar, its rows scaled by m) or W
+        const float* X = scalar ? Jrow : sX[w][i];
+        const float m = sM[w][i];
+        const float v = sV[w][i];
+        float xc[kTileB];
+#pragma unroll
+        for (int c = 0; c < kTileB; c += 2) {
+          const float2 x2 = *reinterpret_cast<const float2*>(X + cb + c);
+          xc[c] = x2.x;
+          xc[c + 1] = x2.y;
+        }
+#pragma unroll
+        for (int a = 0; a < kTileA; ++a) {
+          const float jr = Jrow[ra + a];
+          facc[a] += jr * v;
+          const float w_r = scalar ? jr * m : jr;
+#pragma unroll
+          for (int c = 0; c < kTileB; ++c) acc[a][c] += w_r * xc[c];
+        }
+      }
+    }
+  }
+  // the tiles into rows: lane r takes row r of [A | f] through the warp's
+  // staging tile
+  __syncwarp();
+  float (*sA)[kPitch] = sJ[w];
+  if (lane < N) {
+#pragma unroll
+    for (int a = 0; a < kTileA; ++a) {
+#pragma unroll
+      for (int c = 0; c < kTileB; ++c) sA[ra + a][cb + c] = acc[a][c];
+      if (cb == 0) sA[ra + a][N] = facc[a];
+    }
+  }
+  __syncwarp();
+
+  // the identity seed, row r, summed over the identity blocks in tag order
+  float seed[N + 1];
+#pragma unroll
+  for (int c = 0; c <= N; ++c) seed[c] = 0.0f;
+  bool has_identity = false;
+  for (int k = 0; k < table.count; ++k) {
+    const Block& blk = table.block[k];
+    if (blk.kind != kIdentity) continue;
+    has_identity = true;
+#pragma unroll
+    for (int c = 0; c < N; ++c)
+      seed[c] += at(blk.ptr[0], blk.stride[0], b, r, c);
+    seed[N] += at(blk.ptr[1], blk.stride[1], b, r, 0);
+  }
+
+  // row r of [A + ridge I | f]
+  float row[N + 1];
+#pragma unroll
+  for (int c = 0; c < N; ++c) {
+    row[c] = has_identity ? seed[c] + sA[r][c] : sA[r][c];
+    row[c] += (c == r) ? ridge : 0.0f;
+  }
+  row[N] = has_identity ? seed[N] + sA[r][N] : sA[r][N];
+
+  constexpr unsigned kAll = 0xffffffffu;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    // the rows that take the pivot: |a_ik| above every magnitude of rows
+    // k..i-1 (an inclusive prefix maximum over lanes k..N-1, shifted)
+    const float mag = fabsf(row[k]);
+    float run = (lane >= k && lane < N) ? mag : -1.0f;
+#pragma unroll
+    for (int off = 1; off < 32; off *= 2) {
+      const float up = __shfl_up_sync(kAll, run, off);
+      if (lane >= off) run = nan_max(run, up);
+    }
+    const float before = __shfl_up_sync(kAll, run, 1);
+    const bool take = lane > k && lane < N && mag > before;
+    const unsigned takes = __ballot_sync(kAll, take);
+    const unsigned below = takes & ((1u << lane) - 1u);
+    const int src = take ? (below ? 31 - __clz(below) : k)
+                         : (lane == k ? (takes ? 31 - __clz(takes) : k)
+                                      : lane);
+#pragma unroll
+    for (int c = k; c <= N; ++c) row[c] = __shfl_sync(kAll, row[c], src);
+
+    const float inv_pivot =
+        1.0f / safe_denom(__shfl_sync(kAll, row[k], k));
+    const float factor = row[k] * inv_pivot;
+#pragma unroll
+    for (int c = k; c <= N; ++c) {
+      const float p = __shfl_sync(kAll, row[c], k);
+      if (lane > k) row[c] -= factor * p;
+    }
+  }
+
+  float x[N];
+  float mine = 0.0f;
+#pragma unroll
+  for (int i = N - 1; i >= 0; --i) {
+    float s = row[N];
+#pragma unroll
+    for (int j = i + 1; j < N; ++j) s -= row[j] * x[j];
+    const float xi = s / safe_denom(row[i]);
+    x[i] = __shfl_sync(kAll, xi, i);
+    if (lane == i) mine = xi;
+  }
+  if (lane < N && env < B) out[b * N + lane] = mine;
+}
+
 template <int N>
 void launch(int B, const Table& table, float ridge, float* out,
             cudaStream_t stream) {
@@ -280,7 +504,7 @@ extern "C" int rmp_pullback_resolve_f32(int device, int n, int B,
                                         const long long* rows, int count,
                                         float ridge, float* out,
                                         void* stream) {
-  if (n != 2 && n != 6 && n != 9) return -1;
+  if (n != 2 && n != 6 && n != 9 && n != kWideN) return -1;
   if (count > kMaxBlocks) return -2;
   if (B <= 0) return 0;
   Table table{};
@@ -306,8 +530,12 @@ extern "C" int rmp_pullback_resolve_f32(int device, int n, int B,
     launch<2>(B, table, ridge, out, s);
   else if (n == 6)
     launch<6>(B, table, ridge, out, s);
-  else
+  else if (n == 9)
     launch<9>(B, table, ridge, out, s);
+  else
+    pullback_resolve_wide_kernel<<<(B + kWideEnvs - 1) / kWideEnvs,
+                                   32 * kWideEnvs, 0, s>>>(B, table, ridge,
+                                                           out);
   const int rc = static_cast<int>(cudaGetLastError());
   if (previous != device) cudaSetDevice(previous);
   return rc;

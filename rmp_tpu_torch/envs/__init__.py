@@ -1,7 +1,7 @@
 """Scene registry: the ported scenes of the JAX package's registry."""
 from rmp_tpu_torch import default_device
-from rmp_tpu_torch.envs import (base, cameras, franka, maneuver,  # noqa: F401
-                                two_joint, ur5)
+from rmp_tpu_torch.envs import (base, cameras, dual, franka,  # noqa: F401
+                                maneuver, two_joint, ur5)
 from rmp_tpu_torch.envs.base import (Env, EnvState, env_state,  # noqa: F401
                                      make_batched_control_step,
                                      make_batched_reset, make_batched_rollout,
@@ -27,6 +27,8 @@ REGISTRY = {
     "franka/randomized_cluttered": franka.env_randomized_cluttered,
     "ur5/01_target_reaching": ur5.env_01_target_reaching,
     "ur5/02_obstacle_avoidance": ur5.env_02_obstacle_avoidance,
+    "dual_panda/handover": dual.env_handover,
+    "dual_panda/randomized_clutter": dual.env_randomized_clutter,
 }
 
 

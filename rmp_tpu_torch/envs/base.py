@@ -156,6 +156,9 @@ class Env:
     # nor move sim.goal to a temporary target (the solved check reads it):
     # a detour is bound through a state-aware bind_params
     pre_tick: Callable | None = None
+    # is_solved_fn(env, sim) -> (B,) bool in place of the EE-goal check
+    # (the dual arm: both EEs at their goals)
+    is_solved_fn: Callable | None = None
     # EE-goal improvement (m) that resets EnvState.no_progress
     progress_eps: float = 0.01
     # goal_distance_fn(env, sim) -> (B,) distance of the progress window;
@@ -167,13 +170,14 @@ class Env:
 
 
 def take_row(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table[idx] (B, d) for a small table (K, d) by a where-chain.
+    """table[idx] (B, ...) for a small table (K, ...) by a where-chain.
 
     An out-of-range idx falls through to row 0 (every comparison misses),
     unlike table[idx]; callers pre-clamp."""
     out = table[0].expand(idx.shape[0], *table.shape[1:])
     for k in range(1, table.shape[0]):
-        out = torch.where((idx == k)[:, None], table[k], out)
+        hit = (idx == k).reshape(-1, *(1,) * (table.dim() - 1))
+        out = torch.where(hit, table[k], out)
     return out
 
 
@@ -229,9 +233,11 @@ def ee_position(env: Env, sim: SimState) -> torch.Tensor:
 
 
 def is_solved(env: Env, sim: SimState, ee: torch.Tensor) -> torch.Tensor:
-    """(B,) bool: the EE at ee (B, 3) within solved_tol of the goal (in x
-    and y only with solved_xy_only), and |q̇| below check_velocity when
-    that is set."""
+    """(B,) bool: the scene's is_solved_fn where it has one; else the EE at
+    ee (B, 3) within solved_tol of the goal (in x and y only with
+    solved_xy_only), and |q̇| below check_velocity when that is set."""
+    if env.is_solved_fn is not None:
+        return env.is_solved_fn(env, sim)
     x, goal = ee, sim.goal
     if env.solved_xy_only:
         x, goal = x[:, :2], goal[:, :2]

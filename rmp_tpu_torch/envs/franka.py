@@ -34,6 +34,7 @@ from rmp_tpu_torch.policies import v1, v2
 from rmp_tpu_torch.sim import randomizer as rnd
 from rmp_tpu_torch.sim.collision import (ObstacleSet, cylinder_obstacle,
                                          pad_obstacles, robot_self_distances,
+                                         robot_self_distances_hull,
                                          self_collision_pairs)
 from rmp_tpu_torch.sim.data import PAIRS_KEY
 from rmp_tpu_torch.sim.world import SimState, init_state
@@ -67,12 +68,35 @@ def env_01_target_rmp_only(device) -> Env:
                                        device))
 
 
+def self_pair_context(model, T_all: torch.Tensor, pairs, rows: dict,
+                      keys: dict, hull: bool = False) -> dict:
+    """Context of self-collision policies: the closest points of the frame
+    pairs `pairs` for T_all (B, F, 4, 4), capsule against capsule or (hull)
+    hull against hull, and for each frame f of `rows` (f -> a device long
+    tensor of its pairs' rows) the entry keys[f] of its rows, (B, P_f, ...),
+    with each pair's nearest point on f in f's frame."""
+    query = robot_self_distances_hull if hull else robot_self_distances
+    pos_a, pos_b, normal, dist = query(model, T_all, pairs)
+    ctx = {}
+    for f, idx in rows.items():
+        T = T_all[:, f, None]                           # (B, 1, 4, 4)
+        pa = pos_a.index_select(1, idx)                 # (B, P_f, 3)
+        d = dist.index_select(1, idx)
+        rel = geom.mv(T[..., :3, :3].transpose(-1, -2), pa - T[..., :3, 3])
+        ctx[keys[f]] = dict(
+            pos_on_link=pa, pos_on_obstacle=pos_b.index_select(1, idx),
+            normal=normal.index_select(1, idx), distance=d,
+            relative_position=rel, mask=torch.ones_like(d))
+    return ctx
+
+
 def env_03_self_avoidance(device) -> Env:
-    """Self-collision avoidance from the capsule self-distances: the
-    reference's 03_self_avoidance.py in working form. A v1 target on the EE,
-    joint damping, and one v1 CollisionAvoidance per collision frame that
-    heads a self-collision pair (pairs 3 apart in the tree, less those
-    closer than 12 cm at the ready pose), fed by a context_fn."""
+    """Self-collision avoidance from the self-distances (capsule or, in the
+    hull tier, hull against hull): the reference's 03_self_avoidance.py in
+    working form. A v1 target on the EE, joint damping, and one v1
+    CollisionAvoidance per collision frame that heads a self-collision pair
+    (pairs 3 apart in the tree, less those closer than 12 cm at the ready
+    pose), fed by a context_fn."""
     device = torch.device(device)
     model = robots.franka_panda()
     pairs = self_collision_pairs(model, n_neighbors=3, exclude_below=0.12,
@@ -101,27 +125,12 @@ def env_03_self_avoidance(device) -> Env:
             for f in frames}
 
     def context_fn(model_, sim, T_all=None):
-        if env.collision_geometry == "hull":
-            raise NotImplementedError(
-                "franka/03_self_avoidance in the hull tier needs "
-                "robot_self_distances_hull, not ported yet (ROADMAP M12)")
         if T_all is None:
             T_all = K.fk_all(model_, sim.q)
-        pos_a, pos_b, normal, dist = robot_self_distances(model_, T_all,
-                                                          pairs)
-        ctx = {}
-        for f in frames:
-            idx = rows[f]
-            T = T_all[:, f, None]                       # (B, 1, 4, 4)
-            pa = pos_a.index_select(1, idx)             # (B, P_f, 3)
-            d = dist.index_select(1, idx)
-            rel = geom.mv(T[..., :3, :3].transpose(-1, -2),
-                          pa - T[..., :3, 3])
-            ctx[model_.frame_names[f]] = dict(
-                pos_on_link=pa, pos_on_obstacle=pos_b.index_select(1, idx),
-                normal=normal.index_select(1, idx), distance=d,
-                relative_position=rel, mask=torch.ones_like(d))
-        return ctx
+        return self_pair_context(
+            model_, T_all, pairs, rows,
+            {f: model_.frame_names[f] for f in frames},
+            hull=env.collision_geometry == "hull")
 
     def reset(batch: int, seed: int = 0) -> EnvState:
         return env_state(init_state(model, batch, device, q=Q_READY,
@@ -199,12 +208,19 @@ def _v2_policy_stack(model, goal, attractor_p_gain, attractor_d_gain,
     return policies
 
 
-def _obstacle_policies(model, grouped: bool = True):
+def _obstacle_policies(model, grouped: bool = True, frames=None,
+                       name: str = "collision_avoidance",
+                       ctx_key: str | None = None):
     """ObstacleAvoidance over every collision frame on FK∘distance chains.
     grouped=True: one policy over all collision frames x obstacle pairs,
     reading the context's PAIRS_KEY entry; grouped=False: the reference's
     structure, one policy per collision frame reading that frame's entry.
-    The pullback sums over the pairs either way, so both give one q̈."""
+    The pullback sums over the pairs either way, so both give one q̈.
+
+    frames / name / ctx_key: the grouped policy over a subset of the
+    collision frames, named `name`, reading the context entry `ctx_key`,
+    which must then hold that subset's (B, L', K, ...) rows (the dual arm
+    splits obstacle avoidance per arm, envs/dual.py)."""
     kw = dict(margin=0.0, damping_gain=50, damping_std_dev=0.04,
               damping_robustness_eps=0.01,
               damping_velocity_gate_length_scale=0.01, repulsion_gain=800,
@@ -212,11 +228,12 @@ def _obstacle_policies(model, grouped: bool = True):
               metric_scalar=1, metric_exploder_std_dev=0.02,
               metric_exploder_eps=0.001)
     if grouped:
-        taskmap = tm.chain(tm.multi_fk_frames(model, model.collision_frames),
-                           tm.frames_to_point_distance())
-        pol = v2.obstacle_avoidance(taskmap=taskmap,
-                                    name="collision_avoidance", **kw)
-        pol.ctx_key = PAIRS_KEY
+        taskmap = tm.chain(
+            tm.multi_fk_frames(model, model.collision_frames
+                               if frames is None else frames),
+            tm.frames_to_point_distance())
+        pol = v2.obstacle_avoidance(taskmap=taskmap, name=name, **kw)
+        pol.ctx_key = PAIRS_KEY if ctx_key is None else ctx_key
         return [pol]
     out = []
     for i in model.collision_frames:

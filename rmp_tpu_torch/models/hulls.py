@@ -5,8 +5,9 @@ per Panda collision link, a decimated convex hull of the reference collision
 mesh in collision-frame local coordinates (96 vertices at most). `hulls_for`
 stacks them into one (L, V, 3) float32 table in `model.collision_frames`
 order, padding each link by repeating its first vertex (harmless under the
-support max). The synthetic hulls of the two-joint robot and the UR5 are not
-ported yet.
+support max). The dual-arm Panda reuses the Panda's hulls: its links are the
+same geometry under an L_ / R_ prefix. The synthetic hulls of the two-joint
+robot and the UR5 are not ported yet.
 """
 from __future__ import annotations
 
@@ -19,7 +20,10 @@ from rmp_tpu_torch.models.urdf import KinematicModel, model_cache
 
 _ASSET_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           os.pardir, os.pardir, "assets")
-_HULL_FILES = {"panda": "panda_hulls.npz"}
+_HULL_FILES = {"panda": "panda_hulls.npz",
+               "panda_dual": "panda_hulls.npz"}
+# a model's link name -> the asset's
+_LINK_ALIASES = {"panda_dual": lambda link: link[2:]}
 _TABLES: dict[tuple, tuple] = {}
 _DEVICE_TABLES: dict[tuple, tuple] = {}
 
@@ -27,9 +31,10 @@ _DEVICE_TABLES: dict[tuple, tuple] = {}
 def _assemble(data, model: KinematicModel) -> np.ndarray | None:
     """Pad per-link vertex lists to a common V and stack them in
     collision-frame order; None if a collision link has no hull."""
+    alias = _LINK_ALIASES.get(model.name, lambda link: link)
     per_link = []
     for i in model.collision_frames:
-        link = model.link_names[i]
+        link = alias(model.link_names[i])
         if link not in data:
             return None
         per_link.append(np.asarray(data[link], np.float32))

@@ -1,5 +1,5 @@
 """Robot model constructors and per-robot constants: the planar two-joint
-arm, the Franka Panda and the UR5.
+arm, the Franka Panda, the UR5 and the dual-arm Panda.
 
 Ready poses and limits are motor-ordered vectors, the same values as
 `rmp_tpu/models/robots.py`."""
@@ -10,7 +10,7 @@ import functools
 import numpy as np
 
 from rmp_tpu_torch.models.specs import (PANDA_SPEC, TWO_JOINT_SPEC, UR5_SPEC,
-                                        build_model)
+                                        build_model, make_dual_spec)
 from rmp_tpu_torch.models.urdf import KinematicModel
 
 TWO_JOINT_Q_READY = np.array([0.0, 0.0], dtype=np.float32)
@@ -51,3 +51,24 @@ def franka_panda() -> KinematicModel:
 def ur5() -> KinematicModel:
     """6-DOF UR5 (6 revolute + the fixed EE frame 'ee_fixed_joint')."""
     return build_model(UR5_SPEC)
+
+
+@functools.lru_cache(maxsize=None)
+def dual_panda(separation: float = 0.9) -> KinematicModel:
+    """Two Panda arms on one kinematic tree ('panda_dual': 26 frames, 18
+    motors), bases `separation` apart on the y axis facing each other
+    (specs.make_dual_spec; links and motors prefixed L_ and R_)."""
+    half = separation / 2.0
+    return build_model(make_dual_spec(
+        PANDA_SPEC, offset_a=(0.0, half, 0.0), offset_b=(0.0, -half, 0.0),
+        yaw_a=-np.pi / 2.0, yaw_b=np.pi / 2.0))
+
+
+def dual_panda_q_ready(model: KinematicModel) -> np.ndarray:
+    """The dual-arm Panda's ready pose: each motor takes the single Panda's
+    ready value of its unprefixed joint. The motor order interleaves the
+    arms (BFS over the tree), so the values map by name, never by
+    position."""
+    by_name = dict(zip(franka_panda().motor_names, PANDA_Q_READY))
+    return np.asarray([by_name[name[2:]] for name in model.motor_names],
+                      np.float32)

@@ -2,8 +2,9 @@
 
 The port's copy of the robot tables of `rmp_tpu/models/specs.py`: the
 planar two-joint arm, the Panda (its link and joint table and the 25-capsule
-mesh-fitted collision set) and the UR5. The multi-arm spec transforms and
-URDF export are not ported yet.
+mesh-fitted collision set) and the UR5, and the multi-robot spec transforms
+(`make_multi_spec`, `make_dual_spec`) that compose copies of a spec under a
+common world root. URDF export is not ported yet.
 """
 from __future__ import annotations
 
@@ -322,3 +323,42 @@ UR5_SPEC = RobotSpec(
                   xyz=(0, 0.0823, 0), rpy=(0, 0, _HPI)),
     ),
 )
+
+
+def make_multi_spec(spec: RobotSpec, offsets, yaws, prefixes,
+                    name: str | None = None) -> RobotSpec:
+    """N copies of a robot spec in one kinematic tree: a 'world' root link
+    with a fixed base-mount joint placing each copy (its links and joints
+    renamed with its prefix) at its offset and yaw. The result is an
+    ordinary single-root spec, so FK, dynamics, collision and the policies
+    apply to it unchanged."""
+    offsets, yaws, prefixes = tuple(offsets), tuple(yaws), tuple(prefixes)
+    if not (len(offsets) == len(yaws) == len(prefixes)):
+        raise ValueError("offsets/yaws/prefixes must have equal lengths")
+    if len(set(prefixes)) != len(prefixes):
+        raise ValueError(f"duplicate prefixes: {prefixes}")
+    child_names = {j.child for j in spec.joints}
+    root = next(l.name for l in spec.links if l.name not in child_names)
+
+    links: tuple = (LinkSpec("world"),)
+    joints: tuple = ()
+    for prefix, offset, yaw in zip(prefixes, offsets, yaws):
+        links = links + tuple(dataclasses.replace(l, name=prefix + l.name)
+                              for l in spec.links)
+        mount = JointSpec(prefix + "base_mount", "fixed", "world",
+                          prefix + root, xyz=tuple(offset),
+                          rpy=(0.0, 0.0, yaw))
+        joints = joints + (mount,) + tuple(dataclasses.replace(
+            j, name=prefix + j.name, parent=prefix + j.parent,
+            child=prefix + j.child) for j in spec.joints)
+    return RobotSpec(name=name or f"{spec.name}_x{len(prefixes)}",
+                     links=links, joints=joints)
+
+
+def make_dual_spec(spec: RobotSpec,
+                   offset_a=(0.0, 0.45, 0.0), offset_b=(0.0, -0.45, 0.0),
+                   yaw_a: float = 0.0, yaw_b: float = 0.0,
+                   prefix_a: str = "L_", prefix_b: str = "R_") -> RobotSpec:
+    """The two-robot case of make_multi_spec (the dual-arm Panda)."""
+    return make_multi_spec(spec, (offset_a, offset_b), (yaw_a, yaw_b),
+                           (prefix_a, prefix_b), name=spec.name + "_dual")

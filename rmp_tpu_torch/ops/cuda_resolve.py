@@ -13,7 +13,8 @@ batch axis B on every tensor):
 give q̈ = (A + ridge I)^{-1} f with A = Σ identity M + Σ Jᵀ diag(m) J +
 Σ Jᵀ W and f = Σ v + Σ Jᵀ v. A CPU tensor takes the plain PyTorch version
 (`pullback_resolve_structured_plain`); a CUDA tensor launches the kernel of
-csrc/pullback_resolve.cu or raises. The kernel reads every block where it
+csrc/pullback_resolve.cu or raises (n = 2, 6 and 9 on a group of 8 lanes
+per env, n = 18 on a warp per env). The kernel reads every block where it
 lies, through its strides (`block_table`): the call copies no operand and
 launches nothing else.
 
@@ -66,7 +67,7 @@ def pullback_resolve_structured_plain(tags, blocks,
 
 
 KINDS = {"identity": 0, "scalar": 1, "dense": 2}
-KERNEL_N = (2, 6, 9)  # the n the kernel is instantiated for
+KERNEL_N = (2, 6, 9, 18)  # the n the kernel is instantiated for
 MAX_BLOCKS = 16      # descriptors the kernel takes per call
 ROW_WORDS = 14       # kind, rows, 3 addresses, 3 x 3 strides
 

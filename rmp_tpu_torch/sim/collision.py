@@ -7,9 +7,10 @@ the convex hull of its mesh (models/hulls.py), queried against capsules and
 flat-capped cylinders by the K4 GJK kernel. Each query returns what
 PyBullet's getClosestPoints does: (point on link, point on obstacle, normal
 on the obstacle pointing toward the link, signed distance). Self-distances
-between the robot's own links are queried in the capsule tier
-(`self_collision_pairs`, `robot_self_distances`); their hull-tier form
-(`robot_self_distances_hull`) is not ported yet.
+between the robot's own links (`self_collision_pairs`) are queried in the
+capsule tier (`robot_self_distances`) and hull against hull
+(`robot_self_distances_hull`, by the plain PyTorch GJK of ops/gjk.py, as
+the JAX package runs it in XLA).
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import torch
 from rmp_tpu_torch.models.hulls import hull_table
 from rmp_tpu_torch.models.kinematics import frame_indices
 from rmp_tpu_torch.models.urdf import KinematicModel, model_cache
-from rmp_tpu_torch.ops import geom
+from rmp_tpu_torch.ops import geom, gjk
 from rmp_tpu_torch.ops.cuda_gjk import gjk_hull_obstacles
 
 _EPS = 1e-9
@@ -440,3 +441,62 @@ def robot_self_distances(model: KinematicModel, T_all: torch.Tensor,
     k3 = k[..., None].expand(*k.shape, 3)
     return (pl.gather(2, k3)[:, :, 0], po.gather(2, k3)[:, :, 0],
             n.gather(2, k3)[:, :, 0], d.gather(2, k)[:, :, 0])
+
+
+_SELF_HULL: dict[tuple, tuple] = {}
+
+
+def _self_hull_tables(model: KinematicModel, pairs, device):
+    """(frames a, frames b) (P,) long tensors and the local hull tables
+    (P, V, 3) of each pair's two links, built once per (model, pairs,
+    device)."""
+    def build():
+        table = hull_table(model, device)
+        row = {f: i for i, f in enumerate(model.collision_frames)}
+
+        def idx(fs):
+            return torch.as_tensor(fs, dtype=torch.long, device=device)
+        fa, fb = [a for a, _ in pairs], [b for _, b in pairs]
+        return (idx(fa), idx(fb), table[idx([row[f] for f in fa])],
+                table[idx([row[f] for f in fb])])
+    return model_cache(_SELF_HULL, model, (tuple(pairs), str(device)), build)
+
+
+def _posed_support(local: torch.Tensor, T: torch.Tensor):
+    """Support of the hulls `local` (P, V, 3) posed by T (B, P, 4, 4):
+    the local support in R^T d, moved to the world."""
+    R, t = T[..., :3, :3], T[..., :3, 3]
+    Rt = R.transpose(-1, -2)
+
+    def support(d):
+        return geom.mv(R, gjk.support_hull(local, geom.mv(Rt, d))) + t
+    return support
+
+
+def robot_self_distances_hull(model: KinematicModel, T_all: torch.Tensor,
+                              pairs: tuple[tuple[int, int], ...],
+                              iters: int = 10):
+    """Hull-vs-hull closest points of static frame pairs, the exact-hull
+    form of robot_self_distances (its return layout, (B, P, ...)): simplex
+    GJK (ops/gjk.closest_points, `iters` iterations, cold) on both links'
+    hulls, each support taken in its link's frame. The start direction is
+    the capsule query's witness direction, or the hull centres' where that
+    is degenerate. Near contact (distance <= 0.5 mm, or overlap) the
+    capsule result stands in: its depth and normal, and min(capsule, hull)
+    distance."""
+    cap_pl, cap_po, cap_n, cap_d = robot_self_distances(model, T_all, pairs)
+    fa, fb, la, lb = _self_hull_tables(model, pairs, T_all.device)
+    la, lb = la.to(T_all.dtype), lb.to(T_all.dtype)
+    Ta, Tb = T_all[:, fa], T_all[:, fb]                    # (B, P, 4, 4)
+    ca = geom.mv(Ta[..., :3, :3], la.mean(dim=-2)) + Ta[..., :3, 3]
+    cb = geom.mv(Tb[..., :3, :3], lb.mean(dim=-2)) + Tb[..., :3, 3]
+    d0_cap = cap_po - cap_pl
+    degenerate = torch.sum(d0_cap * d0_cap, dim=-1, keepdim=True) < 1e-8
+    d0 = torch.where(degenerate, cb - ca, d0_cap)
+    pl, po, n, dist, _ = gjk.closest_points(
+        _posed_support(la, Ta), _posed_support(lb, Tb), d0, iters=iters)
+    near = dist <= 5e-4
+    n3 = near[..., None]
+    return (torch.where(n3, cap_pl, pl), torch.where(n3, cap_po, po),
+            torch.where(n3, cap_n, n),
+            torch.where(near, torch.minimum(cap_d, dist), dist))

@@ -34,10 +34,15 @@ class SimState:
     goal: torch.Tensor | None = None
 
 
+def _batched(x: torch.Tensor, batch: int) -> torch.Tensor:
+    return x.expand(batch, *x.shape).clone()
+
+
 def init_state(model: KinematicModel, batch: int, device, q=None,
                obstacles: ObstacleSet | None = None, goal=None) -> SimState:
     """`batch` identical states at rest at q (default zeros); obstacles
-    (K, ...) and goal (3,) are shared by every environment."""
+    (K, ...) and goal (3,) (or one goal per arm, (A, 3)) are shared by
+    every environment."""
     f32 = dict(dtype=torch.float32, device=device)
     n = model.n_q
     q0 = torch.zeros(n, **f32) if q is None else torch.as_tensor(q, **f32)
@@ -47,7 +52,7 @@ def init_state(model: KinematicModel, batch: int, device, q=None,
         t=torch.zeros(batch, **f32),
         obstacles=None if obstacles is None else obstacles.expand(batch),
         goal=None if goal is None
-        else torch.as_tensor(goal, **f32).expand(batch, 3).clone(),
+        else _batched(torch.as_tensor(goal, **f32), batch),
     )
 
 

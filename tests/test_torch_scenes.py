@@ -267,11 +267,36 @@ def test_moving_obstacles_hull_tier_tick_parity_with_jax():
 
 
 def test_self_avoidance_hull_tier_raises():
+    """franka/03 in the hull tier raised NotImplementedError until the
+    hull-vs-hull query was ported (ROADMAP M12); it now raises nothing, and
+    its context_fn gives the self pairs' hull distances
+    (collision.robot_self_distances_hull), not the capsule ones. Its parity
+    with JAX: tests/test_torch_dual_parity.py."""
+    from rmp_tpu_torch.models import kinematics as K
+    from rmp_tpu_torch.sim import collision
     env = envs.make("franka/03_self_avoidance", device="cpu")
     env.collision_geometry = "hull"
     state = envs.make_batched_reset(env, 2)()
-    with pytest.raises(NotImplementedError, match="M12"):
-        envs.make_batched_control_step(env)(state, env.gather_params())
+    T_all = K.fk_all(env.model, state.sim.q)
+    ctx = env.context_fn(env.model, state.sim, T_all)
+    frames = sorted(ctx)
+    pairs = [p for f in frames for p in env_pairs(env) if
+             env.model.frame_names[p[0]] == f]
+    got = torch.cat([ctx[f]["distance"] for f in frames], dim=1)
+    hull = collision.robot_self_distances_hull(env.model, T_all, pairs)[3]
+    cap = collision.robot_self_distances(env.model, T_all, pairs)[3]
+    assert torch.equal(got, hull) and not torch.equal(got, cap)
+    after, _ = envs.make_batched_control_step(env)(state,
+                                                   env.gather_params())
+    assert bool(torch.isfinite(after.sim.q).all())
+
+
+def env_pairs(env):
+    """franka/03's self pairs, as its constructor picks them."""
+    from rmp_tpu_torch.envs.franka import Q_READY
+    from rmp_tpu_torch.sim.collision import self_collision_pairs
+    return self_collision_pairs(env.model, n_neighbors=3,
+                                exclude_below=0.12, q_ref=Q_READY)
 
 
 @pytest.mark.parametrize("name", ["franka/pose_target", "franka/moving_goal"])
@@ -349,13 +374,16 @@ def test_per_frame_obstacle_policies_match_grouped_and_jax():
 
 def test_registry_holds_sixteen_scenes_on_the_card_by_default(monkeypatch):
     """The registry's scenes: the 16 of the seventh slice, the five new
-    ones among them, and since the eighth franka/randomized_cluttered;
+    ones among them, since the eighth franka/randomized_cluttered and since
+    the ninth the two dual-arm scenes, 19 of the JAX package's 23;
     envs.make builds a scene on the GPU unless device='cpu' is passed, and
     raises without one (franka/04's IK runs on the scene's device)."""
-    assert len(envs.REGISTRY) == 17
+    assert len(envs.REGISTRY) == 19
     assert set(SCENES7) <= set(envs.REGISTRY)
     assert set(envs.REGISTRY) <= set(jenvs.REGISTRY)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for name in SCENES7 + ("franka/randomized_cluttered",):
+    for name in SCENES7 + ("franka/randomized_cluttered",
+                           "dual_panda/handover",
+                           "dual_panda/randomized_clutter"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             envs.make(name)
