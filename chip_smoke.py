@@ -154,6 +154,28 @@ printing the result line:
      behind the one-ulp, float64 and card-with-plain-kernels screens
      (randomized_parity, cut to DUAL_PARITY and HANDOVER_HULL_PARITY), of
      the handover and of franka/03 in the hull tier behind witness_q.
+ 16. the tenth slice (contact, the two-joint and UR5 hull tiers, the
+     learned scenes): K4 on the two-joint robot's (3 links, 48 rows) and
+     the UR5's (6, 130) main-path warm operands (4 iterations) with phase
+     6's limits and k4_evidence's cap_fault form, one device kernel per
+     call, timed beside k4_bound_needed, with the share of pairs whose
+     support ties; K1 on ur5/02's hull tick (n = 6) and on
+     franka/neural_clutter's tick (the learned leaf's 80 scalar rows) at
+     B = 4096, 1, 7 and 4093; franka/02_provoke_collision at 4096
+     identical envs x 120 ticks with contact and as the contact-free
+     ghost (K3 11 and 1 times per tick, no other kernel), tests/
+     test_contact.py's criterion on every env, the synchronizing calls of
+     a contact tick (the 'pinv' resolve's SVD only), its tick time and
+     trace, K3 against plain on its final state; the impulse model on the
+     card (the collapsing arm at 128 envs against the CPU, the KKT check
+     of 12 random scenes at 1500 sweeps); two_joint/05, its variant and
+     ur5/02 in the hull tier at 4096 x 150 (K4 once per tick); the two
+     reach scenes at 4096 x 150 and tests/test_neural.py's criteria on
+     4096 envs; franka/neural_clutter at 4096 x 300 from seed 0 against
+     reports/eval_neural_clutter.json within 3 sigma, nan_rate 0;
+     GPU/CPU parity (randomized_parity's screens) of franka/02 from
+     piercing states, of the three hull tiers and of the three learned
+     scenes.
 Then one JSON line of per-kernel numbers ({"kernels": [...]}) and, last,
 {"ok": true, "device": {...}}. The full record also goes to
 chiprun_out/chip_smoke.json.
@@ -164,6 +186,7 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import inspect
 import json
 import os
 import re
@@ -191,8 +214,8 @@ from rmp_tpu_torch.ops import (cuda_fk, cuda_gjk, cuda_resolve, cuda_tick,
                                tick_ops)
 from rmp_tpu_torch.policies import v1
 from rmp_tpu_torch.sim import (FrankaPanda, Goal, Simulation, collision,
-                               data, dynamics)
-from rmp_tpu_torch.sim.world import SimState
+                               contact, data, dynamics)
+from rmp_tpu_torch.sim.world import SimState, physics_step
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCENE = "franka/06_cluttered_environment"
@@ -1380,8 +1403,9 @@ def _busy_us(events) -> float:
     return busy
 
 
-def profile_ticks(env, states, params, tick_ms: float) -> dict:
-    """PROFILE_TICKS ticks under torch.profiler: device busy ms per tick
+def profile_ticks(env, states, params, tick_ms: float,
+                  n_ticks: int = PROFILE_TICKS) -> dict:
+    """n_ticks ticks under torch.profiler: device busy ms per tick
     (union of kernel intervals), the idle share of the unprofiled tick
     (tick_ms) and of the traced span (which the profiler stretches), device
     launches per tick, the port's own kernels' device time, and the
@@ -1394,7 +1418,7 @@ def profile_ticks(env, states, params, tick_ms: float) -> dict:
             states, _ = step(states, params)
 
     for attempt in range(1, TRACE_ATTEMPTS + 1):
-        kernels = device_kernels(traced(lambda: ticks(PROFILE_TICKS),
+        kernels = device_kernels(traced(lambda: ticks(n_ticks),
                                         warm=lambda: ticks(1)))
         if kernels:
             break
@@ -1405,23 +1429,23 @@ def profile_ticks(env, states, params, tick_ms: float) -> dict:
         by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
     top = sorted(((sum(v), len(v), k) for k, v in by_name.items()),
                  reverse=True)[:10]
-    busy_ms = _busy_us(kernels) / 1e3 / PROFILE_TICKS
+    busy_ms = _busy_us(kernels) / 1e3 / n_ticks
     span_ms = (max(e.time_range.end for e in kernels)
-               - min(e.time_range.start for e in kernels)) / 1e3 / PROFILE_TICKS
+               - min(e.time_range.start for e in kernels)) / 1e3 / n_ticks
     return dict(
-        ticks=PROFILE_TICKS, tick_ms=tick_ms,
-        device_launches_per_tick=len(kernels) / PROFILE_TICKS,
+        ticks=n_ticks, tick_ms=tick_ms,
+        device_launches_per_tick=len(kernels) / n_ticks,
         device_busy_ms_per_tick=busy_ms,
         device_idle_share=1.0 - busy_ms / tick_ms,
         device_idle_share_traced=1.0 - busy_ms / span_ms,
         port_kernels_us_per_tick={
-            k[:60]: sum(v) / PROFILE_TICKS for k, v in by_name.items()
+            k[:60]: sum(v) / n_ticks for k, v in by_name.items()
             if any(n in k for n in ("pullback_resolve_kernel",
                                     "pullback_resolve_wide_kernel",
                                     "fk_derivatives_kernel",
                                     "gjk_hull_kernel"))},
-        top_kernels=[dict(name=k[:80], us_per_tick=t / PROFILE_TICKS,
-                          launches_per_tick=c / PROFILE_TICKS)
+        top_kernels=[dict(name=k[:80], us_per_tick=t / n_ticks,
+                          launches_per_tick=c / n_ticks)
                      for t, c, k in top])
 
 
@@ -1676,8 +1700,9 @@ def _as_dtype(x, dtype):
 
 @contextlib.contextmanager
 def plain_kernels(float64: bool = False):
-    """While the block runs, the kernel wrappers of K1, K3 (the tick's and
-    the randomized scene's detour IK's) and K4 are replaced by their plain
+    """While the block runs, the kernel wrappers of K1, K3 (the tick's, the
+    randomized scene's detour IK's and the contact substeps') and K4 are
+    replaced by their plain
     versions, on whatever device the tensors lie. With float64 (the
     wrappers take float32 only; the plain versions run in float64 too)
     'pinv' also takes the float32 run's cutoff: a float64 run then solves
@@ -1693,6 +1718,7 @@ def plain_kernels(float64: bool = False):
                 cuda_resolve.pullback_resolve_structured_plain),
                (core, "fk_derivatives_batched", fk_derivatives),
                (franka, "fk_derivatives_batched", fk_derivatives),
+               (contact, "fk_derivatives_batched", fk_derivatives),
                (collision, "gjk_hull_obstacles",
                 cuda_gjk.gjk_hull_obstacles_plain))
     if float64:
@@ -2271,8 +2297,9 @@ def _to_device(x, device):
 
 def sync_free_tick(env, states, params, what: str) -> list:
     """One tick with torch.cuda.set_sync_debug_mode('warn'): the
-    synchronizing calls it made (copies from the host included), which
-    must be none, so that the tick never waits on the device."""
+    synchronizing calls it made (copies from the host included), each as
+    'file:line message' of the line that made it, which must be none, so
+    that the tick never waits on the device."""
     step = make_batched_control_step(env)
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
@@ -2282,18 +2309,21 @@ def sync_free_tick(env, states, params, what: str) -> list:
             step(states, params)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    syncs = [str(w.message)[:160] for w in caught
+    syncs = [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno} "
+             f"{str(w.message)[:120]}" for w in caught
              if "called a synchronizing CUDA operation" in str(w.message)]
     log(f"{what}: synchronizing calls in one tick: {len(syncs)} {syncs[:3]}")
     return syncs
 
 
-def phase_k1_randomized(device) -> tuple[dict, float]:
-    """K1 on the randomized scene's real tick (pre_tick, the state-aware
-    bind, the blocks) K1_RANDOMIZED_TICKS ticks into a BATCH-env rollout,
-    against its plain version at B = 4096 and the first 1, 7 and 4093 envs;
-    one device kernel per call; timed beside its bound."""
-    env = envs.make(RANDOMIZED)
+def phase_k1_randomized(device, scene: str = RANDOMIZED,
+                        key: str = "randomized") -> tuple[dict, float]:
+    """K1 on the real tick of `scene` (the randomized scene, or one on its
+    substrate: pre_tick, the state-aware bind, the blocks)
+    K1_RANDOMIZED_TICKS ticks into a BATCH-env rollout, against its plain
+    version at B = 4096 and the first 1, 7 and 4093 envs; one device kernel
+    per call; timed beside its bound. The record goes under `key`."""
+    env = envs.make(scene)
     params = env.gather_params()
     states = envs.make_batched_reset(env, BATCH, RANDOMIZED_SEED + 2)()
     states, _ = envs.make_batched_rollout(env, K1_RANDOMIZED_TICKS,
@@ -2302,7 +2332,7 @@ def phase_k1_randomized(device) -> tuple[dict, float]:
     sc = states.scratch
     escaping = sc["man_ticks"] > 0
     pushing = ~escaping & sc["push_on"]
-    log(f"K1 randomized real tick, {K1_RANDOMIZED_TICKS} ticks in: "
+    log(f"K1 {scene} real tick, {K1_RANDOMIZED_TICKS} ticks in: "
         f"{int(escaping.sum())} envs in a detour, {int(pushing.sum())} "
         f"pushing, of {BATCH}")
     err = 0.0
@@ -2312,18 +2342,18 @@ def phase_k1_randomized(device) -> tuple[dict, float]:
                                                     ctxs, fk=fk)
         rows = tuple((t, b[0].shape[1] if t != "identity" else 0)
                      for t, b in zip(tags, blocks))
-        check(rows == K1_RANDOMIZED_LAYOUT, f"K1 randomized layout {rows}")
+        check(rows == K1_RANDOMIZED_LAYOUT, f"K1 {scene} layout {rows}")
         err = max(err, k1_compare(tags, blocks,
-                                  f"randomized real tick, B={B}",
+                                  f"{scene} real tick, B={B}",
                                   nonfinite_ok=True))
 
     # timed on the last blocks, BATCH envs
     def call():
         return cuda_resolve.pullback_resolve_structured(tags, blocks)
     per_call = device_launches(call, "pullback_resolve_kernel",
-                               "K1 randomized")
-    check(per_call == 1, "K1 randomized: not one launch per wrapper call")
-    rec = dict(n=9, scene=RANDOMIZED,
+                               f"K1 {scene}")
+    check(per_call == 1, f"K1 {scene}: not one launch per wrapper call")
+    rec = dict(n=9, scene=scene,
                layout=[list(r) for r in K1_RANDOMIZED_LAYOUT],
                envs_in_a_detour=int(escaping.sum()),
                envs_pushing=int(pushing.sum()),
@@ -2334,12 +2364,12 @@ def phase_k1_randomized(device) -> tuple[dict, float]:
                                                                   blocks)),
                library_ms=time_ms(lambda: k1_library(tags, blocks)))
     rec["bound_ms"], rec["bound_by"] = k1_bound(tags, blocks)
-    log(f"K1 randomized (n=9, dense 3 + 3 identities + scalar 80) times at "
+    log(f"K1 {scene} (n=9, dense 3 + 3 identities + scalar 80) times at "
         f"B={BATCH}: wrapper {rec['ms']:.4f} ms (device alone "
         f"{rec['device_ms']:.4f} ms), plain {rec['plain_ms']:.4f} ms, "
         f"einsum+linalg.solve {rec['library_ms']:.4f} ms, bound "
         f"{rec['bound_ms']:.6f} ms ({rec['bound_by']})")
-    return {"randomized": rec}, err
+    return {key: rec}, err
 
 
 def randomized_path(card: str, geometry: str, failed: list,
@@ -2448,12 +2478,12 @@ def randomized_run(device, start, geometry: str, plain: bool = False,
     CPU state `start`, moved to `device`: q (float64), the largest |q̈|
     (after the max_qdd guard), the discrete bookkeeping (no_progress and
     DISCRETE[scene]), `event`, a resample or a new maneuver (a count rises)
-    at that tick,
-    `singular`, a non-finite q̈ of the resolve (resolve_recorded), and
+    at that tick (a scene without resampling has none),
+    `singular`, a non-finite q̈ of K1's resolve (resolve_recorded), and
     `to_singular`, the least | |q̇_j| - (max_velocity - 2 region) | over
     the joints after the tick, how near the velocity cap's metric is to its
-    singularity at the next tick. plain / float64 run plain_kernels; k4
-    stands in for K4 (gjk_as)."""
+    singularity at the next tick (inf without a velocity cap). plain /
+    float64 run plain_kernels; k4 stands in for K4 (gjk_as)."""
     env = envs.make(scene, device=device)
     env.collision_geometry = geometry
     state, params = _to_device(start, device), env.gather_params()
@@ -2461,9 +2491,9 @@ def randomized_run(device, start, geometry: str, plain: bool = False,
         state = _as_dtype(state, torch.float64)
         params = tuple(_as_dtype(p, torch.float64) for p in params)
     step = make_batched_control_step(env)
-    cap = next(p.params for p in env.policies
-               if p.name == "joint_velocity_cap")
-    singular_speed = (cap["max_velocity"]
+    cap = next((p.params for p in env.policies
+                if p.name == "joint_velocity_cap"), None)
+    singular_speed = (float("inf") if cap is None else cap["max_velocity"]
                       - 2.0 * cap["velocity_damping_region"])
     out = dict(q=[], qdd=[], event=[], discrete=[], singular=[],
                to_singular=[])
@@ -2482,7 +2512,7 @@ def randomized_run(device, start, geometry: str, plain: bool = False,
             out["to_singular"].append((state.sim.qd.abs() - singular_speed)
                                       .abs().amin(dim=1).double().cpu())
             out["qdd"].append(aux["qdd"].abs().amax(dim=1).double().cpu())
-            event = aux["resample"]
+            event = aux.get("resample", torch.zeros_like(aux["solved"]))
             if count is not None:
                 event = event | (sc["man_count"] > count).reshape(
                     B, -1).any(dim=1)
@@ -2491,17 +2521,21 @@ def randomized_run(device, start, geometry: str, plain: bool = False,
                 [state.no_progress[:, None]] + [
                     sc[k].int().reshape(B, -1)
                     for k in DISCRETE.get(scene, ())], dim=1).cpu())
-    out["singular"] = [f.cpu() for f in out["singular"]]
+    # a scene that resolves by 'pinv' or 'cholesky' never calls K1's
+    # wrapper: no resolve is recorded, none counts as singular
+    out["singular"] = ([f.cpu() for f in out["singular"]] or
+                       [torch.zeros_like(e) for e in out["event"]])
     return {k: torch.stack(v) for k, v in out.items()}
 
 
 def randomized_parity(geometry: str, failed: list, scene: str = RANDOMIZED,
                       B: int = PARITY_B, ticks: int = PARITY_TICKS,
-                      spread: tuple | None = None) -> dict:
+                      spread: tuple | None = None, start=None) -> dict:
     """GPU/CPU parity of `scene` (RANDOMIZED, or another scene with its
     DISCRETE entry, or none): B envs of one CPU reset (a scene whose reset
-    is deterministic moved by spread = (dq, dqd), perturbed_states),
-    moved to the card, `ticks` ticks on each. The scene is chaotic in
+    is deterministic moved by spread = (dq, dqd), perturbed_states), or
+    the CPU EnvState `start` of B envs where one is given, moved to the
+    card, `ticks` ticks on each. The scene is chaotic in
     float32 (a one-ulp move of the start parts q by up to ~1.8 rad in 60
     ticks on some envs of a CPU run), and its bookkeeping has thresholds
     (the progress window's 1 cm, the push's 8 cm) that rounding can tip,
@@ -2525,8 +2559,9 @@ def randomized_parity(geometry: str, failed: list, scene: str = RANDOMIZED,
     goes to `failed`."""
     env = envs.make(scene, device="cpu")
     env.collision_geometry = geometry
-    start = (env.reset(B, PARITY_SEED) if spread is None
-             else perturbed_states(env, B, PARITY_SEED, *spread))
+    if start is None:
+        start = (env.reset(B, PARITY_SEED) if spread is None
+                 else perturbed_states(env, B, PARITY_SEED, *spread))
     up = torch.tensor(float("inf"))
     moved = dataclasses.replace(start, sim=dataclasses.replace(
         start.sim, q=torch.nextafter(start.sim.q, up),
@@ -2878,6 +2913,478 @@ def phase_slice9(card: str, device) -> dict:
                 k3_err=k3_err, golden=golden, k4=k4, paths=paths,
                 parity=parity)
 
+# ------------------------------------ phase 16: the tenth slice's paths ---
+
+PROVOKE = "franka/02_provoke_collision"
+PROVOKE_TICKS = 120
+# tests/test_contact.py's criterion: the contact-free ghost pierces the
+# cylinder past PROVOKE_GHOST_DEPTH, and contact keeps the arm's least
+# distance at least PROVOKE_MARGIN above the ghost's
+PROVOKE_GHOST_DEPTH = -0.004
+PROVOKE_MARGIN = 0.002
+# K3 per contact tick: the policies' FK and one per physics substep
+PROVOKE_K3_PER_TICK = 1 + 10
+PIERCE_TICKS = 29            # the ghost's deepest tick (CPU run): parity start
+CONTACT_PARITY = (128, 5)    # (envs, ticks) from the piercing states
+IMPULSE_B = 128
+IMPULSE_DT = 0.005
+IMPULSE_LEAN = 0.8           # rad on the shoulder: the arm starts at the floor
+IMPULSE_FALL = 25            # substeps of the collapse on the card first
+IMPULSE_COMPARE = 5          # then these, card against CPU
+IMPULSE_ATOL = 1e-3          # |Δq|, |Δq̇| after them ...
+IMPULSE_SPREAD = 5.0         # ... or this many times the env's rounding move
+KKT_SWEEPS = 1500            # tests/test_contact.py's KKT check
+HULL_MODELS = {"two_joint/05_obstacle_avoidance": "two-joint (3, 48)",
+               "ur5/02_obstacle_avoidance": "UR5 (6, 130)"}
+HULL_MODEL_SCENES = ("two_joint/05_obstacle_avoidance",
+                     "two_joint/05_obstacle_avoidance_variant",
+                     "ur5/02_obstacle_avoidance")
+HULL_MODEL_PARITY = (128, 20)
+K1_UR5_HULL_LAYOUT = (("dense", 3), ("identity", 0), ("dense", 18))
+# the trained reach criteria of tests/test_neural.py: (ticks, the bound on
+# the mean final EE-goal distance, in x and y only)
+NEURAL_REACH = {"two_joint/neural_reach": (80, 0.05, True),
+                "franka/neural_reach": (60, 0.1, False)}
+NEURAL_CLUTTER = "franka/neural_clutter"
+NEURAL_REPORTS = {"capsule": "reports/eval_neural_clutter.json"}
+DISCRETE[NEURAL_CLUTTER] = DISCRETE[RANDOMIZED]
+NEURAL_PARITY = {"two_joint/neural_reach": (128, 25),
+                 "franka/neural_reach": (128, 25),
+                 NEURAL_CLUTTER: (128, 30)}
+
+
+def k4_tie_share(ops: dict, iters: int) -> dict:
+    """The share of K4's pairs whose link support ties (at least two of the
+    link's distinct rows at the maximum dot, in torch's float32), at the
+    first support (direction -d0) and at the last (-(pa - pb) of the
+    kernel's answer): the pairs where the kernel's mask average meets a
+    tie."""
+    verts = ops["verts"]
+    rows = cuda_gjk.distinct_rows(verts)
+    pa, pb, _ = cuda_gjk.gjk_hull_obstacles(**ops, iters=iters)
+
+    def share(d):                          # d (L, M, 3, B), world
+        local = torch.einsum("lijb,lmib->lmbj", ops["R"], d)   # R^T d
+        tied = []
+        for link, n_rows in enumerate(rows):
+            dots = local[link] @ verts[link, :n_rows].T        # (M, B, V)
+            top = dots.amax(dim=-1, keepdim=True)
+            tied.append((dots == top).sum(dim=-1) >= 2)
+        return float(torch.stack(tied).double().mean())
+    return dict(first_support=share(-ops["d0"]),
+                last_support=share(pb - pa), distinct_rows=rows)
+
+
+def phase_k4_models() -> dict:
+    """K4 on the two-joint robot's and the UR5's main-path warm operands
+    (k4_main_path_operands: the hull tier at BATCH envs, 20 ticks in, the
+    warm carry, 4 iterations) against its plain version with phase 6's
+    limits and k4_evidence's cap_fault form, timed beside
+    k4_bound_needed, with the share of pairs whose support ties."""
+    out = {}
+    for scene, table in HULL_MODELS.items():
+        ops, iters = k4_main_path_operands(scene, method=None)
+        check(iters == data.WARM_ITERS, f"K4 on {scene}: {iters} iterations")
+        rec = k4_operands_check(ops, iters, f"K4 {scene} operands, {iters} "
+                                f"iterations", cap_fault=True)
+
+        def call():
+            return cuda_gjk.gjk_hull_obstacles(**ops, iters=iters)
+        rec["device_launches_per_call"] = device_launches(
+            call, "gjk_hull_kernel", f"K4 {table}")
+        check(rec["device_launches_per_call"] == 1,
+              f"K4 {table}: not one launch per wrapper call")
+        rec["ties"] = k4_tie_share(ops, iters)
+        rec.update(table=table, pairs=list(ops["p0"].shape[:2]) + [BATCH])
+        log(f"K4 {table} on {scene}: share of pairs whose support ties "
+            f"{json.dumps(rec['ties'])}")
+        out[scene] = rec
+    return out
+
+
+def phase_k1_slice10(device) -> tuple[dict, float]:
+    """K1 on ur5/02's real tick in the hull tier (real_tick_blocks: dense 3,
+    an identity and the grouped avoidance's 18 rows, n = 6) and on
+    franka/neural_clutter's real tick (phase_k1_randomized: dense 3, three
+    identities and the learned leaf's 80 scalar rows) against its plain
+    version at B = 4096, 1, 7 and 4093; one device kernel per call; timed
+    beside its bound."""
+    env = envs.make("ur5/02_obstacle_avoidance")
+    env.collision_geometry = "hull"
+    err = 0.0
+    for B in RAGGED + (BATCH,):
+        tags, blocks = real_tick_blocks(env, B, 12)
+        rows = tuple((t, b[0].shape[1] if t != "identity" else 0)
+                     for t, b in zip(tags, blocks))
+        check(rows == K1_UR5_HULL_LAYOUT, f"K1 ur5/02 hull layout {rows}")
+        err = max(err, k1_compare(tags, blocks, f"ur5/02 (hull) real tick, "
+                                  f"B={B}"))
+
+    def call():
+        return cuda_resolve.pullback_resolve_structured(tags, blocks)
+    per_call = device_launches(call, "pullback_resolve_kernel",
+                               "K1 ur5/02 (hull)")
+    check(per_call == 1, "K1 ur5/02 (hull): not one launch per wrapper call")
+    rec = dict(n=6, scene="ur5/02_obstacle_avoidance", geometry="hull",
+               layout=[list(r) for r in K1_UR5_HULL_LAYOUT],
+               device_launches_per_call=per_call, ms=time_ms(call),
+               device_ms=time_ms(call, lead=True),
+               plain_ms=time_ms(lambda: cuda_resolve.
+                                pullback_resolve_structured_plain(tags,
+                                                                  blocks)),
+               library_ms=time_ms(lambda: k1_library(tags, blocks)))
+    rec["bound_ms"], rec["bound_by"] = k1_bound(tags, blocks)
+    log(f"K1 ur5/02 (hull, n=6) times at B={BATCH}: wrapper "
+        f"{rec['ms']:.4f} ms (device alone {rec['device_ms']:.4f} ms), plain "
+        f"{rec['plain_ms']:.4f} ms, einsum+linalg.solve "
+        f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms "
+        f"({rec['bound_by']})")
+    neural, neural_err = phase_k1_randomized(device, NEURAL_CLUTTER,
+                                             "neural_clutter")
+    return dict(neural, **{"ur5/02 (hull)": rec}), max(err, neural_err)
+
+
+def _least_clearance(env, states) -> torch.Tensor:
+    """(B,) the least capsule distance of the arm to the scene's
+    obstacles."""
+    T_all = kinematics.fk_all(env.model, states.sim.q)
+    return collision.robot_obstacle_distances(
+        env.model, T_all, states.sim.obstacles)[3].amin(dim=(1, 2))
+
+
+def provoke_run(env, params, counted: bool):
+    """PROVOKE_TICKS ticks of `env` at BATCH envs from its reset, tick by
+    tick, with each env's least clearance to the cylinder after every tick
+    (a running minimum on the card, no wait). counted: every launch counter
+    zeroed just before and read after. -> (least (B,) on the CPU, the final
+    states, seconds, launches)."""
+    step = make_batched_control_step(env)
+    states = envs.make_batched_reset(env, BATCH)()
+    least = torch.full((BATCH,), float("inf"), device=states.sim.q.device)
+    torch.cuda.synchronize()
+    if counted:
+        for fn in COUNTERS.values():
+            fn.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(PROVOKE_TICKS):
+        states, _ = step(states, params)
+        least = torch.minimum(least, _least_clearance(env, states))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    return least.cpu(), states, seconds, launches
+
+
+def provoke_path(card: str, failed: list) -> tuple[dict, dict, dict]:
+    """franka/02 at BATCH identical envs x PROVOKE_TICKS ticks, with contact
+    (penalty forces in each of the 10 substeps) and as the contact-free
+    ghost: tests/test_contact.py's criterion on every env (the ghost's
+    least clearance below PROVOKE_GHOST_DEPTH, the contact run's at least
+    PROVOKE_MARGIN above it), q finite; K3 PROVOKE_K3_PER_TICK times per
+    contact tick, once per ghost tick, no other kernel ('pinv'); the
+    synchronizing calls of one contact tick; the contact tick's time (its
+    loop holds the clearance query too) and its 10-tick trace; K3 on the
+    contact run's final state against its plain version, timed beside its
+    bound. -> (launches, path record, K3 record)."""
+    what = f"{PROVOKE} (contact)"
+    env = envs.make(PROVOKE)
+    check(env.contact and env.resolve_method == "pinv",
+          f"{PROVOKE}: contact {env.contact}, '{env.resolve_method}'")
+    ghost = dataclasses.replace(env, contact=False)
+    params = env.gather_params()
+    warm = envs.make_batched_reset(env, BATCH)()
+    warm, _ = envs.make_batched_rollout(env, WARMUP_TICKS, with_aux=False)(
+        warm, params)
+    syncs = sync_free_tick(env, warm, params, what)
+    # torch.linalg.pinv's batched SVD checks cuSOLVER's info on the host:
+    # the 'pinv' resolve's one wait per tick, which no torch SVD avoids
+    pinv_line = next(i + 1 for i, line in enumerate(
+        inspect.getsource(core).splitlines()) if "torch.linalg.pinv(" in line)
+    svd = [x for x in syncs
+           if x.startswith(f"rmp_tpu_torch/core.py:{pinv_line} ")]
+    other = [x for x in syncs if x not in svd]
+    if other:
+        failed.append(f"{what}: synchronizing calls besides the 'pinv' "
+                      f"resolve's SVD: {other[:3]}")
+    least_ghost, _, ghost_s, ghost_launches = provoke_run(ghost, params,
+                                                          True)
+    least, final, seconds, launches = provoke_run(env, params, True)
+    tick_ms = seconds * 1e3 / PROVOKE_TICKS
+    log(f"{what}: {BATCH} envs x {PROVOKE_TICKS} ticks in {seconds:.3f} s = "
+        f"{tick_ms:.3f} ms per tick with the clearance query (the ghost: "
+        f"{ghost_s * 1e3 / PROVOKE_TICKS:.3f} ms) [{card}]")
+    log(f"{what} launches: {launches}; the ghost's: {ghost_launches}")
+    for counts, k3, run in ((launches, PROVOKE_K3_PER_TICK, "contact"),
+                            (ghost_launches, 1, "ghost")):
+        for name, count in counts.items():
+            want = (PROVOKE_TICKS * k3 if name == "fk_derivatives_batched"
+                    else 0)
+            check(count == want, f"{PROVOKE} ({run}): {name} launched "
+                  f"{count} times in {PROVOKE_TICKS} ticks, want {want}")
+    check(bool(torch.isfinite(final.sim.q).all()), f"{what}: non-finite q")
+    rec = dict(scene=PROVOKE, envs=BATCH, ticks=PROVOKE_TICKS,
+               seconds=seconds, tick_ms=tick_ms,
+               ghost_tick_ms=ghost_s * 1e3 / PROVOKE_TICKS,
+               control_steps_per_s=BATCH * PROVOKE_TICKS / seconds,
+               sync_calls_per_tick=len(syncs), sync_calls_svd=len(svd),
+               least_clearance_ghost=[float(least_ghost.min()),
+                                      float(least_ghost.max())],
+               least_clearance_contact=[float(least.min()),
+                                        float(least.max())])
+    log(f"{what} criterion: the ghost's least clearance "
+        f"{rec['least_clearance_ghost']} (below {PROVOKE_GHOST_DEPTH}), "
+        f"with contact {rec['least_clearance_contact']} (at least "
+        f"{PROVOKE_MARGIN} above the ghost's), [min, max] over the envs")
+    if not bool((least_ghost < PROVOKE_GHOST_DEPTH).all()):
+        failed.append(f"{what}: the ghost does not pierce the cylinder")
+    if not bool((least > least_ghost + PROVOKE_MARGIN).all()):
+        failed.append(f"{what}: contact does not hold the arm back")
+    # two ticks: a contact tick's ~15,000 launches make a 10-tick trace
+    # slow to process
+    rec["trace"] = profile_ticks(env, final, params, tick_ms, n_ticks=2)
+    log(f"{what} trace: {json.dumps(rec['trace'])}")
+
+    # K3 on the contact path's own inputs
+    model, q, qd = env.model, final.sim.q.contiguous(), final.sim.qd
+    got = cuda_fk.fk_derivatives_batched(model, q, qd)
+    want = fk_derivatives(model, q, qd)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    log(f"K3 on {PROVOKE}'s final state: max|kernel - plain| {err:.3e} "
+        f"(atol {K3_ATOL})")
+    check(err <= K3_ATOL, f"K3 on {PROVOKE}: disagrees with plain version")
+
+    def call():
+        return cuda_fk.fk_derivatives_batched(model, q, qd)
+    k3 = dict(max_abs_err=err, ms=time_ms(call),
+              device_ms=time_ms(call, lead=True),
+              plain_ms=time_ms(lambda: fk_derivatives(model, q, qd)),
+              library_ms=None)
+    k3["bound_ms"], k3["bound_by"] = k3_bound(model, BATCH)
+    return launches, rec, k3
+
+
+def provoke_parity(failed: list) -> dict:
+    """franka/02's GPU/CPU parity where contact acts: the CPU's ghost (one
+    env) PIERCE_TICKS ticks in, where it pierces the cylinder, copied to
+    CONTACT_PARITY envs moved by q ± 0.02, q̇ ± 0.05 (seeded), then
+    randomized_parity's screens over CONTACT_PARITY ticks with contact."""
+    B, ticks = CONTACT_PARITY
+    env = envs.make(PROVOKE, device="cpu")
+    ghost = dataclasses.replace(env, contact=False)
+    state = envs.make_batched_reset(ghost, 1)()
+    step = envs.make_control_step(ghost)
+    for _ in range(PIERCE_TICKS):
+        state, _ = step(state, ghost.gather_params())
+    rng = np.random.default_rng(PARITY_SEED)
+    start = envs.make_batched_reset(env, B)()
+    q = state.sim.q + torch.tensor(rng.uniform(-0.02, 0.02, (B, 9)),
+                                   dtype=torch.float32)
+    qd = state.sim.qd + torch.tensor(rng.uniform(-0.05, 0.05, (B, 9)),
+                                     dtype=torch.float32)
+    start = dataclasses.replace(start, sim=dataclasses.replace(
+        start.sim, q=q, qd=qd))
+    depth = float(-_least_clearance(env, start).min())
+    log(f"{PROVOKE} parity start: the ghost {PIERCE_TICKS} ticks in, the "
+        f"deepest of {B} moved envs {depth:.4f} m inside the cylinder")
+    return randomized_parity("capsule", failed, PROVOKE, B, ticks,
+                             start=start)
+
+
+def impulse_step(model, state):
+    """One physics step at IMPULSE_DT of the free-falling arm under impulse
+    contacts: the commanded q̈ is FD(q, q̇, 0), so the torque route's
+    τ = ID(q, q̇, q̈) is zero up to rounding (tests/test_contact.py:113's
+    collapse, through physics_step; line 148's zero q̈ in torque mode is
+    gravity-compensated and never falls)."""
+    fall = dynamics.forward_dynamics(model, state.q, state.qd,
+                                     torch.zeros_like(state.q))
+    return physics_step(model, state, fall, IMPULSE_DT, contact=True,
+                        contact_model="impulse")
+
+
+def impulse_on_card(failed: list, device) -> dict:
+    """The impulse contact model on the card. The collapsing arm
+    (impulse_step: zero torque, ground contact) at IMPULSE_B envs from the
+    ready pose leaned IMPULSE_LEAN forward and moved by q ± 0.2, at the
+    floor: IMPULSE_FALL substeps on the card, then IMPULSE_COMPARE
+    substeps on the card and on the CPU from the same state, at least a
+    quarter of the envs in contact. The projected Gauss-Seidel's 12 sweeps
+    leave λ short of convergence, so rounding moves q̇: each env's gap in
+    q and q̇ is held to max(IMPULSE_ATOL, IMPULSE_SPREAD x the larger move
+    of the CPU run from a start moved by one ulp and of a float64 run
+    (plain_kernels)). Then tests/test_contact.py's KKT check on the card:
+    its 12 random penetrating scenes (seed 3) in one batch, KKT_SWEEPS
+    sweeps with friction: λ_n >= 0, the regularised normal residual
+    >= -5e-3 and within 5e-3 of 0 where λ_n > 1e-6, |λ_t| <= μ λ_n +
+    1e-6."""
+    model = robots.franka_panda()
+    rng = np.random.default_rng(13)
+    q0 = robots.PANDA_Q_READY + rng.uniform(-0.2, 0.2, (IMPULSE_B, 9))
+    q0[:, 1] += IMPULSE_LEAN
+    q0 = torch.tensor(q0, dtype=torch.float32, device=device)
+    state = SimState(q=q0, qd=torch.zeros_like(q0),
+                     t=torch.zeros(IMPULSE_B, device=device))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(IMPULSE_FALL):
+        state = impulse_step(model, state)
+    torch.cuda.synchronize()
+    substep_ms = (time.perf_counter() - t0) * 1e3 / IMPULSE_FALL
+    cpu = _tree_map(lambda t: t.cpu() if isinstance(t, torch.Tensor) else t,
+                    state)
+    rows = contact.contact_rows(model, cpu.q, cpu.qd, None, True)
+    in_contact = int((rows[1] > 0).any(dim=1).sum())
+    up = torch.tensor(float("inf"))
+    runs = dict(card=state, cpu=cpu, float64=_as_dtype(cpu, torch.float64),
+                ulp=dataclasses.replace(cpu, q=torch.nextafter(cpu.q, up),
+                                        qd=torch.nextafter(cpu.qd, up)))
+    for _ in range(IMPULSE_COMPARE):
+        for key in ("card", "cpu", "ulp"):
+            runs[key] = impulse_step(model, runs[key])
+        with plain_kernels(float64=True):
+            runs["float64"] = impulse_step(model, runs["float64"])
+
+    def gap(key):                                 # (B,) against the CPU
+        r, c = runs[key], runs["cpu"]
+        return torch.maximum(
+            (r.q.cpu().double() - c.q.double()).abs().amax(dim=1),
+            (r.qd.cpu().double() - c.qd.double()).abs().amax(dim=1))
+    card, move = gap("card"), torch.maximum(gap("ulp"), gap("float64"))
+    limit = torch.clamp(IMPULSE_SPREAD * move, min=IMPULSE_ATOL)
+    T_all = kinematics.fk_all(model, runs["cpu"].q)
+    p0, p1, radius, _ = collision.link_world_capsules_all(model, T_all)
+    clearance = float((torch.minimum(p0[..., 2], p1[..., 2]) - radius).min())
+    rec = dict(envs=IMPULSE_B, substeps=IMPULSE_FALL + IMPULSE_COMPARE,
+               substep_ms=substep_ms, envs_in_contact=in_contact,
+               max_card_vs_cpu=float(card.max()),
+               max_rounding_move=float(move.max()),
+               envs_within_atol=int((card <= IMPULSE_ATOL).sum()),
+               envs_over_limit=int((card > limit).sum()),
+               max_qd=float(runs["cpu"].qd.abs().max()),
+               least_ground_clearance=clearance)
+    log(f"impulse contacts, collapsing arm: {json.dumps(rec)} (each env "
+        f"within max({IMPULSE_ATOL}, {IMPULSE_SPREAD} x its rounding move) "
+        f"after {IMPULSE_COMPARE} substeps)")
+    if in_contact < IMPULSE_B // 4:
+        failed.append(f"impulse collapse: {in_contact} envs in contact")
+    if rec["envs_over_limit"]:
+        failed.append(f"impulse collapse: card against CPU {rec}")
+
+    # the KKT certificate of tests/test_contact.py's scenes
+    rng = np.random.default_rng(3)
+    draws = [(rng.uniform(-1.2, 1.2, 9), rng.uniform(-1.0, 1.0, 9),
+              rng.uniform([-0.4, -0.4, 0.0], [0.6, 0.4, 0.8]),
+              rng.uniform(0.1, 0.25)) for _ in range(12)]
+
+    def f32(x):
+        return torch.tensor(np.asarray(x), dtype=torch.float32,
+                            device=device)
+    q, qd = f32([d[0] for d in draws]), f32([d[1] for d in draws])
+    c = f32([d[2] for d in draws])[:, None]
+    obs = collision.ObstacleSet(c, c, f32([d[3] for d in draws])[:, None])
+    mu, dt, cfm = 0.5, 0.01, 1e-3
+    J_n, depth, *_ = contact.contact_rows(model, q, qd, obs, True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qd_post, lam = contact.impulse_contact_velocity(
+        model, q, qd, dt, obstacles=obs, friction=mu, iterations=KKT_SWEEPS,
+        cfm=cfm, return_impulses=True)
+    torch.cuda.synchronize()
+    kkt_s = time.perf_counter() - t0
+    C = depth.shape[1]
+    J_n, depth, lam, qd_post = (x.double().cpu() for x in
+                                (J_n, depth, lam, qd_post))
+    lam_n, lam_t = lam[:, :C], lam[:, C:].reshape(-1, C, 2)
+    resid = (torch.einsum("bcn,bn->bc", J_n, qd_post)
+             - 0.2 * torch.clamp(depth - 1e-3, min=0.0) / dt + cfm * lam_n)
+    act = depth > 0
+    pushing = act & (lam_n > 1e-6)
+    kkt = dict(scenes=int(act.any(dim=1).sum()), seconds=kkt_s,
+               least_normal_impulse=float(lam_n[act].min()),
+               least_residual=float(resid[act].min()),
+               complementarity=float(resid[pushing].abs().max()),
+               coulomb_excess=float((lam_t.abs().amax(dim=-1)
+                                     - mu * lam_n)[act].max()))
+    log(f"impulse KKT on the card ({KKT_SWEEPS} sweeps, 12 scenes in one "
+        f"batch): {json.dumps(kkt)}")
+    if (kkt["scenes"] < 3 or kkt["least_normal_impulse"] < 0
+            or kkt["least_residual"] < -5e-3 or kkt["complementarity"] > 5e-3
+            or kkt["coulomb_excess"] > 1e-6):
+        failed.append(f"impulse KKT on the card: {kkt}")
+    return dict(collapse=rec, kkt=kkt)
+
+
+def neural_reach_path(card: str, scene: str, failed: list
+                      ) -> tuple[dict, dict]:
+    """A learned reach scene: phase_main_path's BATCH x TICKS rollout (K3
+    once per tick, 'cholesky', no other kernel) and its trace, then
+    tests/test_neural.py's criterion on all BATCH envs of another reset
+    (seed 7): the mean EE-goal distance (in x and y on the two-joint robot)
+    after its ticks under its bound."""
+    launches, rec = phase_main_path(card, "capsule", scene, method=None)
+    ticks, bound, xy = NEURAL_REACH[scene]
+    env = envs.make(scene)
+    final, aux = envs.make_batched_rollout(env, ticks)(
+        envs.make_batched_reset(env, BATCH, 7)(), env.gather_params())
+    axes = slice(0, 2) if xy else slice(0, 3)
+    d = torch.linalg.vector_norm(aux["ee"][:, -1, axes]
+                                 - final.sim.goal[:, axes], dim=-1)
+    rec["criterion"] = dict(ticks=ticks, envs=BATCH,
+                            mean_final_distance=float(d.mean()), bound=bound,
+                            solved_share=float(final.solved_count.float()
+                                               .mean()),
+                            finite=bool(torch.isfinite(d).all()))
+    log(f"{scene} trained criterion: {json.dumps(rec['criterion'])}")
+    if not (rec["criterion"]["finite"]
+            and rec["criterion"]["mean_final_distance"] < bound):
+        failed.append(f"{scene}: trained criterion {rec['criterion']}")
+    return launches, rec
+
+
+def phase_slice10(card: str, device) -> dict:
+    """Phase 16: K4 on the two-joint robot's and the UR5's hull tables, K1
+    on ur5/02's hull tick and franka/neural_clutter's tick, franka/02 with
+    contact and as the ghost at 4096 envs, the impulse model on the card,
+    the hull-tier rollouts of two_joint/05, its variant and ur5/02, the
+    learned scenes' rollouts with their criteria and statistics, and GPU/CPU
+    parity of every new scene behind the screens. Every part runs before
+    the criteria's, statistics' and parities' checks."""
+    times = {}
+    t0 = time.perf_counter()
+    k4 = phase_k4_models()
+    k1, k1_err = phase_k1_slice10(device)
+    times["kernels"] = time.perf_counter() - t0
+    failed: list = []
+    t0 = time.perf_counter()
+    provoke_launches, provoke, k3 = provoke_path(card, failed)
+    paths = {PROVOKE: (provoke_launches, provoke)}
+    impulse = impulse_on_card(failed, device)
+    times["contact"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for scene in HULL_MODEL_SCENES:
+        paths[f"{scene} (hull)"] = phase_main_path(card, "hull", scene,
+                                                   method=None)
+    times["hull"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for scene in NEURAL_REACH:
+        paths[scene] = neural_reach_path(card, scene, failed)
+    paths[NEURAL_CLUTTER] = randomized_path(card, "capsule", failed,
+                                            scene=NEURAL_CLUTTER,
+                                            reports=NEURAL_REPORTS)
+    times["neural"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parity = {PROVOKE: provoke_parity(failed)}
+    for scene in HULL_MODEL_SCENES:
+        parity[f"{scene} (hull)"] = randomized_parity(
+            "hull", failed, scene, *HULL_MODEL_PARITY, spread=(0.1, 0.05))
+    for scene, (B, ticks) in NEURAL_PARITY.items():
+        parity[scene] = randomized_parity("capsule", failed, scene, B, ticks)
+    times["parity"] = time.perf_counter() - t0
+    log(f"phase 16 parts (s): {json.dumps(times)}")
+    check(not failed, "; ".join(failed))
+    return dict(k4=k4, k1=k1, k1_err=k1_err, k3=k3, paths=paths,
+                impulse=impulse, parity=parity, seconds=times)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2930,6 +3437,10 @@ def main() -> int:
     slice9 = phase_slice9(card, device)
     slice9_s = time.perf_counter() - t0
     log(f"phase 15: {slice9_s:.1f} s")
+    t0 = time.perf_counter()
+    slice10 = phase_slice10(card, device)
+    slice10_s = time.perf_counter() - t0
+    log(f"phase 16: {slice10_s:.1f} s")
 
     k1["per_layout"] = dict(flagship=dict(n=9, ms=k1["ms"],
                                           device_ms=k1["device_ms"]),
@@ -2968,21 +3479,52 @@ def main() -> int:
     k1["dual"] = k3["dual"] = False
     path_launches = {"capsule": launches, "hull": hull_launches}
     for paths in (slice6["paths"], slice7["paths"], slice8["paths"],
-                  slice9["paths"]):
+                  slice9["paths"], slice10["paths"]):
         path_launches.update((scene, counts) for scene, (counts, _) in
                              paths.items())
-    kernels = [k1, k2a, k2b, k3, k4, k5, k1_dual, k3_dual]
+    # the tenth slice's entries: each kernel on its new path, with that
+    # path's launch count
+    k3_contact = dict(name=f"fk_derivatives_batched ({PROVOKE} contact)",
+                      route="cuda",
+                      source="rmp_tpu_torch/csrc/fk_derivatives.cu",
+                      replaces="rmp_tpu/ops/pallas_fk.py:218",
+                      counter=k3["name"], path=PROVOKE, **slice10["k3"])
+    k1_neural = dict(name=f"pullback_resolve_structured ({NEURAL_CLUTTER})",
+                     route="cuda",
+                     source="rmp_tpu_torch/csrc/pullback_resolve.cu",
+                     replaces="rmp_tpu/ops/pallas_resolve.py:226",
+                     counter=k1["name"], path=NEURAL_CLUTTER,
+                     max_abs_err=slice10["k1_err"],
+                     per_layout=slice10["k1"],
+                     **{k: slice10["k1"]["neural_clutter"][k] for k in
+                        ("ms", "device_ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms",
+                         "device_launches_per_call")})
+    k4_models = [dict(name=f"gjk_hull_obstacles ({rec['table']} table)",
+                      route="cuda", source="rmp_tpu_torch/csrc/gjk_hull.cu",
+                      replaces="rmp_tpu/ops/pallas_gjk.py:318",
+                      counter=k4["name"], path=f"{scene} (hull)",
+                      max_abs_err=rec["dist_max"], library_ms=None,
+                      operands=rec, **{k: rec[k] for k in
+                                       ("ms", "device_ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "device_launches_per_call")})
+                 for scene, rec in slice10["k4"].items()]
+    kernels = [k1, k2a, k2b, k3, k4, k5, k1_dual, k3_dual, k3_contact,
+               k1_neural] + k4_models
     for rec in kernels:
         # each kernel's count from the paths that run it (K2a/K2b, K5:
         # none); K1 and K3 on the dual-arm Panda (n = 18, F = 26) apart
-        # from their single-arm entries
+        # from their single-arm entries; a tenth-slice entry from its path
         counter = rec.pop("counter", rec["name"])
         dual = rec.pop("dual", None)
-        own = {p: c for p, c in path_launches.items()
-               if dual is None or ("dual_panda" in p) == dual}
+        path = rec.pop("path", None)
+        own = ({path: path_launches[path]} if path is not None else
+               {p: c for p, c in path_launches.items()
+                if dual is None or ("dual_panda" in p) == dual})
         rec["launches"] = max(c[counter] for c in own.values())
-        for path, counts in own.items():
-            rec[f"launches_{path}_path"] = counts[counter]
+        for name, counts in own.items():
+            rec[f"launches_{name}_path"] = counts[counter]
     record = dict(card=card, torch=torch.__version__, build_s=build_s,
                   kernels=kernels, main_path=main_path, hull_path=hull_path,
                   parity=parity, hull_parity=hull_parity,
@@ -3004,7 +3546,12 @@ def main() -> int:
                   slice9_paths={scene: path for scene, (_, path) in
                                 slice9["paths"].items()},
                   slice9_parity=slice9["parity"],
-                  dual_golden=slice9["golden"], phase15_s=slice9_s)
+                  dual_golden=slice9["golden"], phase15_s=slice9_s,
+                  slice10_paths={scene: path for scene, (_, path) in
+                                 slice10["paths"].items()},
+                  slice10_parity=slice10["parity"],
+                  impulse=slice10["impulse"],
+                  phase16_parts_s=slice10["seconds"], phase16_s=slice10_s)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -1,8 +1,10 @@
-"""Carry policy parameters and rollout state across from numpy.
+"""Carry policy parameters, learned weights and rollout state across from
+numpy.
 
-The scenes have no learned weights; these two functions are how the same
-inputs reach both packages: the JAX package's pytrees, mapped to numpy
-arrays (`jax.tree.map(np.asarray, ...)`), become the port's tensors.
+These functions are how the same inputs reach both packages: the JAX
+package's pytrees, mapped to numpy arrays (`jax.tree.map(np.asarray,
+...)`), and the committed weight files (numpy arrays 'w0', 'b0', ...)
+become the port's tensors.
 """
 from __future__ import annotations
 
@@ -14,14 +16,25 @@ from rmp_tpu_torch.sim.collision import ObstacleSet
 from rmp_tpu_torch.sim.world import SimState
 
 
+def net_from_numpy(net, device) -> dict:
+    """An MLP's weights {'w0': (n_in, n_out), 'b0': (n_out,), ...} as
+    float32 tensors on `device`, from a dict of arrays or an opened .npz."""
+    return {k: torch.tensor(np.asarray(net[k]), dtype=torch.float32,
+                            device=device) for k in net.keys()}
+
+
 def params_from_numpy(params, device) -> tuple:
     """Per-policy param dicts: 0-d entries become Python floats (scalar
     gains), arrays float32 tensors on `device` (goals, the v1 joint limits
-    and preferred configuration)."""
+    and preferred configuration), and a nested dict (a learned leaf's
+    'net') net_from_numpy's tensors."""
     out = []
     for prm in params:
         converted = {}
         for k, v in prm.items():
+            if isinstance(v, dict):
+                converted[k] = net_from_numpy(v, device)
+                continue
             a = np.asarray(v)
             converted[k] = (float(a) if a.ndim == 0 else
                             torch.tensor(a, dtype=torch.float32,

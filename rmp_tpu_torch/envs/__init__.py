@@ -1,7 +1,9 @@
-"""Scene registry: the ported scenes of the JAX package's registry."""
+"""Scene registry: the 23 scenes of the JAX package's registry, under the
+same names."""
 from rmp_tpu_torch import default_device
 from rmp_tpu_torch.envs import (base, cameras, dual, franka,  # noqa: F401
-                                maneuver, two_joint, ur5)
+                                maneuver, neural_clutter, neural_reach,
+                                two_joint, ur5)
 from rmp_tpu_torch.envs.base import (Env, EnvState, env_state,  # noqa: F401
                                      make_batched_control_step,
                                      make_batched_reset, make_batched_rollout,
@@ -16,7 +18,11 @@ REGISTRY = {
     "two_joint/05_obstacle_avoidance": two_joint.env_05_obstacle_avoidance,
     "two_joint/05_obstacle_avoidance_variant":
         two_joint.env_05_obstacle_avoidance_variant,
+    "two_joint/neural_reach": neural_reach.env_neural_reach,
+    "franka/neural_reach": neural_reach.env_neural_reach_franka,
+    "franka/neural_clutter": neural_clutter.env_neural_clutter,
     "franka/01_target_rmp_only": franka.env_01_target_rmp_only,
+    "franka/02_provoke_collision": franka.env_02_provoke_collision,
     "franka/03_self_avoidance": franka.env_03_self_avoidance,
     "franka/04_nullspace_control": franka.env_04_nullspace_control,
     "franka/05_obstacle_avoidance": franka.env_05_obstacle_avoidance,

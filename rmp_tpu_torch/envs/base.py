@@ -7,9 +7,10 @@ builds the structured per-policy pullback blocks, resolves the whole batch
 at once (K1 for resolve_method 'solve'; einsum accumulation + core.resolve
 for 'pinv' and 'cholesky'), applies the scene's update_scene, then runs
 `control_every` integrator substeps with the latched q̈ (realised exactly,
-or through the torque path with Env.torque_mode) and the in-graph goal
-bookkeeping. A rollout is a Python loop over ticks. In the hull tier a
-batch of a multiple of 128 envs carries the GJK warm start
+or through the torque path with Env.torque_mode or Env.contact, the latter
+adding penalty contact forces) and the in-graph goal bookkeeping. A rollout
+is a Python loop over ticks. In the hull tier a batch of a multiple of 128
+envs carries the GJK warm start
 (EnvState.gjk_warm) from tick to tick, seeded by one cold query at reset.
 make_control_step / make_rollout take the same batched state with the JAX
 package's per-env semantics: evaluate_policies and core.resolve (never
@@ -164,6 +165,12 @@ class Env:
     # goal_distance_fn(env, sim) -> (B,) distance of the progress window;
     # None: |EE - goal|
     goal_distance_fn: Callable | None = None
+    # contact dynamics each substep (sim/contact.py): penalty forces at
+    # the penetrating closest points, through the torque-level step
+    contact: bool = False
+    # aux_fn(model, sim) -> dict merged into the tick's aux after the
+    # substeps (the per-pair clearances a training loss reads)
+    aux_fn: Callable | None = None
 
     def gather_params(self) -> tuple:
         return tuple(p.params for p in self.policies)
@@ -325,7 +332,8 @@ def _advance(env: Env, state: EnvState, qdd: torch.Tensor):
     for _ in range(env.control_every):
         sim = physics_step(model, sim, qdd, env.dt,
                            torque_mode=env.torque_mode,
-                           enforce_velocity_limits=env.enforce_velocity_limits)
+                           enforce_velocity_limits=env.enforce_velocity_limits,
+                           contact=env.contact)
 
     state = dataclasses.replace(state, sim=sim, steps=state.steps + 1)
     ee = None
@@ -365,6 +373,8 @@ def _advance(env: Env, state: EnvState, qdd: torch.Tensor):
         state = dataclasses.replace(
             state, solved_count=torch.maximum(state.solved_count, solved_i))
     aux = dict(solved=solved, qdd=qdd, ee=ee)
+    if env.aux_fn is not None:
+        aux.update(env.aux_fn(model, sim))
     if env.on_solved is not None:
         # the ticks where on_solved fired (a goal reached or a stuck env)
         aux["resample"] = event

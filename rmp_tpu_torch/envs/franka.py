@@ -1,18 +1,20 @@
-"""Franka Panda scenes: 01_target_rmp_only, 03_self_avoidance,
-04_nullspace_control, 05_obstacle_avoidance, the flagship
-06_cluttered_environment, pose_target, moving_goal, moving_obstacles and
-randomized_cluttered.
+"""Franka Panda scenes: 01_target_rmp_only, 02_provoke_collision,
+03_self_avoidance, 04_nullspace_control, 05_obstacle_avoidance, the
+flagship 06_cluttered_environment, pose_target, moving_goal,
+moving_obstacles and randomized_cluttered.
 
-The port's part of `rmp_tpu/envs/franka.py`: scene 01's lone v1 target with
-uniform goal resampling; scene 03's per-frame self-avoidance fed by a
-batched context_fn; scene 04's c-space bias from an IK start; the v2 policy
-stack, the obstacle policies (one grouped policy over all 10 collision
-frames x the scene's obstacles, or one per frame), the seven cylinders and
-six sequential goals of scene 06, the one tilted cylinder of scene 05; the
-orientation hold of pose_target; the two scenes moved by update_scene,
-a goal on a circle and the cluttered scene's cylinders swaying; and the
-domain-randomized scene with its escape maneuvers, final push and stall
-timeout (pre_tick, a state-aware bind, stuck_fn).
+The port's `rmp_tpu/envs/franka.py`: scene 01's lone v1 target with
+uniform goal resampling; scene 02's target through a cylinder with no
+obstacle policy, blocked by contact forces; scene 03's per-frame
+self-avoidance fed by a batched context_fn; scene 04's c-space bias from an
+IK start; the v2 policy stack, the obstacle policies (one grouped policy
+over all 10 collision frames x the scene's obstacles, or one per frame),
+the seven cylinders and six sequential goals of scene 06, the one tilted
+cylinder of scene 05; the orientation hold of pose_target; the two scenes
+moved by update_scene, a goal on a circle and the cluttered scene's
+cylinders swaying; and the domain-randomized scene with its escape
+maneuvers, final push and stall timeout (pre_tick, a state-aware bind,
+stuck_fn).
 """
 from __future__ import annotations
 
@@ -66,6 +68,31 @@ def env_01_target_rmp_only(device) -> Env:
                device=device, bind_params=bind_goal(("target", "attractor")),
                on_solved=resample_goal([0.3, -0.7, 0.3], [0.7, 0.7, 0.7],
                                        device))
+
+
+def env_02_provoke_collision(device, contact: bool = True) -> Env:
+    """Failure probe: a v1 target straight through a cylinder of radius
+    0.05, with no obstacle policy. With contact (the default) the penalty
+    contact forces of every physics substep block the arm (sim/contact.py)
+    instead of letting it pass through. Resolved by 'pinv', so K1 is not
+    on its path; K3 runs once for the policies and once per substep."""
+    device = torch.device(device)
+    model = robots.franka_panda()
+    goal = [0.0, -0.5, 0.5]
+    policies = (v1.target_policy(goal=goal, taskmap=_ee_pos_taskmap(model),
+                                 alpha=0.1, beta=0.5, c=0.1, name="target",
+                                 device=device),)
+    obstacle = cylinder_obstacle([0.3, -0.3, 0.5], [0.2, 0.0, 0.0],
+                                 radius=0.05, height=0.3, device=device)
+
+    def reset(batch: int, seed: int = 0) -> EnvState:
+        return env_state(init_state(model, batch, device, q=Q_READY,
+                                    obstacles=obstacle, goal=goal), seed)
+
+    return Env(name="franka/02_provoke_collision", model=model,
+               policies=policies, reset=reset, ee_frame=model.frame_index(EE),
+               device=device, bind_params=bind_goal(("target", "attractor")),
+               contact=contact, max_qdd=200.0)
 
 
 def self_pair_context(model, T_all: torch.Tensor, pairs, rows: dict,

@@ -15,7 +15,7 @@ of `sim/collision.robot_self_distances_hull`). Every function broadcasts
 over leading axes.
 
 `support_hull` is forward only: the envelope derivative of the JAX
-package's `custom_jvp` and `support_sphere` are not ported yet.
+package's `custom_jvp` is not ported yet.
 """
 from __future__ import annotations
 
@@ -210,6 +210,14 @@ def support_cylinder_unit(p0: torch.Tensor, p1: torch.Tensor,
     inv_p = 1.0 / (torch.sqrt(dot3(d_perp, d_perp)) + _EPS)
     end = torch.where((d_ax > 0)[..., None], p1, p0)
     return end + r[..., None] * (inv_p[..., None] * d_perp)
+
+
+def support_sphere(c: torch.Tensor, r: torch.Tensor,
+                   d: torch.Tensor) -> torch.Tensor:
+    """Ball of centre c (..., 3) and radius r (...,): support in direction
+    d, c + r d / (|d| + 1e-12), as the JAX package divides."""
+    dn = d / (torch.linalg.vector_norm(d, dim=-1, keepdim=True) + _EPS)
+    return c + r[..., None] * dn
 
 
 def support_obstacle(p0, p1, an, r, is_cyl, d) -> torch.Tensor:

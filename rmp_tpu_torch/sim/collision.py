@@ -365,6 +365,21 @@ def robot_obstacle_distances_hull_batched(model: KinematicModel,
             out_pb - out_pa)
 
 
+def robot_obstacle_distances_hull(model: KinematicModel,
+                                  T_all: torch.Tensor,
+                                  obstacles: ObstacleSet, iters: int = 10):
+    """Exact-hull closest points with the JAX package's per-env contract
+    (rmp_tpu's function of the same name), batched: T_all (B, F, 4, 4),
+    obstacles (B, K, ...) -> (pos_on_link, pos_on_obstacle, normal)
+    (B, L, K, 3) and distance (B, L, K). Every (link, obstacle) pair runs
+    `iters` cold GJK iterations through K4, started from the capsule
+    witness direction (the centroid difference where it is degenerate);
+    at a hull clearance of 0.5 mm or less the capsule result answers, with
+    distance min(capsule, hull). Raises for a robot without a hull table."""
+    return robot_obstacle_distances_hull_batched(
+        model, T_all, obstacles, iters=iters, top_m=obstacles.count)[:4]
+
+
 def self_collision_pairs(model: KinematicModel, n_neighbors: int = 3,
                          exclude_below: float | None = None, q_ref=None):
     """Static (frame_a, frame_b) pairs of collision frames at least

@@ -15,7 +15,7 @@ from rmp_tpu_torch.models.kinematics import frame_indices
 from rmp_tpu_torch.models.urdf import KinematicModel
 from rmp_tpu_torch.ops import geom
 from rmp_tpu_torch.sim.collision import (
-    ObstacleSet, robot_obstacle_distances,
+    ObstacleSet, robot_obstacle_distances, robot_obstacle_distances_hull,
     robot_obstacle_distances_hull_batched)
 
 PAIRS_KEY = "__pairs__"
@@ -31,9 +31,8 @@ def distance_context(model: KinematicModel, T_all: torch.Tensor,
     geometry 'capsule' (fitted multi-capsule links) or 'hull' with the JAX
     package's per-env semantics: every pair, cold, 10 GJK iterations."""
     if geometry == "hull":
-        query = robot_obstacle_distances_hull_batched(
-            model, T_all, obstacles, iters=COLD_ITERS,
-            top_m=obstacles.count)[:4]
+        query = robot_obstacle_distances_hull(model, T_all, obstacles,
+                                              iters=COLD_ITERS)
     elif geometry == "capsule":
         query = robot_obstacle_distances(model, T_all, obstacles)
     else:

@@ -10,8 +10,9 @@ The port's `rmp_tpu/sim/dynamics.py`:
                      the n columns as one more batch axis
   mass_matrix_crba   the Composite Rigid Body Algorithm, an independent
                      cross-check
-  forward_dynamics   q̈ = (M + 1e-6 I)⁻¹ (τ - h), by torch.linalg.solve (the
-                     JAX package calls jnp.linalg.solve outside any kernel)
+  forward_dynamics   q̈ = (M + 1e-6 I)⁻¹ (τ - h), by torch.linalg.solve_ex
+                     (the JAX package calls jnp.linalg.solve outside any
+                     kernel)
   semi_implicit_euler_step  PyBullet's integrator, velocity then position
 
 Every function takes q, q̇, q̈ or τ with any leading batch axes (..., n).
@@ -42,6 +43,20 @@ def _per_frame(model: KinematicModel, v: torch.Tensor) -> torch.Tensor:
         ..., c["q_gather"]]
 
 
+_GRAVITY: dict[tuple, torch.Tensor] = {}
+
+
+def _gravity(device, dtype) -> torch.Tensor:
+    """GRAVITY as a tensor on `device`, built once per (device, dtype): a
+    copy from the host each call would wait on the device."""
+    key = (str(device), dtype)
+    g = _GRAVITY.get(key)
+    if g is None:
+        g = _GRAVITY[key] = torch.as_tensor(GRAVITY, dtype=dtype,
+                                            device=device)
+    return g
+
+
 def inverse_dynamics(model: KinematicModel, q: torch.Tensor,
                      qd: torch.Tensor, qdd: torch.Tensor,
                      gravity=None) -> torch.Tensor:
@@ -50,8 +65,8 @@ def inverse_dynamics(model: KinematicModel, q: torch.Tensor,
     Fixed joints pass velocities and forces on and add no DOF. gravity:
     (3,) or (..., 3), default GRAVITY."""
     c = model_constants(model, q.device, q.dtype)
-    g = torch.as_tensor(GRAVITY if gravity is None else gravity,
-                        dtype=q.dtype, device=q.device)
+    g = (_gravity(q.device, q.dtype) if gravity is None else
+         torch.as_tensor(gravity, dtype=q.dtype, device=q.device))
     batch = q.shape[:-1]
     F = model.n_frames
     T_local = joint_transforms(model, q)                      # (..., F, 4, 4)
@@ -187,7 +202,9 @@ def forward_dynamics(model: KinematicModel, q: torch.Tensor,
     M = mass_matrix(model, q)
     M = M + 1e-6 * torch.eye(model.n_q, dtype=q.dtype, device=q.device)
     h = bias_forces(model, q, qd, gravity)
-    return torch.linalg.solve(M, tau - h)
+    # solve_ex: the LU of torch.linalg.solve without its error check, which
+    # would wait on the device every call
+    return torch.linalg.solve_ex(M, tau - h)[0]
 
 
 def semi_implicit_euler_step(model: KinematicModel, q: torch.Tensor,

@@ -1,11 +1,12 @@
 """Simulation world state, physics step and sensing, batched.
 
 The port's `rmp_tpu/sim/world.py`: the functional core, `physics_step` (the
-commanded acceleration realised exactly, or through the torque path; no
-contact yet) and `sense`, and the imperative `Simulation` wrapper with the
-reference's surface (connect / populate_scene / state / step / reset), a
-batch of one on the card unless the caller asks for the CPU. Animation
-capture is not ported (ROADMAP M17)."""
+commanded acceleration realised exactly, or through the torque path, with
+penalty or impulse contacts on request) and `sense`, and the imperative
+`Simulation` wrapper with the reference's surface (connect /
+populate_scene / state / step / reset), a batch of one on the card unless
+the caller asks for the CPU. Animation capture is not ported (ROADMAP
+M17)."""
 from __future__ import annotations
 
 import dataclasses
@@ -58,24 +59,54 @@ def init_state(model: KinematicModel, batch: int, device, q=None,
 
 def physics_step(model: KinematicModel, state: SimState, qdd: torch.Tensor,
                  dt: float, torque_mode: bool = False,
-                 enforce_velocity_limits: bool = False) -> SimState:
+                 enforce_limits: bool = True,
+                 enforce_velocity_limits: bool = False,
+                 contact: bool = False, contact_params=None,
+                 contact_model: str = "penalty") -> SimState:
     """One physics step at dt.
 
     By default the commanded acceleration is realised exactly: the
     reference's inverse-dynamics torques followed by exact forward
-    dynamics, which cancel in contact-free motion. torque_mode routes it
-    through the torque level, τ = clip(ID(q, q̇, q̈), ±effort) and
-    q̈ = FD(q, q̇, τ), where effort limits bite. enforce_velocity_limits
-    clamps q̇ to the URDF velocity limits (dynamics.semi_implicit_euler_step)."""
-    if torque_mode:
+    dynamics, which cancel in contact-free motion. torque_mode (and
+    contact) route it through the torque level, τ = clip(ID(q, q̇, q̈),
+    ±effort) and q̈ = FD(q, q̇, τ), where effort limits bite.
+    enforce_limits clamps q to the joint limits and zeroes the outward q̇
+    there; enforce_velocity_limits clamps q̇ to the URDF velocity limits
+    (dynamics.semi_implicit_euler_step).
+
+    contact: with contact_model 'penalty' the penalty torques of
+    sim/contact.contact_torques (contact_params, default ContactParams())
+    join τ; with 'impulse' the integrated q̇ is resolved by
+    contact.impulse_contact_velocity, q re-integrated from the step's
+    start as q + q̇ dt and, with enforce_limits, clamped again."""
+    if torque_mode or contact:
         effort = K.model_constants(model, qdd.device, qdd.dtype)[
             "effort_limit"]
         tau = dynamics.inverse_dynamics(model, state.q, state.qd, qdd)
         tau = torch.clamp(tau, -effort, effort)
+        if contact and contact_model == "penalty":
+            from rmp_tpu_torch.sim.contact import (ContactParams,
+                                                   contact_torques)
+            tau = tau + contact_torques(model, state.q, state.qd,
+                                        state.obstacles,
+                                        contact_params or ContactParams())
         qdd = dynamics.forward_dynamics(model, state.q, state.qd, tau)
     q, qd = dynamics.semi_implicit_euler_step(
-        model, state.q, state.qd, qdd, dt,
-        enforce_velocity_limits=enforce_velocity_limits)
+        model, state.q, state.qd, qdd, dt, enforce_limits,
+        enforce_velocity_limits)
+    if contact and contact_model == "impulse":
+        from rmp_tpu_torch.sim.contact import impulse_contact_velocity
+        qd = impulse_contact_velocity(model, state.q, qd, dt,
+                                      obstacles=state.obstacles)
+        q = state.q + qd * dt
+        if enforce_limits:
+            c = K.model_constants(model, q.device, q.dtype)
+            low, high = c["q_lower"], c["q_upper"]
+            below, above = q < low, q > high
+            q = torch.clamp(q, low, high)
+            zero = torch.zeros_like(qd)
+            qd = torch.where(below & (qd < 0), zero, qd)
+            qd = torch.where(above & (qd > 0), zero, qd)
     return dataclasses.replace(state, q=q, qd=qd, t=state.t + dt)
 
 

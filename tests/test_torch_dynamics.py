@@ -159,14 +159,17 @@ def test_robot_constants_equal_jax():
 
 
 def test_pybullet_collision_inertia_matches_jax():
-    """The Panda from its hull asset, field by field; the UR5, whose
-    synthetic hulls the port does not have yet, raises without hulls and
-    matches JAX when handed the JAX package's."""
+    """The Panda from its hull asset, field by field; the UR5 from its
+    synthetic hulls (ported since the tenth slice) and when handed the JAX
+    package's; a robot without a hull table raises."""
     _assert_model_equal(urdf.pybullet_collision_inertia(robots.franka_panda()),
                         jurdf.pybullet_collision_inertia(
                             jrobots.franka_panda()))
+    _assert_model_equal(urdf.pybullet_collision_inertia(robots.ur5()),
+                        jurdf.pybullet_collision_inertia(jrobots.ur5()))
+    unknown = dataclasses.replace(robots.ur5(), name="UR5-unknown")
     with pytest.raises(ValueError, match="no hull asset"):
-        urdf.pybullet_collision_inertia(robots.ur5())
+        urdf.pybullet_collision_inertia(unknown)
     verts = np.asarray(jhulls.hulls_for(jrobots.ur5()))
     _assert_model_equal(
         urdf.pybullet_collision_inertia(robots.ur5(), hull_verts=verts),

@@ -374,16 +374,21 @@ def test_per_frame_obstacle_policies_match_grouped_and_jax():
 
 def test_registry_holds_sixteen_scenes_on_the_card_by_default(monkeypatch):
     """The registry's scenes: the 16 of the seventh slice, the five new
-    ones among them, since the eighth franka/randomized_cluttered and since
-    the ninth the two dual-arm scenes, 19 of the JAX package's 23;
-    envs.make builds a scene on the GPU unless device='cpu' is passed, and
-    raises without one (franka/04's IK runs on the scene's device)."""
-    assert len(envs.REGISTRY) == 19
+    ones among them, since the eighth franka/randomized_cluttered, since
+    the ninth the two dual-arm scenes and since the tenth franka/02 and the
+    three learned-policy scenes: all 23 of the JAX package's, under the
+    same names. envs.make builds a scene on the GPU unless device='cpu' is
+    passed, and raises without one (franka/04's IK runs on the scene's
+    device, the learned scenes load their weights onto it)."""
+    assert len(envs.REGISTRY) == 23
     assert set(SCENES7) <= set(envs.REGISTRY)
-    assert set(envs.REGISTRY) <= set(jenvs.REGISTRY)
+    assert set(envs.REGISTRY) == set(jenvs.REGISTRY)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for name in SCENES7 + ("franka/randomized_cluttered",
                            "dual_panda/handover",
-                           "dual_panda/randomized_clutter"):
+                           "dual_panda/randomized_clutter",
+                           "franka/02_provoke_collision",
+                           "two_joint/neural_reach", "franka/neural_reach",
+                           "franka/neural_clutter"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             envs.make(name)
