@@ -129,7 +129,8 @@ printing the result line:
      the task statistics held against reports/eval_randomized.json and
      reports/eval_randomized_hull.json within 3 sigma of the difference of
      two 4096-env samples, nan_rate 0; each with its 10-tick trace; GPU/CPU
-     parity, 128 envs of one CPU reset moved to the card, 60 ticks, per
+     parity, 128 envs of one CPU reset moved to the card, PARITY_TICKS
+     (30) ticks, per
      (env, tick) before the env's first detour or resample and while the
      one-ulp, float64 (and in the hull tier card-without-K4) screens hold
      (randomized_parity), every K4 call of the hull run against its plain
@@ -176,6 +177,35 @@ printing the result line:
      GPU/CPU parity (randomized_parity's screens) of franka/02 from
      piercing states, of the three hull tiers and of the three learned
      scenes.
+ 17. the eleventh slice, gradients and training: the backward of K1
+     (scene 06's real-tick blocks), K3 (the Panda and the dual Panda) and
+     K4 (the hull main path's warm operands) at B = 4096 with random
+     cotangents: each wrapper's autograd Function against autograd through
+     its plain version (K4: against its envelope rule fed the plain
+     forward's outputs, at quantiles), each behind a float64 plain run,
+     the Function's outputs carrying its grad_fn, forward and backward
+     timed beside the backward's bound; K2a and K2b under grad (grad_fn,
+     one launch each) and K5 raising; K1's transposed solve against its
+     plain version, timed beside torch.linalg.solve on Aᵀ; tune_gains'
+     loss and gradient through franka/06's batched 'solve' rollout in both
+     tiers, franka/01 ('cholesky') and two_joint/05's hull tier per env
+     (128 envs x 10 ticks), on the card with the kernels (every counter
+     zeroed before, read after: K1, its transposed solve, K3 and K4 once
+     per tick where the path runs them), on the card with plain_kernels()
+     and on the CPU, within 1e-3 of the CPU's norm or 3 x the CPU's
+     distance to a float64 run (the hull tiers also by cosine > 0.999 and
+     a norm ratio in (0.98, 1.02)); remat on the card (the same loss,
+     gradients within 1e-4, and with a resample in a recomputed tick the
+     generator where the run without remat leaves it); train_neural_rmp's
+     entry point at its defaults for 2 steps, an optimizer step timed
+     (launches, peak memory, its trace), tests/test_neural.py's descent
+     criterion from its own net and episodes
+     (rmp_tpu_torch/experiments/reach_descent_case.npz);
+     train_neural_clutter's entry point at its defaults (1024 envs x 100
+     ticks, remat) for one step, timed from the inside (time, launches,
+     envs dropped, peak memory), and one step without remat over 25
+     ticks;
+     tune_gains --geometry hull on franka/06 for 3 steps of 20 ticks.
 Then one JSON line of per-kernel numbers ({"kernels": [...]}) and, last,
 {"ok": true, "device": {...}}. The full record also goes to
 chiprun_out/chip_smoke.json.
@@ -199,20 +229,25 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, schedule
 
-from rmp_tpu_torch import _build, core, envs
+from rmp_tpu_torch import _build, convert, core, envs
 from rmp_tpu_torch import taskmaps as tm
 from rmp_tpu_torch.core import policy_row_blocks_structured
 from rmp_tpu_torch.envs import franka
+from rmp_tpu_torch.envs import neural_clutter as clutter_env
+from rmp_tpu_torch.envs import neural_reach as reach_env
 from rmp_tpu_torch.envs.base import (_policy_inputs, _seed_gjk_warm,
                                      _wants_gjk_warm,
                                      make_batched_control_step)
 from rmp_tpu_torch.evaluate import task_statistics
+from rmp_tpu_torch.experiments import common as exp_common
+from rmp_tpu_torch.experiments import (train_neural_clutter,
+                                       train_neural_rmp, tune_gains)
 from rmp_tpu_torch.models import kinematics, robots, urdf
 from rmp_tpu_torch.models.fk_derivatives import fk_derivatives
 from rmp_tpu_torch.models.urdf import FIXED
 from rmp_tpu_torch.ops import (cuda_fk, cuda_gjk, cuda_resolve, cuda_tick,
                                tick_ops)
-from rmp_tpu_torch.policies import v1
+from rmp_tpu_torch.policies import neural, v1
 from rmp_tpu_torch.sim import (FrankaPanda, Goal, Simulation, collision,
                                contact, data, dynamics)
 from rmp_tpu_torch.sim.world import SimState, physics_step
@@ -628,21 +663,26 @@ def phase_k2(device) -> tuple[dict, dict]:
 
 # ---------------------------------------------------------------- K3 ------
 
-def k3_bound(model, B: int):
-    """Bound of the kernel: reads q, qd and writes T, Td, c (16 floats
-    each) and J (16 n) per frame, once; flops of its 4x4 products
-    (112 flops each) and element-wise updates."""
-    n, F = model.n_q, model.n_frames
-    floats = 2 * n + F * 16 * (3 + n)
+def k3_flops(model) -> int:
+    """Flops per env of the kernel's 4x4 products (112 flops each) and
+    element-wise updates."""
     mm = 112
     flops = 0
-    for f in range(F):
+    for f in range(model.n_frames):
         flops += 2 * mm + mm + (2 * mm + 16)       # A, T; Td; c
         if model.joint_type[f] != FIXED:
             flops += 2 * mm + 18 + 32 + 2 * mm + 48  # G, inverse, W, Wd
         flops += mm * sum(1 for j in model.chain(f)
                           if model.joint_type[j] != FIXED)
-    return bound_ms(4.0 * floats * B, float(flops) * B)
+    return flops
+
+
+def k3_bound(model, B: int):
+    """Bound of the kernel: reads q, qd and writes T, Td, c (16 floats
+    each) and J (16 n) per frame, once; k3_flops per env."""
+    n, F = model.n_q, model.n_frames
+    floats = 2 * n + F * 16 * (3 + n)
+    return bound_ms(4.0 * floats * B, float(k3_flops(model)) * B)
 
 
 def k3_inputs(model, B: int, device):
@@ -1699,14 +1739,16 @@ def _as_dtype(x, dtype):
 
 
 @contextlib.contextmanager
-def plain_kernels(float64: bool = False):
+def plain_kernels(float64: bool = False, grad: bool = False):
     """While the block runs, the kernel wrappers of K1, K3 (the tick's, the
     randomized scene's detour IK's and the contact substeps') and K4 are
     replaced by their plain
     versions, on whatever device the tensors lie. With float64 (the
     wrappers take float32 only; the plain versions run in float64 too)
     'pinv' also takes the float32 run's cutoff: a float64 run then solves
-    the float32 run's problem free of its rounding."""
+    the float32 run's problem free of its rounding. With grad, K4's plain
+    version carries the kernel's derivative rule (plain_envelope_k4), not
+    autograd through its iterations."""
     def resolve32(A, f, method):
         if method != "pinv":
             return core.resolve(A, f, method)
@@ -1720,7 +1762,8 @@ def plain_kernels(float64: bool = False):
                (franka, "fk_derivatives_batched", fk_derivatives),
                (contact, "fk_derivatives_batched", fk_derivatives),
                (collision, "gjk_hull_obstacles",
-                cuda_gjk.gjk_hull_obstacles_plain))
+                plain_envelope_k4 if grad
+                else cuda_gjk.gjk_hull_obstacles_plain))
     if float64:
         patches += ((envs.base, "resolve",
                      lambda A, f, m: resolve32(A, f, m).reshape(f.shape)),
@@ -2262,7 +2305,7 @@ K1_RANDOMIZED_TICKS = 60
 K1_RANDOMIZED_LAYOUT = (("dense", 3), ("identity", 0), ("identity", 0),
                         ("identity", 0), ("scalar", 80))
 PARITY_B = 128
-PARITY_TICKS = 60
+PARITY_TICKS = 30     # cut from 60 in the eleventh slice, for time
 PARITY_SEED = 1
 # least share of the (env, tick) pairs before each env's first event that
 # the rounding screens keep: a floor on what the parity covers, not a
@@ -2714,12 +2757,12 @@ DUAL_HANDOVER_TICKS = 150
 DUAL_GOLDEN_ATOL = 1e-4      # tests/test_envs.py's limit on q (solved exact)
 # the randomized dual parity, cut for time: a CPU tick of 64 envs takes
 # ~0.2 s in the capsule tier and ~0.8 s in the hull tier on an 8-core host
-DUAL_PARITY = {"capsule": (32, 25), "hull": (16, 12)}   # (envs, ticks)
+DUAL_PARITY = {"capsule": (32, 12), "hull": (16, 6)}    # (envs, ticks)
 # the handover in the hull tier, from reset states moved by q ± 0.1,
 # q̇ ± 0.05: its arms meet at the centre, where the 10-iteration hull GJK
 # turns rounding into different witnesses, so it is held per (env, tick)
 # behind the one-ulp, float64 and card-with-plain-kernels screens
-HANDOVER_HULL_PARITY = (32, 8)                           # (envs, ticks)
+HANDOVER_HULL_PARITY = (32, 4)                           # (envs, ticks)
 
 
 def dual_tick_blocks(scene: str) -> dict:
@@ -2939,7 +2982,7 @@ HULL_MODELS = {"two_joint/05_obstacle_avoidance": "two-joint (3, 48)",
 HULL_MODEL_SCENES = ("two_joint/05_obstacle_avoidance",
                      "two_joint/05_obstacle_avoidance_variant",
                      "ur5/02_obstacle_avoidance")
-HULL_MODEL_PARITY = (128, 20)
+HULL_MODEL_PARITY = (128, 10)
 K1_UR5_HULL_LAYOUT = (("dense", 3), ("identity", 0), ("dense", 18))
 # the trained reach criteria of tests/test_neural.py: (ticks, the bound on
 # the mean final EE-goal distance, in x and y only)
@@ -2948,9 +2991,9 @@ NEURAL_REACH = {"two_joint/neural_reach": (80, 0.05, True),
 NEURAL_CLUTTER = "franka/neural_clutter"
 NEURAL_REPORTS = {"capsule": "reports/eval_neural_clutter.json"}
 DISCRETE[NEURAL_CLUTTER] = DISCRETE[RANDOMIZED]
-NEURAL_PARITY = {"two_joint/neural_reach": (128, 25),
-                 "franka/neural_reach": (128, 25),
-                 NEURAL_CLUTTER: (128, 30)}
+NEURAL_PARITY = {"two_joint/neural_reach": (128, 12),
+                 "franka/neural_reach": (128, 12),
+                 NEURAL_CLUTTER: (128, 15)}
 
 
 def k4_tie_share(ops: dict, iters: int) -> dict:
@@ -3386,6 +3429,706 @@ def phase_slice10(card: str, device) -> dict:
                 impulse=impulse, parity=parity, seconds=times)
 
 
+# ------------------------------------- phase 17: gradients and training ---
+
+GRAD_B, GRAD_TICKS = 128, 10      # rollout-gradient checks (envs, ticks)
+# a card gradient against the CPU's: within GRAD_RTOL of its norm, or
+# GRAD_SPREAD times the CPU's own distance to a float64 run
+GRAD_RTOL, GRAD_SPREAD = 1e-3, 3.0
+HULL_COSINE, HULL_RATIO = 0.999, (0.98, 1.02)   # tests/test_pallas_gjk.py
+REMAT_RTOL = 1e-4
+K4_GRAD_P99, K4_GRAD_MEDIAN = 1e-3, 1e-5         # x max(1, max|cotangent|)
+K3_BACKWARD_REPS = 7              # its recomputed plain vjp takes 25-130 ms
+REACH_DEFAULTS = dict(batch=128, ticks=50, steps=60, lr=3e-3, clip=1.0)
+CLUTTER_DEFAULTS = dict(batch=1024, ticks=100, hidden=(32, 32), lr=2e-3,
+                        steps=300, clip=1.0, env_clip=3.0)
+DESCENT = dict(batch=32, ticks=25, steps=25, lr=3e-3)  # tests/test_neural.py
+TUNE_TICKS = 20                   # tune_gains --geometry hull's horizon
+# the clutter trainer's step without remat runs this many ticks (its graph
+# grows with the ticks: 20.64 GB at the default 100 on an H100 80GB HBM3,
+# PERF.md); with remat, the entry point's step at its defaults
+CLUTTER_NO_REMAT_TICKS = 25
+GRAD_SCENES = (   # (scene, geometry, resolve, fused_resolve, envs, ticks)
+    (SCENE, "capsule", "solve", True, GRAD_B, GRAD_TICKS),
+    (SCENE, "hull", "solve", True, GRAD_B, GRAD_TICKS),
+    ("franka/01_target_rmp_only", "capsule", "cholesky", False, GRAD_B,
+     GRAD_TICKS),
+    ("two_joint/05_obstacle_avoidance", "hull", "cholesky", False, GRAD_B,
+     GRAD_TICKS),
+)
+
+
+def plain_envelope_k4(verts, R, t, p0, p1, an, radius, is_cyl, d0,
+                      iters: int = 10):
+    """K4's plain version in any dtype with the kernel path's backward, the
+    envelope rule: what plain_kernels(grad=True) puts in K4's place, so a
+    float64 or plain-kernel gradient takes the card's derivative rule."""
+    return cuda_gjk.GjkHullObstacles.apply(
+        cuda_gjk.gjk_hull_obstacles_plain, iters, verts, R, t, p0, p1, an,
+        radius, is_cyl, d0)
+
+
+def _leaf(x, dtype=None):
+    return x.detach().to(dtype or x.dtype).requires_grad_()
+
+
+def _err(got, want) -> float:
+    return float((got - want).abs().max())
+
+
+def _screened(what, got, plain, wit, tol: float) -> dict:
+    """A Function's cotangents `got` against autograd through the plain
+    version `plain`, each held to its float64 witness `wit`: within
+    tol x max(1, max|wit|), or twice the plain version's own distance to
+    the witness."""
+    rec = dict(max_vs_plain=0.0, max_vs_float64=0.0, plain_vs_float64=0.0)
+    for k, (g, p, w) in enumerate(zip(got, plain, wit)):
+        if g is None and p is None:
+            continue
+        w = w.to(torch.float64)
+        scale = max(1.0, float(w.abs().max()))
+        e_fn, e_plain = _err(g.double(), w), _err(p.double(), w)
+        check(bool(torch.isfinite(g).all()), f"{what}: cotangent {k} "
+              f"non-finite")
+        check(e_fn <= max(tol * scale, 2.0 * e_plain),
+              f"{what}: cotangent {k} {e_fn:.3e} from float64 (plain "
+              f"{e_plain:.3e}, limit {tol * scale:.3e})")
+        rec["max_vs_plain"] = max(rec["max_vs_plain"], _err(g, p))
+        rec["max_vs_float64"] = max(rec["max_vs_float64"], e_fn / scale)
+        rec["plain_vs_float64"] = max(rec["plain_vs_float64"],
+                                      e_plain / scale)
+    log(f"{what}: {json.dumps(rec)}")
+    return rec
+
+
+def k1_backward(device) -> dict:
+    """K1's Function at B = 4096 on scene 06's real-tick blocks (strided
+    views, as the tick makes them), with a random x̄: its cotangents
+    against autograd through the plain version and a float64 plain run;
+    the backward, the transposed solve and its yardsticks timed."""
+    env = envs.make(SCENE)
+    tags, blocks = real_tick_blocks(env, BATCH, 1)
+    B, n = BATCH, env.model.n_q
+    g = torch.Generator(device=device).manual_seed(17)
+    xbar = torch.randn(B, n, generator=g, device=device)
+
+    def grads(entry, dtype):
+        lv = [tuple(_leaf(x, dtype) for x in blk) for blk in blocks]
+        x = entry(tags, lv)
+        flat = [t for blk in lv for t in blk]
+        return x, flat, torch.autograd.grad(x, flat, xbar.to(dtype),
+                                            retain_graph=True)
+
+    x, flat, got = grads(cuda_resolve.pullback_resolve_structured,
+                         torch.float32)
+    check(type(x.grad_fn).__name__ == "PullbackResolveBackward",
+          f"K1: grad_fn {type(x.grad_fn).__name__}")
+    _, _, plain = grads(cuda_resolve.pullback_resolve_structured_plain,
+                        torch.float32)
+    _, _, wit = grads(cuda_resolve.pullback_resolve_structured_plain,
+                      torch.float64)
+    rec = _screened("K1 backward (scene 06 real tick, B=4096)", got, plain,
+                    wit, K1_TOL)
+    A, _ = cuda_resolve.assemble_structured(tags, blocks)
+    At = A.transpose(-1, -2)
+    ts = cuda_resolve.transposed_solve(A, xbar, 0.0)
+    ts_plain = cuda_resolve.pullback_resolve_structured_plain(
+        ("identity",), [(At, xbar)])
+    torch.cuda.synchronize()
+    scale = max(1.0, float(ts_plain.abs().max()))
+    ts_err = _err(ts, ts_plain)
+    log(f"K1 transposed solve: max|kernel - plain| {ts_err:.3e} (limit "
+        f"{K1_TOL * scale:.3e})")
+    check(ts_err <= K1_TOL * scale, "K1 transposed solve disagrees with "
+          "plain")
+    leaves = [tuple(_leaf(t) for t in blk) for blk in blocks]
+    leaf_flat = [t for blk in leaves for t in blk]
+    x_keep = cuda_resolve.pullback_resolve_structured(tags, leaves)
+    fwd_ms = time_ms(lambda: cuda_resolve.pullback_resolve_structured(
+        tags, blocks), lead=True)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(x_keep, leaf_flat, xbar,
+                                                 retain_graph=True),
+                     lead=True)
+    ts_ms = time_ms(lambda: cuda_resolve.transposed_solve(A, xbar, 0.0),
+                    lead=True)
+    plain_ms = time_ms(lambda: cuda_resolve.pullback_resolve_structured_plain(
+        ("identity",), [(At, xbar)]))
+    library_ms = time_ms(lambda: torch.linalg.solve(At, xbar))
+    # the backward reads the blocks, x and x̄ and writes a cotangent of each
+    # block tensor; the transposed solve reads A and x̄ and writes f̄, and
+    # runs K1's LU
+    block_floats = sum(t.numel() for blk in blocks for t in blk) / B
+    bwd_bound = bound_ms(4.0 * (2 * block_floats + 2 * n) * B, 0.0)
+    lu = sum((n - k - 1) * (2 * (n - k) + 3) for k in range(n)) + n * n + n
+    ts_bound = bound_ms(4.0 * (n * n + 2 * n) * B, float(lu) * B)
+    log(f"K1 backward at B={B}: forward {fwd_ms:.4f} ms, backward "
+        f"{bwd_ms:.4f} ms (bound {bwd_bound[0]:.5f}, {bwd_bound[1]}); "
+        f"transposed solve {ts_ms:.4f} ms (bound {ts_bound[0]:.5f}, "
+        f"{ts_bound[1]}), plain LU on Aᵀ {plain_ms:.4f}, torch.linalg.solve "
+        f"{library_ms:.4f}")
+    return dict(rec, forward_ms=fwd_ms, backward_ms=bwd_ms,
+                backward_bound_ms=bwd_bound[0], backward_bound_by=bwd_bound[1],
+                transposed=dict(max_abs_err=ts_err, device_ms=ts_ms,
+                                plain_ms=plain_ms, library_ms=library_ms,
+                                bound_ms=ts_bound[0], bound_by=ts_bound[1]))
+
+
+def k3_backward(model, what: str, device) -> dict:
+    """K3's Function at B = 4096 with random cotangents on all four
+    outputs: q, q̇ cotangents against autograd through the plain version
+    and a float64 plain run; forward and backward timed."""
+    q, qd = k3_inputs(model, BATCH, device)
+    g = torch.Generator(device=device).manual_seed(18)
+    F, n = model.n_frames, model.n_q
+    cts = [torch.randn(*s, generator=g, device=device) for s in
+           ((BATCH, F, 16), (BATCH, F, 16), (BATCH, F, 16, n),
+            (BATCH, F, 16))]
+
+    def grads(fn, dtype):
+        a, b = _leaf(q, dtype), _leaf(qd, dtype)
+        outs = fn(model, a, b)
+        return outs, (a, b), torch.autograd.grad(
+            outs, (a, b), [c.to(dtype) for c in cts], retain_graph=True)
+
+    outs, ab, got = grads(cuda_fk.fk_derivatives_batched, torch.float32)
+    check(all(type(o.grad_fn).__name__ == "FkDerivativesBackward"
+              for o in outs), "K3: outputs without the Function's grad_fn")
+    _, _, plain = grads(fk_derivatives, torch.float32)
+    _, _, wit = grads(fk_derivatives, torch.float64)
+    rec = _screened(f"K3 backward ({what}, B=4096)", got, plain, wit,
+                    K3_ATOL)
+    fwd_ms = time_ms(lambda: cuda_fk.fk_derivatives_batched(model, q, qd),
+                     lead=True)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(outs, ab, cts,
+                                                 retain_graph=True),
+                     reps=K3_BACKWARD_REPS, lead=True)
+    # reads q, q̇ and the four cotangents, writes q̄, q̇̄; at least the
+    # forward's operations again (the recomputed plain forward)
+    floats = 4 * n + F * 16 * (3 + n)
+    bwd_bound = bound_ms(4.0 * floats * BATCH, float(k3_flops(model)) * BATCH)
+    # at the clutter trainer's batch, where its 9 calls a tick recompute
+    a, b = (_leaf(t[:CLUTTER_DEFAULTS["batch"]]) for t in (q, qd))
+    sub_out = cuda_fk.fk_derivatives_batched(model, a, b)
+    sub_cts = [c[:CLUTTER_DEFAULTS["batch"]] for c in cts]
+    sub_ms = time_ms(lambda: torch.autograd.grad(sub_out, (a, b), sub_cts,
+                                                 retain_graph=True),
+                     reps=K3_BACKWARD_REPS, lead=True)
+    log(f"K3 backward ({what}) at B={BATCH}: forward {fwd_ms:.4f} ms, "
+        f"backward (plain vjp recomputed) {bwd_ms:.4f} ms, bound "
+        f"{bwd_bound[0]:.5f} ms ({bwd_bound[1]}); at B="
+        f"{CLUTTER_DEFAULTS['batch']} {sub_ms:.4f} ms")
+    return dict(rec, forward_ms=fwd_ms, backward_ms=bwd_ms,
+                backward_bound_ms=bwd_bound[0], backward_bound_by=bwd_bound[1],
+                backward_ms_at_trainer_batch=sub_ms)
+
+
+def _quantiles(x: torch.Tensor) -> tuple[float, float]:
+    flat = x.flatten().double()
+    return (float(torch.quantile(flat, 0.99)), float(flat.median()))
+
+
+def k4_backward(device) -> dict:
+    """K4's Function on the hull main path's own warm operands (4096 envs,
+    the phase-8 path 20 ticks in) with random cotangents: its backward is
+    the envelope rule on its own outputs (bit for bit), held at quantiles
+    against the rule fed the plain forward's outputs, each against a
+    float64 run of the plain forward and rule; forward and backward
+    timed."""
+    ops, iters = k4_main_path_operands()
+    names = ("verts", "R", "t", "p0", "p1", "an", "radius", "is_cyl", "d0")
+    diff = ("R", "t", "p0", "p1", "radius")
+    args = {k: (_leaf(ops[k]) if k in diff else ops[k]) for k in names}
+    outs = cuda_gjk.gjk_hull_obstacles(*(args[k] for k in names),
+                                       iters=iters)
+    check(type(outs[2].grad_fn).__name__ == "GjkHullObstaclesBackward",
+          "K4: outputs without the Function's grad_fn")
+    g = torch.Generator(device=device).manual_seed(19)
+    cts = [torch.randn(*o.shape, generator=g, device=device) for o in outs]
+    got = torch.autograd.grad(outs, [args[k] for k in diff], cts,
+                              retain_graph=True)
+    rule = ("R", "t", "p0", "p1")
+    own = cuda_gjk.envelope_cotangents(*(ops[k] for k in rule),
+                                       *(o.detach() for o in outs), *cts)
+    plain_out = cuda_gjk.gjk_hull_obstacles_plain(
+        *(ops[k] for k in names), iters)
+    plain = cuda_gjk.envelope_cotangents(*(ops[k] for k in rule),
+                                         *plain_out, *cts)
+    o64 = {k: v.double() for k, v in ops.items()}
+    wit = cuda_gjk.envelope_cotangents(
+        *(o64[k] for k in rule),
+        *cuda_gjk.gjk_hull_obstacles_plain(*(o64[k] for k in names), iters),
+        *(c.double() for c in cts))
+    rec = dict(max_vs_rule=0.0)
+    for name, a, b, p, w in zip(diff, got, own, plain, wit):
+        scale = max(1.0, float(w.abs().max()))
+        rec["max_vs_rule"] = max(rec["max_vs_rule"], _err(a, b) / scale)
+        q_fn = _quantiles((a.double() - w).abs() / scale)
+        q_plain = _quantiles((p.double() - w).abs() / scale)
+        q_vs = _quantiles((a - p).abs() / scale)
+        rec[name] = dict(p99_vs_plain=q_vs[0], median_vs_plain=q_vs[1],
+                         p99_vs_float64=q_fn[0], plain_p99_vs_float64=q_plain[0])
+        check(bool(torch.isfinite(a).all()), f"K4 backward {name}: "
+              f"non-finite")
+        check(q_fn[0] <= max(K4_GRAD_P99, 2 * q_plain[0])
+              and q_fn[1] <= max(K4_GRAD_MEDIAN, 2 * q_plain[1]),
+              f"K4 backward {name}: {rec[name]}")
+    check(rec["max_vs_rule"] <= 1e-6, f"K4 backward is not the rule on its "
+          f"own outputs: {rec['max_vs_rule']:.3e}")
+    log(f"K4 backward (hull main path's operands, {iters} iterations): "
+        f"{json.dumps(rec)}")
+    fwd_ms = time_ms(lambda: cuda_gjk.gjk_hull_obstacles(
+        *(ops[k] for k in names), iters=iters), lead=True)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(
+        outs, [args[k] for k in diff], cts, retain_graph=True), lead=True)
+    L, M, _, B = ops["p0"].shape
+    # reads R, t per (link, env), p0, p1, pa, pb, dist and the three
+    # cotangents per pair; writes R̄, t̄ and p̄0, p̄1, r̄
+    floats = L * B * (12 + 12) + L * M * B * (3 * 4 + 1 + 3 + 3 + 1 + 7)
+    bwd_bound = bound_ms(4.0 * floats, 0.0)
+    log(f"K4 backward at {L} x {M} x {B}: forward {fwd_ms:.4f} ms, "
+        f"backward {bwd_ms:.4f} ms, bound {bwd_bound[0]:.5f} ms "
+        f"({bwd_bound[1]})")
+    return dict(rec, iters=iters, forward_ms=fwd_ms, backward_ms=bwd_ms,
+                backward_bound_ms=bwd_bound[0], backward_bound_by=bwd_bound[1])
+
+
+def grad_routes(device) -> dict:
+    """On CUDA tensors that require grad: K2a (both layouts) and K2b return
+    outputs with PullbackResolve's grad_fn, launching their kernel (their
+    counters rise by one), and K5 raises; under torch.no_grad() K5 runs."""
+    J, W, v = k2_rows(0, 256, device=device)
+    J = _leaf(J)
+    counts = {}
+    for name, fn in (
+            ("pullback_resolve", lambda: cuda_resolve.pullback_resolve(
+                J, W, v)),
+            ("pullback_resolve_t", lambda: cuda_resolve.pullback_resolve_t(
+                J.permute(2, 1, 0), W.permute(2, 1, 0), v.permute(1, 0))),
+            ("pullback_resolve_blocks",
+             lambda: cuda_resolve.pullback_resolve_blocks([J], [W], [v]))):
+        before = COUNTERS[name].launches
+        out = fn()
+        counts[name] = COUNTERS[name].launches - before
+        check(type(out.grad_fn).__name__ == "PullbackResolveBackward"
+              and counts[name] == 1, f"{name} under grad: grad_fn "
+              f"{type(out.grad_fn).__name__}, {counts[name]} launches")
+        torch.autograd.grad(out.sum(), J)
+    env = envs.make(SCENE)
+    fn = cuda_tick.make_fused_qdd(env)
+    q, qd, goal, p0, p1, r = k5_inputs(env, 256, 5, wide=False)
+    raised = False
+    try:
+        fn(_leaf(q), qd, goal, p0, p1, r)
+    except RuntimeError as e:
+        raised = "no derivative rule" in str(e)
+    check(raised, "K5 did not raise under grad")
+    with torch.no_grad():
+        check(bool(torch.isfinite(fn(_leaf(q), qd, goal, p0, p1, r)).all()),
+              "K5 under no_grad: non-finite")
+    log(f"K2a/K2b under grad: {counts}; K5 raises under grad")
+    return dict(k2_launches=counts, k5_raises=raised)
+
+
+def _zero_counters() -> None:
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    cuda_resolve.pullback_resolve_structured.transposed_launches = 0
+
+
+def _read_counters() -> dict:
+    out = {name: fn.launches for name, fn in COUNTERS.items()}
+    out["pullback_resolve_structured (transposed)"] = (
+        cuda_resolve.pullback_resolve_structured.transposed_launches)
+    return out
+
+
+def grad_case(scene: str, geometry: str, method: str, fused: bool, B: int,
+              ticks: int, device, float64: bool = False,
+              plain: bool = False):
+    """tune_gains' loss and gradient (in the log gains) on `scene` from its
+    reset of B envs over `ticks` ticks, the batched rollout where `fused`:
+    (loss, gradient, launches of the run). float64 runs the same problem
+    in float64 through the plain versions; plain the plain versions in
+    float32. K4 takes the envelope rule in every run."""
+    env = envs.make(scene, device=device)
+    env.resolve_method = method
+    env.collision_geometry = geometry
+    env.on_solved = None
+    states = envs.make_batched_reset(env, B)()
+    if float64:
+        states = _as_dtype(states, torch.float64)
+    loss, theta, _ = tune_gains.make_loss(env, B, ticks, fused_resolve=fused,
+                                          states=states)
+    theta = exp_common.leaves(theta)
+    with (plain_kernels(float64=float64, grad=True) if plain or float64
+          else contextlib.nullcontext()):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        _zero_counters()
+        val, grads = exp_common.value_and_grad(loss, theta)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        launches = _read_counters()
+    return (float(val), np.asarray([float(g) for g in grads.values()]),
+            launches)
+
+
+def phase_grad_rollouts(card: str, device) -> tuple[dict, dict]:
+    """Each GRAD_SCENES case on the card with the kernels (counts zeroed
+    before, read after), on the card with plain_kernels(), on the CPU and
+    in float64 on the CPU: the card's loss and gradient against the CPU's
+    (the float64 screen), the hull tiers also by JAX's kernel-vs-XLA
+    measure against the CPU's."""
+    cpu = torch.device("cpu")
+    recs, paths = {}, {}
+    for scene, geometry, method, fused, B, ticks in GRAD_SCENES:
+        what = (f"tune_gains {scene} ({geometry}, '{method}', "
+                f"{'batched' if fused else 'per-env'})")
+        t0 = time.perf_counter()
+        v_card, g_card, launches = grad_case(scene, geometry, method, fused,
+                                             B, ticks, device)
+        card_s = time.perf_counter() - t0
+        v_plain, g_plain, _ = grad_case(scene, geometry, method, fused, B,
+                                        ticks, device, plain=True)
+        v_cpu, g_cpu, _ = grad_case(scene, geometry, method, fused, B, ticks,
+                                    cpu)
+        v64, g64, _ = grad_case(scene, geometry, method, fused, B, ticks,
+                                cpu, float64=True)
+        limit = max(GRAD_RTOL * np.linalg.norm(g_cpu),
+                    GRAD_SPREAD * np.linalg.norm(g_cpu - g64))
+        v_limit = max(1e-5 * max(1.0, abs(v_cpu)),
+                      GRAD_SPREAD * abs(v_cpu - v64))
+        rec = dict(loss=dict(card=v_card, plain=v_plain, cpu=v_cpu,
+                             float64=v64),
+                   grad=dict(card=g_card.tolist(), plain=g_plain.tolist(),
+                             cpu=g_cpu.tolist(), float64=g64.tolist()),
+                   limit=limit, loss_limit=v_limit, seconds_card=card_s,
+                   launches=launches)
+        log(f"{what}: {json.dumps(rec)}")
+        for name, v, gr in (("card", v_card, g_card),
+                            ("card, plain kernels", v_plain, g_plain)):
+            check(np.all(np.isfinite(gr)) and np.isfinite(v),
+                  f"{what}, {name}: non-finite")
+            check(abs(v - v_cpu) <= v_limit, f"{what}, {name}: loss {v} vs "
+                  f"CPU {v_cpu} (limit {v_limit:.3e})")
+            check(np.linalg.norm(gr - g_cpu) <= limit,
+                  f"{what}, {name}: gradient {gr} vs CPU {g_cpu} (limit "
+                  f"{limit:.3e})")
+            if geometry == "hull":
+                cos = float(gr @ g_cpu / (np.linalg.norm(gr)
+                                          * np.linalg.norm(g_cpu)))
+                ratio = float(np.linalg.norm(gr) / np.linalg.norm(g_cpu))
+                check(cos > HULL_COSINE and HULL_RATIO[0] < ratio
+                      < HULL_RATIO[1], f"{what}, {name}: cosine {cos}, "
+                      f"ratio {ratio}")
+        want = {"fk_derivatives_batched": ticks}
+        if fused and method == "solve":
+            want["pullback_resolve_structured"] = ticks
+            want["pullback_resolve_structured (transposed)"] = ticks
+        if geometry == "hull":
+            want["gjk_hull_obstacles"] = ticks
+        for name, count in launches.items():
+            check(count == want.get(name, 0), f"{what}: {name} launched "
+                  f"{count} times, want {want.get(name, 0)}")
+        recs[what] = rec
+        paths[what] = launches
+    return recs, paths
+
+
+def phase_remat(device) -> dict:
+    """Remat on the card: tune_gains through the batched 'solve' rollout of
+    franka/06 (K1, K3) and two_joint/01 with every env solved at tick 0
+    (on_solved draws a new goal from EnvState.rng inside a recomputed
+    tick), each with and without remat: the same loss, gradients within
+    REMAT_RTOL, and the generator where the run without remat leaves it."""
+    out = {}
+    env = envs.make(SCENE)
+    env.resolve_method = "solve"
+    runs = []
+    for remat in (False, True):
+        loss, theta, _ = tune_gains.make_loss(env, GRAD_B, GRAD_TICKS,
+                                              remat=remat, fused_resolve=True)
+        val, grads = exp_common.value_and_grad(loss,
+                                               exp_common.leaves(theta))
+        runs.append((float(val), [float(g) for g in grads.values()]))
+    (va, ga), (vb, gb) = runs
+    check(abs(va - vb) <= 1e-6 * max(1.0, abs(va)), f"remat: loss {vb} vs "
+          f"{va}")
+    check(np.allclose(gb, ga, rtol=REMAT_RTOL, atol=0.0),
+          f"remat: gradient {gb} vs {ga}")
+    out[SCENE] = dict(loss=[va, vb], grad=[ga, gb])
+    env = envs.make("two_joint/01_target_rmp_only")
+    runs = []
+    for remat in (False, True):
+        states = envs.make_batched_reset(env, GRAD_B)()
+        ee = envs.base.ee_position(env, states.sim)
+        states = dataclasses.replace(states, sim=dataclasses.replace(
+            states.sim, goal=ee.clone()))
+        base = env.gather_params()
+        log_a = torch.log(torch.tensor(float(base[0]["alpha"]),
+                                       device=device)).requires_grad_()
+        prm = dict(base[0], alpha=torch.exp(log_a))
+        final, aux = envs.make_rollout(env, GRAD_TICKS, remat=remat)(
+            states, (prm,) + tuple(base[1:]))
+        check(bool(aux["resample"][:, 0].all()), "remat: no resample at "
+              "tick 0")
+        d = torch.linalg.vector_norm(aux["ee"][:, -1] - final.sim.goal,
+                                     dim=-1).mean()
+        (gr,) = torch.autograd.grad(d, log_a)
+        runs.append((float(d.detach()), float(gr), final.sim.goal.detach(),
+                     states.rng.get_state()))
+    (da, ga, goal_a, rng_a), (db, gb, goal_b, rng_b) = runs
+    check(abs(da - db) <= 1e-6 and abs(gb - ga) <= REMAT_RTOL * abs(ga),
+          f"remat with a resample: {da, ga} vs {db, gb}")
+    check(torch.equal(goal_a, goal_b) and torch.equal(rng_a, rng_b),
+          "remat with a resample: goals or generator differ")
+    out["two_joint/01 resample"] = dict(loss=[da, db], grad=[ga, gb],
+                                        generator_equal=True)
+    log(f"remat on the card: {json.dumps(out)}")
+    return out
+
+
+def timed_steps(step, n: int) -> list:
+    """Host seconds of n calls of step(), each ending in a synchronize."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def step_trace(step) -> dict:
+    """Device launches, busy ms and idle share of one traced step."""
+    kernels = device_kernels(traced(step))
+    busy = _busy_us(kernels) / 1e3
+    span = (max(e.time_range.end for e in kernels)
+            - min(e.time_range.start for e in kernels)) / 1e3
+    return dict(device_launches=len(kernels), device_busy_ms=busy,
+                traced_span_ms=span)
+
+
+def reach_trainer(card: str, device, failed: list) -> tuple[dict, dict]:
+    """train_neural_rmp on the card: its entry point at its defaults for two
+    steps (--stop-after 2; the card is its default device); the time,
+    launches, peak memory and trace of an optimizer step at the defaults
+    (two-joint, hidden 32 x 32, batch 128, 50 ticks); then
+    tests/test_neural.py's criterion from its own net and episodes
+    (reach_descent_case.npz): 25 Adam steps at 3e-3 at batch 32 x 25
+    ticks, the loss below 0.8 of its first value and the mean final
+    distance improved."""
+    t0 = time.perf_counter()
+    train_neural_rmp.main(["--stop-after", "2"])
+    entry_s = time.perf_counter() - t0
+    gen = torch.Generator(device=device).manual_seed(0)
+    env = reach_env.make_neural_env(device, gen=gen)
+    d = REACH_DEFAULTS
+    loss, _, _, base = train_neural_rmp.make_loss(env, d["batch"], d["ticks"])
+    net = exp_common.leaves(base[0]["net"])
+    trainer = exp_common.Trainer(net, d["lr"], d["steps"], d["clip"])
+    count = [0]
+
+    def step():
+        _, grads = exp_common.value_and_grad(loss, net)
+        trainer.update(grads, count[0])
+        count[0] += 1
+    step()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters()
+    seconds = timed_steps(step, 3)
+    launches = _read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    trace = step_trace(step)
+    step_ms = 1e3 * float(np.median(seconds))
+    trace["device_idle_share"] = 1.0 - trace["device_busy_ms"] / step_ms
+    check(launches["fk_derivatives_batched"] == 3 * d["ticks"],
+          f"reach trainer: K3 launched {launches['fk_derivatives_batched']} "
+          f"times in 3 steps")
+    with np.load(train_neural_rmp_case()) as case:
+        cnet = convert.net_from_numpy({k[4:]: case[k] for k in case.files
+                                       if k.startswith("net_")}, device)
+        states = convert.state_from_numpy(
+            {k: case[k] for k in case.files if not k.startswith("net_")},
+            device)
+    cenv = reach_env.make_neural_env(device, net=cnet)
+    closs, cmetrics, _, cbase = train_neural_rmp.make_loss(
+        cenv, DESCENT["batch"], DESCENT["ticks"], states=states)
+    cnet = exp_common.leaves(cbase[0]["net"])
+    with torch.no_grad():
+        m0 = float(cmetrics(cnet)[1]["mean_final_dist"])
+    opt = torch.optim.Adam(list(cnet.values()), lr=DESCENT["lr"])
+    v_first = None
+    for _ in range(DESCENT["steps"]):
+        v, grads = exp_common.value_and_grad(closs, cnet)
+        v_first = float(v) if v_first is None else v_first
+        for k, p in cnet.items():
+            p.grad = grads[k]
+        opt.step()
+    with torch.no_grad():
+        v_last = float(closs(cnet))
+        m1 = float(cmetrics(cnet)[1]["mean_final_dist"])
+    criterion = dict(v_first=v_first, v_last=v_last, ratio=v_last / v_first,
+                     mean_final_dist=[m0, m1])
+    rec = dict(entry_point_s=entry_s, step_ms=step_ms,
+               step_ms_all=[1e3 * s for s in seconds],
+               launches_per_step={k: c / 3 for k, c in launches.items()},
+               peak_memory_bytes=peak, trace=trace, criterion=criterion,
+               defaults=d)
+    log(f"train_neural_rmp at its defaults [{card}]: {json.dumps(rec)}")
+    if not (v_last < 0.8 * v_first and m1 < m0):
+        failed.append(f"train_neural_rmp: tests/test_neural.py's criterion "
+                      f"{criterion}")
+    return launches, rec
+
+
+def train_neural_rmp_case() -> str:
+    return os.path.join(os.path.dirname(train_neural_rmp.__file__),
+                        "reach_descent_case.npz")
+
+
+def clutter_trainer(card: str, device, failed: list) -> tuple[dict, dict]:
+    """train_neural_clutter on the card: its entry point at its defaults
+    (batch 1024, 100 ticks, remat, hidden 32 x 32) for one step
+    (--stop-after 1), its per-env clipped gradient timed from the inside
+    (the module function the entry point calls, wrapped: host seconds,
+    launches, the envs dropped, peak memory); then one step of 1024 envs
+    over CLUTTER_NO_REMAT_TICKS ticks without remat, for its time and peak
+    memory."""
+    d = CLUTTER_DEFAULTS
+    vg = train_neural_clutter.per_env_value_and_grad
+    calls = []
+
+    def timed_vg(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counters()
+        t0 = time.perf_counter()
+        out = vg(*args, **kwargs)
+        torch.cuda.synchronize()
+        calls.append(dict(seconds=time.perf_counter() - t0,
+                          launches=_read_counters(),
+                          peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                          loss=float(out[0]), gnorm=float(out[2]),
+                          dropped_share=float(out[3])))
+        return out
+    train_neural_clutter.per_env_value_and_grad = timed_vg
+    t0 = time.perf_counter()
+    try:
+        train_neural_clutter.main(["--stop-after", "1"])
+    finally:
+        train_neural_clutter.per_env_value_and_grad = vg
+    entry_s = time.perf_counter() - t0
+    check(len(calls) == 1, f"clutter trainer: {len(calls)} gradient calls")
+    entry = calls[0]
+    launches = entry["launches"]
+    log(f"train_neural_clutter entry point, one step at its defaults "
+        f"[{card}]: {entry_s:.1f} s in all; the step: {json.dumps(entry)}")
+    if not (np.isfinite(entry["loss"]) and np.isfinite(entry["gnorm"])):
+        failed.append(f"train_neural_clutter: non-finite {entry}")
+    gen = torch.Generator(device=device).manual_seed(0)
+    net0 = neural.transparent_obstacle_init(neural.mlp_init(
+        gen, (neural.OBSTACLE_FEATURES, *d["hidden"], 2)))
+    env = clutter_env.make_neural_clutter_env(device, net=net0, train=True)
+    states = envs.make_batched_reset(env, d["batch"], 0)()
+    base = env.gather_params()
+    slot = len(base) - 1
+    weights = dict(clear_margin=0.05, pen_margin=0.005, w_collision=10.0,
+                   w_pen=300.0, w_effort=1e-4)
+    net = exp_common.leaves(base[slot]["net"])
+    trainer = exp_common.Trainer(net, d["lr"], d["steps"], d["clip"])
+    rollout = envs.make_rollout(env, CLUTTER_NO_REMAT_TICKS, remat=False)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters()
+    t0 = time.perf_counter()
+    val, grad, gnorm, dropped = vg(rollout, base, slot, net, states,
+                                   weights, d["env_clip"])
+    trainer.update(grad, 0)
+    torch.cuda.synchronize()
+    plain = dict(ticks=CLUTTER_NO_REMAT_TICKS,
+                 seconds=time.perf_counter() - t0, launches=_read_counters(),
+                 peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                 loss=float(val), gnorm=float(gnorm),
+                 dropped_share=float(dropped))
+    log(f"train_neural_clutter step without remat [{card}]: "
+        f"{json.dumps(plain)}")
+    if not (np.isfinite(plain["loss"]) and np.isfinite(plain["gnorm"])):
+        failed.append(f"train_neural_clutter: non-finite {plain}")
+    # K3 1 + 8 times a forward tick (the detour IK), again in the remat
+    # recomputation
+    want = 2 * d["ticks"] * 9
+    check(launches["fk_derivatives_batched"] == want, f"clutter trainer: "
+          f"K3 launched {launches['fk_derivatives_batched']} times, want "
+          f"{want}")
+    return launches, dict(remat=entry, no_remat=plain, entry_point_s=entry_s,
+                          defaults=d)
+
+
+def tune_gains_hull(card: str) -> tuple[dict, dict]:
+    """tune_gains' entry point on the card in the hull tier of franka/06
+    (its default batch of 16: every pair cold through K4), 3 steps of
+    TUNE_TICKS ticks."""
+    torch.cuda.synchronize()
+    _zero_counters()
+    t0 = time.perf_counter()
+    tuned = tune_gains.main(["--env", SCENE, "--geometry", "hull",
+                             "--steps", "3", "--ticks", str(TUNE_TICKS)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _read_counters()
+    rec = dict(seconds=seconds, tuned=tuned, launches=launches)
+    log(f"tune_gains --geometry hull [{card}]: {json.dumps(rec)}")
+    check(all(np.isfinite(v) for v in tuned.values()), "tune_gains: "
+          "non-finite gains")
+    for name in ("fk_derivatives_batched", "gjk_hull_obstacles"):
+        check(launches[name] > 0, f"tune_gains hull: {name} not launched")
+    return launches, rec
+
+
+def phase_slice11(card: str, device) -> dict:
+    """Phase 17: the backward of K1, K3 and K4 at B = 4096; tune_gains'
+    gradients through rollouts on the card, with plain kernels and on the
+    CPU; remat on the card; the three trainers at full width. Every part
+    runs before the trainers' criteria are checked."""
+    times = {}
+    t0 = time.perf_counter()
+    k1 = k1_backward(device)
+    k3 = {"panda": k3_backward(robots.franka_panda(), "Panda", device),
+          "dual_panda": k3_backward(robots.dual_panda(), "dual Panda",
+                                    device)}
+    k4 = k4_backward(device)
+    routes = grad_routes(device)
+    times["backward"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rollouts, paths = phase_grad_rollouts(card, device)
+    times["rollouts"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    remat = phase_remat(device)
+    times["remat"] = time.perf_counter() - t0
+    failed: list = []
+    t0 = time.perf_counter()
+    launches, reach = reach_trainer(card, device, failed)
+    paths["train_neural_rmp (3 steps)"] = launches
+    times["train_neural_rmp"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches, clutter = clutter_trainer(card, device, failed)
+    paths["train_neural_clutter (1 step)"] = launches
+    times["train_neural_clutter"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches, hull = tune_gains_hull(card)
+    paths["tune_gains --geometry hull (3 steps)"] = launches
+    times["tune_gains_hull"] = time.perf_counter() - t0
+    log(f"phase 17 parts (s): {json.dumps(times)}")
+    check(not failed, "; ".join(failed))
+    return dict(k1=k1, k3=k3, k4=k4, routes=routes, rollouts=rollouts,
+                remat=remat,
+                reach=reach, clutter=clutter, tune_gains_hull=hull,
+                paths=paths, seconds=times)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3441,6 +4184,10 @@ def main() -> int:
     slice10 = phase_slice10(card, device)
     slice10_s = time.perf_counter() - t0
     log(f"phase 16: {slice10_s:.1f} s")
+    t0 = time.perf_counter()
+    slice11 = phase_slice11(card, device)
+    slice11_s = time.perf_counter() - t0
+    log(f"phase 17: {slice11_s:.1f} s")
 
     k1["per_layout"] = dict(flagship=dict(n=9, ms=k1["ms"],
                                           device_ms=k1["device_ms"]),
@@ -3482,6 +4229,8 @@ def main() -> int:
                   slice9["paths"], slice10["paths"]):
         path_launches.update((scene, counts) for scene, (counts, _) in
                              paths.items())
+    # the eleventh slice's gradient and training paths
+    path_launches.update(slice11["paths"])
     # the tenth slice's entries: each kernel on its new path, with that
     # path's launch count
     k3_contact = dict(name=f"fk_derivatives_batched ({PROVOKE} contact)",
@@ -3510,8 +4259,22 @@ def main() -> int:
                                         "bound_ms", "bound_by",
                                         "device_launches_per_call")})
                  for scene, rec in slice10["k4"].items()]
+    # the eleventh slice's entry: K1's kernel on the transposed system of
+    # the resolve's backward, with the launches of tune_gains' gradient
+    # through franka/06's batched 'solve' rollout (capsule tier)
+    grad_path = f"tune_gains {SCENE} (capsule, 'solve', batched)"
+    ts = slice11["k1"]["transposed"]
+    k1_backward_rec = dict(
+        name="pullback_resolve_structured (backward: transposed solve)",
+        route="cuda", source="rmp_tpu_torch/csrc/pullback_resolve.cu",
+        replaces="rmp_tpu/ops/pallas_resolve.py:226",
+        counter="pullback_resolve_structured (transposed)", path=grad_path,
+        max_abs_err=ts["max_abs_err"], ms=ts["device_ms"],
+        device_ms=ts["device_ms"], plain_ms=ts["plain_ms"],
+        bound_ms=ts["bound_ms"], bound_by=ts["bound_by"],
+        library_ms=ts["library_ms"])
     kernels = [k1, k2a, k2b, k3, k4, k5, k1_dual, k3_dual, k3_contact,
-               k1_neural] + k4_models
+               k1_neural] + k4_models + [k1_backward_rec]
     for rec in kernels:
         # each kernel's count from the paths that run it (K2a/K2b, K5:
         # none); K1 and K3 on the dual-arm Panda (n = 18, F = 26) apart
@@ -3551,7 +4314,8 @@ def main() -> int:
                                  slice10["paths"].items()},
                   slice10_parity=slice10["parity"],
                   impulse=slice10["impulse"],
-                  phase16_parts_s=slice10["seconds"], phase16_s=slice10_s)
+                  phase16_parts_s=slice10["seconds"], phase16_s=slice10_s,
+                  slice11=slice11, phase17_s=slice11_s)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -4,7 +4,8 @@ numpy.
 These functions are how the same inputs reach both packages: the JAX
 package's pytrees, mapped to numpy arrays (`jax.tree.map(np.asarray,
 ...)`), and the committed weight files (numpy arrays 'w0', 'b0', ...)
-become the port's tensors.
+become the port's tensors; `net_to_numpy` writes a net the port trained
+back in that layout.
 """
 from __future__ import annotations
 
@@ -21,6 +22,14 @@ def net_from_numpy(net, device) -> dict:
     float32 tensors on `device`, from a dict of arrays or an opened .npz."""
     return {k: torch.tensor(np.asarray(net[k]), dtype=torch.float32,
                             device=device) for k in net.keys()}
+
+
+def net_to_numpy(net: dict) -> dict:
+    """The inverse of net_from_numpy: an MLP's weights as float32 numpy
+    arrays under the same keys, the layout of the committed .npz assets
+    (`np.savez(path, **net_to_numpy(net))` loads in either package)."""
+    return {k: np.asarray(v.detach().cpu(), np.float32)
+            for k, v in net.items()}
 
 
 def params_from_numpy(params, device) -> tuple:

@@ -27,6 +27,7 @@ from rmp_tpu_torch.models.kinematics import (differentiate, fk_all,
 from rmp_tpu_torch.ops import geom
 from rmp_tpu_torch.ops.cuda_fk import fk_derivatives_batched
 from rmp_tpu_torch.ops.linalg import cholesky_solve_unrolled, lu_solve_unrolled
+from rmp_tpu_torch.taskmaps import reverse_mode
 
 
 def _pullback(J, M, a, c):
@@ -117,12 +118,25 @@ def fk_bundle(policies, q, qd) -> dict[int, FkBundle]:
             for mid, m in _fk_models(policies).items()}
 
 
+def _grad_live(q, qd, ctxs, fk) -> bool:
+    """Whether reverse mode will differentiate this tick's taskmap
+    derivatives: grad enabled and q, q̇, a context tensor or the FK bundle
+    requiring it."""
+    if not torch.is_grad_enabled():
+        return False
+    tensors = [q, qd] + [t for ctx in ctxs if isinstance(ctx, dict)
+                         for t in ctx.values() if isinstance(t, torch.Tensor)]
+    tensors += [b.T16 for b in (fk or {}).values()]
+    return any(t.requires_grad for t in tensors)
+
+
 def _taskmap_derivatives(policies, q, qd, ctxs, derivatives, fk):
-    if derivatives == "jacfwd":
-        return _taskmap_derivatives_jacfwd(policies, q, qd, ctxs)
-    if derivatives == "analytic":
+    if derivatives not in ("jacfwd", "analytic"):
+        raise ValueError(f"unknown derivatives {derivatives!r}")
+    with reverse_mode(_grad_live(q, qd, ctxs, fk)):
+        if derivatives == "jacfwd":
+            return _taskmap_derivatives_jacfwd(policies, q, qd, ctxs)
         return _taskmap_derivatives_analytic(policies, q, qd, ctxs, fk=fk)
-    raise ValueError(f"unknown derivatives {derivatives!r}")
 
 
 def _fk_models(policies) -> dict[int, Any]:

@@ -14,7 +14,9 @@ envs carries the GJK warm start
 (EnvState.gjk_warm) from tick to tick, seeded by one cold query at reset.
 make_control_step / make_rollout take the same batched state with the JAX
 package's per-env semantics: evaluate_policies and core.resolve (never
-K1), and every hull pair cold.
+K1), and every hull pair cold. Rollouts are differentiable end to end (the
+kernel wrappers are autograd Functions); remat=True recomputes each tick
+in the backward (torch.utils.checkpoint) instead of keeping its graph.
 
 Scenes that resample at random draw from EnvState.rng, a torch.Generator on
 the env's device seeded at reset. A resampling scene draws for every env at
@@ -37,6 +39,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from rmp_tpu_torch.core import (evaluate_policies, fk_bundle,
                                 policy_row_blocks_structured, resolve)
@@ -470,11 +473,44 @@ def _run_ticks(step, states: EnvState, params: tuple, n_ticks: int,
                     for k, v in auxes[0].items() if v is not None}
 
 
-def make_batched_rollout(env: Env, n_ticks: int, with_aux: bool = True):
+def rematerialized(step):
+    """step(states, params) with its graph dropped in the forward and
+    recomputed in the backward (torch.utils.checkpoint, non-reentrant): the
+    activation memory of a rollout's gradient falls from ticks x tick graph
+    to ticks x state, for one more forward per tick.
+
+    checkpoint restores only the global random streams, and a tick may draw
+    from EnvState.rng (a resampled goal, a randomized pre_tick). So the
+    generator's state is taken at the tick's start, and the recomputation
+    draws from a private generator set to it: it redraws the forward's
+    numbers, builds the same graph, and leaves the env's stream where the
+    forward left it."""
+    def run(states: EnvState, params: tuple):
+        rng = states.rng
+        start = None if rng is None else rng.get_state()
+        calls = 0
+
+        def tick(states, params):
+            nonlocal calls
+            calls += 1
+            if calls > 1 and rng is not None:
+                private = torch.Generator(device=rng.device)
+                private.set_state(start)
+                states = dataclasses.replace(states, rng=private)
+            return step(states, params)
+        return checkpoint(tick, states, params, use_reentrant=False)
+    return run
+
+
+def make_batched_rollout(env: Env, n_ticks: int, with_aux: bool = True,
+                         remat: bool = False):
     """fn(states, params) -> (final states, aux) over n_ticks batched ticks;
     aux stacks each per-tick entry along axis 1 (B, T, ...), or is None
-    with with_aux=False."""
+    with with_aux=False. remat: each tick rematerialized in the backward
+    (`rematerialized`)."""
     step = make_batched_control_step(env)
+    if remat:
+        step = rematerialized(step)
 
     def rollout(states: EnvState, params: tuple):
         if _wants_gjk_warm(env, states):
@@ -499,10 +535,13 @@ def make_control_step(env: Env):
     return step
 
 
-def make_rollout(env: Env, n_ticks: int, with_aux: bool = True):
+def make_rollout(env: Env, n_ticks: int, with_aux: bool = True,
+                 remat: bool = False):
     """fn(states, params) -> (final states, aux): n_ticks of
-    make_control_step, aux as in make_batched_rollout."""
+    make_control_step, aux and remat as in make_batched_rollout."""
     step = make_control_step(env)
+    if remat:
+        step = rematerialized(step)
 
     def rollout(states: EnvState, params: tuple):
         return _run_ticks(step, states, params, n_ticks, with_aux)

@@ -6,6 +6,13 @@ Td16 (B, F, 16), J16 (B, F, 16, n), c16 (B, F, 16)). A CPU tensor takes the
 plain PyTorch version (models/fk_derivatives.fk_derivatives); a CUDA tensor
 launches the kernel of csrc/fk_derivatives.cu or raises. Unlike the TPU
 kernel, the batch needs no particular multiple.
+
+Gradients: while q or q̇ requires grad, the call goes through
+`FkDerivatives`, a torch.autograd.Function on both devices. Its forward is
+the same kernel (or plain version); its backward is the vjp of the plain
+version, recomputed from the saved q, q̇, as the JAX package differentiates
+its XLA path and never its Pallas FK. Cotangents may arrive for any subset
+of the four outputs.
 """
 from __future__ import annotations
 
@@ -54,6 +61,43 @@ def model_tables(model: KinematicModel, device) -> dict[str, torch.Tensor]:
 def fk_derivatives_batched(model: KinematicModel, q: torch.Tensor,
                            qd: torch.Tensor):
     """(T16, Td16, J16, c16) of every frame for q, qd (B, n) float32."""
+    if torch.is_grad_enabled() and (q.requires_grad or qd.requires_grad):
+        return FkDerivatives.apply(model, q, qd)
+    return _forward(model, q, qd)
+
+
+class FkDerivatives(torch.autograd.Function):
+    """K3 with a backward: the vjp of the plain version at the saved q, q̇
+    (the recomputed forward's graph lives only inside the backward)."""
+
+    @staticmethod
+    def forward(ctx, model, q, qd):
+        ctx.model = model
+        ctx.save_for_backward(q, qd)
+        ctx.set_materialize_grads(False)
+        return _forward(model, q, qd)
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        q, qd = ctx.saved_tensors
+        want = ctx.needs_input_grad[1:]
+        pairs = [(i, g) for i, g in enumerate(cotangents) if g is not None]
+        if not pairs or not any(want):
+            return None, None, None
+        with torch.enable_grad():
+            inputs = (q.detach().requires_grad_(want[0]),
+                      qd.detach().requires_grad_(want[1]))
+            outs = fk_derivatives(ctx.model, *inputs)
+            wrt = [x for x, w in zip(inputs, want) if w]
+            grads = iter(torch.autograd.grad(
+                [outs[i] for i, _ in pairs], wrt, [g for _, g in pairs],
+                allow_unused=True))
+        return (None,) + tuple(next(grads) if w else None for w in want)
+
+
+def _forward(model: KinematicModel, q: torch.Tensor, qd: torch.Tensor):
+    """K3's forward on the device of q: the plain version on the CPU, the
+    kernel on CUDA (counted), raising on anything else."""
     n = model.n_q
     if q.dtype != torch.float32 or qd.dtype != torch.float32:
         raise TypeError(f"fk_derivatives_batched takes float32, got "

@@ -1,6 +1,5 @@
 """K4: batched link-hull vs capsule / flat-capped cylinder closest points, the
-CUDA counterpart of `rmp_tpu/ops/pallas_gjk.py::gjk_hull_obstacles`
-(forward only).
+CUDA counterpart of `rmp_tpu/ops/pallas_gjk.py::gjk_hull_obstacles`.
 
 Operands keep the TPU kernel's batch-minor layouts: verts (L, V, 3) link-local
 hull tables; R (L, 3, 3, B), t (L, 3, B) link world poses; p0, p1, an, d0
@@ -11,6 +10,15 @@ the obstacle, and dist (L, M, B). A CPU tensor takes the plain PyTorch
 version (`gjk_hull_obstacles_plain`); a CUDA tensor launches the kernel of
 csrc/gjk_hull.cu or raises. Unlike the TPU kernel, the batch needs no
 particular multiple.
+
+Gradients: while any operand requires grad, the call goes through
+`GjkHullObstacles`, a torch.autograd.Function on both devices (the CPU too
+takes it, not autograd through the plain iterations, as the JAX package's
+kernel path takes its custom_vjp in interpret mode). Its backward is the
+JAX package's envelope rule `_gjk_bwd` (`pallas_gjk.py:386-423`) line for
+line: the distance's exact a.e. derivative n · (dpa - dpb), the witnesses
+by a rigid model with the active features held fixed, and zero cotangents
+for verts, an, is_cyl and d0.
 """
 from __future__ import annotations
 
@@ -125,6 +133,73 @@ def _check(verts, R, t, p0, p1, an, radius, is_cyl, d0):
 def gjk_hull_obstacles(verts, R, t, p0, p1, an, radius, is_cyl, d0,
                        iters: int = 10):
     """(pa, pb, dist) of every (link, slot, env) pair; see the module doc."""
+    args = (verts, R, t, p0, p1, an, radius, is_cyl, d0)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in args
+                                       if isinstance(x, torch.Tensor)):
+        return GjkHullObstacles.apply(_forward, int(iters), *args)
+    return _forward(*args, iters=iters)
+
+
+def envelope_cotangents(R, t, p0, p1, pa, pb, dist, pa_bar, pb_bar,
+                        dist_bar):
+    """The JAX package's `_gjk_bwd` rule: (R̄, t̄, p̄0, p̄1, r̄) from the
+    outputs and their cotangents, in the kernel's batch-minor layouts."""
+    eps = 1e-9
+    n = (pa - pb) / (dist[:, :, None] + eps)          # (L, K, 3, B)
+    g = dist_bar[:, :, None]                          # (L, K, 1, B)
+
+    # link side: pa = R a_loc + t with a_loc = R^T (pa - t) held fixed
+    w_a = n * g + pa_bar                              # (L, K, 3, B)
+    rel = pa - t[:, None]                             # (L, K, 3, B)
+    a_loc = torch.einsum("lrcb,lkrb->lkcb", R, rel)   # R^T rel
+    t_bar = torch.sum(w_a, dim=1)                     # (L, 3, B)
+    R_bar = torch.einsum("lkrb,lkcb->lrcb", w_a, a_loc)
+
+    # obstacle side: pb = p0 + s (p1 - p0) + rho u with (s, rho, u) fixed;
+    # s the axial projection of pb, clipped to the segment
+    w_b = pb_bar - n * g                              # (L, K, 3, B)
+    ax = p1 - p0
+    len2 = torch.sum(ax * ax, dim=2, keepdim=True)
+    s = torch.clamp(torch.sum((pb - p0) * ax, dim=2, keepdim=True)
+                    / (len2 + eps), 0.0, 1.0)         # (L, K, 1, B)
+    foot = p0 + s * ax
+    off = pb - foot
+    u = off / (torch.sqrt(torch.sum(off * off, dim=2, keepdim=True)) + eps)
+    p0_bar = (1.0 - s) * w_b
+    p1_bar = s * w_b
+    r_bar = torch.sum(u * w_b, dim=2, keepdim=True)   # (L, K, 1, B)
+    return R_bar, t_bar, p0_bar, p1_bar, r_bar
+
+
+class GjkHullObstacles(torch.autograd.Function):
+    """K4 with the envelope-rule backward (envelope_cotangents), around
+    `forward(verts, ..., d0, iters=)`: the wrapper's forward (the kernel on
+    CUDA, the plain version on the CPU), or the plain version in any
+    dtype, which takes the same rule."""
+
+    @staticmethod
+    def forward(ctx, forward, iters, verts, R, t, p0, p1, an, radius, is_cyl,
+                d0):
+        pa, pb, dist = forward(verts, R, t, p0, p1, an, radius, is_cyl, d0,
+                               iters=iters)
+        ctx.save_for_backward(R, t, p0, p1, pa, pb, dist)
+        return pa, pb, dist
+
+    @staticmethod
+    def backward(ctx, pa_bar, pb_bar, dist_bar):
+        R, t, p0, p1, pa, pb, dist = ctx.saved_tensors
+        R_bar, t_bar, p0_bar, p1_bar, r_bar = envelope_cotangents(
+            R, t, p0, p1, pa, pb, dist, pa_bar, pb_bar, dist_bar)
+        # verts, an, is_cyl and d0 get zero cotangents: None
+        out = (None, None, None, R_bar, t_bar, p0_bar, p1_bar, None, r_bar,
+               None, None)
+        return tuple(g if w else None
+                     for g, w in zip(out, ctx.needs_input_grad))
+
+
+def _forward(verts, R, t, p0, p1, an, radius, is_cyl, d0, iters: int = 10):
+    """K4's forward: the plain version on the CPU, the kernel on CUDA
+    (counted), raising on anything else."""
     L, M, V, B = _check(verts, R, t, p0, p1, an, radius, is_cyl, d0)
     device = verts.device
     if device.type == "cpu":

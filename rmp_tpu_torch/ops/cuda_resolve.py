@@ -22,6 +22,23 @@ K2a and K2b compute q̈ = (Σ Jᵀ W + ridge I)⁻¹ Σ Jᵀ v from dense rows o
 as the TPU kernels `_kernel` and `_kernel_blocks` do: each launches K1's
 kernel with no identity seed and no scalar rows, keeps its own launch
 counter, and takes the plain version on a CPU tensor.
+
+Gradients: while any block requires grad, each entry point goes through
+`PullbackResolve`, a torch.autograd.Function on both devices whose forward
+is the same kernel (or plain version). Its backward is closed-form: with
+x = (A + ridge I)⁻¹ f and the cotangent x̄,
+
+  f̄ = (A + ridge I)⁻ᵀ x̄,    Ā = -f̄ xᵀ,
+
+then into each block by products (identity: M̄ = Ā, v̄ = f̄; scalar:
+J̄ = -m (J x f̄ᵀ + J f̄ xᵀ) + v f̄ᵀ row by row, m̄ = -(J f̄)(J x), v̄ = J f̄;
+dense: J̄ = (v - W x) f̄ᵀ, W̄ = -(J f̄) xᵀ, v̄ = J f̄). The transposed solve
+is K1 itself on the card: A, assembled by einsum, goes in as one identity
+block read through its transposed strides (the kernel reads an identity
+block's M entry by entry, unsymmetrised), with the same ridge, counted on
+`pullback_resolve_structured.transposed_launches`; the CPU takes the plain
+version. Where the pivot clamp (|pivot| < 1e-12) is active the closed form
+differs from autograd through the plain LU.
 """
 from __future__ import annotations
 
@@ -144,18 +161,109 @@ def _launch(table, count: int, ridge: float, B: int, n: int, device):
     return out
 
 
-def pullback_resolve_structured(tags, blocks,
-                                ridge: float = 0.0) -> torch.Tensor:
-    """q̈ (B, n) from structured per-policy blocks; see the module doc."""
+def _solve(entry, tags, blocks, ridge: float) -> torch.Tensor:
+    """q̈ of validated blocks: the plain version on the CPU, else K1's
+    kernel, counted on `entry`."""
     B, n, device, table = _check_blocks(tags, blocks)
     if device.type == "cpu":
         return pullback_resolve_structured_plain(tags, blocks, ridge)
     out = _launch(table, len(tags), ridge, B, n, device)
-    pullback_resolve_structured.launches += 1
+    entry.launches += 1
     return out
 
 
+def _entry(entry, tags, blocks, ridge: float) -> torch.Tensor:
+    """q̈ through `PullbackResolve` while a block requires grad, else the
+    forward alone."""
+    if torch.is_grad_enabled() and any(x.requires_grad for blk in blocks
+                                       for x in blk):
+        sizes = tuple(len(blk) for blk in blocks)
+        return PullbackResolve.apply(entry, tuple(tags), sizes, float(ridge),
+                                     *(x for blk in blocks for x in blk))
+    return _solve(entry, tags, blocks, ridge)
+
+
+def transposed_solve(A: torch.Tensor, g: torch.Tensor,
+                     ridge: float) -> torch.Tensor:
+    """(A + ridge I)⁻ᵀ g for A (B, n, n), g (B, n): K1 on a CUDA tensor (A
+    as one identity block, read through its transposed strides; counted on
+    pullback_resolve_structured.transposed_launches), the plain version on
+    a CPU tensor."""
+    tags, blocks = ("identity",), [(A.transpose(-1, -2), g)]
+    B, n, device, table = _check_blocks(tags, blocks)
+    if device.type == "cpu":
+        return pullback_resolve_structured_plain(tags, blocks, ridge)
+    out = _launch(table, 1, ridge, B, n, device)
+    pullback_resolve_structured.transposed_launches += 1
+    return out
+
+
+def block_cotangents(tags, blocks, x: torch.Tensor, fbar: torch.Tensor):
+    """The closed-form cotangents of every block tensor, in block order,
+    given q̈ x and f̄ (B, n); see the module doc."""
+    out = []
+    for tag, blk in zip(tags, blocks):
+        if tag == "identity":
+            out.append((-fbar[:, :, None] * x[:, None, :], fbar))
+            continue
+        J, X, v = blk
+        a = torch.einsum("brn,bn->br", J, fbar)          # J f̄
+        if tag == "scalar":
+            b = torch.einsum("brn,bn->br", J, x)         # J x
+            Jbar = (v[..., None] * fbar[:, None, :]
+                    - X[..., None] * (b[..., None] * fbar[:, None, :]
+                                      + a[..., None] * x[:, None, :]))
+            out.append((Jbar, -a * b, a))
+        else:
+            Wx = torch.einsum("brn,bn->br", X, x)
+            out.append(((v - Wx)[..., None] * fbar[:, None, :],
+                        -a[..., None] * x[:, None, :], a))
+    return out
+
+
+def _unflatten(flat, sizes) -> list:
+    """The block tuples of a flat tensor sequence, `sizes` tensors each."""
+    blocks, at = [], 0
+    for size in sizes:
+        blocks.append(tuple(flat[at:at + size]))
+        at += size
+    return blocks
+
+
+class PullbackResolve(torch.autograd.Function):
+    """K1 (and K2a/K2b, on K1's kernel) with the closed-form backward of
+    the module doc. The blocks arrive flattened: `sizes` gives each
+    block's tensor count, `entry` the wrapper whose counter a forward
+    launch raises."""
+
+    @staticmethod
+    def forward(ctx, entry, tags, sizes, ridge, *flat):
+        x = _solve(entry, tags, _unflatten(flat, sizes), ridge)
+        ctx.tags, ctx.sizes, ctx.ridge = tags, sizes, ridge
+        ctx.save_for_backward(x, *flat)
+        return x
+
+    @staticmethod
+    def backward(ctx, xbar):
+        x, *flat = ctx.saved_tensors
+        blocks = _unflatten(flat, ctx.sizes)
+        A, _ = assemble_structured(ctx.tags, blocks)
+        fbar = transposed_solve(A, xbar, ctx.ridge)
+        grads = [g for blk in block_cotangents(ctx.tags, blocks, x, fbar)
+                 for g in blk]
+        want = ctx.needs_input_grad[4:]
+        return (None,) * 4 + tuple(g if w else None
+                                   for g, w in zip(grads, want))
+
+
+def pullback_resolve_structured(tags, blocks,
+                                ridge: float = 0.0) -> torch.Tensor:
+    """q̈ (B, n) from structured per-policy blocks; see the module doc."""
+    return _entry(pullback_resolve_structured, tags, blocks, ridge)
+
+
 pullback_resolve_structured.launches = 0
+pullback_resolve_structured.transposed_launches = 0
 
 
 # ------------------------------------------------- K2a, K2b: dense rows ---
@@ -196,14 +304,8 @@ def pullback_resolve_t_plain(Jt, Wt, vt, ridge: float = 1e-6) -> torch.Tensor:
 
 def _dense_entry(entry, J_blocks, W_blocks, v_blocks, ridge: float):
     """q̈ of dense blocks: the plain version on the CPU, else K1's kernel,
-    counted on `entry`."""
-    tags, blocks = _dense(J_blocks, W_blocks, v_blocks)
-    B, n, device, table = _check_blocks(tags, blocks)
-    if device.type == "cpu":
-        return pullback_resolve_structured_plain(tags, blocks, ridge)
-    out = _launch(table, len(tags), ridge, B, n, device)
-    entry.launches += 1
-    return out
+    counted on `entry`; through `PullbackResolve` under grad."""
+    return _entry(entry, *_dense(J_blocks, W_blocks, v_blocks), ridge)
 
 
 def pullback_resolve_blocks(J_blocks, W_blocks, v_blocks,

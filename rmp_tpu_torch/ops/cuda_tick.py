@@ -10,7 +10,9 @@ frame x obstacle, pulls each back into A = Σ JᵀMJ and f = Σ JᵀM(a − c), 
 solves with an unrolled Cholesky (ridge on the diagonal, pivot squares
 clamped to 1e-12). A CPU tensor takes the plain PyTorch version
 (`fused_qdd_plain`); a CUDA tensor launches csrc/fused_tick.cu or raises.
-The JAX kernel needs B % 1024 == 0; the port takes any B.
+The JAX kernel needs B % 1024 == 0; the port takes any B. K5 has no
+derivative rule, as JAX's `pallas_call` has none: `fused_qdd` raises while
+grad is enabled and an input requires grad, on both devices.
 
 Semantics of the reference kernel, kept as they are:
   - each collision frame contributes only its FIRST capsule
@@ -368,6 +370,11 @@ def fused_qdd(tick: FusedTick, q, qd, goal, obs_p0, obs_p1, obs_r):
     model = tick.model
     n = model.n_q
     _check(n, q, qd, goal, obs_p0, obs_p1, obs_r)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, qd, goal, obs_p0, obs_p1, obs_r)):
+        raise RuntimeError("K5 (fused_qdd) has no derivative rule: call it "
+                           "under torch.no_grad() or on inputs that do not "
+                           "require grad")
     if q.device.type == "cpu":
         return fused_qdd_plain(tick, q, qd, goal, obs_p0, obs_p1, obs_r)
     if q.device.type != "cuda":

@@ -14,8 +14,15 @@ package runs it in XLA outside any Pallas kernel (the hull-vs-hull queries
 of `sim/collision.robot_self_distances_hull`). Every function broadcasts
 over leading axes.
 
-`support_hull` is forward only: the envelope derivative of the JAX
-package's `custom_jvp` is not ported yet.
+Derivatives: autograd through `support_hull` and `support_hull_avg` is
+already the envelope rule of the JAX package's `support_hull` custom_jvp
+(`rmp_tpu/ops/gjk.py:92-113`), so no Function stands in for it. The
+maximiser is chosen by comparisons (`argmax`, `==` against `amax`), which
+carry no gradient, so ∂s/∂d = 0; the gather (first maximiser) and the mask
+average (`eq` and its count are constants) pass ∂s/∂verts to the selected
+rows only, the tie-averaged selection in the average's case. The
+`1 / (|v| + 1e-12)` normalisations lie in the capsule and cylinder
+supports, which the JAX package differentiates by autodiff too.
 """
 from __future__ import annotations
 

@@ -37,8 +37,9 @@ def per_env(v):
 
 def per_env_scalar(v, ndim: int):
     """A per-env scalar param (B,) as (B, 1, ..., 1) of `ndim` axes, to
-    broadcast against a leaf's (B, P, d) or (B, P, d, d) operands; a Python
-    number (a gain shared by the batch) as it is."""
-    if isinstance(v, torch.Tensor):
+    broadcast against a leaf's (B, P, d) or (B, P, d, d) operands; a gain
+    shared by the batch (a Python number, or a 0-d tensor such as a gain
+    being tuned) as it is."""
+    if isinstance(v, torch.Tensor) and v.dim() > 0:
         return v.reshape(v.shape[0], *(1,) * (ndim - 1))
     return v

@@ -1,14 +1,15 @@
 """Learned RMP leaves: MLP-parameterised (accel, metric) policies, batched.
 
-The port's `rmp_tpu/policies/neural.py`, forward only (training through the
-rollout is not ported yet). The metric head emits a Cholesky factor with a
+The port's `rmp_tpu/policies/neural.py`; the leaves are differentiable in
+their weights (rmp_tpu_torch/experiments trains them). The metric head emits a Cholesky factor with a
 softplus diagonal, so a learned metric is symmetric PSD by construction;
 the accel head is tanh-bounded and scaled. The obstacle leaf keeps the hand
 leaf's task space (one signed distance per pair), its `ctx["mask"]`
 protocol and its exactly-zero metric beyond the support radius. The MLPs
 are tanh layers and a linear last layer computed by torch.matmul, as the
 JAX package computes them outside any kernel. A net is a dict of float32
-tensors 'w0', 'b0', ... (convert.net_from_numpy carries one across from
+tensors 'w0', 'b0', ... (or per-env replicas of one, each weight with a
+leading batch axis B, whose grads are then each env's own gradient) (convert.net_from_numpy carries one across from
 numpy); scalar params are Python floats.
 """
 from __future__ import annotations
@@ -33,10 +34,19 @@ def mlp_init(gen: torch.Generator, sizes: tuple, device=None) -> dict:
 
 
 def mlp_apply(net: dict, h: torch.Tensor) -> torch.Tensor:
-    """tanh-MLP forward with a linear final layer, over leading axes."""
+    """tanh-MLP forward with a linear final layer, over leading axes.
+
+    A net of per-env replicas (weights w (B, n_in, n_out), biases
+    (B, n_out)) applies env b's weights to h[b] (h (B, ..., n_in))."""
     n_layers = len(net) // 2
     for i in range(n_layers):
-        h = h @ net[f"w{i}"] + net[f"b{i}"]
+        w, b = net[f"w{i}"], net[f"b{i}"]
+        if w.dim() == 3:
+            lead = h.shape[:-1]
+            flat = h.reshape(lead[0], -1, h.shape[-1])
+            h = (flat @ w + b[:, None, :]).reshape(*lead, w.shape[-1])
+        else:
+            h = h @ w + b
         if i + 1 < n_layers:
             h = torch.tanh(h)
     return h

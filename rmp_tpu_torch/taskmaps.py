@@ -11,6 +11,8 @@ forward-mode autodiff (`differentiate`).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from typing import Callable
 
@@ -81,6 +83,38 @@ def multi_fk_frames(model: KinematicModel, frames) -> Taskmap:
                    post=lambda T16s, ctx: T16s, post_passthrough=True)
 
 
+# Whether the taskmap derivatives being taken will be differentiated again
+# in reverse mode (a rollout's gradient); core sets it around them. Inside
+# torch.func.jvp a tensor's requires_grad does not show it.
+_REVERSE = contextvars.ContextVar("rmp_taskmap_reverse_mode", default=False)
+
+
+@contextlib.contextmanager
+def reverse_mode(live: bool):
+    """Within the block, distances take the reverse-mode-safe form
+    (`_distance`) when `live`."""
+    token = _REVERSE.set(live)
+    try:
+        yield
+    finally:
+        _REVERSE.reset(token)
+
+
+def _distance(v: torch.Tensor) -> torch.Tensor:
+    """|v| over the last axis: torch.linalg.vector_norm's value (bit for bit
+    the JAX package's norm on the CPU). Under reverse_mode(True) the same
+    value carries the derivatives of sqrt(Σ v²) instead: PyTorch's
+    forward-mode rule of vector_norm writes into its result, so reverse
+    mode through the post chain's nested jvp (its curvature term) refuses
+    a graph that holds it. The tangents then differ from vector_norm's by
+    the rounding of the two norms only."""
+    d = torch.linalg.vector_norm(v, dim=-1)
+    if not _REVERSE.get():
+        return d
+    s = torch.sqrt(torch.sum(v * v, dim=-1))
+    return d.detach() + (s - s.detach())
+
+
 def frames_to_point_distance(link_field: str = "pos_on_link",
                              obstacle_field: str = "pos_on_obstacle") -> Taskmap:
     """(B, L, 16) frames -> (B, L*K, 1) distances to the per-(frame, pair)
@@ -97,7 +131,7 @@ def frames_to_point_distance(link_field: str = "pos_on_link",
         p_joint = p[:, :, None, :].expand(B, L, K, 3)
         offset = (pos_on_link - p_joint).detach()
         critical = p_joint + offset
-        d = torch.linalg.vector_norm(critical - pos_on_obstacle, dim=-1)
+        d = _distance(critical - pos_on_obstacle)
         return d.reshape(B, L * K, 1)
 
     def fn(x, ctx):
@@ -177,7 +211,7 @@ def frame_to_point_distance(link_field: str = "pos_on_link",
         p_joint = p[:, :1, :].expand_as(pos_on_link)
         offset = (pos_on_link - p_joint).detach()
         critical = p_joint + offset
-        d = torch.linalg.vector_norm(critical - ctx[obstacle_field], dim=-1)
+        d = _distance(critical - ctx[obstacle_field])
         return d[..., None]
 
     def fn(x, ctx):
