@@ -206,6 +206,27 @@ printing the result line:
      envs dropped, peak memory), and one step without remat over 25
      ticks;
      tune_gains --geometry hull on franka/06 for 3 steps of 20 ticks.
+ 18. the twelfth slice, K1 and K5 at every n, K1's bf16 loads, the N-link
+     arm (M18): K1 against its plain version at every n from 1 to 32 (the
+     lane kernel to 9, the warp kernel above) on float32 and on bfloat16
+     blocks at B = 4096 (random layouts drawn on the card), a 20-block
+     layout, n = 33 and 33 blocks raising before a launch, the flagship's
+     real tick in bfloat16 (kernel on the cast blocks, block_dtype the
+     same call), timed at n = 5, 12, 18, 32 and on the flagship in bf16
+     and float32 beside their bounds (bfloat16 counted at 2 bytes) and
+     einsum + torch.linalg.solve; K2a and K2b fed by core.policy_rows and
+     core.policy_row_blocks on the five-link arm at 4096 envs against
+     their plain versions and K1's q̈; K5 at n = 5 and 12 on the planar
+     arms' inputs against its plain version and the env's own batched
+     step's q̈ (2e-4), one launch per call, timed beside its bound; the
+     planar arms (envs/planar.py) at 4096 x 150 ticks ('solve', K1 and
+     K3 once per tick, no synchronizing call, every q finite, the median
+     EE-goal distance before and after, a 10-tick trace) with GPU/CPU
+     parity (128 x 5); the flagship at 4096 x 150 in float32 and with
+     fused_blocks_dtype 'bf16', side by side, and JAX's bf16 contract on
+     the card (128 reset envs x 2 ticks, within 1e-2, not identical); the
+     flagship with RMP_PANDA_CAPS=fine (47 capsules) at 4096 x 30 with
+     GPU/CPU parity.
 Then one JSON line of per-kernel numbers ({"kernels": [...]}) and, last,
 {"ok": true, "device": {...}}. The full record also goes to
 chiprun_out/chip_smoke.json.
@@ -235,6 +256,7 @@ from rmp_tpu_torch.core import policy_row_blocks_structured
 from rmp_tpu_torch.envs import franka
 from rmp_tpu_torch.envs import neural_clutter as clutter_env
 from rmp_tpu_torch.envs import neural_reach as reach_env
+from rmp_tpu_torch.envs import planar
 from rmp_tpu_torch.envs.base import (_policy_inputs, _seed_gjk_warm,
                                      _wants_gjk_warm,
                                      make_batched_control_step)
@@ -418,18 +440,20 @@ def k1_layout(tags, blocks):
 
 def k1_bound(tags, blocks):
     """Bound of the wrapper call: it reads each identity block (n² + n),
-    the dense rows (2n + 1 each) and the scalar rows (n + 2 each) once and
-    writes q̈ (n), per env; flops of the seed's sums, the accumulation and
-    the LU."""
+    the dense rows (2n + 1 each) and the scalar rows (n + 2 each) once, in
+    each block's element type (4 bytes, 2 for bfloat16), and writes q̈ (n
+    floats), per env; flops of the seed's sums, the accumulation and the
+    LU."""
     B, n, Rd, Rs = k1_layout(tags, blocks)
     n_id = tags.count("identity")
-    floats = n_id * (n * n + n) + Rd * (2 * n + 1) + Rs * (n + 2) + n
+    n_bytes = B * (4 * n + sum(x[0].numel() * x.element_size()
+                               for blk in blocks for x in blk))
     flops = (n_id * (n * n + n)                          # seed, seed + rows
              + Rd * (2 * n + 2 * n * n)                  # J^T W, J^T v
              + Rs * (3 * n + n * (n + 1))                # m J, upper J^T m J
              + sum((n - k - 1) * (2 * (n - k) + 3) for k in range(n))  # LU
              + n * n + n)                                # back substitution
-    return bound_ms(4.0 * floats * B, float(flops) * B)
+    return bound_ms(float(n_bytes), float(flops) * B)
 
 
 def k1_library(tags, blocks):
@@ -524,7 +548,7 @@ def build_counts(source: str, what: str, kernel: str | None = None) -> dict:
 
 def phase_k1(env, device) -> dict:
     build = build_counts("pullback_resolve.cu", "K1",
-                         "pullback_resolve_kernel")
+                         "pullback_resolve_kernelILi9E")
     err, real = 0.0, {}
     for B in (BATCH,) + RAGGED:
         tags, blocks = k1_layout_blocks(0 if B == BATCH else B, B, 9,
@@ -2503,8 +2527,8 @@ def resolve_recorded(flags: list):
     zeros it."""
     resolve = envs.base.pullback_resolve_structured
 
-    def recorded(tags, blocks, ridge=0.0):
-        out = resolve(tags, blocks, ridge=ridge)
+    def recorded(tags, blocks, ridge=0.0, block_dtype=None):
+        out = resolve(tags, blocks, ridge=ridge, block_dtype=block_dtype)
         flags.append(~torch.isfinite(out).all(dim=1))
         return out
     envs.base.pullback_resolve_structured = recorded
@@ -2796,7 +2820,7 @@ def phase_k1_dual(device) -> tuple[dict, dict, float]:
     4093; one device kernel per call; timed at B = 4096 on the real blocks
     beside its bound and the einsum + torch.linalg.solve yardstick."""
     build = build_counts("pullback_resolve.cu", "K1 n=18",
-                         "pullback_resolve_wide_kernel")
+                         "pullback_resolve_wide_kernelILi18E")
     out, err = {}, 0.0
     for key, (layout, scene) in K1_DUAL_LAYOUTS.items():
         for B in (BATCH,) + RAGGED:
@@ -4128,6 +4152,426 @@ def phase_slice11(card: str, device) -> dict:
                 reach=reach, clutter=clutter, tune_gains_hull=hull,
                 paths=paths, seconds=times)
 
+# ------------------------------------------- phase 18: the twelfth slice ---
+
+PLANAR_LINKS = (5, 12)     # the N-link arms of the generality path
+PLANAR_TICKS = 150
+FINE_TICKS = 30            # the fine-capsule flagship (~1.9x the pairs)
+BF16_CONTRACT = 1e-2       # tests/test_pallas_resolve.py's bf16 bound on q
+# K1's layout at every n (random blocks): the flagship's shape with a
+# shorter obstacle block
+K1_EVERY_N_LAYOUT = (("dense", 3), ("identity", 0), ("identity", 0),
+                     ("scalar", 20))
+K1_TIMED_N = (5, 12, 18, 32)
+K1_BLOCKS20 = ((("identity", 0),) * 3 + (("dense", 3),) * 9
+               + (("scalar", 7),) * 8)
+
+
+def k1_device_blocks(seed: int, B: int, n: int, layout, device):
+    """k1_layout_blocks' distributions drawn on the card (a seeded
+    torch.Generator): the every-n sweep draws 64 layouts."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device=device)
+
+    def spd(d):
+        L = rand(B, d, d) * 0.3
+        return L @ L.transpose(1, 2) + 0.5 * torch.eye(d, device=device)
+
+    blocks = []
+    for tag, R in layout:
+        if tag == "identity":
+            blocks.append((spd(n), rand(B, n)))
+        elif tag == "dense":
+            J = rand(B, R, n)
+            blocks.append((J, spd(R) @ J, rand(B, R)))
+        else:
+            m = 2.0 * torch.rand(B, R, generator=g, device=device)
+            blocks.append((rand(B, R, n) * 0.3, m, rand(B, R)))
+    return tuple(tag for tag, _ in layout), blocks
+
+
+def k1_times(what: str, tags, blocks, block_dtype=None) -> dict:
+    """K1 on the blocks timed as phase 3 times it (the wrapper from an idle
+    stream, the device alone with the stream kept busy), its plain version,
+    einsum + torch.linalg.solve on the same system (upcast), and its bound
+    from these inputs."""
+    def call():
+        return cuda_resolve.pullback_resolve_structured(
+            tags, blocks, block_dtype=block_dtype)
+    up = [tuple(x.float() for x in blk) for blk in blocks]
+    rec = dict(ms=time_ms(call), device_ms=time_ms(call, lead=True),
+               plain_ms=time_ms(lambda: cuda_resolve.
+                                pullback_resolve_structured_plain(
+                                    tags, blocks, block_dtype=block_dtype),
+                                reps=5),
+               library_ms=time_ms(lambda: k1_library(tags, up)))
+    rec["bound_ms"], rec["bound_by"] = k1_bound(*(
+        cuda_resolve.cast_blocks(tags, blocks, block_dtype)
+        if block_dtype is not None else (tags, blocks)))
+    log(f"K1 {what} times at B={blocks[0][0].shape[0]}: wrapper "
+        f"{rec['ms']:.4f} ms (device alone {rec['device_ms']:.4f} ms), "
+        f"plain {rec['plain_ms']:.4f} ms, einsum+linalg.solve "
+        f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms "
+        f"({rec['bound_by']})")
+    return rec
+
+
+def phase_k1_every_n(env, device) -> tuple[dict, float]:
+    """K1 against its plain version at every n from 1 to MAX_N, on float32
+    and on bfloat16 blocks, at B = BATCH; a 20-block layout; n = 33 and 33
+    blocks raising before a launch; the lane and warp kernels' build lines;
+    times at K1_TIMED_N and on the flagship's real tick in bfloat16."""
+    build = dict(lane=ptxas_counts("pullback_resolve.cu",
+                                   "pullback_resolve_kernel"),
+                 wide=ptxas_counts("pullback_resolve.cu",
+                                   "pullback_resolve_wide_kernelILi18E"))
+    log(f"K1 builds over every n (largest): {json.dumps(build)}")
+    err, errs = 0.0, {}
+    for n in cuda_resolve.KERNEL_N:
+        tags, blocks = k1_device_blocks(n, BATCH, n, K1_EVERY_N_LAYOUT,
+                                        device)
+        half = [tuple(x.to(torch.bfloat16) for x in blk) for blk in blocks]
+        errs[n] = (k1_compare(tags, blocks, f"n={n}, float32"),
+                   k1_compare(tags, half, f"n={n}, bfloat16 blocks"))
+        err = max(err, *errs[n])
+    tags, blocks = k1_device_blocks(20, BATCH, 9, K1_BLOCKS20, device)
+    err = max(err, k1_compare(tags, blocks, "20 blocks, n=9"))
+    for what, (tags, blocks) in (
+            ("n=33", k1_device_blocks(33, 4, 33, K1_EVERY_N_LAYOUT, device)),
+            ("33 blocks", k1_device_blocks(34, 4, 3, (("dense", 2),) * 33,
+                                           device))):
+        before = cuda_resolve.pullback_resolve_structured.launches
+        try:
+            cuda_resolve.pullback_resolve_structured(tags, blocks)
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+        check(raised is not None and before ==
+              cuda_resolve.pullback_resolve_structured.launches,
+              f"K1 {what}: no ValueError before a launch")
+        log(f"K1 {what} raises: {raised}")
+    times = {}
+    for n in K1_TIMED_N:
+        tags, blocks = k1_device_blocks(n, BATCH, n, K1_EVERY_N_LAYOUT,
+                                        device)
+        times[f"n={n}"] = k1_times(f"n={n} (random layout)", tags, blocks)
+    rtags, rblocks = real_tick_blocks(env, BATCH, 1)
+    half = cuda_resolve.cast_blocks(rtags, rblocks, torch.bfloat16)
+    err = max(err, k1_compare(*half, "flagship real tick, bfloat16 blocks"))
+    got = cuda_resolve.pullback_resolve_structured(
+        rtags, rblocks, block_dtype=torch.bfloat16)
+    want = cuda_resolve.pullback_resolve_structured_plain(
+        rtags, rblocks, block_dtype=torch.bfloat16)
+    f32 = cuda_resolve.pullback_resolve_structured_plain(rtags, rblocks)
+    torch.cuda.synchronize()
+    check(torch.equal(got, cuda_resolve.pullback_resolve_structured(*half)),
+          "K1 block_dtype: not the kernel on the cast blocks")
+    rel = float(((want - f32).abs().amax(dim=1)
+                 / f32.abs().amax(dim=1).clamp_min(1.0)).max())
+    log(f"K1 flagship bf16 against float32 (plain): max rel {rel:.3e}")
+    per_call = device_launches(lambda: cuda_resolve.
+                               pullback_resolve_structured(*half),
+                               "pullback_resolve_kernel", "K1 bf16")
+    check(per_call == 1, "K1 bf16: not one launch per wrapper call")
+    times["flagship bf16"] = dict(k1_times("flagship bf16 (cast blocks)",
+                                           *half),
+                                  device_launches_per_call=per_call,
+                                  block_dtype_call=k1_times(
+                                      "flagship, block_dtype=bfloat16 "
+                                      "(casts included)", rtags, rblocks,
+                                      torch.bfloat16),
+                                  rel_to_float32=rel)
+    times["flagship f32"] = k1_times("flagship float32 (again)", rtags,
+                                     rblocks)
+    return dict(build=build, errors={str(k): v for k, v in errs.items()},
+                times=times), err
+
+
+def planar_inputs(env, B: int, seed: int):
+    """K5's inputs near the planar env's reset: q ± 0.1, q̇ ± 0.05, goal ±
+    0.05, its cylinder per env."""
+    states = perturbed_states(env, B, seed, 0.1, 0.05)
+    rng = np.random.default_rng(seed + 1)
+    goal = states.sim.goal + torch.tensor(
+        rng.uniform(-0.05, 0.05, (B, 3)), dtype=torch.float32,
+        device=states.sim.q.device)
+    obs = states.sim.obstacles
+    return (states.sim.q, states.sim.qd, goal, obs.p0.contiguous(),
+            obs.p1.contiguous(), obs.radius.contiguous())
+
+
+def phase_producers_and_k5(device) -> tuple[dict, float, float, float]:
+    """K2a and K2b fed by core.policy_rows / policy_row_blocks on the
+    five-link env at BATCH envs against their plain versions and the
+    structured K1's q̈; K5 at n = 5 and 12 against its plain version and
+    the env's own batched step, timed beside its bound."""
+    env = planar.planar_arm_env(5)
+    states = perturbed_states(env, BATCH, 6, 0.1, 0.05)
+    q, qd, prm, ctxs, fk = _policy_inputs(env, states, env.gather_params())
+    Js, Ws, vs = core.policy_row_blocks(env.policies, q, qd, prm, ctxs,
+                                        fk=fk)
+    J, W, v = core.policy_rows(env.policies, q, qd, prm, ctxs, fk=fk)
+    tags, blocks = policy_row_blocks_structured(env.policies, q, qd, prm,
+                                                ctxs, fk=fk)
+    k1 = cuda_resolve.pullback_resolve_structured(tags, blocks)
+    log(f"producers on planar_5link: {len(Js)} blocks of rows "
+        f"{[x.shape[1] for x in Js]}, {J.shape[1]} rows in all")
+    err_a = k2_compare(cuda_resolve.pullback_resolve(J, W, v),
+                       cuda_resolve.pullback_resolve_plain(J, W, v),
+                       "K2a from core.policy_rows, planar_5link")
+    err_b = k2_compare(cuda_resolve.pullback_resolve_blocks(Js, Ws, vs),
+                       cuda_resolve.pullback_resolve_blocks_plain(Js, Ws, vs),
+                       "K2b from core.policy_row_blocks, planar_5link")
+    k2_compare(cuda_resolve.pullback_resolve_blocks(Js, Ws, vs), k1,
+               "K2b from the dense producer against K1 on the structured "
+               "blocks")
+    k5, err5 = {}, 0.0
+    for n_links in PLANAR_LINKS:
+        env = planar.planar_arm_env(n_links)
+        tick = cuda_tick.fused_tick(env)
+        fn = cuda_tick.make_fused_qdd(env)
+        args = planar_inputs(env, BATCH, 11)
+        plain = functools.partial(cuda_tick.fused_qdd_plain, tick)
+        got, want = fn(*args), plain(*args)
+        start = envs.make_batched_reset(env, BATCH)()
+        states = dataclasses.replace(start, sim=dataclasses.replace(
+            start.sim, q=args[0], qd=args[1], goal=args[2],
+            obstacles=collision.ObstacleSet(*args[3:],
+                                            kinds=("cylinder",))))
+        _, aux = make_batched_control_step(env)(states, env.gather_params())
+        # links that pierce the cylinder (q ± 0.1 from the reset, 0.22 m
+        # clear) make the 1/d curvature row amplify rounding: the envs
+        # compared are phase 11's wide screen's (finite, moved by at most
+        # STABLE under a one-ulp move of q and q̇, plain within K5_ACCURATE
+        # of float64), the rest counted and their worst printed
+        up = torch.tensor(float("inf"), device=device)
+        ulp = plain(torch.nextafter(args[0], up),
+                    torch.nextafter(args[1], up), *args[2:])
+        f64 = plain(*(x.double() for x in args))
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"K5 n={n_links}: non-finite")
+        held = (torch.isfinite(want).all(dim=1)
+                & (k5_rel(ulp, want) <= STABLE)
+                & (k5_rel(f64, want.double()) <= K5_ACCURATE))
+        n_held = int(held.sum())
+        rel = k5_rel(got, want)
+        worst = int(rel.argmax())
+        log(f"K5 planar_{n_links}link: {n_held} of {BATCH} envs compared; "
+            f"over all {float(rel.max()):.3e} at env {worst} (one-ulp move "
+            f"{float(k5_rel(ulp, want)[worst]):.1e}, plain vs float64 "
+            f"{float(k5_rel(f64, want.double())[worst]):.1e}, kernel vs "
+            f"float64 {float(k5_rel(got.double(), f64)[worst]):.1e})")
+        check(n_held >= BATCH // 2, f"K5 n={n_links}: too few envs compared")
+        err5 = max(err5, k5_check(f"planar_{n_links}link, kernel vs plain",
+                                  rel[held], K1_TOL))
+        k5_check(f"planar_{n_links}link, kernel vs the batched step's q̈",
+                 k5_rel(got, aux["qdd"])[held], K1_TOL)
+        smem = _build.c_function("rmp_fused_qdd_shared_bytes",
+                                 [ctypes.c_int] * 3)(
+            tick.model.n_frames, n_links, len(tick.col_frames))
+        per_call = device_launches(lambda: fn(*args), "fused_qdd_kernel",
+                                   f"K5 n={n_links}")
+        check(per_call == 1, "K5: not one launch per wrapper call")
+        b_ms, b_by = k5_bound(tick, BATCH, 1)
+        rec = dict(ms=time_ms(lambda: fn(*args)),
+                   device_ms=time_ms(lambda: fn(*args), lead=True),
+                   plain_ms=time_ms(lambda: cuda_tick.fused_qdd_plain(
+                       tick, *args), reps=5),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                   device_launches_per_call=per_call,
+                   dynamic_smem_bytes=smem,
+                   build=ptxas_counts("fused_tick.cu",
+                                      f"fused_qdd_kernelILi{n_links}E"))
+        log(f"K5 planar_{n_links}link times at B={BATCH}: kernel "
+            f"{rec['ms']:.4f} ms (device alone {rec['device_ms']:.4f} ms), "
+            f"plain {rec['plain_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by}); "
+            f"{smem} B of shared memory, build {json.dumps(rec['build'])}")
+        k5[f"planar_{n_links}link"] = rec
+    return k5, err_a, err_b, err5
+
+
+def _ee_goal_distance(env, states) -> torch.Tensor:
+    ee = kinematics.fk_position(env.model, states.sim.q, env.ee_frame)
+    return (ee - states.sim.goal).norm(dim=-1)
+
+
+def rollout_path(card: str, env, what: str, ticks: int,
+                 path_kernels: tuple, failed: list) -> tuple[dict, dict]:
+    """`env` at BATCH envs x `ticks` from its reset after WARMUP_TICKS,
+    timed, every counter zeroed just before and read after (the
+    path_kernels once per tick, every other 0); one tick under the sync
+    debug mode after the warm-up (the first tick builds the model's device
+    tables); every q finite; the median EE distance to the goal before and
+    after; a 10-tick trace."""
+    params = env.gather_params()
+    states = envs.make_batched_reset(env, BATCH)()
+    before = float(_ee_goal_distance(env, states).median())
+    states, _ = envs.make_batched_rollout(env, WARMUP_TICKS,
+                                          with_aux=False)(states, params)
+    syncs = sync_free_tick(env, states, params, what)
+    if syncs:
+        failed.append(f"{what}: the tick synchronizes with the device")
+    rollout = envs.make_batched_rollout(env, ticks, with_aux=False)
+    torch.cuda.synchronize()
+    _zero_counters()
+    t0 = time.perf_counter()
+    final, _ = rollout(states, params)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    steps_per_s = BATCH * ticks / seconds
+    after = float(_ee_goal_distance(env, final).median())
+    log(f"{what}: {BATCH} envs x {ticks} ticks in {seconds:.3f} s = "
+        f"{steps_per_s:.1f} control steps/s [{card}]; median EE-goal "
+        f"distance {before:.4f} m at reset, {after:.4f} m after")
+    log(f"{what} launches: {launches}")
+    for name, count in launches.items():
+        want = ticks if name in path_kernels else 0
+        check(count == want, f"{what}: {name} launched {count} times in "
+              f"{ticks} ticks, want {want}")
+    check(bool(torch.isfinite(final.sim.q).all()), f"{what}: non-finite q")
+    trace = profile_ticks(env, final, params, seconds * 1e3 / ticks)
+    log(f"{what} trace: {json.dumps(trace)}")
+    return launches, dict(envs=BATCH, ticks=ticks, seconds=seconds,
+                          control_steps_per_s=steps_per_s,
+                          sync_calls_per_tick=len(syncs),
+                          median_ee_goal_m=dict(reset=before, final=after),
+                          trace=trace)
+
+
+def gpu_cpu_parity(make_env, what: str, B: int = 128, ticks: int = 5
+                   ) -> dict:
+    """q after `ticks` of the env on the card and on the CPU from the same
+    perturbed reset (q ± 0.1, q̇ ± 0.05), held to PARITY_ATOL on the envs
+    whose CPU run lies within STABLE of a float64 run of the same problem
+    (witness_q's screen: the planar arms pierce their cylinder from these
+    states, and the twelve-link arm's float32 runs part there), at least
+    half of them; the GPU also within PARITY_ATOL of float64 there."""
+    q = {}
+    for dev in ("cuda", "cpu"):
+        env = make_env(dev)
+        final, _ = envs.make_batched_rollout(env, ticks, with_aux=False)(
+            perturbed_states(env, B, 4, 0.1, 0.05), env.gather_params())
+        q[dev] = final.sim.q.cpu()
+    env = make_env("cpu")
+    states = _as_dtype(perturbed_states(env, B, 4, 0.1, 0.05), torch.float64)
+    params = tuple(_as_dtype(p, torch.float64) for p in env.gather_params())
+    with plain_kernels(float64=True):
+        final, _ = envs.make_batched_rollout(env, ticks, with_aux=False)(
+            states, params)
+    exact = final.sim.q
+    check(exact.dtype == torch.float64, f"{what}: the witness's dtype")
+    rounding = (q["cpu"].double() - exact).abs().amax(dim=1)
+    gap = (q["cuda"] - q["cpu"]).abs().amax(dim=1)
+    keep = rounding <= STABLE
+    rec = dict(envs_compared=int(keep.sum()), max_abs_q=float(gap[keep].max()),
+               max_abs_q_all=float(gap.max()),
+               max_cpu_vs_float64=float(rounding.max()),
+               max_gpu_vs_float64=float((q["cuda"].double() - exact).abs()
+                                        .amax(dim=1)[keep].max()))
+    log(f"{what} GPU/CPU parity ({B} envs x {ticks} ticks): {json.dumps(rec)} "
+        f"(atol {PARITY_ATOL} on the envs compared)")
+    check(rec["envs_compared"] >= B // 2, f"{what}: too few envs compared")
+    check(rec["max_abs_q"] < PARITY_ATOL, f"{what}: GPU/CPU parity")
+    check(rec["max_gpu_vs_float64"] < PARITY_ATOL,
+          f"{what}: GPU against float64")
+    return rec
+
+
+def flagship(dev, dtype: str | None = None):
+    env = envs.make(SCENE, device=dev)
+    env.resolve_method = "solve"
+    env.fused_blocks_dtype = dtype
+    return env
+
+
+def bf16_contract(device) -> dict:
+    """JAX's bf16 contract on the card (tests/test_pallas_resolve.py): 128
+    reset envs x 2 ticks, bf16 within 1e-2 of float32, finite, not
+    identical."""
+    q = {}
+    for dtype in (None, "bf16"):
+        env = flagship(device, dtype)
+        final, _ = envs.make_batched_rollout(env, 2, with_aux=False)(
+            envs.make_batched_reset(env, 128)(), env.gather_params())
+        q[dtype] = final.sim.q
+    gap = float((q["bf16"] - q[None]).abs().max())
+    log(f"bf16 contract on the card: max|Δq| after 2 ticks {gap:.3e} (limit "
+        f"{BF16_CONTRACT}, above 0)")
+    check(bool(torch.isfinite(q["bf16"]).all()), "bf16 contract: non-finite")
+    check(0.0 < gap <= BF16_CONTRACT, f"bf16 contract: {gap:.3e}")
+    return dict(max_abs_q=gap)
+
+
+def k1_us_per_tick(path: dict) -> float:
+    return sum(v for k, v in path["trace"]["port_kernels_us_per_tick"].items()
+               if "pullback_resolve" in k)
+
+
+@contextlib.contextmanager
+def fine_capsules():
+    """RMP_PANDA_CAPS=fine while the block runs."""
+    old = os.environ.get("RMP_PANDA_CAPS")
+    os.environ["RMP_PANDA_CAPS"] = "fine"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["RMP_PANDA_CAPS"]
+        else:
+            os.environ["RMP_PANDA_CAPS"] = old
+
+
+def phase_slice12(card: str, device) -> dict:
+    """Phase 18: K1 at every n and in bfloat16, K2a/K2b from the dense
+    producers, K5 at n = 5 and 12, the N-link envs at full batch with
+    GPU/CPU parity, the flagship with bf16 blocks against float32 and JAX's
+    bf16 contract, the fine-capsule flagship."""
+    t_start = time.perf_counter()
+    failed: list = []
+    env = envs.make(SCENE)
+    k1, k1_err = phase_k1_every_n(env, device)
+    k5, k2a_err, k2b_err, k5_err = phase_producers_and_k5(device)
+    paths, results = {}, {}
+    k13 = ("pullback_resolve_structured", "fk_derivatives_batched")
+    for n_links in PLANAR_LINKS:
+        name = f"planar_{n_links}link"
+        launches, res = rollout_path(
+            card, planar.planar_arm_env(n_links), name, PLANAR_TICKS, k13,
+            failed)
+        res["parity"] = gpu_cpu_parity(
+            lambda dev: planar.planar_arm_env(n_links, dev), name)
+        paths[name], results[name] = launches, res
+    for dtype, name in ((None, f"{SCENE} float32"),
+                        ("bf16", f"{SCENE} bf16")):
+        paths[name], results[name] = rollout_path(
+            card, flagship(device, dtype), name, TICKS, k13, failed)
+    contract = bf16_contract(device)
+    log(f"flagship steps/s: float32 "
+        f"{results[f'{SCENE} float32']['control_steps_per_s']:.1f}, bf16 "
+        f"{results[f'{SCENE} bf16']['control_steps_per_s']:.1f}; K1 device us "
+        f"per tick {k1_us_per_tick(results[f'{SCENE} float32']):.2f} / "
+        f"{k1_us_per_tick(results[f'{SCENE} bf16']):.2f} [{card}]")
+    with fine_capsules():
+        name = f"{SCENE} fine capsules"
+        fine_env = flagship(device)
+        n_caps = sum(len(c) for c in fine_env.model.collision)
+        check(n_caps == 47, f"fine capsules: {n_caps} primitives")
+        paths[name], results[name] = rollout_path(card, fine_env, name,
+                                                  FINE_TICKS, k13, failed)
+        results[name]["parity"] = gpu_cpu_parity(flagship, name)
+    check(sum(len(c) for c in flagship(device).model.collision) == 25,
+          "the 25-capsule model after RMP_PANDA_CAPS is unset")
+    seconds = time.perf_counter() - t_start
+    log(f"phase 18: {seconds:.1f} s")
+    check(not failed, "; ".join(failed))
+    return dict(k1=k1, k1_err=k1_err, k2a_err=k2a_err, k2b_err=k2b_err,
+                k5=k5, k5_err=k5_err, results=results,
+                paths={k: (v, results[k]) for k, v in paths.items()},
+                bf16_contract=contract, seconds=seconds)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4188,6 +4632,7 @@ def main() -> int:
     slice11 = phase_slice11(card, device)
     slice11_s = time.perf_counter() - t0
     log(f"phase 17: {slice11_s:.1f} s")
+    slice12 = phase_slice12(card, device)
 
     k1["per_layout"] = dict(flagship=dict(n=9, ms=k1["ms"],
                                           device_ms=k1["device_ms"]),
@@ -4226,7 +4671,7 @@ def main() -> int:
     k1["dual"] = k3["dual"] = False
     path_launches = {"capsule": launches, "hull": hull_launches}
     for paths in (slice6["paths"], slice7["paths"], slice8["paths"],
-                  slice9["paths"], slice10["paths"]):
+                  slice9["paths"], slice10["paths"], slice12["paths"]):
         path_launches.update((scene, counts) for scene, (counts, _) in
                              paths.items())
     # the eleventh slice's gradient and training paths
@@ -4273,8 +4718,36 @@ def main() -> int:
         device_ms=ts["device_ms"], plain_ms=ts["plain_ms"],
         bound_ms=ts["bound_ms"], bound_by=ts["bound_by"],
         library_ms=ts["library_ms"])
+    # the twelfth slice's entries: K1 at the planar arms' n (the lane
+    # kernel at 5, the warp kernel at 12) and on the flagship's bf16
+    # blocks, each with its path's launches; K5 at n = 5 and 12 (no path)
+    k2a["max_abs_err"] = max(k2a["max_abs_err"], slice12["k2a_err"])
+    k2b["max_abs_err"] = max(k2b["max_abs_err"], slice12["k2b_err"])
+    k1_times = slice12["k1"]["times"]
+    k1_slice12 = [
+        dict(name=f"pullback_resolve_structured ({label})", route="cuda",
+             source="rmp_tpu_torch/csrc/pullback_resolve.cu",
+             replaces="rmp_tpu/ops/pallas_resolve.py:226",
+             counter=k1["name"], path=path, max_abs_err=slice12["k1_err"],
+             **{k: k1_times[key][k] for k in
+                ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")})
+        for label, key, path in (
+            ("n=5, random layout", "n=5", "planar_5link"),
+            ("n=12, warp kernel, random layout", "n=12", "planar_12link"),
+            ("flagship, bfloat16 blocks", "flagship bf16", f"{SCENE} bf16"))]
+    k5_slice12 = [
+        dict(name=f"fused_qdd ({key})", route="cuda",
+             source="rmp_tpu_torch/csrc/fused_tick.cu",
+             replaces="rmp_tpu/ops/pallas_tick.py:421", counter=k5["name"],
+             max_abs_err=slice12["k5_err"],
+             **{k: rec[k] for k in ("ms", "device_ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "device_launches_per_call")})
+        for key, rec in slice12["k5"].items()]
     kernels = [k1, k2a, k2b, k3, k4, k5, k1_dual, k3_dual, k3_contact,
-               k1_neural] + k4_models + [k1_backward_rec]
+               k1_neural] + k4_models + [k1_backward_rec] + k1_slice12 \
+        + k5_slice12
     for rec in kernels:
         # each kernel's count from the paths that run it (K2a/K2b, K5:
         # none); K1 and K3 on the dual-arm Panda (n = 18, F = 26) apart
@@ -4315,7 +4788,8 @@ def main() -> int:
                   slice10_parity=slice10["parity"],
                   impulse=slice10["impulse"],
                   phase16_parts_s=slice10["seconds"], phase16_s=slice10_s,
-                  slice11=slice11, phase17_s=slice11_s)
+                  slice11=slice11, phase17_s=slice11_s,
+                  slice12={k: v for k, v in slice12.items() if k != "paths"})
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -205,6 +205,38 @@ def _taskmap_derivatives_analytic(policies, q, qd, ctxs, fk=None):
     return tuple(x_all), tuple(xd_all), tuple(J_all), tuple(c_all)
 
 
+def policy_row_blocks(policies: Sequence, q: torch.Tensor, qd: torch.Tensor,
+                      params: Sequence, ctxs: Sequence,
+                      derivatives: str = "analytic", fk=None):
+    """Per-policy dense pullback row blocks: ([J_b (B, R_b, n)],
+    [W_b (B, R_b, n)], [v_b (B, R_b)]) with R_b = P_b d_b, W = M J and
+    v = M (a − c) rows, an identity leaf's J the n x n identity. The
+    combined system A = Σ J_bᵀ W_b, f = Σ J_bᵀ v_b is what
+    ops/cuda_resolve.pullback_resolve_blocks (K2b) reads."""
+    x_all, xd_all, J_all, c_all = _taskmap_derivatives(
+        policies, q, qd, ctxs, derivatives, fk)
+    B, n = q.shape
+    Js, Ws, vs = [], [], []
+    for p, prm, ctx, x, xd, J, c in zip(policies, params, ctxs, x_all, xd_all,
+                                        J_all, c_all):
+        a, M = p.accel_metric(prm, x, xd, ctx)
+        Js.append(J.reshape(B, -1, n))
+        Ws.append((M @ J).reshape(B, -1, n))
+        vs.append(geom.mv(M, a - c).reshape(B, -1))
+    return Js, Ws, vs
+
+
+def policy_rows(policies: Sequence, q: torch.Tensor, qd: torch.Tensor,
+                params: Sequence, ctxs: Sequence,
+                derivatives: str = "analytic", fk=None):
+    """The row-stacked form of policy_row_blocks: (J (B, R, n),
+    W (B, R, n), v (B, R)), R = Σ R_b, the input of
+    ops/cuda_resolve.pullback_resolve (K2a)."""
+    Js, Ws, vs = policy_row_blocks(policies, q, qd, params, ctxs,
+                                   derivatives, fk)
+    return torch.cat(Js, dim=1), torch.cat(Ws, dim=1), torch.cat(vs, dim=1)
+
+
 def policy_row_blocks_structured(policies: Sequence, q: torch.Tensor,
                                  qd: torch.Tensor, params: Sequence,
                                  ctxs: Sequence, derivatives: str = "analytic",

@@ -19,6 +19,9 @@
 //   6. the unrolled Cholesky of 0.5 (A + A^T), pivot squares clamped to
 //      1e-12, and its two triangular solves,
 // and writes only qdd (B, n). Plain version: ops/cuda_tick.fused_qdd_plain.
+// Reach: n = 1..kMaxN motors (one instantiation each, picked at run time),
+// up to kMaxFrames frames, as the TPU kernel takes any model.n_q; a serial
+// chain of 16 frames has at most 15 motors.
 //
 // The arithmetic of each term follows the JAX body: structural zeros are
 // skipped, not multiplied (a Jacobian column of a motor that is no ancestor
@@ -67,6 +70,7 @@ using rmp::kGPitch;
 using rmp::odd_half;
 
 constexpr int kMaxFrames = 16;
+constexpr int kMaxN = 16;
 constexpr int kEnvs = 8;              // envs per CTA
 constexpr int kLanes = 16;            // lanes per env
 constexpr int kThreads = kLanes * kEnvs;
@@ -553,6 +557,35 @@ __global__ void __launch_bounds__(kThreads, 4) fused_qdd_kernel(
   }
 }
 
+template <int N>
+void launch(int B, int F, int K, int n_col, int ee_frame, int n_ident,
+            const int* parent, const int* joint_type, const int* q_index,
+            const float* axis, const float* T_constant, const int* anc,
+            const int* col_frames, const float* caps, const int* ident,
+            const float* consts, const float* q, const float* qd,
+            const float* goal, const float* obs_p0, const float* obs_p1,
+            const float* obs_r, float* out, cudaStream_t stream) {
+  const int bytes = Layout(F, N, n_col).bytes();
+  if (bytes > 48 * 1024)  // above the default: opt in (up to 227 KB)
+    cudaFuncSetAttribute(fused_qdd_kernel<N>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const int blocks = (B + kEnvs - 1) / kEnvs;
+  fused_qdd_kernel<N><<<blocks, kThreads, bytes, stream>>>(
+      B, F, K, n_col, ee_frame, n_ident, parent, joint_type, q_index, axis,
+      T_constant, anc, col_frames, caps, ident, consts, q, qd, goal, obs_p0,
+      obs_p1, obs_r, out);
+}
+
+// launch<N> for the run-time n = N, N + 1, ..., kMaxN
+template <int N, class... Args>
+void launch_n(int n, Args... args) {
+  if (n == N) {
+    launch<N>(args...);
+  } else if constexpr (N < kMaxN) {
+    launch_n<N + 1>(n, args...);
+  }
+}
+
 }  // namespace
 
 // Dynamic shared memory of one CTA for a model of F frames, n motors and
@@ -563,7 +596,7 @@ extern "C" int rmp_fused_qdd_shared_bytes(int F, int n, int n_col) {
 
 // Launches on `stream` of GPU `device` (the caller's current device is
 // restored). Returns cudaGetLastError() after the launch, or -1 when the
-// model or env exceeds the kernel's capacity (n = 9 motors only, up to
+// model or env exceeds the kernel's capacity (1 to kMaxN motors, up to
 // kMaxFrames frames, kMaxCollision collision frames and kMaxIdentity
 // identity-space leaves; nothing is launched then).
 extern "C" int rmp_fused_qdd_f32(
@@ -574,7 +607,7 @@ extern "C" int rmp_fused_qdd_f32(
     const int* ident, const float* consts, const float* q, const float* qd,
     const float* goal, const float* obs_p0, const float* obs_p1,
     const float* obs_r, float* out, void* stream) {
-  if (n != 9 || F > kMaxFrames || n_col > kMaxCollision ||
+  if (n < 1 || n > kMaxN || F > kMaxFrames || n_col > kMaxCollision ||
       n_ident > kMaxIdentity)
     return -1;
   if (B <= 0) return 0;
@@ -584,16 +617,10 @@ extern "C" int rmp_fused_qdd_f32(
     const cudaError_t set = cudaSetDevice(device);
     if (set != cudaSuccess) return static_cast<int>(set);
   }
-  const int bytes = Layout(F, 9, n_col).bytes();
-  if (bytes > 48 * 1024)  // above the default: opt in (up to 227 KB)
-    cudaFuncSetAttribute(fused_qdd_kernel<9>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  const int blocks = (B + kEnvs - 1) / kEnvs;
-  fused_qdd_kernel<9><<<blocks, kThreads, bytes,
-                        static_cast<cudaStream_t>(stream)>>>(
-      B, F, K, n_col, ee_frame, n_ident, parent, joint_type, q_index, axis,
-      T_constant, anc, col_frames, caps, ident, consts, q, qd, goal, obs_p0,
-      obs_p1, obs_r, out);
+  launch_n<1>(n, B, F, K, n_col, ee_frame, n_ident, parent, joint_type,
+              q_index, axis, T_constant, anc, col_frames, caps, ident, consts,
+              q, qd, goal, obs_p0, obs_p1, obs_r, out,
+              static_cast<cudaStream_t>(stream));
   const int rc = static_cast<int>(cudaGetLastError());
   if (previous != device) cudaSetDevice(previous);
   return rc;

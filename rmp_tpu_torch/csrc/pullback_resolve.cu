@@ -20,9 +20,16 @@
 // block of 70 x 11, 9 out) the call moves 1,106 floats per env, 18.1 MB at
 // B = 4096, so 5.4 us; its ~12 kFLOP per env take ~0.7 us at the fp32 peak.
 //
-// The kernel is instantiated for n = 2 (the two-joint robot), 6 (the UR5)
-// and 9 (the Panda), and a second kernel of its own serves n = 18 (the
-// dual-arm Panda, below); picked at run time, any other n is refused.
+// Reach: every n from 1 to kMaxN = 32, as the TPU kernel unrolls over any
+// n. The kernel below is instantiated for n = 1..9 (the two-joint robot, the
+// UR5, the Panda, the planar N-link arms), a second kernel of its own for
+// n = 10..32 (a warp per env: the dual-arm Panda at 18, the N-link arms);
+// picked at run time, n > 32 and more than kMaxBlocks blocks are refused.
+//
+// Block element types: each block's tensors are float32 or bfloat16 (the
+// TPU kernel's block_dtype). A bfloat16 element is widened to float32 as it
+// is loaded (its 16 bits are the high half of the float32 with the same
+// value); every sum and the LU stay float32.
 //
 // Design.
 // - One launch, no operand copies. The wrapper hands the blocks over as a
@@ -61,15 +68,22 @@ namespace {
 
 constexpr int kGroup = 8;       // lanes per environment
 constexpr int kThreads = 128;   // 16 environments per CTA
-constexpr int kMaxBlocks = 16;  // descriptors per call
+constexpr int kMaxLaneN = 9;    // n of the lane-group kernel; above, a warp
+constexpr int kMaxN = 32;       // n of the warp kernel: one row per lane
+// descriptors per call; the by-value table (3,592 bytes) stays inside the
+// 4 KB of kernel parameters every CUDA version takes
+constexpr int kMaxBlocks = 32;
 constexpr int kIdentity = 0, kScalar = 1, kDense = 2;
+constexpr int kFloat32 = 0, kBFloat16 = 1;  // element types
 
 // One policy block: identity (M (B, n, n), v (B, n)), scalar (J (B, R, n),
-// m (B, R), v (B, R)) or dense (J (B, R, n), W (B, R, n), v (B, R)).
+// m (B, R), v (B, R)) or dense (J (B, R, n), W (B, R, n), v (B, R)), all
+// of element type `elem`.
 struct Block {
   int kind;
   int rows;
-  const float* ptr[3];
+  int elem;
+  const void* ptr[3];
   long long stride[3][3];  // (batch, row, column) of each tensor, elements
 };
 
@@ -78,17 +92,92 @@ struct Table {
   Block block[kMaxBlocks];
 };
 
-// The wrapper's descriptor row: kind, rows, 3 pointers, 9 strides.
-constexpr int kRowWords = 14;
+// The wrapper's descriptor row: kind, rows, 3 pointers, 9 strides, the
+// element type.
+constexpr int kRowWords = 15;
 
 __device__ __forceinline__ float safe_denom(float d) {
   const float eps = 1e-12f;
   return d >= 0.0f ? fmaxf(d, eps) : fminf(d, -eps);
 }
 
-__device__ __forceinline__ float at(const float* p, const long long* s,
+// A bfloat16 element: the high 16 bits of the float32 of the same value.
+struct bf16_t {
+  unsigned short bits;
+};
+
+__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load(const bf16_t* p) {
+  const unsigned short h = __ldg(reinterpret_cast<const unsigned short*>(p));
+  return __uint_as_float(static_cast<unsigned int>(h) << 16);
+}
+
+// Element (b, r, c) of a block tensor of element type T, as float32. The
+// row loops are instantiated per element type, so their loads branch on
+// nothing.
+template <class T>
+__device__ __forceinline__ float at(const void* p, const long long* s,
                                     long long b, long long r, long long c) {
-  return __ldg(p + b * s[0] + r * s[1] + c * s[2]);
+  return load(static_cast<const T*>(p) + b * s[0] + r * s[1] + c * s[2]);
+}
+// The same for the block's element type read at run time (the lane
+// kernel's identity seed).
+__device__ __forceinline__ float at(const void* p, int elem,
+                                    const long long* s, long long b,
+                                    long long r, long long c) {
+  return elem == kBFloat16 ? at<bf16_t>(p, s, b, r, c)
+                           : at<float>(p, s, b, r, c);
+}
+
+// The rows of one scalar or dense block into a lane's partial sums: lane
+// r % kGroup takes row r.
+template <int N, class T>
+__device__ __forceinline__ void add_rows(float (&A)[N][N], float (&f)[N],
+                                         const Block& blk, long long b,
+                                         int lane) {
+  const void* J = blk.ptr[0];
+  const void* X = blk.ptr[1];  // m (scalar) or W (dense)
+  const void* V = blk.ptr[2];
+  const long long* sJ = blk.stride[0];
+  const long long* sX = blk.stride[1];
+  const long long* sV = blk.stride[2];
+  if (blk.kind == kScalar) {
+#pragma unroll 2
+    for (int r = lane; r < blk.rows; r += kGroup) {
+      float Jr[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) Jr[i] = at<T>(J, sJ, b, r, i);
+      const float m = at<T>(X, sX, b, r, 0);
+      const float v = at<T>(V, sV, b, r, 0);
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        f[i] += Jr[i] * v;
+        const float Jm = Jr[i] * m;
+#pragma unroll
+        for (int j = i; j < N; ++j) {
+          const float a = Jm * Jr[j];
+          A[i][j] += a;
+          if (j > i) A[j][i] += a;
+        }
+      }
+    }
+  } else if (blk.kind == kDense) {
+    for (int r = lane; r < blk.rows; r += kGroup) {
+      float Jr[N], Wr[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        Jr[i] = at<T>(J, sJ, b, r, i);
+        Wr[i] = at<T>(X, sX, b, r, i);
+      }
+      const float v = at<T>(V, sV, b, r, 0);
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        f[i] += Jr[i] * v;
+#pragma unroll
+        for (int j = 0; j < N; ++j) A[i][j] += Jr[i] * Wr[j];
+      }
+    }
+  }
 }
 
 template <int N>
@@ -128,9 +217,9 @@ __global__ void __launch_bounds__(kThreads) pullback_resolve_kernel(
     for (int t = 0; t < kPerLane; ++t) {
       const int e = lane + kGroup * t;
       if (e < N * N)
-        part[t] += at(blk.ptr[0], blk.stride[0], b, e / N, e % N);
+        part[t] += at(blk.ptr[0], blk.elem, blk.stride[0], b, e / N, e % N);
       else if (e < kSeed)
-        part[t] += at(blk.ptr[1], blk.stride[1], b, e - N * N, 0);
+        part[t] += at(blk.ptr[1], blk.elem, blk.stride[1], b, e - N * N, 0);
     }
   }
   if (has_identity) {
@@ -145,49 +234,10 @@ __global__ void __launch_bounds__(kThreads) pullback_resolve_kernel(
   for (int k = 0; k < table.count; ++k) {
     const Block& blk = table.block[k];
     if (blk.kind == kIdentity) continue;
-    const float* J = blk.ptr[0];
-    const float* X = blk.ptr[1];  // m (scalar) or W (dense)
-    const float* V = blk.ptr[2];
-    const long long* sJ = blk.stride[0];
-    const long long* sX = blk.stride[1];
-    const long long* sV = blk.stride[2];
-    if (blk.kind == kScalar) {
-#pragma unroll 2
-      for (int r = lane; r < blk.rows; r += kGroup) {
-        float Jr[N];
-#pragma unroll
-        for (int i = 0; i < N; ++i) Jr[i] = at(J, sJ, b, r, i);
-        const float m = at(X, sX, b, r, 0);
-        const float v = at(V, sV, b, r, 0);
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-          f[i] += Jr[i] * v;
-          const float Jm = Jr[i] * m;
-#pragma unroll
-          for (int j = i; j < N; ++j) {
-            const float a = Jm * Jr[j];
-            A[i][j] += a;
-            if (j > i) A[j][i] += a;
-          }
-        }
-      }
-    } else if (blk.kind == kDense) {
-      for (int r = lane; r < blk.rows; r += kGroup) {
-        float Jr[N], Wr[N];
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-          Jr[i] = at(J, sJ, b, r, i);
-          Wr[i] = at(X, sX, b, r, i);
-        }
-        const float v = at(V, sV, b, r, 0);
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-          f[i] += Jr[i] * v;
-#pragma unroll
-          for (int j = 0; j < N; ++j) A[i][j] += Jr[i] * Wr[j];
-        }
-      }
-    }
+    if (blk.elem == kBFloat16)
+      add_rows<N, bf16_t>(A, f, blk, b, lane);
+    else
+      add_rows<N, float>(A, f, blk, b, lane);
   }
 
   // butterfly over the group's lanes: every lane ends with the same sums
@@ -259,7 +309,7 @@ __global__ void __launch_bounds__(kThreads) pullback_resolve_kernel(
   }
 }
 
-// ---- n = 18: one warp per environment -------------------------------------
+// ---- n = 10..32: one warp per environment ---------------------------------
 //
 // The n <= 9 design above keeps all of A and f on every lane of a group; at
 // n = 18 that is 342 accumulators per lane, which spill. Here a warp takes
@@ -269,16 +319,21 @@ __global__ void __launch_bounds__(kThreads) pullback_resolve_kernel(
 //   lanes running along whichever of the row and column axes is contiguous
 //   in memory (the motor-major scalar J of the obstacle policies: rows; a
 //   (B, R, n) dense block: columns), so the warp's loads coalesce. Lane
-//   t < 18 owns a 3 x 6 tile of A (rows 3 (t / 3).., columns 6 (t % 3)..)
-//   in registers and adds J[i][r] W[i][c] (dense) or (J[i][r] m[i]) J[i][c]
-//   (scalar) for each staged row i, reading its 3 + 6 factors from the
-//   tile; the column-0 lanes also add J[i][r] v[i] to f. The tiles go
-//   through shared memory into rows, lane r holding row r of [A | f].
-//   Then the identity blocks are summed in tag order into a seed, row r
-//   on lane r, read only now so that its 19 sums hold no registers
-//   through the rows, and A = seed + rows, as at n <= 9. Lanes 18-31
-//   idle. The kernel is latency-bound, far from its byte bound: on the
-//   randomized dual layout (H100 80GB HBM3, 700 W) a first design, lane r
+//   t < GA GB owns a TA x TB tile of A (rows TA (t / GB).., columns
+//   TB (t % GB)..) in registers and adds J[i][r] W[i][c] (dense) or
+//   (J[i][r] m[i]) J[i][c] (scalar) for each staged row i, reading its
+//   TA + TB factors from the tile; the column-0 lanes also add J[i][r] v[i]
+//   to f. The tile shape is the one with the fewest products per lane:
+//   TB = 2 TA (the column factors come as float2s), TA the least with
+//   ceil(n / TA) ceil(n / TB) <= 32 tiles (3 x 6 on 18 lanes at n = 18,
+//   4 x 8 on 32 at n = 32). Tile entries past n compute on the staged
+//   tile's unused columns and are never stored. The tiles go through shared
+//   memory into rows, lane r holding row r of [A | f]. Then the identity
+//   blocks are summed in tag order into a seed, row r on lane r, read only
+//   now so that its n + 1 sums hold no registers through the rows, and
+//   A = seed + rows, as at n <= 9. Lanes past the tiles and past n idle.
+//   The kernel is latency-bound, far from its byte bound: on the randomized
+//   dual layout (n = 18; H100 80GB HBM3, 700 W) a first design, lane r
 //   owning row r of A through the rows and reading a row's 18 factors as
 //   broadcast float4s, took 0.160 ms at 80 registers; the tiles at 64
 //   registers (8 CTAs an SM, no spill) 0.127 ms, at 80 (6 CTAs) 0.132.
@@ -291,25 +346,41 @@ __global__ void __launch_bounds__(kThreads) pullback_resolve_kernel(
 //   the magnitudes (NaN-propagating, as the reference's running maximum)
 //   finds the rows that take, a ballot their chain, and one shuffle per
 //   column moves every row at once. Then the pivot row is broadcast by
-//   shuffles and lanes i > k eliminate, with safe_denom on the pivot.
+//   shuffles and lanes i > k eliminate, with safe_denom on the pivot. Lanes
+//   at n and past it take no part in the scan and never move a row.
 // - Back substitution in the reference's order: x_i = (f_i - sum over j
 //   = i+1..n-1 of a_ij x_j) / safe_denom(a_ii), every lane on its own row,
 //   lane i's value broadcast; lane r stores x_r.
-constexpr int kWideN = 18;
 constexpr int kWideEnvs = 4;    // warps, one env each, per CTA
-// resident CTAs per SM asked of the compiler: 64 registers a thread, 32
-// warps an SM (9 or 10 CTAs spill)
-constexpr int kWideCtas = 8;
 constexpr int kTileRows = 32;   // rows staged per pass
-constexpr int kPitch = 20;      // floats per staged row (16-byte rows)
+
+// The warp kernel's tile rows TA (TB = 2 TA) at n.
+__host__ __device__ constexpr int tile_rows(int n, int ta = 1) {
+  return ((n + ta - 1) / ta) * ((n + 2 * ta - 1) / (2 * ta)) <= 32
+             ? ta
+             : tile_rows(n, ta + 1);
+}
+// Columns the tiles cover at n, and floats per staged row: those columns
+// and [A | f]'s n + 1, rounded up to 16 bytes.
+__host__ __device__ constexpr int tile_cols(int n) {
+  return (n + 2 * tile_rows(n) - 1) / (2 * tile_rows(n)) * 2 * tile_rows(n);
+}
+__host__ __device__ constexpr int wide_pitch(int n) {
+  return ((tile_cols(n) > n + 1 ? tile_cols(n) : n + 1) + 3) / 4 * 4;
+}
+// resident CTAs per SM asked of the compiler: at n <= 18, 64 registers a
+// thread, 32 warps an SM (9 or 10 CTAs spill at n = 18); above, the rows'
+// n + 1 and the solution's n floats per lane need up to 128
+__host__ __device__ constexpr int wide_ctas(int n) { return n <= 18 ? 8 : 4; }
 
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
 }
 
-// Stage rows r0..r0+nr-1 (all kWideN columns) of tensor p into tile.
-__device__ __forceinline__ void stage_rows(float (*tile)[kPitch],
-                                           const float* p,
+// Stage rows r0..r0+nr-1 (all N columns) of block tensor p, of element
+// type T, into tile.
+template <int N, class T, int P>
+__device__ __forceinline__ void stage_rows(float (*tile)[P], const void* p,
                                            const long long* s, long long b,
                                            int r0, int nr, int lane) {
   const long long srow = s[1] < 0 ? -s[1] : s[1];
@@ -317,23 +388,59 @@ __device__ __forceinline__ void stage_rows(float (*tile)[kPitch],
   if (srow <= scol) {  // rows contiguous: lane i takes row i
     if (lane < nr) {
 #pragma unroll
-      for (int c = 0; c < kWideN; ++c)
-        tile[lane][c] = at(p, s, b, r0 + lane, c);
+      for (int c = 0; c < N; ++c)
+        tile[lane][c] = at<T>(p, s, b, r0 + lane, c);
     }
   } else {  // columns contiguous: element e is (e / n, e % n)
-    for (int e = lane; e < nr * kWideN; e += 32) {
-      const int i = e / kWideN;
-      const int c = e - i * kWideN;
-      tile[i][c] = at(p, s, b, r0 + i, c);
+    for (int e = lane; e < nr * N; e += 32) {
+      const int i = e / N;
+      const int c = e - i * N;
+      tile[i][c] = at<T>(p, s, b, r0 + i, c);
     }
   }
 }
 
-__global__ void __launch_bounds__(32 * kWideEnvs, kWideCtas)
+// Stage rows r0..r0+nr-1 of a scalar or dense block of element type T: J
+// (and a dense block's W) into the tiles, a scalar block's m and the
+// block's v into sM, sV.
+template <int N, class T, int P>
+__device__ __forceinline__ void stage_block(float (*tJ)[P], float (*tX)[P],
+                                            float* tM, float* tV,
+                                            const Block& blk, bool scalar,
+                                            long long b, int r0, int nr,
+                                            int lane) {
+  stage_rows<N, T>(tJ, blk.ptr[0], blk.stride[0], b, r0, nr, lane);
+  if (!scalar) stage_rows<N, T>(tX, blk.ptr[1], blk.stride[1], b, r0, nr,
+                                lane);
+  if (lane < nr) {
+    tM[lane] = scalar ? at<T>(blk.ptr[1], blk.stride[1], b, r0 + lane, 0)
+                      : 0.0f;
+    tV[lane] = at<T>(blk.ptr[2], blk.stride[2], b, r0 + lane, 0);
+  }
+}
+
+// Row r of an identity block of element type T added into seed.
+template <int N, class T>
+__device__ __forceinline__ void add_seed(float (&seed)[N + 1],
+                                         const Block& blk, long long b,
+                                         int r) {
+#pragma unroll
+  for (int c = 0; c < N; ++c)
+    seed[c] += at<T>(blk.ptr[0], blk.stride[0], b, r, c);
+  seed[N] += at<T>(blk.ptr[1], blk.stride[1], b, r, 0);
+}
+
+template <int N>
+__global__ void __launch_bounds__(32 * kWideEnvs, wide_ctas(N))
     pullback_resolve_wide_kernel(
     int B, const __grid_constant__ Table table, float ridge,
     float* __restrict__ out) {
-  constexpr int N = kWideN;
+  constexpr int kTileA = tile_rows(N), kTileB = 2 * kTileA;
+  constexpr int kGroupsB = (N + kTileB - 1) / kTileB;
+  constexpr int kTiles = ((N + kTileA - 1) / kTileA) * kGroupsB;
+  constexpr int kPitch = wide_pitch(N);
+  static_assert(kTiles <= 32 && kTileA * ((N + kTileA - 1) / kTileA) <= kPitch,
+                "the tiles must fit a warp and the staged rows");
   __shared__ __align__(16) float sJ[kWideEnvs][kTileRows][kPitch];
   __shared__ __align__(16) float sX[kWideEnvs][kTileRows][kPitch];
   __shared__ float sM[kWideEnvs][kTileRows];
@@ -346,11 +453,11 @@ __global__ void __launch_bounds__(32 * kWideEnvs, kWideCtas)
   const int r = lane < N ? lane : N - 1;  // lanes >= N shadow row N - 1
 
   // the rows of every other block, in tag order, into lane t's tile of
-  // A: rows kTileA g + a, columns kTileB h + c (t = 3 g + h < 18; lanes
-  // 18-31 shadow lane 0); the h = 0 lanes also sum f of their rows
-  constexpr int kTileA = 3, kTileB = 6;
-  const int t = lane < N ? lane : 0;
-  const int ra = kTileA * (t / 3), cb = kTileB * (t % 3);
+  // A: rows kTileA g + a, columns kTileB h + c (t = kGroupsB g + h <
+  // kTiles; the lanes past the tiles shadow lane 0); the h = 0 lanes also
+  // sum f of their rows
+  const int t = lane < kTiles ? lane : 0;
+  const int ra = kTileA * (t / kGroupsB), cb = kTileB * (t % kGroupsB);
   float acc[kTileA][kTileB], facc[kTileA];
 #pragma unroll
   for (int a = 0; a < kTileA; ++a) {
@@ -365,14 +472,12 @@ __global__ void __launch_bounds__(32 * kWideEnvs, kWideCtas)
     for (int r0 = 0; r0 < blk.rows; r0 += kTileRows) {
       const int nr = min(kTileRows, blk.rows - r0);
       __syncwarp();
-      stage_rows(sJ[w], blk.ptr[0], blk.stride[0], b, r0, nr, lane);
-      if (!scalar)
-        stage_rows(sX[w], blk.ptr[1], blk.stride[1], b, r0, nr, lane);
-      if (lane < nr) {
-        sM[w][lane] = scalar ? at(blk.ptr[1], blk.stride[1], b, r0 + lane, 0)
-                             : 0.0f;
-        sV[w][lane] = at(blk.ptr[2], blk.stride[2], b, r0 + lane, 0);
-      }
+      if (blk.elem == kBFloat16)
+        stage_block<N, bf16_t>(sJ[w], sX[w], sM[w], sV[w], blk, scalar, b,
+                               r0, nr, lane);
+      else
+        stage_block<N, float>(sJ[w], sX[w], sM[w], sV[w], blk, scalar, b,
+                              r0, nr, lane);
       __syncwarp();
       for (int i = 0; i < nr; ++i) {
         const float* Jrow = sJ[w][i];
@@ -402,11 +507,13 @@ __global__ void __launch_bounds__(32 * kWideEnvs, kWideCtas)
   // staging tile
   __syncwarp();
   float (*sA)[kPitch] = sJ[w];
-  if (lane < N) {
+  if (lane < kTiles) {
 #pragma unroll
     for (int a = 0; a < kTileA; ++a) {
+      if (ra + a >= N) continue;
 #pragma unroll
-      for (int c = 0; c < kTileB; ++c) sA[ra + a][cb + c] = acc[a][c];
+      for (int c = 0; c < kTileB; ++c)
+        if (cb + c < N) sA[ra + a][cb + c] = acc[a][c];
       if (cb == 0) sA[ra + a][N] = facc[a];
     }
   }
@@ -421,10 +528,10 @@ __global__ void __launch_bounds__(32 * kWideEnvs, kWideCtas)
     const Block& blk = table.block[k];
     if (blk.kind != kIdentity) continue;
     has_identity = true;
-#pragma unroll
-    for (int c = 0; c < N; ++c)
-      seed[c] += at(blk.ptr[0], blk.stride[0], b, r, c);
-    seed[N] += at(blk.ptr[1], blk.stride[1], b, r, 0);
+    if (blk.elem == kBFloat16)
+      add_seed<N, bf16_t>(seed, blk, b, r);
+    else
+      add_seed<N, float>(seed, blk, b, r);
   }
 
   // row r of [A + ridge I | f]
@@ -485,28 +592,44 @@ __global__ void __launch_bounds__(32 * kWideEnvs, kWideCtas)
 template <int N>
 void launch(int B, const Table& table, float ridge, float* out,
             cudaStream_t stream) {
-  constexpr int envs_per_cta = kThreads / kGroup;
-  const int blocks = (B + envs_per_cta - 1) / envs_per_cta;
-  pullback_resolve_kernel<N><<<blocks, kThreads, 0, stream>>>(B, table,
-                                                              ridge, out);
+  if constexpr (N <= kMaxLaneN) {
+    constexpr int envs_per_cta = kThreads / kGroup;
+    const int blocks = (B + envs_per_cta - 1) / envs_per_cta;
+    pullback_resolve_kernel<N><<<blocks, kThreads, 0, stream>>>(B, table,
+                                                                ridge, out);
+  } else {
+    pullback_resolve_wide_kernel<N>
+        <<<(B + kWideEnvs - 1) / kWideEnvs, 32 * kWideEnvs, 0, stream>>>(
+            B, table, ridge, out);
+  }
+}
+
+// launch<N> for the run-time n = N, N + 1, ..., kMaxN
+template <int N>
+void launch_n(int n, int B, const Table& table, float ridge, float* out,
+              cudaStream_t stream) {
+  if (n == N) {
+    launch<N>(B, table, ridge, out, stream);
+  } else if constexpr (N < kMaxN) {
+    launch_n<N + 1>(n, B, table, ridge, out, stream);
+  }
 }
 
 }  // namespace
 
 // `rows` is the wrapper's descriptor table, `count` rows of kRowWords
 // 64-bit words: kind, rows, the three tensors' addresses (0 for an absent
-// one), then their (batch, row, column) strides in elements. Output: (B, n)
-// contiguous. Launches on `stream` of GPU `device` (the caller's current
-// device is restored). Returns cudaGetLastError() after the launch, -1 when
-// no kernel is instantiated for this n, -2 when there are more than
-// kMaxBlocks blocks (nothing is launched then).
-extern "C" int rmp_pullback_resolve_f32(int device, int n, int B,
-                                        const long long* rows, int count,
-                                        float ridge, float* out,
-                                        void* stream) {
-  if (n != 2 && n != 6 && n != 9 && n != kWideN) return -1;
+// one), their (batch, row, column) strides in elements, then the element
+// type (kFloat32, kBFloat16). Output: (B, n) float32, contiguous. Launches
+// on `stream` of GPU `device` (the caller's current device is restored).
+// Returns cudaGetLastError() after the launch, -1 when n is outside
+// 1..kMaxN, -2 when there are more than kMaxBlocks blocks, -3 for an
+// unknown element type (nothing is launched then).
+extern "C" int rmp_pullback_resolve(int device, int n, int B,
+                                    const long long* rows, int count,
+                                    float ridge, float* out, void* stream) {
+  if (n < 1 || n > kMaxN) return -1;
   if (count > kMaxBlocks) return -2;
-  if (B <= 0) return 0;
   Table table{};
   table.count = count;
   for (int k = 0; k < count; ++k) {
@@ -515,27 +638,20 @@ extern "C" int rmp_pullback_resolve_f32(int device, int n, int B,
     blk.kind = static_cast<int>(w[0]);
     blk.rows = static_cast<int>(w[1]);
     for (int t = 0; t < 3; ++t) {
-      blk.ptr[t] = reinterpret_cast<const float*>(w[2 + t]);
+      blk.ptr[t] = reinterpret_cast<const void*>(w[2 + t]);
       for (int d = 0; d < 3; ++d) blk.stride[t][d] = w[5 + 3 * t + d];
     }
+    blk.elem = static_cast<int>(w[14]);
+    if (blk.elem != kFloat32 && blk.elem != kBFloat16) return -3;
   }
+  if (B <= 0) return 0;
   int previous = device;
   cudaGetDevice(&previous);
   if (previous != device) {
     const cudaError_t set = cudaSetDevice(device);
     if (set != cudaSuccess) return static_cast<int>(set);
   }
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (n == 2)
-    launch<2>(B, table, ridge, out, s);
-  else if (n == 6)
-    launch<6>(B, table, ridge, out, s);
-  else if (n == 9)
-    launch<9>(B, table, ridge, out, s);
-  else
-    pullback_resolve_wide_kernel<<<(B + kWideEnvs - 1) / kWideEnvs,
-                                   32 * kWideEnvs, 0, s>>>(B, table, ridge,
-                                                           out);
+  launch_n<1>(n, B, table, ridge, out, static_cast<cudaStream_t>(stream));
   const int rc = static_cast<int>(cudaGetLastError());
   if (previous != device) cudaSetDevice(previous);
   return rc;

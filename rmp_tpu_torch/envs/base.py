@@ -174,6 +174,12 @@ class Env:
     # aux_fn(model, sim) -> dict merged into the tick's aux after the
     # substeps (the per-pair clearances a training loss reads)
     aux_fn: Callable | None = None
+    # 'bf16': the batched step's K1 call reads its row blocks in bfloat16
+    # (the identity seed summed in float32 first), half of K1's input
+    # bytes for ~1% in q̈; every sum and the LU stay float32. Only the
+    # batched 'solve' path reads it, as JAX's fused path; None keeps
+    # float32
+    fused_blocks_dtype: str | None = None
 
     def gather_params(self) -> tuple:
         return tuple(p.params for p in self.policies)
@@ -396,8 +402,13 @@ def _batched_hull(env: Env, states: EnvState) -> bool:
 def make_batched_control_step(env: Env):
     """fn(states, params) -> (states, aux) for one tick of B environments,
     with the whole batch resolved at once and env.resolve_method honoured:
-    'solve' -> the K1 pullback + pivoted-LU wrapper (ridge 0), others ->
-    einsum accumulation and core.resolve."""
+    'solve' -> the K1 pullback + pivoted-LU wrapper (ridge 0; its blocks
+    in bfloat16 where env.fused_blocks_dtype is 'bf16'), others -> einsum
+    accumulation and core.resolve."""
+    if env.fused_blocks_dtype not in (None, "bf16"):
+        raise ValueError(f"fused_blocks_dtype must be None or 'bf16', got "
+                         f"{env.fused_blocks_dtype!r}")
+    block_dtype = torch.bfloat16 if env.fused_blocks_dtype == "bf16" else None
     policies = env.policies
 
     def step(states: EnvState, params: tuple):
@@ -419,7 +430,8 @@ def make_batched_control_step(env: Env):
             policies, q, qd, params_b, ctxs, derivatives=env.derivatives,
             fk=fk)
         if env.resolve_method == "solve":
-            qdd = pullback_resolve_structured(tags, blocks, ridge=0.0)
+            qdd = pullback_resolve_structured(tags, blocks, ridge=0.0,
+                                              block_dtype=block_dtype)
         else:
             A, f = assemble_structured(tags, blocks)
             qdd = resolve(A, f, env.resolve_method)

@@ -1,7 +1,8 @@
 """Forward kinematics on batch-first tensors.
 
-The port's `rmp_tpu/models/kinematics.py` (joint transforms, all-frame FK,
-single-frame FK, and the generic forward-mode derivatives of any map of q).
+The port's `rmp_tpu/models/kinematics.py` (joint transforms, all-frame FK
+with an optional base pose, single-frame FK and its position, and the
+generic forward-mode derivatives of any map of q).
 q: (..., n_q) with any leading batch axes.
 """
 from __future__ import annotations
@@ -81,13 +82,18 @@ def joint_transforms(model: KinematicModel, q: torch.Tensor) -> torch.Tensor:
     return c["T_constant"] @ T_var
 
 
-def fk_all(model: KinematicModel, q: torch.Tensor) -> torch.Tensor:
-    """World transforms of every frame: (..., F, 4, 4)."""
+def fk_all(model: KinematicModel, q: torch.Tensor,
+           base: torch.Tensor | None = None) -> torch.Tensor:
+    """World transforms of every frame: (..., F, 4, 4). base: the (4, 4)
+    (or (..., 4, 4)) world pose of the robot's base, identity if None."""
     T_local = joint_transforms(model, q)
     world: list[torch.Tensor] = []
     for i, p in enumerate(model.parent):
         Ti = T_local[..., i, :, :]
-        world.append(Ti if p == ROOT else world[p] @ Ti)
+        if p == ROOT:
+            world.append(Ti if base is None else base @ Ti)
+        else:
+            world.append(world[p] @ Ti)
     return torch.stack(world, dim=-3)
 
 
@@ -101,6 +107,12 @@ def fk_frame(model: KinematicModel, q: torch.Tensor,
     for i in chain[1:]:
         T = T @ T_local[..., i, :, :]
     return T
+
+
+def fk_position(model: KinematicModel, q: torch.Tensor,
+                frame_idx: int) -> torch.Tensor:
+    """World position of one frame's origin: (..., 3)."""
+    return fk_frame(model, q, frame_idx)[..., :3, 3]
 
 
 def differentiate(fn, q: torch.Tensor, qd: torch.Tensor):

@@ -6,11 +6,13 @@ Ready poses and limits are motor-ordered vectors, the same values as
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 
 from rmp_tpu_torch.models.specs import (PANDA_SPEC, TWO_JOINT_SPEC, UR5_SPEC,
-                                        build_model, make_dual_spec)
+                                        build_model, make_dual_spec,
+                                        with_fine_capsules)
 from rmp_tpu_torch.models.urdf import KinematicModel
 
 TWO_JOINT_Q_READY = np.array([0.0, 0.0], dtype=np.float32)
@@ -40,11 +42,21 @@ def two_joint_robot() -> KinematicModel:
     return build_model(TWO_JOINT_SPEC)
 
 
-@functools.lru_cache(maxsize=None)
 def franka_panda() -> KinematicModel:
     """9-DOF Franka Panda (7 revolute + 2 prismatic fingers) with the
-    25-capsule collision set; EE frame 'panda_grasptarget_hand'."""
-    return build_model(PANDA_SPEC)
+    25-capsule collision set; EE frame 'panda_grasptarget_hand'.
+
+    RMP_PANDA_CAPS=fine swaps in the 47-primitive fine set
+    (specs.with_fine_capsules). The model is cached per capsule mode, so
+    the variable takes effect whenever it is set; the JAX package's
+    lru_cache keeps whichever model its first call built. This departs
+    from it on purpose."""
+    return _franka_panda(os.environ.get("RMP_PANDA_CAPS") == "fine")
+
+
+@functools.lru_cache(maxsize=None)
+def _franka_panda(fine: bool) -> KinematicModel:
+    return build_model(with_fine_capsules(PANDA_SPEC) if fine else PANDA_SPEC)
 
 
 @functools.lru_cache(maxsize=None)

@@ -2,9 +2,11 @@
 
 The port's copy of the robot tables of `rmp_tpu/models/specs.py`: the
 planar two-joint arm, the Panda (its link and joint table and the 25-capsule
-mesh-fitted collision set) and the UR5, and the multi-robot spec transforms
+mesh-fitted collision set, and the finer 47-primitive set behind
+`with_fine_capsules`) and the UR5, the multi-robot spec transforms
 (`make_multi_spec`, `make_dual_spec`) that compose copies of a spec under a
-common world root. URDF export is not ported yet.
+common world root, the N-link planar arm (`make_planar_arm_spec`) and URDF
+export (`write_urdf`).
 """
 from __future__ import annotations
 
@@ -113,6 +115,60 @@ def build_model(spec: RobotSpec) -> KinematicModel:
     )
 
 
+def write_urdf(spec: RobotSpec, filepath: str) -> None:
+    """Serialize a RobotSpec to URDF (round-trips through
+    models/urdf.parse_urdf): a capsule as a cylinder along z rotated onto
+    its axis, a sphere at its centre."""
+    out = [f'<?xml version="1.0"?>', f'<robot name="{spec.name}">']
+    for l in spec.links:
+        out.append(f'  <link name="{l.name}">')
+        ixx, iyy, izz, ixy, ixz, iyz = l.inertia
+        out.append("    <inertial>")
+        out.append(f'      <origin xyz="{l.com[0]} {l.com[1]} {l.com[2]}" rpy="0 0 0"/>')
+        out.append(f'      <mass value="{l.mass}"/>')
+        out.append(f'      <inertia ixx="{ixx}" iyy="{iyy}" izz="{izz}" '
+                   f'ixy="{ixy}" ixz="{ixz}" iyz="{iyz}"/>')
+        out.append("    </inertial>")
+        for c in l.collision:
+            out.append("    <collision>")
+            if c.kind == "sphere":
+                out.append(f'      <origin xyz="{c.p0[0]} {c.p0[1]} {c.p0[2]}" rpy="0 0 0"/>')
+                out.append(f'      <geometry><sphere radius="{c.radius}"/></geometry>')
+            else:
+                p0, p1 = np.array(c.p0), np.array(c.p1)
+                mid = (p0 + p1) / 2
+                d = p1 - p0
+                length = float(np.linalg.norm(d))
+                # emit as cylinder along z rotated to d (rpy about x/y only)
+                if length > 0:
+                    dn = d / length
+                    pitch = float(np.arcsin(np.clip(dn[0], -1, 1)))
+                    roll = float(np.arctan2(-dn[1], dn[2]))
+                else:
+                    roll = pitch = 0.0
+                out.append(f'      <origin xyz="{mid[0]} {mid[1]} {mid[2]}" '
+                           f'rpy="{roll} {pitch} 0"/>')
+                out.append(f'      <geometry><cylinder radius="{c.radius}" '
+                           f'length="{length}"/></geometry>')
+            out.append("    </collision>")
+        out.append("  </link>")
+    for j in spec.joints:
+        out.append(f'  <joint name="{j.name}" type="{j.joint_type}">')
+        out.append(f'    <origin xyz="{j.xyz[0]} {j.xyz[1]} {j.xyz[2]}" '
+                   f'rpy="{j.rpy[0]} {j.rpy[1]} {j.rpy[2]}"/>')
+        out.append(f'    <parent link="{j.parent}"/>')
+        out.append(f'    <child link="{j.child}"/>')
+        if j.joint_type != "fixed":
+            out.append(f'    <axis xyz="{j.axis[0]} {j.axis[1]} {j.axis[2]}"/>')
+            out.append(f'    <limit lower="{j.lower}" upper="{j.upper}" '
+                       f'velocity="{j.velocity}" effort="{j.effort}"/>')
+            out.append(f'    <dynamics damping="{j.damping}" friction="{j.friction}"/>')
+        out.append("  </joint>")
+    out.append("</robot>")
+    with open(filepath, "w") as f:
+        f.write("\n".join(out) + "\n")
+
+
 # ---------------------------------------------------------------------------
 # Planar 2-DOF arm (reference asset: urdf/TwoJointRobot_wo_fixedJoints.urdf)
 # ---------------------------------------------------------------------------
@@ -201,9 +257,93 @@ _PANDA_CAPS = {
 }
 
 
+# The finer fitted set (47 primitives; capsule bulge <= 8.8 mm), opt-in
+# through RMP_PANDA_CAPS=fine (models/robots.franka_panda): ~1.9x the
+# collision pairs of the default set.
+_PANDA_CAPS_FINE = {
+    "panda_link1": (
+        CollisionPrimitive("capsule", (-0.0003, -0.0245, 0.0066), (0.0001, -0.0386, -0.0202), 0.0548),
+        CollisionPrimitive("capsule", (0.0004, -0.0201, -0.0309), (-0.0002, -0.0765, 0.0013), 0.0549),
+        CollisionPrimitive("capsule", (0.0021, -0.0434, -0.0726), (-0.0080, -0.0342, -0.0742), 0.0589),
+        CollisionPrimitive("capsule", (0.0025, -0.0002, -0.1504), (-0.0047, -0.0098, -0.1407), 0.0626),
+        CollisionPrimitive("capsule", (-0.0154, -0.0079, -0.0676), (0.0159, -0.0027, -0.0779), 0.0428),
+    ),
+    "panda_link2": (
+        CollisionPrimitive("capsule", (0.0009, -0.0907, 0.0433), (-0.0004, -0.0675, 0.0128), 0.0565),
+        CollisionPrimitive("capsule", (0.0031, 0.0016, 0.0753), (-0.0038, -0.0030, 0.0773), 0.0537),
+        CollisionPrimitive("capsule", (-0.0033, 0.0096, 0.0874), (-0.0137, 0.0048, 0.0533), 0.0411),
+        CollisionPrimitive("capsule", (0.0002, -0.0274, 0.0401), (0.0002, 0.0053, 0.0232), 0.0548),
+        CollisionPrimitive("capsule", (0.0021, -0.1543, 0.0005), (-0.0039, -0.1460, 0.0079), 0.0619),
+    ),
+    "panda_link3": (
+        CollisionPrimitive("capsule", (0.0841, 0.0633, 0.0021), (0.0857, 0.0259, -0.0047), 0.0517),
+        CollisionPrimitive("capsule", (0.0015, -0.0243, -0.0974), (-0.0085, 0.0051, -0.0682), 0.0380),
+        CollisionPrimitive("capsule", (0.0619, 0.0356, -0.0200), (0.0206, 0.0109, -0.0720), 0.0604),
+        CollisionPrimitive("capsule", (0.0853, 0.0301, 0.0126), (-0.0057, -0.0020, -0.0634), 0.0486),
+        CollisionPrimitive("capsule", (-0.0267, 0.0313, -0.1019), (-0.0368, -0.0169, -0.1028), 0.0213),
+    ),
+    "panda_link4": (
+        CollisionPrimitive("capsule", (-0.0239, 0.0234, 0.0422), (0.0028, -0.0026, 0.0244), 0.0572),
+        CollisionPrimitive("capsule", (0.0059, -0.0005, 0.0645), (-0.0427, 0.0589, 0.0314), 0.0493),
+        CollisionPrimitive("capsule", (-0.0103, 0.0110, 0.0393), (-0.0832, 0.0833, -0.0004), 0.0621),
+        CollisionPrimitive("capsule", (-0.0016, -0.0062, 0.0661), (-0.0526, 0.0680, 0.0301), 0.0479),
+    ),
+    "panda_link5": (
+        CollisionPrimitive("capsule", (-0.0159, 0.0010, -0.2235), (0.0076, 0.0262, -0.2079), 0.0529),
+        CollisionPrimitive("capsule", (-0.0001, 0.0374, 0.0045), (0.0000, 0.0720, -0.0545), 0.0498),
+        CollisionPrimitive("capsule", (0.0068, -0.0331, -0.2383), (0.0384, 0.0095, -0.2338), 0.0293),
+        CollisionPrimitive("capsule", (0.0057, 0.0709, -0.0169), (-0.0060, 0.0814, 0.0023), 0.0491),
+        CollisionPrimitive("capsule", (-0.0012, 0.0390, -0.1861), (0.0032, 0.0807, 0.0034), 0.0506),
+        CollisionPrimitive("capsule", (0.0001, 0.0087, -0.1860), (0.0001, 0.0348, -0.0729), 0.0522),
+    ),
+    "panda_link6": (
+        CollisionPrimitive("capsule", (-0.0122, -0.0200, 0.0112), (0.1020, -0.0273, 0.0175), 0.0292),
+        CollisionPrimitive("capsule", (0.0830, 0.0346, -0.0072), (0.0720, 0.0387, 0.0035), 0.0461),
+        CollisionPrimitive("capsule", (0.1003, 0.0178, 0.0159), (-0.0028, 0.0298, 0.0117), 0.0293),
+        CollisionPrimitive("capsule", (0.0732, -0.0268, -0.0198), (0.1097, -0.0251, -0.0090), 0.0294),
+        CollisionPrimitive("capsule", (0.0313, -0.0008, 0.0266), (-0.0191, 0.0007, 0.0174), 0.0354),
+        CollisionPrimitive("capsule", (0.1050, 0.0488, -0.0003), (0.0891, 0.0532, 0.0180), 0.0254),
+    ),
+    "panda_link7": (
+        CollisionPrimitive("capsule", (0.0234, 0.0371, 0.0796), (-0.0232, 0.0019, 0.0793), 0.0291),
+        CollisionPrimitive("capsule", (0.0432, 0.0178, 0.0696), (0.0455, 0.0191, 0.0858), 0.0195),
+        CollisionPrimitive("capsule", (0.0385, 0.0676, 0.0859), (-0.0285, 0.0176, 0.0594), 0.0143),
+        CollisionPrimitive("capsule", (0.0698, 0.0358, 0.0856), (0.0480, 0.0599, 0.0851), 0.0126),
+        CollisionPrimitive("capsule", (0.0229, -0.0103, 0.0778), (-0.0145, -0.0213, 0.0768), 0.0306),
+    ),
+    "panda_hand": (
+        CollisionPrimitive("capsule", (0.0002, 0.0738, 0.0090), (-0.0000, 0.0793, 0.0464), 0.0260),
+        CollisionPrimitive("capsule", (0.0003, -0.0827, 0.0451), (-0.0003, 0.0720, 0.0394), 0.0245),
+        CollisionPrimitive("capsule", (0.0001, -0.0786, 0.0029), (0.0001, 0.0576, 0.0099), 0.0265),
+    ),
+    "panda_leftfinger": (
+        CollisionPrimitive("capsule", (0.0090, 0.0227, 0.0045), (-0.0092, 0.0226, 0.0051), 0.0049),
+        CollisionPrimitive("capsule", (0.0041, 0.0078, 0.0468), (-0.0047, 0.0071, 0.0472), 0.0091),
+        CollisionPrimitive("capsule", (-0.0016, 0.0062, 0.0283), (0.0005, 0.0135, 0.0336), 0.0112),
+        CollisionPrimitive("capsule", (-0.0002, 0.0197, 0.0177), (0.0002, 0.0074, 0.0051), 0.0115),
+    ),
+    "panda_rightfinger": (
+        CollisionPrimitive("capsule", (-0.0094, -0.0225, 0.0043), (0.0094, -0.0221, 0.0051), 0.0049),
+        CollisionPrimitive("capsule", (-0.0042, -0.0075, 0.0465), (0.0045, -0.0074, 0.0472), 0.0092),
+        CollisionPrimitive("capsule", (0.0021, -0.0088, 0.0295), (-0.0008, -0.0122, 0.0299), 0.0133),
+        CollisionPrimitive("capsule", (0.0005, -0.0197, 0.0174), (-0.0001, -0.0076, 0.0049), 0.0115),
+    ),
+}
+
+
 def _plink(name, mass, com):
     caps = _PANDA_CAPS.get(name)
     return LinkSpec(name, mass, com, _DIAG01, caps if caps else ())
+
+
+def with_fine_capsules(spec: RobotSpec) -> RobotSpec:
+    """spec with every link's capsule set swapped for the fine table where
+    one exists (the Panda's links; other links keep their primitives)."""
+    links = tuple(
+        dataclasses.replace(l, collision=_PANDA_CAPS_FINE[l.name])
+        if l.name in _PANDA_CAPS_FINE else l
+        for l in spec.links)
+    return dataclasses.replace(spec, links=links)
 
 
 _HALF_PI = 1.57079632679
@@ -362,3 +502,34 @@ def make_dual_spec(spec: RobotSpec,
     """The two-robot case of make_multi_spec (the dual-arm Panda)."""
     return make_multi_spec(spec, (offset_a, offset_b), (yaw_a, yaw_b),
                            (prefix_a, prefix_b), name=spec.name + "_dual")
+
+
+def make_planar_arm_spec(n_links: int, link_length: float = 0.5,
+                         link_mass: float = 0.4,
+                         link_radius: float = 0.04) -> RobotSpec:
+    """An N-link planar revolute arm (the generality helper): joints about
+    z, links along x with one capsule each, a fixed 'ee_joint' at the last
+    link's tip carrying a sphere. Field for field as the JAX package's."""
+    izz = link_mass * link_length ** 2 / 3.0
+    links = [LinkSpec("base_link")]
+    joints = []
+    for i in range(n_links):
+        links.append(LinkSpec(
+            f"link_{i + 1}", link_mass, (link_length / 2, 0, 0),
+            (1e-4, izz, izz, 0, 0, 0),
+            (CollisionPrimitive("capsule", (link_radius, 0, 0),
+                                (link_length - link_radius, 0, 0),
+                                link_radius),)))
+        joints.append(JointSpec(
+            f"joint_{i + 1}", "revolute",
+            "base_link" if i == 0 else f"link_{i}", f"link_{i + 1}",
+            xyz=(0, 0, 0.05) if i == 0 else (link_length, 0, 0),
+            axis=(0, 0, 1), lower=-np.pi, upper=np.pi, velocity=5,
+            effort=100))
+    links.append(LinkSpec("ee", 0.05, (0, 0, 0), (1e-5,) * 3 + (0.0,) * 3,
+                          (CollisionPrimitive("sphere", (0, 0, 0), (0, 0, 0),
+                                              link_radius),)))
+    joints.append(JointSpec("ee_joint", "fixed", f"link_{n_links}", "ee",
+                            xyz=(link_length, 0, 0)))
+    return RobotSpec(name=f"planar_{n_links}link", links=tuple(links),
+                     joints=tuple(joints))

@@ -13,10 +13,22 @@ batch axis B on every tensor):
 give q̈ = (A + ridge I)^{-1} f with A = Σ identity M + Σ Jᵀ diag(m) J +
 Σ Jᵀ W and f = Σ v + Σ Jᵀ v. A CPU tensor takes the plain PyTorch version
 (`pullback_resolve_structured_plain`); a CUDA tensor launches the kernel of
-csrc/pullback_resolve.cu or raises (n = 2, 6 and 9 on a group of 8 lanes
-per env, n = 18 on a warp per env). The kernel reads every block where it
-lies, through its strides (`block_table`): the call copies no operand and
-launches nothing else.
+csrc/pullback_resolve.cu or raises (n = 1..9 on a group of 8 lanes per env,
+n = 10..32 on a warp per env; n > 32 and more than 32 blocks raise). The
+kernel reads every block where it lies, through its strides
+(`block_table`): the call copies no operand and launches nothing else.
+
+Blocks are float32 or bfloat16, each block's tensors of one type; the
+kernel widens a bfloat16 element to float32 as it loads it, and every sum
+and the LU stay float32, as the TPU kernel's upcast on load.
+`block_dtype=torch.bfloat16` does what JAX's `block_dtype` does on the
+producer side: the identity blocks are summed in float32 into one seed
+block (placed first), and that seed and every other block are cast to
+bfloat16 (`cast_blocks`; a few elementwise launches before K1's one). The
+plain version upcasts the same bfloat16 tensors. JAX's K1 has no reverse
+rule (`jax.grad` through it raises in interpret mode, float32 or bfloat16
+blocks); the port differentiates float32 blocks (below) and raises under
+grad for bfloat16 ones.
 
 K2a and K2b compute q̈ = (Σ Jᵀ W + ridge I)⁻¹ Σ Jᵀ v from dense rows only,
 as the TPU kernels `_kernel` and `_kernel_blocks` do: each launches K1's
@@ -73,26 +85,59 @@ def assemble_structured(tags, blocks):
     return A, f
 
 
-def pullback_resolve_structured_plain(tags, blocks,
-                                      ridge: float = 0.0) -> torch.Tensor:
-    """The plain PyTorch version of K1: einsum accumulation, then the
+def pullback_resolve_structured_plain(tags, blocks, ridge: float = 0.0,
+                                      block_dtype=None) -> torch.Tensor:
+    """The plain PyTorch version of K1: the blocks cast as the wrapper casts
+    them (`cast_blocks`), upcast to float32, einsum accumulation, then the
     unrolled pivoted LU of ops/linalg.py."""
+    if block_dtype is not None:
+        tags, blocks = cast_blocks(tags, blocks, block_dtype)
+    blocks = [tuple(x.float() if x.dtype == torch.bfloat16 else x
+                    for x in blk) for blk in blocks]
     A, f = assemble_structured(tags, blocks)
     if ridge:
         A = A + ridge * torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
     return lu_solve_unrolled(A, f)
 
 
+def cast_blocks(tags, blocks, block_dtype):
+    """(tags, blocks) as K1 reads them with `block_dtype`
+    (pallas_resolve.pullback_resolve_structured's producer side): the
+    identity blocks summed in float32, in tag order, into one seed block
+    placed first and then cast; every scalar and dense block cast. A lone
+    float32 identity block is cast as it is."""
+    if block_dtype not in ELEMENT_TYPES:
+        raise TypeError(f"block_dtype must be one of "
+                        f"{tuple(ELEMENT_TYPES)}, got {block_dtype}")
+    seed = None
+    rest_tags, rest = [], []
+    for tag, blk in zip(tags, blocks):
+        if tag == "identity":
+            M, v = (x.float() for x in blk)
+            seed = (M, v) if seed is None else (seed[0] + M, seed[1] + v)
+        else:
+            rest_tags.append(tag)
+            rest.append(blk)
+    if seed is not None:
+        rest_tags.insert(0, "identity")
+        rest.insert(0, seed)
+    return tuple(rest_tags), [tuple(x.to(block_dtype) for x in blk)
+                              for blk in rest]
+
+
 KINDS = {"identity": 0, "scalar": 1, "dense": 2}
-KERNEL_N = (2, 6, 9, 18)  # the n the kernel is instantiated for
-MAX_BLOCKS = 16      # descriptors the kernel takes per call
-ROW_WORDS = 14       # kind, rows, 3 addresses, 3 x 3 strides
+ELEMENT_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_N = 32           # n = 1..9 on 8 lanes per env, 10..MAX_N on a warp
+KERNEL_N = range(1, MAX_N + 1)  # the n the kernel is instantiated for
+MAX_BLOCKS = 32      # descriptors the kernel takes per call
+ROW_WORDS = 15       # kind, rows, 3 addresses, 3 x 3 strides, element type
 
 
 def _check_blocks(tags, blocks):
-    """(B, n, device, table) of validated float32 blocks, `table` their
-    descriptors for the kernel (block_table); raises on anything else. One
-    pass over the tensors: the kernel's call is host-bound."""
+    """(B, n, device, table) of validated float32 or bfloat16 blocks,
+    `table` their descriptors for the kernel (block_table); raises on
+    anything else. One pass over the tensors: the kernel's call is
+    host-bound."""
     if len(tags) != len(blocks) or not tags:
         raise ValueError("tags and blocks must be non-empty and aligned")
     first = blocks[0][0]
@@ -115,26 +160,30 @@ def _check_blocks(tags, blocks):
             raise ValueError(f"bad {tag!r} block shapes "
                              f"{[tuple(x.shape) for x in blk]} for B={B}, n={n}")
         ptrs, strides = [0, 0, 0], []
+        elem = ELEMENT_TYPES.get(blk[0].dtype)
         for t, x in enumerate(blk):
-            if x.dtype != torch.float32:
+            if elem is None or x.dtype != blk[0].dtype:
                 raise TypeError(f"pullback_resolve_structured takes float32 "
-                                f"blocks, got {x.dtype} in a {tag!r} block")
+                                f"or bfloat16 blocks, one type per block, got "
+                                f"{[y.dtype for y in blk]} in a {tag!r} "
+                                f"block")
             if x.get_device() != index or (index < 0 and x.device != device):
                 raise ValueError(f"blocks on {device} and {x.device}")
             ptrs[t] = x.data_ptr()
             st = x.stride()
             strides += st if len(st) == 3 else (*st, 0)
         words += (KINDS[tag], rows, *ptrs, *strides,
-                  *(0,) * (9 - len(strides)))
+                  *(0,) * (9 - len(strides)), elem)
     return B, n, device, array.array("q", words)
 
 
 def block_table(tags, blocks) -> array.array:
     """The kernel's descriptor table, int64 words, ROW_WORDS per block in
     tag order: [kind, rows, 3 addresses, 3 x (batch, row, column) strides
-    in elements]. Identity blocks have 0 rows and no third tensor; a 2-D
-    tensor's column stride is 0. Nothing is copied: the addresses are the
-    blocks' own `data_ptr()`, views included."""
+    in elements, element type (ELEMENT_TYPES)]. Identity blocks have 0
+    rows and no third tensor; a 2-D tensor's column stride is 0. Nothing
+    is copied: the addresses are the blocks' own `data_ptr()`, views
+    included."""
     return _check_blocks(tags, blocks)[3]
 
 
@@ -143,19 +192,20 @@ def _launch(table, count: int, ridge: float, B: int, n: int, device):
     `device`, described by `table`: one launch on the blocks where they
     lie. Raises for an n the kernel is not instantiated for."""
     if n not in KERNEL_N:
-        raise ValueError(f"no K1 kernel instantiated for n={n} (have "
-                         f"{KERNEL_N})")
-    if device.type != "cuda":
-        raise ValueError(f"no K1 kernel for device {device}")
+        raise ValueError(f"no K1 kernel instantiated for n={n}: the kernel "
+                         f"takes n from 1 to {MAX_N}")
     if count > MAX_BLOCKS:
         raise ValueError(f"the K1 kernel takes at most {MAX_BLOCKS} blocks, "
                          f"got {count}")
+    if device.type != "cuda":
+        raise ValueError(f"no K1 kernel for device {device}")
     out = torch.empty(B, n, dtype=torch.float32, device=device)
-    fn = _build.c_function("rmp_pullback_resolve_f32", _ARGTYPES)
+    fn = _build.c_function("rmp_pullback_resolve", _ARGTYPES)
     rc = fn(device.index, n, B, table.buffer_info()[0], count, float(ridge),
             out.data_ptr(), _build.raw_stream(device))
-    if rc == -1:
-        raise ValueError(f"no K1 kernel instantiated for n={n}")
+    if rc in (-1, -2, -3):
+        raise ValueError(f"the K1 kernel refused n={n}, {count} blocks "
+                         f"(code {rc})")
     if rc != 0:
         raise RuntimeError(f"K1 pullback_resolve launch failed: CUDA error {rc}")
     return out
@@ -174,9 +224,14 @@ def _solve(entry, tags, blocks, ridge: float) -> torch.Tensor:
 
 def _entry(entry, tags, blocks, ridge: float) -> torch.Tensor:
     """q̈ through `PullbackResolve` while a block requires grad, else the
-    forward alone."""
+    forward alone. Raises under grad for bfloat16 blocks, as JAX's K1 has no
+    reverse rule."""
     if torch.is_grad_enabled() and any(x.requires_grad for blk in blocks
                                        for x in blk):
+        if any(x.dtype == torch.bfloat16 for blk in blocks for x in blk):
+            raise RuntimeError("K1 on bfloat16 blocks has no derivative rule "
+                               "(nor has JAX's): call it under "
+                               "torch.no_grad() or with float32 blocks")
         sizes = tuple(len(blk) for blk in blocks)
         return PullbackResolve.apply(entry, tuple(tags), sizes, float(ridge),
                                      *(x for blk in blocks for x in blk))
@@ -256,9 +311,12 @@ class PullbackResolve(torch.autograd.Function):
                                    for g, w in zip(grads, want))
 
 
-def pullback_resolve_structured(tags, blocks,
-                                ridge: float = 0.0) -> torch.Tensor:
-    """q̈ (B, n) from structured per-policy blocks; see the module doc."""
+def pullback_resolve_structured(tags, blocks, ridge: float = 0.0,
+                                block_dtype=None) -> torch.Tensor:
+    """q̈ (B, n) from structured per-policy blocks; block_dtype
+    (torch.bfloat16 or None) as JAX's; see the module doc."""
+    if block_dtype is not None:
+        tags, blocks = cast_blocks(tags, blocks, block_dtype)
     return _entry(pullback_resolve_structured, tags, blocks, ridge)
 
 

@@ -9,10 +9,13 @@ damping, c-space bias) and the grouped obstacle policy over every collision
 frame x obstacle, pulls each back into A = Σ JᵀMJ and f = Σ JᵀM(a − c), and
 solves with an unrolled Cholesky (ridge on the diagonal, pivot squares
 clamped to 1e-12). A CPU tensor takes the plain PyTorch version
-(`fused_qdd_plain`); a CUDA tensor launches csrc/fused_tick.cu or raises.
-The JAX kernel needs B % 1024 == 0; the port takes any B. K5 has no
-derivative rule, as JAX's `pallas_call` has none: `fused_qdd` raises while
-grad is enabled and an input requires grad, on both devices.
+(`fused_qdd_plain`); a CUDA tensor launches csrc/fused_tick.cu or raises
+(any n from 1 to MAX_N = 16, one instantiation each; up to 16 frames, 16
+collision frames and 8 identity-space leaves; past them ValueError before
+any launch). The JAX kernel needs B % 1024 == 0; the port takes any B.
+K5 has no derivative rule, as JAX's `pallas_call` has none: `fused_qdd`
+raises while grad is enabled and an input requires grad, on both
+devices.
 
 Semantics of the reference kernel, kept as they are:
   - each collision frame contributes only its FIRST capsule
@@ -61,6 +64,8 @@ IDENTITY_BASE = 24
 #   CSPACE:  thresh, position_gain, damping_gain, metric_scalar + inertia,
 #            goal (n)
 VELCAP, DAMPING, CSPACE = 1, 2, 3
+# the kernel's capacity, mirrored in csrc/fused_tick.cu
+MAX_N, MAX_FRAMES, MAX_COLLISION, MAX_IDENTITY = 16, 16, 16, 8
 
 
 def supports(env) -> bool:
@@ -73,7 +78,8 @@ def supports(env) -> bool:
         fn = p.accel_metric
         if fn is v2._attractor_accel_metric:
             tm = p.taskmap
-            if not (tm.fk_rooted and isinstance(tm.frame_idx, int)):
+            if not (getattr(tm, "fk_rooted", False)
+                    and isinstance(tm.frame_idx, int)):
                 return False
             kinds.append("attractor")
         elif fn in (v2._velocity_cap_accel_metric,
@@ -82,7 +88,8 @@ def supports(env) -> bool:
             kinds.append("identity")
         elif fn is v2._obstacle_accel_metric:
             tm = p.taskmap
-            if not (tm.fk_rooted and isinstance(tm.frame_idx, tuple)):
+            if not (getattr(tm, "fk_rooted", False)
+                    and isinstance(tm.frame_idx, tuple)):
                 return False
             kinds.append("obstacle")
         else:
@@ -377,6 +384,14 @@ def fused_qdd(tick: FusedTick, q, qd, goal, obs_p0, obs_p1, obs_r):
                            "require grad")
     if q.device.type == "cpu":
         return fused_qdd_plain(tick, q, qd, goal, obs_p0, obs_p1, obs_r)
+    if not (1 <= n <= MAX_N and model.n_frames <= MAX_FRAMES
+            and len(tick.col_frames) <= MAX_COLLISION
+            and len(tick.identity) <= MAX_IDENTITY):
+        raise ValueError(f"model {model.name!r} ({model.n_frames} frames, "
+                         f"{n} motors, {len(tick.col_frames)} collision "
+                         f"frames, {len(tick.identity)} identity leaves) "
+                         f"exceeds the K5 kernel's capacity ({MAX_FRAMES}, "
+                         f"{MAX_N}, {MAX_COLLISION}, {MAX_IDENTITY})")
     if q.device.type != "cuda":
         raise ValueError(f"no K5 kernel for device {q.device}")
     args = (q, qd, goal, obs_p0, obs_p1, obs_r)

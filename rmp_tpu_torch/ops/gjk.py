@@ -219,6 +219,16 @@ def support_cylinder_unit(p0: torch.Tensor, p1: torch.Tensor,
     return end + r[..., None] * (inv_p[..., None] * d_perp)
 
 
+def support_cylinder(p0: torch.Tensor, p1: torch.Tensor, r: torch.Tensor,
+                     d: torch.Tensor) -> torch.Tensor:
+    """Flat-capped cylinder with axis p0 -> p1 and radius r: support in
+    direction d, its unit axis computed here (axis / (|axis| + 1e-12), as
+    the JAX package divides). r = 0 gives the segment, p0 = p1 the disk."""
+    axis = p1 - p0
+    an = axis / (torch.linalg.vector_norm(axis, dim=-1, keepdim=True) + _EPS)
+    return support_cylinder_unit(p0, p1, an, r, d)
+
+
 def support_sphere(c: torch.Tensor, r: torch.Tensor,
                    d: torch.Tensor) -> torch.Tensor:
     """Ball of centre c (..., 3) and radius r (...,): support in direction

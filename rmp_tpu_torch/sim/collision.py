@@ -268,16 +268,20 @@ def broad_phase(cap_d: torch.Tensor, top_m: int) -> torch.Tensor:
 
 def gjk_operands(model: KinematicModel, T_all: torch.Tensor,
                  obstacles: ObstacleSet, capsule_query, top_m: int = 3,
-                 warm: torch.Tensor | None = None):
+                 warm: torch.Tensor | None = None,
+                 hull_verts: torch.Tensor | None = None):
     """(idx, operands) of the K4 call of the batched hull query: idx (B, L, M)
     the broad phase's obstacle indices (None when every pair runs) and the
     kernel's batch-minor operands by name (gjk_hull_obstacles' arguments).
-    capsule_query: robot_obstacle_distances at the same poses."""
+    capsule_query: robot_obstacle_distances at the same poses; hull_verts
+    (L, V, 3) in link coordinates, the robot's hull table if None."""
     cap_pl, cap_po, _, cap_d = capsule_query
     device = T_all.device
     T = T_all.index_select(1, frame_indices(model.collision_frames, device))
     R, t = T[..., :3, :3], T[..., :3, 3]                  # (B, L, 3, 3), (B, L, 3)
-    local = hull_table(model, device)                     # (L, V, 3)
+    local = (hull_table(model, device) if hull_verts is None else
+             torch.as_tensor(hull_verts, dtype=torch.float32,
+                             device=device).contiguous())  # (L, V, 3)
     B, L, K = cap_d.shape
 
     p0, p1, rb = obstacles.p0, obstacles.p1, obstacles.radius
@@ -320,7 +324,9 @@ def robot_obstacle_distances_hull_batched(model: KinematicModel,
                                           T_all: torch.Tensor,
                                           obstacles: ObstacleSet,
                                           iters: int = 10, top_m: int = 3,
-                                          warm: torch.Tensor | None = None):
+                                          warm: torch.Tensor | None = None,
+                                          hull_verts: torch.Tensor | None = None
+                                          ):
     """Exact-hull closest points of every (env, link, obstacle) pair through
     the K4 kernel: T_all (B, F, 4, 4), obstacles (B, K, ...) ->
     (pos_on_link, pos_on_obstacle, normal) (B, L, K, 3), distance (B, L, K)
@@ -335,10 +341,13 @@ def robot_obstacle_distances_hull_batched(model: KinematicModel,
     - Near contact (hull clearance <= 0.5 mm) the capsule result answers,
       with distance min(capsule, hull).
     - warm_next = pos_on_obstacle - pos_on_link, the next tick's carry.
+    - hull_verts (L, V, 3): the link hulls in link coordinates, in place of
+      the robot's hull table.
     """
     cap = robot_obstacle_distances(model, T_all, obstacles)
     cap_pl, cap_po, cap_n, cap_d = cap
-    idx, operands = gjk_operands(model, T_all, obstacles, cap, top_m, warm)
+    idx, operands = gjk_operands(model, T_all, obstacles, cap, top_m, warm,
+                                 hull_verts)
     pa_k, pb_k, dist_k = gjk_hull_obstacles(**operands, iters=iters)
     pa = pa_k.permute(3, 0, 1, 2)                         # (B, L, M, 3)
     pb = pb_k.permute(3, 0, 1, 2)
@@ -367,7 +376,9 @@ def robot_obstacle_distances_hull_batched(model: KinematicModel,
 
 def robot_obstacle_distances_hull(model: KinematicModel,
                                   T_all: torch.Tensor,
-                                  obstacles: ObstacleSet, iters: int = 10):
+                                  obstacles: ObstacleSet,
+                                  hull_verts: torch.Tensor | None = None,
+                                  iters: int = 10):
     """Exact-hull closest points with the JAX package's per-env contract
     (rmp_tpu's function of the same name), batched: T_all (B, F, 4, 4),
     obstacles (B, K, ...) -> (pos_on_link, pos_on_obstacle, normal)
@@ -375,9 +386,11 @@ def robot_obstacle_distances_hull(model: KinematicModel,
     `iters` cold GJK iterations through K4, started from the capsule
     witness direction (the centroid difference where it is degenerate);
     at a hull clearance of 0.5 mm or less the capsule result answers, with
-    distance min(capsule, hull). Raises for a robot without a hull table."""
+    distance min(capsule, hull). hull_verts (L, V, 3) stands in for the
+    robot's hull table; without either it raises."""
     return robot_obstacle_distances_hull_batched(
-        model, T_all, obstacles, iters=iters, top_m=obstacles.count)[:4]
+        model, T_all, obstacles, iters=iters, top_m=obstacles.count,
+        hull_verts=hull_verts)[:4]
 
 
 def self_collision_pairs(model: KinematicModel, n_neighbors: int = 3,

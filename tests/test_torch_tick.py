@@ -26,8 +26,12 @@ import torch
 from rmp_tpu import envs as jenvs
 from rmp_tpu.ops import pallas_tick as jpt
 from rmp_tpu_torch import convert, envs
+from rmp_tpu_torch.envs import planar
+from rmp_tpu_torch.models import kinematics as K
 from rmp_tpu_torch.ops import cuda_tick, tick_ops
+from rmp_tpu_torch.sim import collision
 from test_torch_envs import jax_state_leaves
+from test_torch_generality import jax_planar_env
 
 torch.set_num_threads(1)
 
@@ -185,6 +189,126 @@ def test_fused_qdd_is_the_standard_qdd_on_first_capsules(scene):
     assert err.max() <= TOL
 
 
+PLANAR = (5, 12)    # links of the planar arms K5 is held on
+
+
+@functools.lru_cache(maxsize=None)
+def planar_states(n_links: int) -> dict:
+    """Seeded inputs at B = 1024 near the planar env's reset (q = 0.3 ±
+    0.1, q̇ ± 0.05, goal ± 0.05) with its cylinder: every env has links
+    within the obstacle policy's 0.5 m, some pierce it."""
+    env = planar.planar_arm_env(n_links, device="cpu")
+    obs = env.reset(1).sim.obstacles
+    rng = np.random.default_rng(50 + n_links)
+    f32 = functools.partial(np.asarray, dtype=np.float32)
+    return dict(q=f32(planar.Q_START + rng.uniform(-0.1, 0.1, (B, n_links))),
+                qd=f32(rng.uniform(-0.05, 0.05, (B, n_links))),
+                goal=f32(np.asarray(planar.GOAL)
+                         + rng.uniform(-0.05, 0.05, (B, 3))),
+                obs_p0=f32(np.broadcast_to(obs.p0.numpy(), (B, 1, 3))),
+                obs_p1=f32(np.broadcast_to(obs.p1.numpy(), (B, 1, 3))),
+                obs_r=f32(np.broadcast_to(obs.radius.numpy(), (B, 1))))
+
+
+@pytest.mark.parametrize("n_links", PLANAR)
+def test_planar_plain_matches_jax_kernel_body(n_links):
+    """The planar env is K5's path in both packages (both `supports` say
+    so), at n = 5 and 12. Its EE carries a sphere, a zero-length segment
+    to K5: at n = 5 the EE is within the obstacle policy's reach on some
+    envs, so the degenerate branch of the closest-point parameters (s = 0
+    where |a1 - a0|² <= 1e-9) is on the compared path. Some links pierce
+    the cylinder, where the 1/d curvature row amplifies rounding: the envs
+    compared and the rest are screened as in the wide test above."""
+    jenv = jax_planar_env(n_links)
+    env = planar.planar_arm_env(n_links, device="cpu")
+    assert cuda_tick.supports(env) and jpt.supports(jenv)
+    inputs = planar_states(n_links)
+    want = jax_k5_body(jenv, inputs)
+    up = np.float32(np.inf)
+    moved = dict(inputs, q=np.nextafter(inputs["q"], up),
+                 qd=np.nextafter(inputs["qd"], up))
+    s = scale(want)
+    sens = np.abs(jax_k5_body(jenv, moved) - want).max(axis=1) / s
+    tick = cuda_tick.fused_tick(env)
+    args = [torch.tensor(inputs[k]) for k in INPUTS]
+    witness = cuda_tick.fused_qdd_plain(
+        tick, *(a.double() for a in args)).numpy()
+    got = cuda_tick.make_fused_qdd(env)(*args).numpy()
+    assert np.isfinite(want).all() and np.isfinite(got).all()
+    ref_err = np.abs(want - witness).max(axis=1) / s
+    port_err = np.abs(got - witness).max(axis=1) / s
+    err = np.abs(got - want).max(axis=1) / s
+    held = (sens <= STABLE) & (ref_err <= ACCURATE)
+    ee = K.fk_position(env.model, args[0], env.ee_frame)
+    reach = (ee - args[3][:, 0]).norm(dim=-1) < 0.5 + 0.09  # + both radii
+    print(f"planar {n_links}: {int(held.sum())} of {B} envs compared, max "
+          f"rel err {err[held].max():.3e} ({err.max():.3e} over all); EE "
+          f"near the cylinder on {int(reach.sum())} envs")
+    if n_links == 5:
+        assert reach[torch.from_numpy(held)].any()
+    assert held.sum() >= B // 2
+    assert err[held].max() <= TOL, \
+        f"worst env {np.flatnonzero(held)[err[held].argmax()]}"
+    rest = ~held
+    assert np.all(port_err[rest] <= np.maximum(TOL, SPREAD * ref_err[rest]))
+
+
+def test_degenerate_segment_closest_params_match_jax():
+    """_seg_closest against sim.collision.segment_closest_params where the
+    first segment is a point (the planar EE's sphere), the second a
+    segment, a point, or parallel to nothing: the `> EPS` guards pick the
+    same branch."""
+    rng = np.random.default_rng(7)
+    n = 64
+    a0 = rng.normal(size=(n, 3)).astype(np.float32)
+    b0 = rng.normal(size=(n, 3)).astype(np.float32)
+    b1 = b0 + rng.normal(size=(n, 3)).astype(np.float32)
+    b1[::4] = b0[::4]                     # a point against a point too
+    s, t = collision.segment_closest_params(*(torch.tensor(x) for x in
+                                              (a0, a0, b0, b1)))
+    js, jt, _, _ = jpt._seg_closest(*([jnp.asarray(x[:, i]) for i in range(3)]
+                                      for x in (a0, a0, b0, b1)))
+    np.testing.assert_array_equal(s.numpy(), np.zeros(n, np.float32))
+    np.testing.assert_array_equal(np.asarray(js), s.numpy())
+    np.testing.assert_allclose(np.asarray(jt), t.numpy(), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("n_links", PLANAR)
+def test_planar_fused_qdd_is_the_batched_step_qdd(n_links):
+    """Every collision frame of the planar arm has one primitive, so K5's
+    first-primitive reading loses nothing: it equals the env's own batched
+    step's q̈ ('solve', K1's plain version, ridge 0) directly, at phase
+    11's 2e-4 x max(1, |q̈|) of chip_smoke.py."""
+    env = planar.planar_arm_env(n_links, device="cpu")
+    inputs = planar_states(n_links)
+    args = [torch.tensor(inputs[k]) for k in INPUTS]
+    got = cuda_tick.make_fused_qdd(env)(*args)
+    start = envs.make_batched_reset(env, B)()
+    states = dataclasses.replace(start, sim=dataclasses.replace(
+        start.sim, q=args[0], qd=args[1], goal=args[2],
+        obstacles=collision.ObstacleSet(*args[3:], kinds=("cylinder",))))
+    _, aux = envs.make_batched_control_step(env)(states,
+                                                 env.gather_params())
+    want = aux["qdd"]
+    err = ((got - want).abs().amax(dim=1)
+           / want.abs().amax(dim=1).clamp_min(1.0))
+    print(f"planar {n_links}: K5 vs the batched step's q̈ {float(err.max()):.3e}")
+    assert float(err.max()) <= 2e-4
+
+
+def test_k5_raises_past_its_capacity():
+    """Past 16 motors (and 16 frames) the wrapper raises before any launch
+    (meta tensors stand in for a device here), as it does for any other
+    limit."""
+    env = planar.planar_arm_env(17, device="cpu")
+    fn = cuda_tick.make_fused_qdd(env)
+    args = [torch.zeros(4, 17), torch.zeros(4, 17), torch.zeros(4, 3),
+            torch.zeros(4, 1, 3), torch.ones(4, 1, 3), torch.ones(4, 1)]
+    with pytest.raises(ValueError, match="exceeds the K5 kernel's capacity"):
+        fn(*(a.to("meta") for a in args))
+    assert cuda_tick.MAX_N == 16
+
+
 # primitives of a jaxpr that move data and compute nothing
 LAYOUT = {"convert_element_type", "broadcast_in_dim", "slice", "squeeze"}
 
@@ -223,6 +347,29 @@ def test_operation_count_is_the_jax_bodys(scene, K):
     total, mirrored = tick_ops.fused_qdd_ops(tick, K)
     print(f"{scene}, K = {K}: {total} operations per env, {mirrored} of "
           f"them on A's mirrored upper triangle; jaxpr {dict(want)}")
+    assert total == sum(want.values())
+    assert 0 < mirrored < want["add"] + want["mul"]
+
+
+@pytest.mark.parametrize("n_links", PLANAR)
+def test_planar_operation_count_is_the_jax_bodys(n_links):
+    """tick_ops' count on the planar arms, where K5's bound reads it in
+    chip_smoke.py phase 18: the arithmetic equations of JAX's K5 body's
+    jaxpr at n = 5 and 12, K = 1."""
+    jenv = jax_planar_env(n_links)
+    kernel = jpt._make_kernel(jenv.model, jenv, 1e-6)
+    tile = (1, jpt.SUBLANES, jpt.LANES)
+    n = n_links
+
+    def body(*refs):
+        out = {}
+        kernel(*refs, out)
+        return [out[i, 0] for i in range(n)]
+    refs = [jnp.zeros(s + tile, jnp.float32) for s in
+            ((n,), (n,), (3,), (1, 3), (1, 3), (1,))]
+    want = jaxpr_ops(jax.make_jaxpr(body)(*refs).jaxpr, collections.Counter())
+    tick = cuda_tick.fused_tick(planar.planar_arm_env(n_links, "cpu"))
+    total, mirrored = tick_ops.fused_qdd_ops(tick, 1)
     assert total == sum(want.values())
     assert 0 < mirrored < want["add"] + want["mul"]
 
