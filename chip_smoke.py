@@ -227,6 +227,33 @@ printing the result line:
      the card (128 reset envs x 2 ticks, within 1e-2, not identical); the
      flagship with RMP_PANDA_CAPS=fine (47 capsules) at 4096 x 30 with
      GPU/CPU parity.
+ 19. the thirteenth slice, K3 past 18 motors, M16 and M17's entry points:
+     K3's two instantiations' build lines (32 frames, 18 motors, 8 envs a
+     CTA; 40, 32, 4); the kernel against its plain version on the 24- and
+     32-link arms, two odd n (19, 31) and 40 frames with 32 motors at
+     B = 4096, 1, 7 and 4093 (2e-4 x max(1, max |plain|) per output, each
+     beside its and the plain version's gap to float64), 41 frames and 33
+     motors raising before a launch, the two arms timed beside their
+     bounds and the Panda and dual Panda re-timed beside their earlier
+     0.0268 / 0.0824 ms; K1's warp kernel at n = 24 and 32 on the arms'
+     real ticks (strided blocks) at B = 4096, 1, 7 and 4093, kernel and
+     plain version each against a float64 plain run (float32 q̈ there
+     parts from it by ~4e-4 of |q̈|: the kernel's backward error within
+     1e-5, its forward error within max(2e-4, twice the plain version's),
+     k1_compare_conditioned), timed beside its bound and einsum +
+     torch.linalg.solve; the 24- and 32-link arms (envs/planar.py) at
+     4096 x 150 like phase 18's (the envs that start piercing the cylinder
+     counted) with GPU/CPU parity (128 x 5, witness_q's screen); M16 at
+     world size 1 on NCCL over the loopback address: make_sharded_rollout
+     of the flagship (4096 x 20 from perturbed resets) equal to
+     make_rollout bit for bit with the same launches, its collectives 5
+     scalar all-reduces (record_collectives / audit_collectives), the
+     sharded checkpoint restored bit for bit, the group destroyed; M17:
+     `python -m rmp_tpu_torch.experiments.evaluate` on
+     franka/randomized_cluttered at 4096 x 300 against
+     reports/eval_randomized.json (3 sigma, nan_rate 0), latency.measure on
+     the flagship at batches 1, 64, 4096 (50 ticks), the soak at 4096 x
+     1000 in chunks of 500 (finite, in limits), `run franka/01 --ticks 40`.
 Then one JSON line of per-kernel numbers ({"kernels": [...]}) and, last,
 {"ok": true, "device": {...}}. The full record also goes to
 chiprun_out/chip_smoke.json.
@@ -241,8 +268,10 @@ import inspect
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -260,19 +289,25 @@ from rmp_tpu_torch.envs import planar
 from rmp_tpu_torch.envs.base import (_policy_inputs, _seed_gjk_warm,
                                      _wants_gjk_warm,
                                      make_batched_control_step)
-from rmp_tpu_torch.evaluate import task_statistics
+from rmp_tpu_torch.evaluate import min_clearance, task_statistics
 from rmp_tpu_torch.experiments import common as exp_common
-from rmp_tpu_torch.experiments import (train_neural_clutter,
+from rmp_tpu_torch.experiments import (latency, soak, train_neural_clutter,
                                        train_neural_rmp, tune_gains)
-from rmp_tpu_torch.models import kinematics, robots, urdf
+from rmp_tpu_torch.models import kinematics, robots, specs, urdf
 from rmp_tpu_torch.models.fk_derivatives import fk_derivatives
 from rmp_tpu_torch.models.urdf import FIXED
 from rmp_tpu_torch.ops import (cuda_fk, cuda_gjk, cuda_resolve, cuda_tick,
                                tick_ops)
+from rmp_tpu_torch.parallel import (audit_collectives, distributed,
+                                    make_sharded_rollout, record_collectives,
+                                    shard_env_batch)
 from rmp_tpu_torch.policies import neural, v1
 from rmp_tpu_torch.sim import (FrankaPanda, Goal, Simulation, collision,
                                contact, data, dynamics)
 from rmp_tpu_torch.sim.world import SimState, physics_step
+from rmp_tpu_torch.utils.checkpoint import (_leaves as ckpt_leaves,
+                                            restore_checkpoint_sharded,
+                                            save_checkpoint_sharded)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCENE = "franka/06_cluttered_environment"
@@ -2329,7 +2364,8 @@ K1_RANDOMIZED_TICKS = 60
 K1_RANDOMIZED_LAYOUT = (("dense", 3), ("identity", 0), ("identity", 0),
                         ("identity", 0), ("scalar", 80))
 PARITY_B = 128
-PARITY_TICKS = 30     # cut from 60 in the eleventh slice, for time
+PARITY_TICKS = 20     # cut from 60 to 30 in the eleventh slice, to 20 in
+                      # the thirteenth, for time
 PARITY_SEED = 1
 # least share of the (env, tick) pairs before each env's first event that
 # the rounding screens keep: a floor on what the parity covers, not a
@@ -3006,7 +3042,7 @@ HULL_MODELS = {"two_joint/05_obstacle_avoidance": "two-joint (3, 48)",
 HULL_MODEL_SCENES = ("two_joint/05_obstacle_avoidance",
                      "two_joint/05_obstacle_avoidance_variant",
                      "ur5/02_obstacle_avoidance")
-HULL_MODEL_PARITY = (128, 10)
+HULL_MODEL_PARITY = (128, 5)     # 10 ticks before the thirteenth slice
 K1_UR5_HULL_LAYOUT = (("dense", 3), ("identity", 0), ("dense", 18))
 # the trained reach criteria of tests/test_neural.py: (ticks, the bound on
 # the mean final EE-goal distance, in x and y only)
@@ -3015,9 +3051,10 @@ NEURAL_REACH = {"two_joint/neural_reach": (80, 0.05, True),
 NEURAL_CLUTTER = "franka/neural_clutter"
 NEURAL_REPORTS = {"capsule": "reports/eval_neural_clutter.json"}
 DISCRETE[NEURAL_CLUTTER] = DISCRETE[RANDOMIZED]
-NEURAL_PARITY = {"two_joint/neural_reach": (128, 12),
-                 "franka/neural_reach": (128, 12),
-                 NEURAL_CLUTTER: (128, 15)}
+# halved in the thirteenth slice, for time (12, 12, 15 ticks before)
+NEURAL_PARITY = {"two_joint/neural_reach": (128, 6),
+                 "franka/neural_reach": (128, 6),
+                 NEURAL_CLUTTER: (128, 8)}
 
 
 def k4_tie_share(ops: dict, iters: int) -> dict:
@@ -4573,6 +4610,404 @@ def phase_slice12(card: str, device) -> dict:
                 bf16_contract=contract, seconds=seconds)
 
 
+# ------------------------------------------------ the thirteenth slice ----
+
+WIDE_LINKS = (24, 32)         # the N-link arms past K3's narrow tile
+# K3's earlier times on an H100 80GB HBM3 at 700 W (PERF.md), device alone
+# at B = 4096, before the wide instantiation: the narrow one must keep them
+K3_EARLIER_MS = {"panda": 0.0268, "dual_panda": 0.0824}
+K3_INSTANTIATIONS = {"narrow": "fk_derivatives_kernelILi32ELi18ELi8E",
+                     "wide": "fk_derivatives_kernelILi40ELi32ELi4E"}
+SHARDED_TICKS = 20            # the sharded flagship at world size 1
+LATENCY_BATCHES = (1, 64, 4096)
+LATENCY_TICKS = 50
+SOAK_TICKS, SOAK_CHUNK = 1000, 500
+
+
+def fixed_tail_model(n_links: int, extra: int):
+    """The n_links planar arm with `extra` fixed links chained after its
+    EE: n_links + 1 + extra frames, n_links motors."""
+    spec = specs.make_planar_arm_spec(n_links)
+    links, joints, parent = list(spec.links), list(spec.joints), "ee"
+    for k in range(extra):
+        links.append(specs.LinkSpec(f"tail_{k}", 0.01, (0, 0, 0),
+                                    (1e-6,) * 3 + (0.0,) * 3))
+        joints.append(specs.JointSpec(f"tail_joint_{k}", "fixed", parent,
+                                      f"tail_{k}", xyz=(0.01, 0, 0)))
+        parent = f"tail_{k}"
+    return specs.build_model(dataclasses.replace(
+        spec, name=f"{spec.name}_tail{extra}", links=tuple(links),
+        joints=tuple(joints)))
+
+
+def k3_wide_models() -> dict:
+    """K3's models past the narrow tile: the 24- and 32-link arms of the
+    path, two odd n and the wide tile's capacity (40 frames, 32 motors)."""
+    return {"planar_24 (F=25, n=24)": planar_model(24),
+            "planar_32 (F=33, n=32)": planar_model(32),
+            "planar_19 (F=20, n=19)": planar_model(19),
+            "planar_31 (F=32, n=31)": planar_model(31),
+            "planar_32 + 7 fixed (F=40, n=32)": fixed_tail_model(32, 7)}
+
+
+def planar_model(n_links: int):
+    return specs.build_model(specs.make_planar_arm_spec(n_links))
+
+
+def k3_check(model, what: str, device) -> float:
+    """K3 against its plain version on `model` at B = BATCH and RAGGED,
+    each output within K3_ATOL x max(1, max |plain|): along a long arm at
+    q̇ up to 1 rad/s per joint, Td and c reach hundreds, and their float32
+    rounding grows with them (the kernel's and the plain version's gaps to
+    a float64 plain run are printed beside it). Returns the largest
+    |kernel - plain| over the outputs."""
+    err = 0.0
+    for B in (BATCH,) + RAGGED:
+        q, qd = k3_inputs(model, B, device)
+        got = cuda_fk.fk_derivatives_batched(model, q, qd)
+        want = fk_derivatives(model, q, qd)
+        exact = fk_derivatives(model, q.double(), qd.double())
+        torch.cuda.synchronize()
+        worst, scale, rounding = {}, {}, {}
+        for name, g, w, x in zip(("T16", "Td16", "J16", "c16"), got, want,
+                                 exact):
+            check(g.shape == w.shape, f"K3 {what} {name}: shape")
+            worst[name] = float((g - w).abs().max())
+            scale[name] = max(1.0, float(w.abs().max()))
+            rounding[name] = (float((g.double() - x).abs().max()),
+                              float((w.double() - x).abs().max()))
+            check(worst[name] <= K3_ATOL * scale[name],
+                  f"K3 {what} {name}: disagrees with plain version")
+        log(f"K3 {what}, B={B}: max|kernel - plain| {json.dumps(worst)}, "
+            f"limit {K3_ATOL} x max(1, max|plain|) {json.dumps(scale)}; "
+            f"kernel / plain against float64 {json.dumps(rounding)}")
+        err = max(err, *worst.values())
+    return err
+
+
+def k3_raises(model, what: str, device) -> str:
+    """The wrapper must raise ValueError before any launch on `model`."""
+    q, qd = k3_inputs(model, 4, device)
+    before = cuda_fk.fk_derivatives_batched.launches
+    try:
+        cuda_fk.fk_derivatives_batched(model, q, qd)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    check(raised is not None
+          and cuda_fk.fk_derivatives_batched.launches == before,
+          f"K3 {what}: no ValueError before a launch")
+    log(f"K3 {what} raises: {raised}")
+    return raised
+
+
+def k3_times(model, what: str, device) -> dict:
+    """K3 on `model` at BATCH timed as phase 5 times it, one device kernel
+    per call, its bound from these shapes."""
+    q, qd = k3_inputs(model, BATCH, device)
+
+    def call():
+        return cuda_fk.fk_derivatives_batched(model, q, qd)
+    per_call = device_launches(call, "fk_derivatives_kernel", f"K3 {what}")
+    check(per_call == 1, f"K3 {what}: not one launch per wrapper call")
+    rec = dict(frames=model.n_frames, n=model.n_q,
+               tile_envs=cuda_fk.tile_of(model)[2],
+               dynamic_smem_bytes=_build.c_function(
+                   "rmp_fk_derivatives_shared_bytes",
+                   [ctypes.c_int, ctypes.c_int])(model.n_frames, model.n_q),
+               device_launches_per_call=per_call, ms=time_ms(call),
+               device_ms=time_ms(call, lead=True),
+               plain_ms=time_ms(lambda: fk_derivatives(model, q, qd),
+                                reps=5),
+               library_ms=None)
+    rec["bound_ms"], rec["bound_by"] = k3_bound(model, BATCH)
+    log(f"K3 {what} times at B={BATCH}: wrapper {rec['ms']:.4f} ms (device "
+        f"alone {rec['device_ms']:.4f} ms), plain {rec['plain_ms']:.4f} ms, "
+        f"bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}); tile "
+        f"{rec['tile_envs']} envs, {rec['dynamic_smem_bytes']} B of shared "
+        f"memory per CTA")
+    return rec
+
+
+def phase_k3_wide(card: str, device) -> tuple[dict, float]:
+    """K3 past 18 motors: each instantiation's build line; the kernel
+    against its plain version on k3_wide_models at B = 4096, 1, 7, 4093;
+    41 frames and 33 motors raising before a launch; the two planar arms
+    of the path timed beside their bounds, and the Panda and the dual
+    Panda (the narrow instantiation) timed again beside K3_EARLIER_MS."""
+    build = {k: build_counts("fk_derivatives.cu", f"K3 {k}", kernel)
+             for k, kernel in K3_INSTANTIATIONS.items()}
+    err = max(k3_check(m, what, device)
+              for what, m in k3_wide_models().items())
+    raised = {"41 frames": k3_raises(fixed_tail_model(32, 8),
+                                     "41 frames, 32 motors", device),
+              "33 motors": k3_raises(planar_model(33),
+                                     "34 frames, 33 motors", device)}
+    times = {f"planar_{n}": k3_times(planar_model(n), f"planar_{n}link",
+                                     device) for n in WIDE_LINKS}
+    for name, model in (("panda", robots.franka_panda()),
+                        ("dual_panda", robots.dual_panda())):
+        times[name] = k3_times(model, name, device)
+        times[name]["earlier_device_ms"] = K3_EARLIER_MS[name]
+        log(f"K3 {name} (narrow tile) device {times[name]['device_ms']:.4f} "
+            f"ms beside {K3_EARLIER_MS[name]} ms before the wide tile "
+            f"[{card}]")
+    return dict(build=build, raised=raised, times=times), err
+
+
+K1_RESIDUAL = 1e-5    # float64 backward error of a float32 solve, K1 and plain
+
+
+def k1_compare_conditioned(tags, blocks, what: str) -> float:
+    """K1 where the system's conditioning decides float32 q̈ (the long
+    planar arms: the attractor's rank-3 metric over 12-16 m of links beside
+    damping metrics of 0.005): kernel and plain version each against the
+    plain version in float64 on the same blocks. The kernel's backward
+    error in float64, |A x - f| / (|A| |x| + |f|) (infinity norms), within
+    K1_RESIDUAL on every env, as a stable float32 LU keeps it whatever the
+    conditioning; its largest forward error, |x - x64| / max(1, |x64|),
+    within K1_TOL or twice the plain version's (two float32 solves round
+    independently). Returns max |kernel - plain|, which is printed with
+    both errors."""
+    got = cuda_resolve.pullback_resolve_structured(tags, blocks)
+    want = cuda_resolve.pullback_resolve_structured_plain(tags, blocks)
+    wide = [tuple(x.double() for x in blk) for blk in blocks]
+    exact = cuda_resolve.pullback_resolve_structured_plain(tags, wide)
+    A, f = cuda_resolve.assemble_structured(tags, wide)
+    torch.cuda.synchronize()
+    scale = exact.abs().amax(dim=1).clamp_min(1.0)
+
+    def forward(x):
+        return float(((x.double() - exact).abs().amax(dim=1) / scale).max())
+
+    def backward(x):
+        x = x.double()
+        r = (torch.einsum("bnm,bm->bn", A, x) - f).abs().amax(dim=1)
+        return float((r / (A.abs().sum(dim=2).amax(dim=1)
+                           * x.abs().amax(dim=1)
+                           + f.abs().amax(dim=1))).max())
+    gap = float((got - want).abs().max())
+    fwd_k, fwd_p = forward(got), forward(want)
+    bwd_k, bwd_p = backward(got), backward(want)
+    log(f"K1 {what}: max|kernel - plain| {gap:.3e} (max|q̈| "
+        f"{float(exact.abs().max()):.3e}); against float64, kernel / plain: "
+        f"forward {fwd_k:.3e} / {fwd_p:.3e} (limit max({K1_TOL}, 2 x plain)),"
+        f" backward {bwd_k:.3e} / {bwd_p:.3e} (limit {K1_RESIDUAL})")
+    check(bool(torch.isfinite(got).all()), f"K1 {what}: non-finite output")
+    check(bwd_k <= K1_RESIDUAL, f"K1 {what}: backward error")
+    check(fwd_k <= max(K1_TOL, 2.0 * fwd_p), f"K1 {what}: forward error")
+    return gap
+
+
+def phase_k1_planar(device) -> tuple[dict, float]:
+    """K1 on the planar arms' real ticks (WIDE_LINKS: the warp kernel at
+    n = 24 and 32 with its largest tiles) against its plain version at
+    B = 4096, 1, 7 and 4093 on the tick's own strided blocks, behind a
+    float64 screen (k1_compare_conditioned); one device
+    kernel per call; timed at B = 4096 beside its bound and einsum +
+    torch.linalg.solve."""
+    out, err = {}, 0.0
+    for n_links in WIDE_LINKS:
+        env = planar.planar_arm_env(n_links)
+        for B in (BATCH,) + RAGGED:
+            tags, blocks = real_tick_blocks(env, B, n_links)
+            err = max(err, k1_compare_conditioned(
+                tags, blocks, f"planar_{n_links}link (n={n_links}) real "
+                f"tick, B={B}"))
+        tags, blocks = real_tick_blocks(env, BATCH, n_links)
+
+        def call():
+            return cuda_resolve.pullback_resolve_structured(tags, blocks)
+        per_call = device_launches(call, "pullback_resolve_wide_kernel",
+                                   f"K1 n={n_links}")
+        check(per_call == 1, f"K1 n={n_links}: not one launch per call")
+        rec = k1_times(f"planar_{n_links}link real tick", tags, blocks)
+        rec.update(n=n_links, device_launches_per_call=per_call,
+                   layout=[[t, b[0].shape[1] if t != "identity" else 0]
+                           for t, b in zip(tags, blocks)],
+                   build=ptxas_counts("pullback_resolve.cu",
+                                      f"pullback_resolve_wide_kernelILi"
+                                      f"{n_links}E"))
+        out[f"n={n_links}"] = rec
+    return out, err
+
+
+def free_port() -> int:
+    """A port of the loopback address that nothing holds."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def piercing_envs(env) -> int:
+    """Envs of the reset that a link starts inside the env's obstacle."""
+    states = envs.make_batched_reset(env, BATCH)()
+    return int((min_clearance(env, states.sim) < 0.0).sum())
+
+
+def phase_sharded(card: str, device) -> tuple[dict, dict]:
+    """M16 at world size 1 on NCCL (loopback): make_sharded_rollout of the
+    flagship scene ('solve', 4096 x SHARDED_TICKS from perturbed resets)
+    against make_rollout on the same states (q, q̇ bit for bit, the three
+    metrics, the launch counts), its collectives audited (scalar
+    all-reduces only), the sharded checkpoint of its final states
+    restored bit for bit, the process group destroyed."""
+    port = free_port()
+    distributed.initialize(f"127.0.0.1:{port}", 1, 0, device=device)
+    try:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        check(torch.distributed.get_backend() == backend,
+              f"M16: not {backend}")
+        mesh = distributed.global_env_mesh()
+        env = envs.make(SCENE)
+        env.resolve_method = "solve"
+        params = env.gather_params()
+        states = perturbed_states(env, BATCH, 13, 0.1, 0.05)
+        local = shard_env_batch(states, mesh)
+        rollout = make_sharded_rollout(env, SHARDED_TICKS, mesh,
+                                       collect_aux=True)
+        torch.cuda.synchronize()
+        _zero_counters()
+        t0 = time.perf_counter()
+        with record_collectives() as rec:
+            final, metrics, _ = rollout(local, params)
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t0
+        launches = _read_counters()
+        audit = audit_collectives(rec)
+        _zero_counters()
+        t0 = time.perf_counter()
+        want, aux = envs.make_rollout(env, SHARDED_TICKS)(states, params)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        plain_launches = _read_counters()
+        want_metrics = dict(
+            success_rate=aux["solved"].any(dim=1).float().mean(),
+            goals_reached=want.solved_count.float().mean(),
+            mean_abs_qdd=aux["qdd"].abs().mean())
+        same = dict(q=torch.equal(final.sim.q, want.sim.q),
+                    qd=torch.equal(final.sim.qd, want.sim.qd),
+                    **{k: bool(metrics[k] == v)
+                       for k, v in want_metrics.items()})
+        with tempfile.TemporaryDirectory() as path:
+            save_checkpoint_sharded(path, final)
+            back = restore_checkpoint_sharded(path, final)
+        restored = all(torch.equal(a, b) if isinstance(a, torch.Tensor)
+                       else torch.equal(a.get_state(), b.get_state())
+                       for a, b in zip(ckpt_leaves(back), ckpt_leaves(final)))
+    finally:
+        distributed.shutdown()
+    check(not torch.distributed.is_initialized(), "M16: group not destroyed")
+    res = dict(envs=BATCH, ticks=SHARDED_TICKS, backend=backend, world=1,
+               equal=same, audit=audit, launches=launches,
+               make_rollout_launches=plain_launches,
+               metrics={k: float(v) for k, v in metrics.items()},
+               sharded_s=sharded_s, make_rollout_s=plain_s,
+               checkpoint_bit_for_bit=restored)
+    log(f"M16 sharded {SCENE} at world size 1 ({backend}): "
+        f"{json.dumps(res)} [{card}]")
+    check(all(same.values()), f"M16: sharded differs from make_rollout "
+          f"{same}")
+    check(audit["all_reduce"] == 5, f"M16: {audit}")
+    check(launches == plain_launches, "M16: launches differ from "
+          "make_rollout's")
+    check(restored, "M16: the sharded checkpoint does not restore")
+    return launches, res
+
+
+def phase_tools(card: str, device, failed: list) -> dict:
+    """M17 on the card: the evaluate CLI as a subprocess on the randomized
+    scene at 4096 x 300 (its statistics against reports/eval_randomized.json
+    within 3 sigma, nan_rate 0), latency.measure on the flagship at
+    LATENCY_BATCHES, the soak at 4096 x SOAK_TICKS in chunks of
+    SOAK_CHUNK (finite, in limits), `run franka/01 --ticks 40`."""
+    out = {}
+    cpu = ["--cpu"] if device.type == "cpu" else []
+    t0 = time.perf_counter()
+    ev = subprocess.run(
+        [sys.executable, "-m", "rmp_tpu_torch.experiments.evaluate",
+         "--env", RANDOMIZED, "--batch", str(BATCH), "--ticks",
+         str(RANDOMIZED_TICKS), "--seed", str(RANDOMIZED_SEED), *cpu],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(ev.returncode == 0, f"evaluate CLI failed: {ev.stderr[-2000:]}")
+    report = json.loads(ev.stdout)
+    with open(os.path.join(ROOT, REPORTS["capsule"])) as f:
+        ref = json.load(f)
+    against = {}
+    for key in STAT_KEYS:
+        p = ref[key]
+        against[key] = dict(port=report[key], report=p,
+                            diff=report[key] - p, limit=stat_limit(p))
+        if abs(report[key] - p) > stat_limit(p):
+            failed.append(f"evaluate CLI: {key} {report[key]:.5f} against "
+                          f"{p:.5f} (limit {stat_limit(p):.5f})")
+    if report["nan_rate"] != 0.0:
+        failed.append(f"evaluate CLI: nan_rate {report['nan_rate']}")
+    out["evaluate"] = dict(report=report, against_report=against,
+                           process_s=time.perf_counter() - t0)
+    log(f"evaluate CLI ({RANDOMIZED}, {BATCH} x {RANDOMIZED_TICKS}): "
+        f"{report['control_steps_per_sec']} control steps/s "
+        f"[{report['device']}]; {json.dumps(against)}")
+    out["latency"] = latency.measure(SCENE, list(LATENCY_BATCHES),
+                                     LATENCY_TICKS, "capsule", device=device)
+    log(f"latency ({SCENE}): {json.dumps(out['latency'])}")
+    out["soak"] = soak.soak(SCENE, BATCH, SOAK_TICKS, SOAK_CHUNK, "capsule",
+                            device=device)
+    log(f"soak ({SCENE}, {BATCH} x {SOAK_TICKS}): {json.dumps(out['soak'])}")
+    check(out["soak"]["all_finite"] and out["soak"]["always_in_limits"],
+          "soak: non-finite or out of limits")
+    t0 = time.perf_counter()
+    rn = subprocess.run(
+        [sys.executable, "-m", "rmp_tpu_torch.experiments.run",
+         "franka/01_target_rmp_only", "--ticks", "40", *cpu],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(rn.returncode == 0, f"run failed: {rn.stderr[-2000:]}")
+    out["run"] = dict(tail=rn.stdout.strip().splitlines()[-4:],
+                      process_s=time.perf_counter() - t0)
+    log(f"run franka/01 --ticks 40: {json.dumps(out['run'])}")
+    return out
+
+
+def phase_slice13(card: str, device) -> dict:
+    """Phase 19: K3 past 18 motors, K1 on the planar real ticks at n = 24
+    and 32, the 24- and 32-link arms at 4096 x 150 with GPU/CPU parity, M16
+    at world size 1 on NCCL, the M17 entry points on the card."""
+    t_start = time.perf_counter()
+    failed: list = []
+    k3, k3_err = phase_k3_wide(card, device)
+    k1, k1_err = phase_k1_planar(device)
+    paths, results = {}, {}
+    k13 = ("pullback_resolve_structured", "fk_derivatives_batched")
+    for n_links in WIDE_LINKS:
+        name = f"planar_{n_links}link"
+        env = planar.planar_arm_env(n_links)
+        pierce = piercing_envs(env)
+        log(f"{name}: {pierce} of {BATCH} envs start with a link inside "
+            f"the cylinder")
+        launches, res = rollout_path(card, env, name, PLANAR_TICKS, k13,
+                                     failed)
+        res["piercing_at_start"] = pierce
+        res["parity"] = gpu_cpu_parity(
+            lambda dev: planar.planar_arm_env(n_links, dev), name)
+        paths[name], results[name] = launches, res
+    t0 = time.perf_counter()
+    paths[f"sharded {SCENE} (world 1)"], sharded = phase_sharded(card,
+                                                                  device)
+    sharded_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tools = phase_tools(card, device, failed)
+    tools_s = time.perf_counter() - t0
+    seconds = time.perf_counter() - t_start
+    log(f"phase 19: {seconds:.1f} s (M16 {sharded_s:.1f} s, M17 tools "
+        f"{tools_s:.1f} s)")
+    check(not failed, "; ".join(failed))
+    return dict(k3=k3, k3_err=k3_err, k1=k1, k1_err=k1_err,
+                results=results, sharded=sharded, tools=tools,
+                paths={k: (v, results.get(k, sharded)) for k, v in
+                       paths.items()},
+                seconds=dict(all=seconds, sharded=sharded_s, tools=tools_s))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4633,6 +5068,7 @@ def main() -> int:
     slice11_s = time.perf_counter() - t0
     log(f"phase 17: {slice11_s:.1f} s")
     slice12 = phase_slice12(card, device)
+    slice13 = phase_slice13(card, device)
 
     k1["per_layout"] = dict(flagship=dict(n=9, ms=k1["ms"],
                                           device_ms=k1["device_ms"]),
@@ -4671,7 +5107,8 @@ def main() -> int:
     k1["dual"] = k3["dual"] = False
     path_launches = {"capsule": launches, "hull": hull_launches}
     for paths in (slice6["paths"], slice7["paths"], slice8["paths"],
-                  slice9["paths"], slice10["paths"], slice12["paths"]):
+                  slice9["paths"], slice10["paths"], slice12["paths"],
+                  slice13["paths"]):
         path_launches.update((scene, counts) for scene, (counts, _) in
                              paths.items())
     # the eleventh slice's gradient and training paths
@@ -4745,9 +5182,33 @@ def main() -> int:
                                     "bound_ms", "bound_by", "library_ms",
                                     "device_launches_per_call")})
         for key, rec in slice12["k5"].items()]
+    # the thirteenth slice's entries: K3's wide instantiation and K1's warp
+    # kernel at n = 24 and 32 on the planar arms' real ticks, each with its
+    # path's launches
+    k3_wide = [
+        dict(name=f"fk_derivatives_batched (planar_{n}link, wide tile)",
+             route="cuda", source="rmp_tpu_torch/csrc/fk_derivatives.cu",
+             replaces="rmp_tpu/ops/pallas_fk.py:218", counter=k3["name"],
+             path=f"planar_{n}link", max_abs_err=slice13["k3_err"],
+             **{k: rec[k] for k in ("ms", "device_ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "device_launches_per_call", "frames",
+                                    "tile_envs", "dynamic_smem_bytes")})
+        for n, rec in ((n, slice13["k3"]["times"][f"planar_{n}"])
+                       for n in WIDE_LINKS)]
+    k1_wide = [
+        dict(name=f"pullback_resolve_structured (n={n}, planar real tick)",
+             route="cuda", source="rmp_tpu_torch/csrc/pullback_resolve.cu",
+             replaces="rmp_tpu/ops/pallas_resolve.py:226",
+             counter=k1["name"], path=f"planar_{n}link",
+             max_abs_err=slice13["k1_err"],
+             **{k: rec[k] for k in ("ms", "device_ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "device_launches_per_call")})
+        for n, rec in ((n, slice13["k1"][f"n={n}"]) for n in WIDE_LINKS)]
     kernels = [k1, k2a, k2b, k3, k4, k5, k1_dual, k3_dual, k3_contact,
                k1_neural] + k4_models + [k1_backward_rec] + k1_slice12 \
-        + k5_slice12
+        + k5_slice12 + k3_wide + k1_wide
     for rec in kernels:
         # each kernel's count from the paths that run it (K2a/K2b, K5:
         # none); K1 and K3 on the dual-arm Panda (n = 18, F = 26) apart
@@ -4789,7 +5250,8 @@ def main() -> int:
                   impulse=slice10["impulse"],
                   phase16_parts_s=slice10["seconds"], phase16_s=slice10_s,
                   slice11=slice11, phase17_s=slice11_s,
-                  slice12={k: v for k, v in slice12.items() if k != "paths"})
+                  slice12={k: v for k, v in slice12.items() if k != "paths"},
+                  slice13={k: v for k, v in slice13.items() if k != "paths"})
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

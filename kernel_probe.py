@@ -3,16 +3,19 @@ GPU.
 
     python3 kernel_probe.py [part ...]
 
-Parts (all when none is named): sass, k3, k4, k5, host, traces.
+Parts (all when none is named): sass, k3, k3tile, k4, k5, host,
+traces.
 
 1. Phase splits by edited copies of csrc/: each variant is rebuilt from a
    copy of csrc/ with an edit and runs in its own process (the library loads
    once per process); its kernel is timed with the stream kept busy ahead
    (chip_smoke.time_ms with lead), three medians of 30 calls each, and its
    ptxas counts are kept.
-   - K3 (csrc/fk_derivatives.cu) at B = 4096: return after the table loads,
-     after the prologue, before the stores or before J's stores, or skip
-     the recursion.
+   - K3 (csrc/fk_derivatives.cu) at B = 4096 on the Panda, the dual-arm
+     Panda and the 24- and 32-link planar arms: return after the table
+     loads, after the prologue, before the stores or before J's stores, or
+     skip the recursion. Part k3tile builds the kernel as it is and with
+     the wide instantiation's tile at 8 envs per CTA in place of 4.
    - K4 (csrc/gjk_hull.cu) on the hull main path's own warm operands
      (chip_smoke.k4_main_path_operands): the kernel as it is at iters = 0,
      1, 2 and 4 (fixed cost and cost per iteration), with the tie pass
@@ -89,6 +92,14 @@ VARIANTS = {
         "no_reduction_or_solve": [(K5_BUTTERFLY, STOP + K5_BUTTERFLY)],
     },
 }
+# the wide K3 instantiation's tile at 8 envs per CTA (the kernel has 4)
+K3_TILES = {
+    "fk_derivatives.cu": {
+        "full": [],
+        "wide_tile_8": [("{{32, 18, 8}, {40, 32, 4}};",
+                         "{{32, 18, 8}, {40, 32, 8}};")],
+    },
+}
 K4_ITERS = (0, 1, 2, 4)
 
 CHILD = r"""
@@ -103,9 +114,15 @@ from rmp_tpu_torch.ops import cuda_fk, cuda_gjk, cuda_tick
 _build.build()
 src = {src!r}
 if src == "fk_derivatives.cu":
-    model = robots.franka_panda()
-    q, qd = cs.k3_inputs(model, cs.BATCH, torch.device("cuda"))
-    calls = dict(call=lambda: cuda_fk.fk_derivatives_batched(model, q, qd))
+    from rmp_tpu_torch.models.specs import build_model, make_planar_arm_spec
+    calls = {{}}
+    for name, model in (("call", robots.franka_panda()),
+                        ("dual_panda", robots.dual_panda()),
+                        ("planar_24", build_model(make_planar_arm_spec(24))),
+                        ("planar_32", build_model(make_planar_arm_spec(32)))):
+        q, qd = cs.k3_inputs(model, cs.BATCH, torch.device("cuda"))
+        calls[name] = (lambda m=model, q=q, qd=qd:
+                       cuda_fk.fk_derivatives_batched(m, q, qd))
 elif src == "gjk_hull.cu":
     ops, _ = cs.k4_main_path_operands()
     calls = {{f"iters{{i}}": (lambda i=i: cuda_gjk.gjk_hull_obstacles(
@@ -115,17 +132,20 @@ else:
     fn = cuda_tick.make_fused_qdd(env)
     near = cs.k5_inputs(env, cs.BATCH, 11, wide=False)
     calls = dict(call=lambda: fn(*near))
+extra = (dict(build_wide=cs.ptxas_counts(
+    src, "fk_derivatives_kernelILi40ELi32E")) if src == "fk_derivatives.cu"
+    else {{}})
 print("RESULT", json.dumps(dict(
-    build=cs.ptxas_counts(src),
+    build=cs.ptxas_counts(src), **extra,
     device_ms={{k: [cs.time_ms(c, lead=True) for _ in range(3)]
                for k, c in calls.items()}})))
 """
 
 
-def split(source: str) -> dict:
+def split(source: str, variants: dict = VARIANTS) -> dict:
     """Every variant of `source` built and timed in its own process."""
     out = {}
-    for name, edits in VARIANTS[source].items():
+    for name, edits in variants[source].items():
         work = tempfile.mkdtemp()
         try:
             csrc = os.path.join(work, "csrc")
@@ -298,6 +318,7 @@ def main() -> int:
 
     parts = dict(sass=sass_counts,
                  k3=lambda: split("fk_derivatives.cu"),
+                 k3tile=lambda: split("fk_derivatives.cu", K3_TILES),
                  k4=lambda: split("gjk_hull.cu"),
                  k5=lambda: split("fused_tick.cu"), host=host_costs,
                  traces=trace_loss)

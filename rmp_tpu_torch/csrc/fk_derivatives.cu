@@ -15,22 +15,32 @@
 // (F = 12, n = 9) an env reads q, qd (18 floats) and writes 2,304 (T, Td, c:
 // 3 x 12 x 16; J: 12 x 16 x 9): 38.0 MB at B = 4096, 11.4 us. Its ~40
 // kFLOP of 4x4 products take ~2.5 us at the fp32 peak. So the kernel's job
-// is to store 38 MB at close to the memory rate.
+// is to store 38 MB at close to the memory rate. At the 32-link planar arm
+// (F = 33, n = 32) it stores 304 MB at B = 4096 (J alone 277 MB), 90.7 us.
 //
 // Design.
-// - A CTA takes a tile of kEnvs = 8 consecutive envs (512 CTAs at
-//   B = 4096); the last tile is masked.
+// - A CTA takes a tile of kEnvs consecutive envs; the last tile is masked.
+// - The kernel is a template on its capacity (kMaxFrames, kMaxMotors) and
+//   its tile, with two instantiations (kTiles): (32 frames, 18 motors, 8
+//   envs), which serves every robot up to the dual-arm Panda (F = 26,
+//   n = 18), and (40, 32, 4) for the rest up to 32 motors, K1's ceiling
+//   (the N-link arms: F = 25, n = 24 and F = 33, n = 32). The launcher
+//   takes the first that fits; past the last it launches nothing and
+//   returns -1. The narrow instantiation keeps its register preloads sized
+//   by its own maxima, so the wide one costs the Panda nothing.
 // - The model's tables (parent, joint type, motor index, axis, constant
 //   transforms, ancestor table anc[f][m]) and the tile's q, qd are loaded
-//   into shared memory once per CTA, so one kernel serves every robot up to
-//   kMaxFrames = 32 frames and kMaxMotors = 18 motors (the dual-arm Panda:
-//   F = 26, n = 18), each thread issuing its loads of every table before
-//   its first shared store.
-// - Shared memory is ~12 KB per env at the dual-arm Panda (Layout(26, 18):
-//   97,440 bytes per CTA, opted in above the 48 KB default), so 2 CTAs, 16
-//   envs, fit an SM; a CTA of 4 envs would fit 4 CTAs, the same 16 envs,
-//   so the tile stays 8 envs for every model: occupancy is set by the
-//   bytes per env, not by the CTA's size.
+//   into shared memory once per CTA, each thread issuing its loads of every
+//   table before its first shared store (the wide instantiation copies the
+//   ancestor table, up to 1,280 entries, in a loop instead: a preload
+//   would hold 20 registers a thread).
+// - Shared memory is ~12-13 KB per env at 26-33 frames (Layout(26, 18):
+//   97,440 bytes per CTA of 8, opted in above the 48 KB default). At the
+//   dual-arm Panda 8 envs and 4 fit the same 16 envs on an SM, so the
+//   narrow tile stays 8. At F = 33, n = 32 a CTA of 8 envs takes 123,128
+//   bytes and only one fits an SM (8 envs), while CTAs of 4 (66,504 bytes)
+//   fit three (12 envs); at F = 25, n = 24 both tiles fit 16 envs. So the
+//   wide tile is 4 envs (64 threads).
 // - The recursion runs on 16 threads per env, thread (i, j) owning entry
 //   (i, j) of every 4x4 product; the 16 threads of an env sit in one half
 //   warp, so __syncwarp orders them. T (and its transpose), W, Wd and G of
@@ -47,7 +57,9 @@
 //   own memory order, one float4 per thread and step: a tile's rows of each
 //   output are one contiguous, 16-byte aligned range, so consecutive
 //   threads store consecutive 16 bytes and every warp store is 512
-//   coalesced bytes. A J element is row i of G[anc[f][m]] dotted with row j
+//   coalesced bytes. A J row holds 16 n floats, 4 n float4s, for any n; a
+//   float4 may span two entries' motor ranges when n is not a multiple of
+//   4. A J element is row i of G[anc[f][m]] dotted with row j
 //   of T_f's transpose (float4 shared loads; the generators at a padded
 //   pitch, so a quarter warp's rows hit distinct bank groups, and T_f's
 //   column kept while a float4's elements share it); Td and c take a row of
@@ -67,10 +79,11 @@ using rmp::kGPitch;
 using rmp::ld4;
 using rmp::odd_half;
 
-constexpr int kMaxFrames = 32;
-constexpr int kMaxMotors = 18;
-constexpr int kEnvs = 8;              // envs per CTA
-constexpr int kThreads = 16 * kEnvs;  // one thread per 4x4 entry and env
+// The instantiations, first fit first: (frames, motors, envs per CTA).
+struct Tile {
+  int frames, motors, envs;
+};
+constexpr Tile kTiles[] = {{32, 18, 8}, {40, 32, 4}};
 
 __host__ __device__ constexpr int cdiv(int a, int b) {
   return (a + b - 1) / b;
@@ -85,6 +98,7 @@ __host__ __device__ constexpr int cdiv(int a, int b) {
 // for the tile's row ef = e F + f, frame[ef] = f, trow[ef] = its T/Tt/W/C
 // offset and gbase[ef] its env's generator offset; elem[w] = (rr << 8) | m,
 // the first element of float4 w of a J row.
+template <int kEnvs>
 struct Layout {
   int tstride, gstride;
   int T, Tt, W, C, Tv, G, scratch, Tc, Et, eye, axis, q, qd, floats;
@@ -104,7 +118,12 @@ struct Layout {
   }
 };
 
-__global__ void __launch_bounds__(kThreads) fk_derivatives_kernel(
+// The ancestor table's preload stays in registers up to this many entries
+// a thread; a larger one is copied in a loop.
+constexpr int kMaxAncPreload = 8;
+
+template <int kMaxFrames, int kMaxMotors, int kEnvs>
+__global__ void __launch_bounds__(16 * kEnvs) fk_derivatives_kernel(
     int B, int F, int n, const int* __restrict__ parent,
     const int* __restrict__ joint_type, const int* __restrict__ q_index,
     const float* __restrict__ axis, const float* __restrict__ T_constant,
@@ -112,9 +131,10 @@ __global__ void __launch_bounds__(kThreads) fk_derivatives_kernel(
     const float* __restrict__ qd, float* __restrict__ T16,
     float* __restrict__ Td16, float* __restrict__ J16,
     float* __restrict__ c16) {
+  constexpr int kThreads = 16 * kEnvs;  // one thread per 4x4 entry and env
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const Layout L(F, n);
+  const Layout<kEnvs> L(F, n);
   int* imem = reinterpret_cast<int*>(smem + L.floats);
   const int* s_parent = imem + L.parent;
   const int* s_qidx = imem + L.qidx;
@@ -133,21 +153,24 @@ __global__ void __launch_bounds__(kThreads) fk_derivatives_kernel(
   // table's kL* loads per thread, those past its end predicated off)
   constexpr int kLTc = cdiv(16 * kMaxFrames, kThreads);
   constexpr int kLAnc = cdiv(kMaxFrames * kMaxMotors, kThreads);
+  constexpr bool kAncPreload = kLAnc <= kMaxAncPreload;
+  constexpr int kLAncRegs = kAncPreload ? kLAnc : 1;
   constexpr int kLQ = cdiv(kEnvs * kMaxMotors, kThreads);
-  static_assert(3 * kMaxFrames <= kThreads,
-                "one thread per axis entry of the model");
+  constexpr int kLAxis = cdiv(3 * kMaxFrames, kThreads);
   const size_t q0 = static_cast<size_t>(b0) * n;
-  float tc[kLTc], qv[kLQ], qdv[kLQ];
-  int an[kLAnc];
+  float tc[kLTc], qv[kLQ], qdv[kLQ], axv[kLAxis];
+  int an[kLAncRegs];
 #pragma unroll
   for (int t = 0; t < kLTc; ++t) {
     const int k = tid + t * kThreads;
     tc[t] = k < F * 16 ? T_constant[k] : 0.0f;
   }
+  if constexpr (kAncPreload) {
 #pragma unroll
-  for (int t = 0; t < kLAnc; ++t) {
-    const int k = tid + t * kThreads;
-    an[t] = k < F * n ? anc[k] : -1;
+    for (int t = 0; t < kLAnc; ++t) {
+      const int k = tid + t * kThreads;
+      an[t] = k < F * n ? anc[k] : -1;
+    }
   }
 #pragma unroll
   for (int t = 0; t < kLQ; ++t) {
@@ -156,7 +179,13 @@ __global__ void __launch_bounds__(kThreads) fk_derivatives_kernel(
     qv[t] = in ? q[q0 + k] : 0.0f;
     qdv[t] = in ? qd[q0 + k] : 0.0f;
   }
-  const float axis_k = tid < 3 * F ? axis[tid] : 0.0f;
+#pragma unroll
+  for (int t = 0; t < kLAxis; ++t) {
+    const int k = tid + t * kThreads;
+    axv[t] = k < 3 * F ? axis[k] : 0.0f;
+  }
+  // one frame per thread: kThreads >= kMaxFrames in both instantiations
+  static_assert(kMaxFrames <= kThreads, "one thread per frame of the model");
   const int par = tid < F ? parent[tid] : 0;
   const int typ = tid < F ? joint_type[tid] : 0;
   const int qix = tid < F ? q_index[tid] : 0;
@@ -165,10 +194,17 @@ __global__ void __launch_bounds__(kThreads) fk_derivatives_kernel(
     const int k = tid + t * kThreads;
     if (k < F * 16) smem[L.Tc + k] = tc[t];
   }
+  if constexpr (kAncPreload) {
 #pragma unroll
-  for (int t = 0; t < kLAnc; ++t) {
-    const int k = tid + t * kThreads;
-    if (k < F * n) imem[L.goff + k] = an[t] >= 0 ? kGPitch * an[t] : -1;
+    for (int t = 0; t < kLAnc; ++t) {
+      const int k = tid + t * kThreads;
+      if (k < F * n) imem[L.goff + k] = an[t] >= 0 ? kGPitch * an[t] : -1;
+    }
+  } else {
+    for (int k = tid; k < F * n; k += kThreads) {
+      const int a = anc[k];
+      imem[L.goff + k] = a >= 0 ? kGPitch * a : -1;
+    }
   }
 #pragma unroll
   for (int t = 0; t < kLQ; ++t) {
@@ -178,7 +214,11 @@ __global__ void __launch_bounds__(kThreads) fk_derivatives_kernel(
       smem[L.qd + k] = qdv[t];
     }
   }
-  if (tid < 3 * F) smem[L.axis + tid] = axis_k;
+#pragma unroll
+  for (int t = 0; t < kLAxis; ++t) {
+    const int k = tid + t * kThreads;
+    if (k < 3 * F) smem[L.axis + k] = axv[t];
+  }
   if (tid < F) {
     imem[L.parent + tid] = par;
     imem[L.type + tid] = typ;
@@ -287,23 +327,63 @@ __global__ void __launch_bounds__(kThreads) fk_derivatives_kernel(
   }
 }
 
+template <int kMaxFrames, int kMaxMotors, int kEnvs>
+int launch(int B, int F, int n, const int* parent, const int* joint_type,
+           const int* q_index, const float* axis, const float* T_constant,
+           const int* anc, const float* q, const float* qd, float* T16,
+           float* Td16, float* J16, float* c16, cudaStream_t stream) {
+  auto kernel = fk_derivatives_kernel<kMaxFrames, kMaxMotors, kEnvs>;
+  const int bytes = Layout<kEnvs>(F, n).bytes();
+  if (bytes > 48 * 1024) {  // above the default: opt in (up to 227 KB)
+    const cudaError_t set = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (set != cudaSuccess) return static_cast<int>(set);
+  }
+  kernel<<<cdiv(B, kEnvs), 16 * kEnvs, bytes, stream>>>(
+      B, F, n, parent, joint_type, q_index, axis, T_constant, anc, q, qd,
+      T16, Td16, J16, c16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Index into kTiles of the instantiation that serves (F, n), or -1.
+int tile_of(int F, int n) {
+  for (int t = 0; t < static_cast<int>(sizeof(kTiles) / sizeof(Tile)); ++t)
+    if (F <= kTiles[t].frames && n <= kTiles[t].motors) return t;
+  return -1;
+}
+
 }  // namespace
 
-// Dynamic shared memory of one CTA for a model of F frames and n motors.
+// Dynamic shared memory of one CTA for a model of F frames and n motors
+// (-1: no instantiation takes the model).
 extern "C" int rmp_fk_derivatives_shared_bytes(int F, int n) {
-  return Layout(F, n).bytes();
+  switch (tile_of(F, n)) {
+    case 0:
+      return Layout<kTiles[0].envs>(F, n).bytes();
+    case 1:
+      return Layout<kTiles[1].envs>(F, n).bytes();
+    default:
+      return -1;
+  }
+}
+
+// Envs per CTA of the instantiation that serves (F, n) (-1: none).
+extern "C" int rmp_fk_derivatives_tile_envs(int F, int n) {
+  const int t = tile_of(F, n);
+  return t < 0 ? -1 : kTiles[t].envs;
 }
 
 // Launches on `stream` of GPU `device` (the caller's current device is
 // restored). Returns cudaGetLastError() after the launch, or -1 when the
-// model exceeds the kernel's frame/motor capacity (nothing is launched
-// then).
+// model exceeds every instantiation's frame/motor capacity (nothing is
+// launched then).
 extern "C" int rmp_fk_derivatives_f32(
     int device, int B, int F, int n, const int* parent, const int* joint_type,
     const int* q_index, const float* axis, const float* T_constant,
     const int* anc, const float* q, const float* qd, float* T16, float* Td16,
     float* J16, float* c16, void* stream) {
-  if (F > kMaxFrames || n > kMaxMotors) return -1;
+  const int t = tile_of(F, n);
+  if (t < 0) return -1;
   if (B <= 0) return 0;
   int previous = device;
   cudaGetDevice(&previous);
@@ -311,16 +391,14 @@ extern "C" int rmp_fk_derivatives_f32(
     const cudaError_t set = cudaSetDevice(device);
     if (set != cudaSuccess) return static_cast<int>(set);
   }
-  const int bytes = Layout(F, n).bytes();
-  if (bytes > 48 * 1024)  // above the default: opt in (up to 227 KB)
-    cudaFuncSetAttribute(fk_derivatives_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  const int blocks = (B + kEnvs - 1) / kEnvs;
-  fk_derivatives_kernel<<<blocks, kThreads, bytes,
-                          static_cast<cudaStream_t>(stream)>>>(
-      B, F, n, parent, joint_type, q_index, axis, T_constant, anc, q, qd, T16,
-      Td16, J16, c16);
-  const int rc = static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rc =
+      t == 0 ? launch<kTiles[0].frames, kTiles[0].motors, kTiles[0].envs>(
+                   B, F, n, parent, joint_type, q_index, axis, T_constant,
+                   anc, q, qd, T16, Td16, J16, c16, s)
+             : launch<kTiles[1].frames, kTiles[1].motors, kTiles[1].envs>(
+                   B, F, n, parent, joint_type, q_index, axis, T_constant,
+                   anc, q, qd, T16, Td16, J16, c16, s);
   if (previous != device) cudaSetDevice(previous);
   return rc;
 }

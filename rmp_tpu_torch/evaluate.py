@@ -3,7 +3,8 @@
 The port's metric block of `experiments/evaluate.py` (lines 67-141): from
 a scene's initial and final states and the rollout's aux (entries (B, T)),
 the success rates, goal feasibility, goals reached, final penetration and
-NaN rate. The command-line sweep around it is not ported yet (ROADMAP M17).
+NaN rate. The command-line sweep around it is
+`rmp_tpu_torch/experiments/evaluate.py`.
 """
 from __future__ import annotations
 

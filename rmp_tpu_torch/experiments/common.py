@@ -1,18 +1,67 @@
-"""What the port's trainers share: the device choice, value-and-grad of a
-loss over a dict of leaf tensors, and the JAX trainers' optimizer (optax's
-hold-then-cosine schedule, clip_by_global_norm, then Adam)."""
+"""What the port's tools share: the device choice, where a report goes,
+the card's name; and for the trainers value-and-grad of a loss over a dict
+of leaf tensors and the JAX trainers' optimizer (optax's hold-then-cosine
+schedule, clip_by_global_norm, then Adam)."""
 from __future__ import annotations
 
 import math
+import os
+import subprocess
 
 import torch
 
 from rmp_tpu_torch import default_device
 
+# the checkout that holds the package: reports go to its chiprun_out/, and
+# its reports/ (the JAX package's tools' reports) is never written
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+REPORT_DIR = os.path.join(ROOT, "chiprun_out")
+
 
 def device_of(cpu: bool) -> torch.device:
     """The CPU with --cpu, else the card (raises without one)."""
     return torch.device("cpu") if cpu else default_device()
+
+
+def _under(path: str, directory: str) -> bool:
+    return os.path.commonpath([path, directory]) == directory
+
+
+def report_path(name: str, out: str | None = None) -> str:
+    """Where a tool writes its report: `out`, else chiprun_out/<name> of
+    the checkout (made if missing). Raises on a path under the checkout's
+    reports/ and on an existing file of the checkout outside chiprun_out/:
+    a tool never overwrites a file the repository holds."""
+    path = os.path.abspath(out or os.path.join(REPORT_DIR, name))
+    if _under(path, os.path.join(ROOT, "reports")) or (
+            os.path.exists(path) and _under(path, ROOT)
+            and not _under(path, REPORT_DIR)):
+        raise ValueError(f"{path}: a report may not overwrite a file of the "
+                         f"repository; write to chiprun_out/ or elsewhere")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    return path
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def card_name(device: torch.device) -> str:
+    """'name, power limit' of the card as nvidia-smi reports them (the
+    name alone where nvidia-smi does not answer), or 'cpu'."""
+    if device.type != "cuda":
+        return "cpu"
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader", f"--id={device.index or 0}"],
+            capture_output=True, text=True, timeout=60, check=True)
+        return out.stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return torch.cuda.get_device_name(device)
 
 
 def leaves(tree: dict) -> dict:

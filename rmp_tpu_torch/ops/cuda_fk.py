@@ -5,7 +5,10 @@
 Td16 (B, F, 16), J16 (B, F, 16, n), c16 (B, F, 16)). A CPU tensor takes the
 plain PyTorch version (models/fk_derivatives.fk_derivatives); a CUDA tensor
 launches the kernel of csrc/fk_derivatives.cu or raises. Unlike the TPU
-kernel, the batch needs no particular multiple.
+kernel, the batch needs no particular multiple. The kernel takes models of
+up to 40 frames and 32 motors (`TILES`, its two instantiations); a larger
+model raises ValueError on a CUDA tensor before anything is allocated or
+launched (`check_capacity`).
 
 Gradients: while q or q̇ requires grad, the call goes through
 `FkDerivatives`, a torch.autograd.Function on both devices. Its forward is
@@ -27,6 +30,25 @@ from rmp_tpu_torch.models.urdf import FIXED, KinematicModel, model_cache
 
 _TABLES: dict[tuple, tuple] = {}
 _ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 13
+# csrc/fk_derivatives.cu's kTiles, first fit first: (frames, motors, envs
+# per CTA) of each instantiation
+TILES = ((32, 18, 8), (40, 32, 4))
+
+
+def tile_of(model: KinematicModel) -> tuple[int, int, int] | None:
+    """The instantiation of the kernel that serves `model`, or None."""
+    return next((t for t in TILES
+                 if model.n_frames <= t[0] and model.n_q <= t[1]), None)
+
+
+def check_capacity(model: KinematicModel) -> None:
+    """Raise ValueError when no instantiation of the kernel takes the
+    model (more than 40 frames or 32 motors)."""
+    if tile_of(model) is None:
+        raise ValueError(
+            f"model {model.name!r} ({model.n_frames} frames, {model.n_q} "
+            f"motors) exceeds the K3 kernel's capacity ({TILES[-1][0]} "
+            f"frames, {TILES[-1][1]} motors)")
 
 
 def ancestor_table(model: KinematicModel) -> np.ndarray:
@@ -113,6 +135,7 @@ def _forward(model: KinematicModel, q: torch.Tensor, qd: torch.Tensor):
         raise ValueError(f"no K3 kernel for device {q.device}")
     if not (q.is_contiguous() and qd.is_contiguous()):
         raise ValueError("q and qd must be contiguous")
+    check_capacity(model)
 
     B, F = q.shape[0], model.n_frames
     tab = model_tables(model, q.device)

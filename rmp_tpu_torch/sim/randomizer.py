@@ -3,7 +3,8 @@
 The port's `rmp_tpu/sim/randomizer.py`: cylindrical-coordinate obstacle
 sampling, robot q/q̇ jitter around the ready pose and goal sampling with a
 branchless rejection of goals inside obstacle clearance (the reference's
-SceneRandomizer, simulation.py:494-548), plus the box-workspace samplers.
+SceneRandomizer, simulation.py:494-548), plus the box-workspace samplers
+and `SceneRandomizer`, the reference's stateful class surface over them.
 Every sampler draws a whole batch from an explicit torch.Generator. The
 deterministic core of each (uniforms -> sample, candidates -> pick) is a
 function of its own that takes the draws as arguments: jax.random streams
@@ -16,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from rmp_tpu_torch import default_device
 from rmp_tpu_torch.models import robots
 from rmp_tpu_torch.ops import geom
 from rmp_tpu_torch.sim.collision import ObstacleSet, capsule_capsule_query
@@ -207,3 +209,31 @@ def randomize_obstacles_box(gen: torch.Generator, batch: int,
             2, pick[..., None, None].expand(-1, -1, 1, 3))[:, :, 0]
     return ObstacleSet(p0=center - half, p1=center + half, radius=radius,
                        kinds=("cylinder",) * n_obstacles)
+
+
+class SceneRandomizer:
+    """Object-style wrapper mirroring the reference class surface
+    (randomize_obstacles / randomize_robot_config / randomize_goal): each
+    call draws one scene's sample from the batched samplers above at batch
+    1, from a torch.Generator seeded by `seed` on `device` (default: the
+    card), and returns it without the batch axis."""
+
+    def __init__(self, seed: int = 0,
+                 sample_space: CylinderSampleSpace | None = None,
+                 robot_space: RobotSampleSpace | None = None, device=None):
+        self.gen = torch.Generator(
+            device=default_device(device)).manual_seed(seed)
+        self.sample_space = sample_space or CylinderSampleSpace()
+        self.robot_space = robot_space or RobotSampleSpace.panda_default()
+
+    def randomize_obstacles(self, n_obstacles: int) -> ObstacleSet:
+        obs = randomize_obstacles(self.gen, 1, n_obstacles, self.sample_space)
+        return ObstacleSet(p0=obs.p0[0], p1=obs.p1[0], radius=obs.radius[0],
+                           kinds=obs.kinds)
+
+    def randomize_robot_config(self):
+        q, qd = randomize_robot_config(self.gen, 1, self.robot_space)
+        return q[0], qd[0]
+
+    def randomize_goal(self) -> torch.Tensor:
+        return randomize_goal(self.gen, 1)[0]

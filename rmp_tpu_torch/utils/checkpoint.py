@@ -1,7 +1,8 @@
 """Checkpoint / resume for rollout states and training loops.
 
 The port's `rmp_tpu/utils/checkpoint.py` (`save_checkpoint`,
-`restore_checkpoint`, `save_train_checkpoint`, `restore_train_checkpoint`).
+`restore_checkpoint`, `save_train_checkpoint`, `restore_train_checkpoint`,
+`save_checkpoint_sharded`, `restore_checkpoint_sharded`).
 The files are `torch.save` archives, read back with
 `torch.load(weights_only=True)`; the JAX package's flax-msgpack files are
 not read. A state tree is flattened to its leaves in a fixed order
@@ -9,16 +10,22 @@ not read. A state tree is flattened to its leaves in a fixed order
 EnvState-like tree of tensors restores against a template of the same
 structure, the resampling stream (a torch.Generator leaf) included: its
 state is saved, and the restored tree holds a new generator on the
-template's device set to it.
+template's device set to it. A sharded checkpoint is a directory: a file
+per rank of the process group with its slice's leaves, and a manifest of
+the global shapes.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 
 import torch
+import torch.distributed as dist
 
 _FORMAT = "rmp_tpu_torch.checkpoint/1"
+_SHARDED_FORMAT = "rmp_tpu_torch.checkpoint.sharded/1"
+_MANIFEST = "manifest.json"
 
 
 def _leaves(tree) -> list:
@@ -124,3 +131,97 @@ def restore_train_checkpoint(path: str, net: dict):
         return {k: _from_saved(saved[k], net[k].detach()) for k in net}
     return (int(c["step"]), like(c["net"]), c["opt_state"],
             float(c["best_val"]), like(c["best_net"]))
+
+
+def batch_of(tree) -> int:
+    """The leading (env) axis that every tensor of a batched tree shares."""
+    tensors = [x for x in _leaves(tree) if isinstance(x, torch.Tensor)]
+    sizes = {x.shape[0] if x.dim() else None for x in tensors}
+    if len(sizes) != 1 or None in sizes:
+        raise ValueError(f"not a batched tree: leading sizes "
+                         f"{sorted(sizes, key=str)}")
+    return sizes.pop()
+
+
+def _world() -> tuple[int, int]:
+    if dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _shard_file(path: str, rank: int, world: int) -> str:
+    return os.path.join(path, f"shard_{rank:05d}_of_{world:05d}.pt")
+
+
+def _write_atomic(target: str, write) -> None:
+    tmp = f"{target}.tmp{os.getpid()}"
+    write(tmp)
+    os.replace(tmp, target)
+
+
+def save_checkpoint_sharded(path: str, tree) -> None:
+    """Checkpoint of an env-sharded batched tree (parallel.shard_env_batch)
+    into the directory `path`: each rank of the process group (one without
+    a group) writes its own slice's leaves, rank 0 a manifest of the global
+    shapes, and every rank waits at a barrier until all are written. The
+    ranks hold equal slices, rank r the r-th."""
+    rank, world = _world()
+    leaves = _leaves(tree)
+    B = batch_of(tree)
+    os.makedirs(path, exist_ok=True)
+    _write_atomic(_shard_file(path, rank, world), lambda f: torch.save(
+        {"format": _SHARDED_FORMAT,
+         "leaves": [_to_saved(x) for x in leaves]}, f))
+    if rank == 0:
+        manifest = {"format": _SHARDED_FORMAT, "world": world,
+                    "global_batch": B * world,
+                    "leaves": [{"generator": True}
+                               if isinstance(x, torch.Generator) else
+                               {"shape": [B * world, *x.shape[1:]],
+                                "dtype": str(x.dtype)} for x in leaves]}
+
+        def write(f):
+            with open(f, "w") as out:
+                json.dump(manifest, out)
+        _write_atomic(os.path.join(path, _MANIFEST), write)
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def restore_checkpoint_sharded(path: str, like):
+    """A save_checkpoint_sharded checkpoint restored into the structure of
+    `like`, this rank's slice of the global batch on this world: rank r
+    of W takes rows [r B, (r + 1) B) with B = like's batch, B W the saved
+    global batch, whatever world saved it. Tensors come back bit for bit on
+    the template's devices and dtypes; a generator leaf takes the state
+    saved by the shard that held the slice's first row."""
+    with open(os.path.join(path, _MANIFEST)) as f:
+        manifest = json.load(f)
+    template = _leaves(like)
+    if (manifest.get("format") != _SHARDED_FORMAT
+            or len(manifest["leaves"]) != len(template)):
+        raise ValueError(f"{path}: {len(manifest.get('leaves', ()))} leaves "
+                         f"for a template of {len(template)}")
+    rank, world = _world()
+    B = batch_of(like)
+    total, saved_world = manifest["global_batch"], manifest["world"]
+    if B * world != total:
+        raise ValueError(f"{path} holds {total} envs; {world} ranks of {B} "
+                         f"do not cover them")
+    start, per = rank * B, total // saved_world
+    shards = {r: torch.load(_shard_file(path, r, saved_world),
+                            weights_only=True)
+              for r in range(start // per, (start + B - 1) // per + 1)}
+    restored = []
+    for i, (meta, t) in enumerate(zip(manifest["leaves"], template)):
+        if meta.get("generator"):
+            restored.append(_from_saved(shards[start // per]["leaves"][i], t))
+            continue
+        if list(meta["shape"][1:]) != list(t.shape[1:]):
+            raise ValueError(f"checkpoint leaf {meta['shape']} does not fit "
+                             f"the template's {tuple(t.shape)}")
+        parts = [shards[r]["leaves"][i][max(start - r * per, 0):
+                                        min(start + B - r * per, per)]
+                 for r in sorted(shards)]
+        restored.append(_from_saved(torch.cat(parts), t))
+    return _rebuild(like, iter(restored))

@@ -103,7 +103,7 @@ def _fields(x):
     return x
 
 
-@pytest.mark.parametrize("n_links", [1, 5, 12])
+@pytest.mark.parametrize("n_links", [1, 5, 12, 24, 32])
 def test_planar_spec_and_model_field_for_field(n_links):
     want = jspecs.make_planar_arm_spec(n_links)
     got = make_planar_arm_spec(n_links)
@@ -173,7 +173,7 @@ def as_dtype(x, dtype):
     return x
 
 
-@pytest.mark.parametrize("n_links", [5, 12])
+@pytest.mark.parametrize("n_links", [5, 12, 24])
 def test_planar_env_tick_parity_with_jax(n_links, monkeypatch):
     """T ticks of the port's batched 'solve' step (K1's plain version on
     the CPU) against JAX's batched rollout (per env, its unrolled LU) from

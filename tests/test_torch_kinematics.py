@@ -110,14 +110,20 @@ def test_ancestor_table_matches_jacobian_columns():
         assert got == want
 
 
-def _k3_tile_envs() -> int:
-    """kEnvs of csrc/fk_derivatives.cu (envs per CTA), read from the
-    source."""
+def _k3_tile_envs(model) -> int:
+    """Envs per CTA of the instantiation of csrc/fk_derivatives.cu that
+    serves `model`: the first entry of the source's kTiles (frames, motors,
+    envs) that fits it."""
     src = os.path.join(os.path.dirname(cuda_fk.__file__), os.pardir, "csrc",
                        "fk_derivatives.cu")
     with open(src) as f:
-        return int(re.search(r"constexpr int kEnvs = (\d+);",
-                             f.read()).group(1))
+        table = re.search(r"constexpr Tile kTiles\[\] = \{(.*)\};",
+                          f.read()).group(1)
+    for t in re.findall(r"\{([^{}]*)\}", table):
+        frames, motors, envs = (int(v) for v in t.split(","))
+        if model.n_frames <= frames and model.n_q <= motors:
+            return envs
+    raise ValueError(f"no K3 instantiation takes {model.name}")
 
 
 def replay_k3_stores(model, q: torch.Tensor, qd: torch.Tensor):
@@ -128,7 +134,7 @@ def replay_k3_stores(model, q: torch.Tensor, qd: torch.Tensor):
     matrix row i); J -> (row ef, frame f = ef % F, entry rr, motor m) and
     the operands row rr / 4 of G[anc[f][m]] and row rr % 4 of T_f's
     transpose. Elements no float4 reaches stay NaN."""
-    E = _k3_tile_envs()
+    E = _k3_tile_envs(model)
     rec = fkd.FkDerivatives(model, q, qd)
     B, F, n = q.shape[0], model.n_frames, model.n_q
 
