@@ -130,7 +130,7 @@ printing the result line:
      reports/eval_randomized_hull.json within 3 sigma of the difference of
      two 4096-env samples, nan_rate 0; each with its 10-tick trace; GPU/CPU
      parity, 128 envs of one CPU reset moved to the card, PARITY_TICKS
-     (30) ticks, per
+     (12) ticks, per
      (env, tick) before the env's first detour or resample and while the
      one-ulp, float64 (and in the hull tier card-without-K4) screens hold
      (randomized_parity), every K4 call of the hull run against its plain
@@ -253,7 +253,25 @@ printing the result line:
      franka/randomized_cluttered at 4096 x 300 against
      reports/eval_randomized.json (3 sigma, nan_rate 0), latency.measure on
      the flagship at batches 1, 64, 4096 (50 ticks), the soak at 4096 x
-     1000 in chunks of 500 (finite, in limits), `run franka/01 --ticks 40`.
+     500 in chunks of 250 (finite, in limits), `run franka/01 --ticks 40`.
+ 20. the fourteenth slice, K5 past 16 motors, row-keyed resampling
+     streams, M17's second half: the warp-per-env K5's two instantiations'
+     build lines (N = 24, 32); the kernel on the 17-, 24- and 32-link arms'
+     inputs at B = 4096, 1, 7 and 4093 against its plain version on the
+     envs a float64 plain run keeps within 1e-5, and on the rest against
+     the float64 system beside the plain version (backward and forward
+     error at the 99th percentile within twice the plain version's; the
+     largest printed); one device kernel a call; timed at 24 and 32 links
+     beside its bound; 33 motors and grad raising before a launch; the
+     16-lane K5 re-timed on scene 06 against 0.0375 ms (5%); the
+     randomized Panda sharded at world size 1 on NCCL (1024 x 30, goals
+     resampled) equal to make_rollout bit for bit; sweep_randomized (G = 2,
+     256 x 100) and the dual scene's sweep_escape (256 x 30); trace_report
+     on the flagship (its K1 and K3 us per tick within 10% of phase 7's
+     trace, and by source); profile_tick at 4096; gjk_warm_accuracy
+     (1024 x 20, K4); make_gifs, Simulation's capture and `run --gif`
+     through the native renderer into chiprun_out/gifs/; the viewer's
+     HTTP round trip on the loopback address.
 Then one JSON line of per-kernel numbers ({"kernels": [...]}) and, last,
 {"ok": true, "device": {...}}. The full record also goes to
 chiprun_out/chip_smoke.json.
@@ -2364,8 +2382,8 @@ K1_RANDOMIZED_TICKS = 60
 K1_RANDOMIZED_LAYOUT = (("dense", 3), ("identity", 0), ("identity", 0),
                         ("identity", 0), ("scalar", 80))
 PARITY_B = 128
-PARITY_TICKS = 20     # cut from 60 to 30 in the eleventh slice, to 20 in
-                      # the thirteenth, for time
+PARITY_TICKS = 12     # cut from 60 to 30 in the eleventh slice, to 20 in
+                      # the thirteenth, to 12 in the fourteenth, for time
 PARITY_SEED = 1
 # least share of the (env, tick) pairs before each env's first event that
 # the rounding screens keep: a floor on what the parity covers, not a
@@ -2817,7 +2835,8 @@ DUAL_HANDOVER_TICKS = 150
 DUAL_GOLDEN_ATOL = 1e-4      # tests/test_envs.py's limit on q (solved exact)
 # the randomized dual parity, cut for time: a CPU tick of 64 envs takes
 # ~0.2 s in the capsule tier and ~0.8 s in the hull tier on an 8-core host
-DUAL_PARITY = {"capsule": (32, 12), "hull": (16, 6)}    # (envs, ticks)
+# (envs, ticks); (32, 12) and (16, 6) before the fourteenth slice
+DUAL_PARITY = {"capsule": (32, 8), "hull": (16, 4)}
 # the handover in the hull tier, from reset states moved by q ± 0.1,
 # q̇ ± 0.05: its arms meet at the centre, where the 10-iteration hull GJK
 # turns rounding into different witnesses, so it is held per (env, tick)
@@ -4621,17 +4640,20 @@ K3_INSTANTIATIONS = {"narrow": "fk_derivatives_kernelILi32ELi18ELi8E",
 SHARDED_TICKS = 20            # the sharded flagship at world size 1
 LATENCY_BATCHES = (1, 64, 4096)
 LATENCY_TICKS = 50
-SOAK_TICKS, SOAK_CHUNK = 1000, 500
+SOAK_TICKS, SOAK_CHUNK = 500, 250    # 1000, 500 before the fourteenth slice
 
 
-def fixed_tail_model(n_links: int, extra: int):
+def fixed_tail_model(n_links: int, extra: int, radius: float = 0.0):
     """The n_links planar arm with `extra` fixed links chained after its
-    EE: n_links + 1 + extra frames, n_links motors."""
+    EE: n_links + 1 + extra frames, n_links motors; with a radius each
+    tail link carries a sphere, a collision frame of its own."""
     spec = specs.make_planar_arm_spec(n_links)
     links, joints, parent = list(spec.links), list(spec.joints), "ee"
     for k in range(extra):
+        collision = (specs.CollisionPrimitive(
+            "sphere", (0, 0, 0), (0, 0, 0), radius),) if radius else ()
         links.append(specs.LinkSpec(f"tail_{k}", 0.01, (0, 0, 0),
-                                    (1e-6,) * 3 + (0.0,) * 3))
+                                    (1e-6,) * 3 + (0.0,) * 3, collision))
         joints.append(specs.JointSpec(f"tail_joint_{k}", "fixed", parent,
                                       f"tail_{k}", xyz=(0.01, 0, 0)))
         parent = f"tail_{k}"
@@ -5008,6 +5030,401 @@ def phase_slice13(card: str, device) -> dict:
                 seconds=dict(all=seconds, sharded=sharded_s, tools=tools_s))
 
 
+# ------------------------------------------------ the fourteenth slice ----
+
+K5_WIDE_LINKS = (17, 24, 32)  # the arms past the 16-lane K5: 17 pads to 24
+K5_WIDE_INSTANTIATIONS = {24: "fused_qdd_wide_kernelILi24E",
+                          32: "fused_qdd_wide_kernelILi32E"}
+# K5's scene 06 time on an H100 80GB HBM3 at 700 W, device alone at
+# B = 4096 (PERF.md): the 16-lane kernel must keep it
+K5_EARLIER_MS = 0.0375
+K5_KEEP = 1.05
+
+
+def k5_backward(x, A, f) -> torch.Tensor:
+    """Per env |A x - f| / (|A| |x| + |f|) (infinity norms) in float64:
+    the backward error of a solve of the float64 system (A, f)."""
+    x = x.double()
+    r = (torch.einsum("bnm,bm->bn", A, x) - f).abs().amax(dim=1)
+    return r / (A.abs().sum(dim=2).amax(dim=1) * x.abs().amax(dim=1)
+                + f.abs().amax(dim=1))
+
+
+def k5_wide_check(env, args, what: str) -> dict:
+    """The wide K5 against its plain version on the envs whose float32
+    plain run a float64 one keeps within K5_ACCURATE (2e-4 x max(1,
+    |q̈|)); on the rest against the float64 system, kernel beside plain as
+    k1_compare_conditioned holds K1: the backward error |A x - f| / (|A|
+    |x| + |f|) within max(K1_RESIDUAL, twice the plain version's) and the
+    forward error within max(K1_TOL, twice the plain version's), each at
+    the 99th percentile of the rest. The largest of each are printed, not
+    held: on envs whose links pierce the cylinder the 1/d curvature row
+    turns float32 rounding into q̈ errors of up to ~1e-2 of |q̈| in either
+    run (4.3e-3 plain, 1.5e-2 kernel at 32 links on an H100 80GB HBM3 at
+    700 W), so the worst env of two float32 runs is a draw; the worst
+    env's clearance is printed beside them."""
+    tick = cuda_tick.fused_tick(env)
+    got = cuda_tick.fused_qdd(tick, *args)
+    want = cuda_tick.fused_qdd_plain(tick, *args)
+    A, f = cuda_tick.fused_qdd_system(tick, *(x.double() for x in args))
+    exact = cuda_tick.fused_qdd_plain(tick, *(x.double() for x in args))
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"K5 {what}: non-finite")
+    plain_err = k5_rel(want.double(), exact)
+    kern_err = k5_rel(got.double(), exact)
+    bwd_k, bwd_p = k5_backward(got, A, f), k5_backward(want, A, f)
+    held = plain_err <= K5_ACCURATE
+    rest = ~held
+    rel = k5_rel(got, want)
+    gap = float(rel[held].max()) if held.any() else 0.0
+
+    def q99(x):
+        return float(torch.quantile(x[rest], 0.99)) if rest.any() else 0.0
+    worst = int(kern_err.argmax())
+    sim = SimState(q=args[0], qd=args[1], t=torch.zeros_like(args[0][:, 0]),
+                   obstacles=collision.ObstacleSet(*args[3:],
+                                                   kinds=("cylinder",)),
+                   goal=args[2])
+    rec = dict(envs=got.shape[0], held=int(held.sum()), gap=gap,
+               backward_p99=q99(bwd_k), plain_backward_p99=q99(bwd_p),
+               forward_p99=q99(kern_err), plain_forward_p99=q99(plain_err),
+               backward_max=float(bwd_k.max()),
+               plain_backward_max=float(bwd_p.max()),
+               forward_max=float(kern_err.max()),
+               plain_forward_max=float(plain_err.max()),
+               worst_env_clearance=float(min_clearance(env, sim)[worst]))
+    log(f"K5 {what}: {rec['held']} of {rec['envs']} envs held, kernel vs "
+        f"plain {gap:.3e} (limit {K1_TOL}); on the rest, kernel / plain p99 "
+        f"backward {rec['backward_p99']:.3e} / "
+        f"{rec['plain_backward_p99']:.3e} (limit max({K1_RESIDUAL}, 2 x "
+        f"plain)), forward {rec['forward_p99']:.3e} / "
+        f"{rec['plain_forward_p99']:.3e} (limit max({K1_TOL}, 2 x plain)); "
+        f"largest backward {rec['backward_max']:.3e} / "
+        f"{rec['plain_backward_max']:.3e}, forward {rec['forward_max']:.3e} "
+        f"/ {rec['plain_forward_max']:.3e} (the kernel's worst env: plain "
+        f"{float(plain_err[worst]):.3e}, clearance "
+        f"{rec['worst_env_clearance']:.4f} m)")
+    check(rec["held"] >= got.shape[0] // 2, f"K5 {what}: too few envs held")
+    check(gap <= K1_TOL, f"K5 {what}: kernel vs plain")
+    check(rec["backward_p99"] <= max(K1_RESIDUAL,
+                                     2.0 * rec["plain_backward_p99"]),
+          f"K5 {what}: backward error")
+    check(rec["forward_p99"] <= max(K1_TOL, 2.0 * rec["plain_forward_p99"]),
+          f"K5 {what}: forward error against float64")
+    return rec
+
+
+def k5_tail_env(arm, extra: int):
+    """The planar arm env `arm` on fixed_tail_model(n, extra, spheres): its
+    policies rebuilt on that model (the grouped obstacle policy over every
+    collision frame), for K5 alone."""
+    model = fixed_tail_model(arm.model.n_q, extra, radius=0.04)
+    return dataclasses.replace(
+        arm, name=model.name, model=model,
+        policies=planar.planar_policies(model, arm.device))
+
+
+def phase_k5_wide(card: str, device) -> tuple[dict, float]:
+    """K5 past 16 motors: the wide kernel's two instantiations' build
+    lines, the kernel on the 17-, 24- and 32-link arms' inputs (planar_
+    inputs) at B = 4096, 1, 7 and 4093 against its plain version behind
+    the float64 screen (k5_wide_check), one device kernel a call, timed at
+    24 and 32 links beside its bound; at the capacity, 40 frames and 40
+    collision frames (k5_tail_env) at B = 4096; 33 motors, 41 frames and
+    grad raising before a launch; the 16-lane kernel re-timed on scene 06
+    against K5_EARLIER_MS."""
+    shared = _build.c_function("rmp_fused_qdd_wide_shared_bytes",
+                               [ctypes.c_int] * 3)
+    builds = {n: build_counts("fused_tick_wide.cu", f"K5 wide <{n}>", k)
+              for n, k in K5_WIDE_INSTANTIATIONS.items()}
+    out, err = {}, 0.0
+    for n_links in K5_WIDE_LINKS:
+        env = planar.planar_arm_env(n_links)
+        tick = cuda_tick.fused_tick(env)
+        check(cuda_tick.wide(tick), f"K5 n={n_links}: not the wide kernel")
+        args = planar_inputs(env, BATCH, 11)
+        checks = {}
+        for B in (BATCH,) + RAGGED:
+            checks[B] = k5_wide_check(
+                env, tuple(x[:B].contiguous() for x in args),
+                f"wide, planar_{n_links}link, B={B}")
+            err = max(err, checks[B]["gap"])
+        out[f"planar_{n_links}_checks"] = checks
+        if n_links == K5_WIDE_LINKS[0]:
+            continue
+        fn = cuda_tick.make_fused_qdd(env)
+        per_call = device_launches(lambda: fn(*args), "fused_qdd_wide_kernel",
+                                   f"K5 wide n={n_links}")
+        check(per_call == 1, "K5 wide: not one launch per wrapper call")
+        b_ms, b_by = k5_bound(tick, BATCH, 1)
+        total, mirrored = tick_ops.fused_qdd_ops(tick, 1)
+        smem = shared(tick.model.n_frames, n_links, len(tick.col_frames))
+        rec = dict(n=n_links, frames=tick.model.n_frames,
+                   collision_frames=len(tick.col_frames),
+                   ms=time_ms(lambda: fn(*args)),
+                   device_ms=time_ms(lambda: fn(*args), lead=True),
+                   plain_ms=time_ms(lambda: cuda_tick.fused_qdd_plain(
+                       tick, *args), reps=5),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                   ops_per_env=total - mirrored,
+                   device_launches_per_call=per_call,
+                   dynamic_smem_bytes=smem,
+                   build=builds[24 if n_links <= 24 else 32])
+        log(f"K5 wide planar_{n_links}link times at B={BATCH}: kernel "
+            f"{rec['ms']:.4f} ms (device alone {rec['device_ms']:.4f} ms), "
+            f"plain {rec['plain_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by}, "
+            f"{total - mirrored} operations per env); {smem} B of shared "
+            f"memory a CTA [{card}]")
+        out[f"planar_{n_links}"] = rec
+    # the capacity: 40 frames and 40 collision frames (the 32-link arm and
+    # 7 fixed tail links with a sphere each), on the 32-link arm's inputs
+    arm = planar.planar_arm_env(K5_WIDE_LINKS[-1])
+    tail = k5_tail_env(arm, 7)
+    check((tail.model.n_frames, len(cuda_tick.fused_tick(tail).col_frames))
+          == (cuda_tick.MAX_FRAMES, cuda_tick.MAX_COLLISION),
+          "K5: the capacity model is not 40 frames and 40 collision frames")
+    args = planar_inputs(arm, BATCH, 11)
+    out["planar_32_tail7_check"] = k5_wide_check(
+        tail, args, f"wide, {tail.name} (F=40, 40 collision frames), "
+        f"B={BATCH}")
+    err = max(err, out["planar_32_tail7_check"]["gap"])
+    raised = []
+    for env_big, big_args in (
+            (planar.planar_arm_env(33),
+             planar_inputs(planar.planar_arm_env(33), 4, 11)),
+            (k5_tail_env(arm, 8), tuple(x[:4].contiguous() for x in args))):
+        try:
+            cuda_tick.make_fused_qdd(env_big)(*big_args)
+            raised.append(None)
+        except ValueError as exc:
+            raised.append(str(exc))
+    check(all(r is not None and "capacity" in r for r in raised),
+          "K5: 33 motors or 41 frames did not raise")
+    small = planar.planar_arm_env(24)
+    grad_args = list(planar_inputs(small, 4, 11))
+    grad_args[0] = grad_args[0].clone().requires_grad_(True)
+    before = cuda_tick.fused_qdd.launches
+    try:
+        cuda_tick.make_fused_qdd(small)(*grad_args)
+        raised.append(None)
+    except RuntimeError as exc:
+        raised.append(str(exc))
+    check(raised[2] is not None and cuda_tick.fused_qdd.launches == before,
+          "K5 wide: did not raise under grad before a launch")
+    log(f"K5 raises: 33 motors: {raised[0]!r}; 41 frames: {raised[1]!r}; "
+        f"under grad: {raised[2]!r}")
+    env06 = envs.make(SCENE)
+    fn06 = cuda_tick.make_fused_qdd(env06)
+    near = k5_inputs(env06, BATCH, 11, wide=False)
+    narrow_ms = time_ms(lambda: fn06(*near), lead=True)
+    log(f"K5 16-lane kernel, scene 06 re-timed: device {narrow_ms:.4f} ms "
+        f"(earlier {K5_EARLIER_MS}, limit x{K5_KEEP}) [{card}]")
+    check(narrow_ms <= K5_KEEP * K5_EARLIER_MS, "K5 scene 06 slowed")
+    out["scene06_device_ms"] = narrow_ms
+    out["narrow_build"] = ptxas_counts("fused_tick.cu",
+                                       "fused_qdd_kernelILi9E")
+    out["raises"] = raised
+    return out, err
+
+
+SWEEP_CUT = dict(envs_per_config=256, ticks=100)   # of 256 x 300 by default
+ESCAPE_CUT = dict(batch=256, ticks=30)             # of 4096 x 300
+SHARDED_RANDOM = dict(envs=1024, ticks=30, solved_tol=0.5)
+TRACE_TICKS = 10
+TRACE_TOL = 0.10       # trace_report's K1 / K3 us per tick against phase 7
+GJK_CUT = dict(batch=1024, ticks=20)               # of 1024 x 150
+GIF_TICKS, GIF_EVERY = 24, 4
+
+
+def phase_sharded_random(card: str, device) -> dict:
+    """Part A on the card: the randomized Panda (its draws every tick and
+    on every goal event; the solved check widened so that goals resample)
+    sharded at world size 1 on NCCL, against make_rollout on the same
+    states, bit for bit, with resamples drawn."""
+    port = free_port()
+    distributed.initialize(f"127.0.0.1:{port}", 1, 0, device=device)
+    try:
+        mesh = distributed.global_env_mesh()
+        env = envs.make(RANDOMIZED)
+        env.solved_tol = SHARDED_RANDOM["solved_tol"]
+        params = env.gather_params()
+        B, ticks = SHARDED_RANDOM["envs"], SHARDED_RANDOM["ticks"]
+        states = envs.make_batched_reset(env, B, 3)()
+        again = envs.make_batched_reset(env, B, 3)()
+        local = shard_env_batch(states, mesh)
+        final, _, aux = make_sharded_rollout(env, ticks, mesh,
+                                             collect_aux=True)(local, params)
+        want, want_aux = envs.make_rollout(env, ticks)(again, params)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(
+            ckpt_leaves(final), ckpt_leaves(want))
+            if isinstance(a, torch.Tensor))
+        same = same and torch.equal(final.rng.get_state(),
+                                    want.rng.get_state())
+        resamples = int(aux["resample"].sum())
+    finally:
+        distributed.shutdown()
+    rec = dict(envs=B, ticks=ticks, resamples=resamples, equal=same,
+               resamples_unsharded=int(want_aux["resample"].sum()))
+    log(f"part A: {RANDOMIZED} sharded at world size 1 (NCCL), {B} x "
+        f"{ticks}, solved_tol {SHARDED_RANDOM['solved_tol']}: "
+        f"{json.dumps(rec)} [{card}]")
+    check(same and resamples > 0, "part A: sharded randomized rollout "
+          "differs from make_rollout, or drew no resample")
+    return rec
+
+
+def _port_us(per_tick: dict, part: str) -> float:
+    return sum(v for k, v in per_tick.items() if part in k)
+
+
+def phase_tools14(card: str, device, main_trace: dict) -> dict:
+    """M17's second half on the card: sweep_randomized (G = 2) and the
+    dual scene's sweep_escape at SWEEP_CUT / ESCAPE_CUT; trace_report's K1
+    and K3 us per tick on the flagship within TRACE_TOL of phase 7's
+    profile; profile_tick; gjk_warm_accuracy (K4, GJK_CUT); make_gifs,
+    Simulation's capture and `run --gif`, each through the native
+    renderer, into chiprun_out/; the viewer's HTTP round trip."""
+    from rmp_tpu_torch.experiments import (gjk_warm_accuracy, make_gifs,
+                                           profile_tick, sweep_escape,
+                                           sweep_randomized, trace_report)
+    from rmp_tpu_torch.utils import native
+    from rmp_tpu_torch.utils.viewer import SimViewer
+    import urllib.request as rq
+
+    out, seconds = {}, {}
+    t0 = time.perf_counter()
+    log(f"sweep_randomized cut to {json.dumps(SWEEP_CUT)} (default 256 "
+        f"envs a config x 300 ticks)")
+    sw = sweep_randomized.sweep(
+        RANDOMIZED, sweep_randomized.parse_axes(["accel_p_gain=0.3,2.5"]),
+        SWEEP_CUT["envs_per_config"], SWEEP_CUT["ticks"], 0, device)
+    log(f"sweep_randomized: {json.dumps(sw)} [{card}]")
+    check(len(sw["results"]) == 2 and all(r["nan"] == 0.0
+                                          for r in sw["results"]),
+          "sweep_randomized: a config went non-finite")
+    out["sweep_randomized"] = sw
+    seconds["sweep_randomized"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log(f"sweep_escape (dual_panda/randomized_clutter) cut to "
+        f"{json.dumps(ESCAPE_CUT)} (default 4096 x 300)")
+    esc = sweep_escape.sweep("dual_panda/randomized_clutter",
+                             ESCAPE_CUT["batch"], ESCAPE_CUT["ticks"], 0,
+                             device, log=log)
+    check(len(esc["groups"]) == 4, "sweep_escape: a config missing")
+    out["sweep_escape"] = esc
+    seconds["sweep_escape"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep = trace_report.report(SCENE, BATCH, TRACE_TICKS, "capsule", device)
+    per_tick = {k: v / TRACE_TICKS for k, v in rep["totals"].items()}
+    phase7 = main_trace["port_kernels_us_per_tick"]
+    compare = {}
+    for what, part in (("K1", "pullback_resolve"),
+                       ("K3", "fk_derivatives_kernel")):
+        got, want = _port_us(per_tick, part), _port_us(phase7, part)
+        compare[what] = dict(trace_report_us=got, phase7_us=want,
+                             ratio=got / want if want else None)
+    by_src = trace_report.report(SCENE, BATCH, TRACE_TICKS, "capsule",
+                                 device, by_source=True)
+    out["trace_report"] = dict(
+        device_us_per_tick=rep["device_us_per_tick"], against=compare,
+        top=list(rep["totals"].items())[:8],
+        top_sources=list(by_src["totals"].items())[:8])
+    log(f"trace_report ({SCENE}, {BATCH} x {TRACE_TICKS}): "
+        f"{json.dumps(out['trace_report'])} [{card}]")
+    for what, c in compare.items():
+        check(c["ratio"] is not None and abs(c["ratio"] - 1.0) <= TRACE_TOL,
+              f"trace_report: {what} {c} against phase 7")
+    seconds["trace_report"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["profile_tick"] = profile_tick.profile(BATCH, device, iters=5)
+    log(f"profile_tick: {json.dumps(out['profile_tick'])} [{card}]")
+    t1 = time.perf_counter()
+    _zero_counters()
+    gw = gjk_warm_accuracy.run_one(SCENE, data.WARM_ITERS, GJK_CUT["batch"],
+                                   GJK_CUT["ticks"], 0, device)
+    gw["k4_launches"] = cuda_gjk.gjk_hull_obstacles.launches
+    log(f"gjk_warm_accuracy cut to {json.dumps(GJK_CUT)} (default 1024 x "
+        f"150): {json.dumps(gw)} [{card}]")
+    check(gw["k4_launches"] >= 2 * GJK_CUT["ticks"]
+          and np.isfinite(gw["qdd_abs_err_max"]),
+          "gjk_warm_accuracy: K4 not run or q̈ non-finite")
+    out["gjk_warm_accuracy"] = gw
+    seconds["profile_tick"] = t1 - t0
+    seconds["gjk_warm_accuracy"] = time.perf_counter() - t1
+    t0 = time.perf_counter()
+    check(native.available(), "the native renderer is not available")
+    gif_dir = os.path.join(ROOT, "chiprun_out", "gifs")
+    gif = make_gifs.make_gif(SCENE, GIF_TICKS, GIF_EVERY, "capsule",
+                             gif_dir, device)
+    sim_path = os.path.join(gif_dir, "simulation.gif")
+    sim_ = Simulation(animation_save_path=sim_path, device=device)
+    sim_.populate_scene([FrankaPanda(), Goal([0.6, 0.0, 0.4])])
+    for _ in range(40):
+        sim_.step(np.zeros(9))
+    sim_.save_animation()
+    run_path = os.path.join(gif_dir, "run_franka01.gif")
+    rn = subprocess.run(
+        [sys.executable, "-m", "rmp_tpu_torch.experiments.run",
+         "franka/01_target_rmp_only", "--ticks", "10", "--gif", run_path],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(rn.returncode == 0, f"run --gif failed: {rn.stderr[-2000:]}")
+    out["gifs"] = dict(make_gifs=gif, simulation=dict(
+        path=sim_path, renderer=sim_.renderer, frames=len(sim_._frames)),
+        run=rn.stdout.strip().splitlines()[-1])
+    log(f"gifs: {json.dumps(out['gifs'])}")
+    check(gif["renderer"] == "native" and sim_.renderer == "native"
+          and "native renderer" in out["gifs"]["run"]
+          and all(os.path.getsize(p) > 0 for p in (gif["path"], sim_path,
+                                                   run_path)),
+          "gifs: not all written through the native renderer")
+    seconds["gifs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    viewer = SimViewer(envs.make("two_joint/01_target_rmp_only"), port=0,
+                       width=128, height=96, realtime=False).start()
+    try:
+        host, port = viewer.address
+        base = f"http://{host}:{port}"
+        deadline = time.time() + 60
+        while json.loads(rq.urlopen(base + "/state", timeout=30).read())[
+                "tick"] == 0:
+            check(time.time() < deadline, "viewer: the sim thread idles")
+            time.sleep(0.1)
+        frame = rq.urlopen(base + "/frame.png", timeout=60).read()
+        st = json.loads(rq.urlopen(base + "/state", timeout=30).read())
+        rq.urlopen(rq.Request(base + "/pause", data=b"", method="POST"),
+                   timeout=30).read()
+    finally:
+        viewer.stop()
+    out["viewer"] = dict(tick=st["tick"], device=st["device"],
+                         png_bytes=len(frame), renderer=viewer.renderer)
+    log(f"viewer on localhost: {json.dumps(out['viewer'])}")
+    check(frame[:8] == b"\x89PNG\r\n\x1a\n" and st["tick"] > 0
+          and st["device"].startswith("cuda"), "viewer: round trip failed")
+    seconds["viewer"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    return out
+
+
+def phase_slice14(card: str, device, main_trace: dict) -> dict:
+    """Phase 20: K5 past 16 motors (phase_k5_wide), part A's row streams
+    at world size 1 on NCCL (phase_sharded_random), and M17's second half
+    (phase_tools14)."""
+    t_start = time.perf_counter()
+    k5, k5_err = phase_k5_wide(card, device)
+    k5_s = time.perf_counter() - t_start
+    t0 = time.perf_counter()
+    sharded = phase_sharded_random(card, device)
+    sharded_s = time.perf_counter() - t0
+    tools = phase_tools14(card, device, main_trace)
+    seconds = time.perf_counter() - t_start
+    log(f"phase 20: {seconds:.1f} s (K5 {k5_s:.1f} s, part A "
+        f"{sharded_s:.1f} s, tools {json.dumps(tools['seconds'])})")
+    return dict(k5=k5, k5_err=k5_err, sharded=sharded, tools=tools,
+                seconds=dict(all=seconds, k5=k5_s, sharded=sharded_s,
+                             **tools["seconds"]))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5069,6 +5486,7 @@ def main() -> int:
     log(f"phase 17: {slice11_s:.1f} s")
     slice12 = phase_slice12(card, device)
     slice13 = phase_slice13(card, device)
+    slice14 = phase_slice14(card, device, main_path["trace"])
 
     k1["per_layout"] = dict(flagship=dict(n=9, ms=k1["ms"],
                                           device_ms=k1["device_ms"]),
@@ -5206,9 +5624,22 @@ def main() -> int:
                                     "bound_ms", "bound_by", "library_ms",
                                     "device_launches_per_call")})
         for n, rec in ((n, slice13["k1"][f"n={n}"]) for n in WIDE_LINKS)]
+    # the fourteenth slice's entries: K5's warp-per-env kernel at the 24-
+    # and 32-link arms (no path runs K5)
+    k5_wide = [
+        dict(name=f"fused_qdd (planar_{n}link, warp per env)", route="cuda",
+             source="rmp_tpu_torch/csrc/fused_tick_wide.cu",
+             replaces="rmp_tpu/ops/pallas_tick.py:421", counter=k5["name"],
+             max_abs_err=slice14["k5_err"],
+             **{k: rec[k] for k in ("ms", "device_ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "device_launches_per_call",
+                                    "dynamic_smem_bytes")})
+        for n, rec in ((n, slice14["k5"][f"planar_{n}"])
+                       for n in K5_WIDE_LINKS[1:])]
     kernels = [k1, k2a, k2b, k3, k4, k5, k1_dual, k3_dual, k3_contact,
                k1_neural] + k4_models + [k1_backward_rec] + k1_slice12 \
-        + k5_slice12 + k3_wide + k1_wide
+        + k5_slice12 + k3_wide + k1_wide + k5_wide
     for rec in kernels:
         # each kernel's count from the paths that run it (K2a/K2b, K5:
         # none); K1 and K3 on the dual-arm Panda (n = 18, F = 26) apart
@@ -5251,7 +5682,8 @@ def main() -> int:
                   phase16_parts_s=slice10["seconds"], phase16_s=slice10_s,
                   slice11=slice11, phase17_s=slice11_s,
                   slice12={k: v for k, v in slice12.items() if k != "paths"},
-                  slice13={k: v for k, v in slice13.items() if k != "paths"})
+                  slice13={k: v for k, v in slice13.items() if k != "paths"},
+                  slice14=slice14)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

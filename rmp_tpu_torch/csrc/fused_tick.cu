@@ -20,8 +20,10 @@
 //      1e-12, and its two triangular solves,
 // and writes only qdd (B, n). Plain version: ops/cuda_tick.fused_qdd_plain.
 // Reach: n = 1..kMaxN motors (one instantiation each, picked at run time),
-// up to kMaxFrames frames, as the TPU kernel takes any model.n_q; a serial
-// chain of 16 frames has at most 15 motors.
+// up to kMaxFrames frames; past them the wrapper takes the warp-per-env
+// kernel of fused_tick_wide.cu (n <= 32, 40 frames), as the TPU kernel
+// takes any model.n_q. The policy arithmetic both share is in
+// fused_policy.cuh.
 //
 // The arithmetic of each term follows the JAX body: structural zeros are
 // skipped, not multiplied (a Jacobian column of a motor that is no ancestor
@@ -63,11 +65,11 @@
 #include <cuda_runtime.h>
 
 #include "fk_common.cuh"
+#include "fused_policy.cuh"
 
 namespace {
 
-using rmp::kGPitch;
-using rmp::odd_half;
+using namespace rmp;
 
 constexpr int kMaxFrames = 16;
 constexpr int kMaxN = 16;
@@ -76,18 +78,6 @@ constexpr int kLanes = 16;            // lanes per env
 constexpr int kThreads = kLanes * kEnvs;
 constexpr int kMaxCollision = 16;
 constexpr int kMaxIdentity = 8;
-constexpr float kSegEps = 1e-9f;   // sim/collision._EPS
-
-// offsets into consts, mirrored in ops/cuda_tick.py
-enum : int {
-  kRidge = 0,
-  kAttP, kAttD, kAttEps, kAttSoft, kAttAlphaLs, kAttOneMinusMinAlpha,
-  kAttMinAlpha, kAttBoostLs, kAttBoost, kAttMaxS, kAttMinS,
-  kObsMargin, kObsRmod, kObsRmodSq, kObsMetric, kObsExploderStd,
-  kObsExploderEps, kObsRepGain, kObsRepStd, kObsGateLs, kObsDampGain,
-  kObsDampStd, kObsRobustEps,
-};
-enum : int { kVelCap = 1, kDamping = 2, kCspace = 3 };
 
 // A point frame's slot: origin p, velocity pd, curvature c, the Jacobian
 // rows (3 x n, row-major; 0 on the motors that do not drive the frame) and
@@ -123,24 +113,6 @@ struct Layout {
     return 4 * (floats + ints);
   }
 };
-
-// jnp.maximum / jnp.minimum / jnp.clip(x, 0, 1): NaN in x stays NaN
-__device__ __forceinline__ float max_nan(float x, float c) {
-  return x != x ? x : fmaxf(x, c);
-}
-__device__ __forceinline__ float min_nan(float x, float c) {
-  return x != x ? x : fminf(x, c);
-}
-__device__ __forceinline__ float clip01(float x) {
-  return x != x ? x : fminf(fmaxf(x, 0.0f), 1.0f);
-}
-// jnp.sign: -1, 0 or 1; NaN stays NaN
-__device__ __forceinline__ float sign_nan(float x) {
-  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : x);
-}
-__device__ __forceinline__ float dot3(const float* a, const float* b) {
-  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
-}
 
 // Row i of a point frame's slot: frame f's origin (ph = its homogeneous
 // coordinates) and, where cap is not null, the capsule's ends.
@@ -185,38 +157,9 @@ __device__ __forceinline__ void attractor(float (&A)[N][N], float (&fs)[N],
 #pragma unroll
     for (int i = 0; i < 3; ++i) J[i][m] = slot[kSlotJ + N * i + m];
   }
-  const float* x = slot + kSlotP;
-  const float* xd = slot + kSlotPd;
-  const float* cx = slot + kSlotC;
-  float delta[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) delta[i] = goal[i] - x[i];
-  const float dn = sqrtf(max_nan(dot3(delta, delta), 1e-20f));
-  const float soft = max_nan(dn, C[kAttSoft]);
-  float dhat[3], amc[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    dhat[i] = delta[i] / soft;
-    amc[i] = (C[kAttP] * delta[i] / (dn + C[kAttEps]) - C[kAttD] * xd[i])
-             - cx[i];
-  }
-  const float scaled = dn / C[kAttAlphaLs];
-  const float alpha = C[kAttOneMinusMinAlpha] * expf(-0.5f * scaled * scaled)
-                      + C[kAttMinAlpha];
-  const float bs = dn / C[kAttBoostLs];
-  const float boost_a = expf(-0.5f * bs * bs);
-  const float boost = boost_a * C[kAttBoost] + (1.0f - boost_a);
-  float M[3][3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      M[i][j] = boost * ((i == j ? alpha * C[kAttMaxS] : 0.0f)
-                         + (1.0f - alpha) * C[kAttMinS] * dhat[i] * dhat[j]);
-  float u[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-    u[i] = M[i][0] * amc[0] + M[i][1] * amc[1] + M[i][2] * amc[2];
+  float M[3][3], u[3];
+  attractor_terms(M, u, C, slot + kSlotP, slot + kSlotPd, slot + kSlotC,
+                  goal);
   float Wa[3][N];
 #pragma unroll
   for (int i = 0; i < 3; ++i)
@@ -304,70 +247,14 @@ __device__ __forceinline__ void obstacle_pair(
     float (&A)[N][N], float (&fs)[N], const float* __restrict__ C,
     const float* slot, const int* anc, float rad, const float* b0,
     const float* b1, float rk) {
-  const float* pd = slot + kSlotPd;
-  const float* co = slot + kSlotC;
-  const float* a0 = slot + slot_a0(N);
-  const float* a1 = a0 + 3;
-  float d1[3], d2[3], r[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    d1[i] = a1[i] - a0[i];
-    d2[i] = b1[i] - b0[i];
-    r[i] = a0[i] - b0[i];
-  }
-  const float pd_sq = dot3(pd, pd);
-  // clamped closest-point parameters (pallas_tick._seg_closest)
-  const float sa = dot3(d1, d1), se = dot3(d2, d2), sf = dot3(d2, r),
-              sc = dot3(d1, r), sb = dot3(d1, d2);
-  const float denom = sa * se - sb * sb;
-  float s = denom > kSegEps ? (sb * sf - sc * se) / (denom + kSegEps) : 0.0f;
-  s = se > kSegEps ? s : -sc / (sa + kSegEps);
-  s = clip01(s);
-  const float t = se > kSegEps ? (sb * s + sf) / (se + kSegEps) : 0.0f;
-  const float t_cl = clip01(t);
-  if (t != t_cl && sa > kSegEps) s = clip01((t_cl * sb - sc) / (sa + kSegEps));
-
-  float ca[3], cb[3], diff[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    ca[i] = a0[i] + s * d1[i];
-    cb[i] = b0[i] + t_cl * d2[i];
-    diff[i] = ca[i] - cb[i];
-  }
-  const float cdist = sqrtf(max_nan(dot3(diff, diff), 1e-18f));
-  float h[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const float nv = diff[i] / cdist;
-    h[i] = (ca[i] - rad * nv) - (cb[i] + rk * nv);
-  }
-  const float d_c = sqrtf(max_nan(dot3(h, h), 1e-18f));
-  float nh[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) nh[i] = h[i] / d_c;
-
+  float nh[3], metric, amc;
+  obstacle_terms(nh, metric, amc, C, slot + kSlotPd, slot + kSlotC,
+                 slot + slot_a0(N), slot + slot_a0(N) + 3, rad, b0, b1, rk);
   float Jd[N];
 #pragma unroll
   for (int j = 0; j < N; ++j)
     Jd[j] = nh[0] * slot[kSlotJ + j] + nh[1] * slot[kSlotJ + N + j]
             + nh[2] * slot[kSlotJ + 2 * N + j];
-  const float xd_d = dot3(nh, pd);
-  const float c_d = dot3(nh, co) + (pd_sq - xd_d * xd_d) / d_c;
-
-  // policy (v2 ObstacleAvoidance)
-  const float xdist = max_nan(d_c - C[kObsMargin], 0.0f);
-  const bool far = xdist > C[kObsRmod];
-  const float gate = far ? 0.0f
-                         : xdist * xdist / C[kObsRmodSq]
-                               - 2.0f * xdist / C[kObsRmod] + 1.0f;
-  const float base = C[kObsMetric]
-                     / (xdist / C[kObsExploderStd] + C[kObsExploderEps]);
-  const float a_rep = C[kObsRepGain] * expf(-xdist / C[kObsRepStd]);
-  const float sig = 1.0f / (1.0f + expf(-(xd_d / C[kObsGateLs])));
-  const float a_damp = -(1.0f - sig) * C[kObsDampGain] * xd_d
-                       / (xdist / C[kObsDampStd] + C[kObsRobustEps]);
-  const float metric = far ? 0.0f : (1.0f - sig) * (base * gate);
-  const float amc = a_rep + a_damp - c_d;
 
 #pragma unroll
   for (int jc = 0; jc < N; ++jc) {

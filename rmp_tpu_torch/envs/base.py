@@ -18,11 +18,14 @@ K1), and every hull pair cold. Rollouts are differentiable end to end (the
 kernel wrappers are autograd Functions); remat=True recomputes each tick
 in the backward (torch.utils.checkpoint) instead of keeping its graph.
 
-Scenes that resample at random draw from EnvState.rng, a torch.Generator on
-the env's device seeded at reset. A resampling scene draws for every env at
-every tick and keeps the draws only where a goal was reached, as the JAX
-package's `where` does, so the tick never waits on the host. The numbers
-are not JAX's: jax.random streams are not reproduced.
+Scenes that resample at random draw from EnvState.stream: EnvState.rng, a
+torch.Generator on the env's device seeded at reset, over the rows of the
+batch it was seeded for (sim.randomizer.RowStream): a rank's slice of a
+sharded batch and the copies of a sweep's fold draw, row by row, what the
+whole batch draws. A resampling scene draws for every env at every tick
+and keeps the draws only where a goal was reached, as the JAX package's
+`where` does, so the tick never waits on the host. The numbers are not
+JAX's: jax.random streams are not reproduced.
 
 A scene may also carry per-env private state (EnvState.scratch), a pre_tick
 hook run at the start of every tick (escape maneuvers), a state-aware
@@ -50,7 +53,9 @@ from rmp_tpu_torch.ops.cuda_resolve import (assemble_structured,
 from rmp_tpu_torch.policies.base import Policy
 from rmp_tpu_torch.sim.data import (COLD_ITERS, distance_context_batched,
                                     hull_batched)
+from rmp_tpu_torch.sim.randomizer import RowStream, uniform
 from rmp_tpu_torch.sim.world import SimState, physics_step, sense
+from rmp_tpu_torch.utils.checkpoint import _leaves, _rebuild
 
 
 @dataclasses.dataclass
@@ -76,6 +81,19 @@ class EnvState:
     # (escape timers, waypoints, per-env knobs), kept by its pre_tick and
     # read by its bind_params, stuck_fn and on_solved; None if unused
     scratch: object = None
+    # the rows of rng's stream (RowStream): env i draws row
+    # (rng_offset + i) mod rng_size; None: one row per env of this batch
+    rng_size: int | None = None
+    rng_offset: int = 0
+
+    @property
+    def stream(self):
+        """What the scene's draws take (sim.randomizer.uniform / normal):
+        the generator itself where each env is its own row, else a
+        RowStream over the stream's rows."""
+        if self.rng_size is None or self.rng is None:
+            return self.rng
+        return RowStream(self.rng, self.rng_size, self.rng_offset)
 
 
 def generator(device, seed: int) -> torch.Generator:
@@ -221,8 +239,7 @@ def resample_goal(low, high, device):
                            device=device) - lo
 
     def on_solved(state: EnvState) -> EnvState:
-        u = torch.rand(state.sim.q.shape[0], 3, generator=state.rng,
-                       device=device)
+        u = uniform(state.stream, state.sim.q.shape[0], 3)
         return dataclasses.replace(
             state, sim=dataclasses.replace(state.sim, goal=lo + span * u))
     return on_solved
@@ -456,6 +473,22 @@ def _seed_gjk_warm(env: Env, states: EnvState) -> EnvState:
     _, warm = distance_context_batched(env.model, T_all, states.sim.obstacles,
                                        "hull", iters=COLD_ITERS)
     return dataclasses.replace(states, gjk_warm=warm)
+
+
+def fold_batch(states: EnvState, copies: int) -> EnvState:
+    """`copies` copies of a whole batch of B envs end to end (copy-major,
+    copies x B envs), each copy drawing the batch's own rows of the one
+    stream (rng_size B): every copy sees the same scenes and the same
+    resampling draws, as JAX's vmap over configs of one batch does. The
+    generator is shared, not copied."""
+    B = states.sim.q.shape[0]
+    if states.rng_offset or states.rng_size not in (None, B):
+        raise ValueError("fold_batch takes a whole batch, not a rank's slice")
+
+    def rep(x):
+        return torch.cat([x] * copies) if isinstance(x, torch.Tensor) else x
+    folded = _rebuild(states, iter([rep(x) for x in _leaves(states)]))
+    return dataclasses.replace(folded, rng_size=B, rng_offset=0)
 
 
 def make_batched_reset(env: Env, batch: int, seed: int = 0):

@@ -17,9 +17,9 @@ retreats to its side station when the arms contest a region), solo detours,
 a final push and per-arm goal reassignment; obstacle avoidance is split per
 arm so a push relaxes only the pushing arm's barrier.
 
-Scenes draw from EnvState.rng (a torch.Generator on the envs' device) for
-every env at every tick and keep the draws where they apply, so a tick
-never waits on the host; jax.random streams are not reproduced.
+Scenes draw from EnvState.stream (a torch.Generator on the envs' device)
+for every env at every tick and keep the draws where they apply, so a
+tick never waits on the host; jax.random streams are not reproduced.
 """
 from __future__ import annotations
 
@@ -254,7 +254,7 @@ def with_goal_blocked(obstacles: ObstacleSet, goal: torch.Tensor,
                + ("capsule",)))
 
 
-def sample_goals(gen: torch.Generator, obstacles: ObstacleSet,
+def sample_goals(gen, obstacles: ObstacleSet,
                  prev: torch.Tensor | None = None,
                  resample: torch.Tensor | None = None) -> torch.Tensor:
     """Goals (B, 2, 3) from the arms' boxes for the envs' obstacles: both
@@ -419,8 +419,7 @@ def env_randomized_clutter(device, n_obstacles: int = 5,
         trigger = yield_t | solo_t                               # (B, 2)
 
         # a jitter draw for every env each tick, used where a trigger fires
-        u = torch.rand(B, 2, 3, generator=state.rng, device=sim.q.device,
-                       dtype=sim.q.dtype)
+        u = rnd.uniform(state.stream, B, 2, 3, dtype=sim.q.dtype)
         wp_station = station + rnd.scale_uniform(u, -JITTER, JITTER)
         # scored candidates per arm: station, lift, own-side slides; the
         # clearance to the obstacles and to the other arm's EE
@@ -470,7 +469,7 @@ def env_randomized_clutter(device, n_obstacles: int = 5,
                                                      sc["man_count"],
                                                      state.phase)
         resample = timed_out | ~timed_out.any(dim=1, keepdim=True)
-        goals = sample_goals(state.rng, state.sim.obstacles,
+        goals = sample_goals(state.stream, state.sim.obstacles,
                              prev=state.sim.goal, resample=resample)
         scratch = dict(
             sc,

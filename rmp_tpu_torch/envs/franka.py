@@ -620,8 +620,7 @@ def env_randomized_cluttered(device, n_obstacles: int = 7,
         away = -to_goal / (dist + 1e-9)
         # a normal draw for every env each tick, kept where the trigger
         # fires (JAX splits each env's key and keeps the split there)
-        v = torch.randn(B, 3, generator=state.rng, device=q.device,
-                        dtype=q.dtype)
+        v = rnd.normal(state.stream, B, 3, dtype=q.dtype)
         tang = v - torch.sum(v * away, dim=-1, keepdim=True) * away
         tang = tang / (torch.linalg.vector_norm(tang, dim=-1, keepdim=True)
                        + 1e-9)
@@ -742,7 +741,7 @@ def env_randomized_cluttered(device, n_obstacles: int = 7,
         obstacles, a fresh detour budget, the push released; phase records
         the tick of the event."""
         B = state.sim.q.shape[0]
-        goal = rnd.randomize_goal(state.rng, B,
+        goal = rnd.randomize_goal(state.stream, B,
                                   obstacles=state.sim.obstacles)
         zero = torch.zeros(B, dtype=torch.int32, device=goal.device)
         scratch = dict(state.scratch, man_ticks=zero, man_count=zero,

@@ -51,7 +51,7 @@ def make_neural_env(device, net: dict | None = None,
         xy_only = True
 
         def sample_goal(g, batch):
-            u = torch.rand(batch, 3, generator=g, device=device)
+            u = rnd.uniform(g, batch, 3)
             return rnd.scale_uniform(u, np.asarray(GOAL_LOW, np.float32),
                                      np.asarray(GOAL_HIGH, np.float32))
     elif robot == "franka":

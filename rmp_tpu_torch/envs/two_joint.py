@@ -17,6 +17,7 @@ from rmp_tpu_torch.envs.base import (Env, EnvState, bind_goal, env_state,
 from rmp_tpu_torch.models import kinematics as K
 from rmp_tpu_torch.models import robots
 from rmp_tpu_torch.policies import v1
+from rmp_tpu_torch.sim import randomizer as rnd
 from rmp_tpu_torch.sim.collision import cylinder_obstacle
 from rmp_tpu_torch.sim.data import PAIRS_KEY
 from rmp_tpu_torch.sim.world import init_state
@@ -38,8 +39,7 @@ def _resample_q(model, device):
     low, span = c["q_lower"], c["q_upper"] - c["q_lower"]
 
     def on_solved(state: EnvState) -> EnvState:
-        u = torch.rand(state.sim.q.shape[0], model.n_q, generator=state.rng,
-                       device=device)
+        u = rnd.uniform(state.stream, state.sim.q.shape[0], model.n_q)
         q = low + span * u
         return dataclasses.replace(state, sim=dataclasses.replace(
             state.sim, q=q, qd=torch.zeros_like(q)))

@@ -4,14 +4,15 @@ The port's `experiments/run.py`:
 
     python -m rmp_tpu_torch.experiments.run franka/06_cluttered_environment \
         [--ticks 300] [--seed 0] [--cpu] [--geometry capsule|hull]
-        [--save TRAJ.NPZ]
+        [--save TRAJ.NPZ] [--gif OUT.GIF]
     python -m rmp_tpu_torch.experiments.run --list
 
 One env (a batch of one) through make_control_step, the per-env
 semantics; every 50 ticks the EE's distance to its goal, then the final
 state. --save writes the trajectory (t, q, qd, goal, ee, solved_count per
-tick) as the JAX tool does. --gif raises NotImplementedError: the viewer
-stack (utils/render.py) is not ported yet (ROADMAP M17).
+tick) as the JAX tool does; --gif renders every second tick (the native
+ray tracer where a C++ compiler is there, else matplotlib:
+utils/render.render_frame) into an animated GIF.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import numpy as np
 from rmp_tpu_torch import envs
 from rmp_tpu_torch.envs.base import ee_position, make_control_step
 from rmp_tpu_torch.experiments.common import device_of
+from rmp_tpu_torch.utils.render import render_frame, save_gif
 
 
 def main(argv=None) -> None:
@@ -46,10 +48,6 @@ def main(argv=None) -> None:
         for name in sorted(envs.REGISTRY):
             print(name)
         return
-    if args.gif:
-        raise NotImplementedError(
-            "--gif: the viewer stack (utils/render.py, utils/native.py) is "
-            "not ported yet (ROADMAP M17)")
     if args.env not in envs.REGISTRY:
         known = "\n  ".join(sorted(envs.REGISTRY))
         raise SystemExit(f"unknown env '{args.env}'; available:\n  {known}")
@@ -61,6 +59,7 @@ def main(argv=None) -> None:
 
     traj: dict[str, list] = {k: [] for k in ("q", "qd", "goal", "ee",
                                              "solved_count")}
+    frames, renderer = [], None
     t0 = time.perf_counter()
     for tick in range(args.ticks):
         state, _ = step(state, params)
@@ -72,6 +71,9 @@ def main(argv=None) -> None:
                 traj["ee"].append(
                     ee_position(env, state.sim)[0].cpu().numpy())
             traj["solved_count"].append(int(state.solved_count[0]))
+        if args.gif and tick % 2 == 0:   # ~5 fps of control ticks
+            frame, renderer = render_frame(env.model, state.sim)
+            frames.append(frame)
         if tick % 50 == 0 and state.sim.goal is not None:
             ee = ee_position(env, state.sim)[0].cpu().numpy()
             goal = state.sim.goal[0].cpu().numpy()
@@ -84,6 +86,11 @@ def main(argv=None) -> None:
     print(f"final q  = {state.sim.q[0].cpu().numpy()}")
     print(f"final qd = {state.sim.qd[0].cpu().numpy()}")
     print(f"goals reached = {int(state.solved_count[0])}")
+
+    if args.gif and frames:
+        save_gif(frames, args.gif)
+        print(f"wrote {args.gif} ({len(frames)} frames, {renderer} "
+              f"renderer)")
 
     if args.save:
         tick_dt = env.dt * env.control_every

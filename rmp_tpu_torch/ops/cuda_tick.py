@@ -9,10 +9,13 @@ damping, c-space bias) and the grouped obstacle policy over every collision
 frame x obstacle, pulls each back into A = Σ JᵀMJ and f = Σ JᵀM(a − c), and
 solves with an unrolled Cholesky (ridge on the diagonal, pivot squares
 clamped to 1e-12). A CPU tensor takes the plain PyTorch version
-(`fused_qdd_plain`); a CUDA tensor launches csrc/fused_tick.cu or raises
-(any n from 1 to MAX_N = 16, one instantiation each; up to 16 frames, 16
-collision frames and 8 identity-space leaves; past them ValueError before
-any launch). The JAX kernel needs B % 1024 == 0; the port takes any B.
+(`fused_qdd_plain`); a CUDA tensor launches a kernel or raises: up to
+NARROW = (16 motors, 16 frames, 16 collision frames) csrc/fused_tick.cu
+(16 lanes an env, an instantiation per n), past it up to MAX_N = 32
+motors, MAX_FRAMES = 40 frames and MAX_COLLISION = 40 collision frames
+csrc/fused_tick_wide.cu (a warp an env); at most 8 identity-space leaves
+in both; past them ValueError before any launch. The JAX kernel needs
+B % 1024 == 0; the port takes any B.
 K5 has no derivative rule, as JAX's `pallas_call` has none: `fused_qdd`
 raises while grad is enabled and an input requires grad, on both
 devices.
@@ -64,8 +67,10 @@ IDENTITY_BASE = 24
 #   CSPACE:  thresh, position_gain, damping_gain, metric_scalar + inertia,
 #            goal (n)
 VELCAP, DAMPING, CSPACE = 1, 2, 3
-# the kernel's capacity, mirrored in csrc/fused_tick.cu
-MAX_N, MAX_FRAMES, MAX_COLLISION, MAX_IDENTITY = 16, 16, 16, 8
+# the kernels' capacities, mirrored in csrc/fused_tick.cu (NARROW: motors,
+# frames, collision frames) and csrc/fused_tick_wide.cu
+NARROW = (16, 16, 16)
+MAX_N, MAX_FRAMES, MAX_COLLISION, MAX_IDENTITY = 32, 40, 40, 8
 
 
 def supports(env) -> bool:
@@ -220,11 +225,12 @@ def _add_block(A, cols, C):
     A[:, ii, jj] = A[:, ii, jj] + C
 
 
-def fused_qdd_plain(tick: FusedTick, q, qd, goal, obs_p0, obs_p1, obs_r):
-    """The plain PyTorch version of K5: the JAX kernel body's arithmetic
-    (pallas_tick._make_kernel) on batch-first tensors. Divisions by a
-    constant divide by a device tensor (a true division, as the kernel's
-    and the JAX body's)."""
+def fused_qdd_system(tick: FusedTick, q, qd, goal, obs_p0, obs_p1, obs_r):
+    """(A (B, n, n), f (B, n)) of the fused tick, the ridge on A's
+    diagonal: the JAX kernel body's arithmetic (pallas_tick._make_kernel)
+    on batch-first tensors, before its Cholesky. Divisions by a constant
+    divide by a device tensor (a true division, as the kernel's and the
+    JAX body's)."""
     model = tick.model
     n = model.n_q
     B = q.shape[0]
@@ -351,8 +357,15 @@ def fused_qdd_plain(tick: FusedTick, q, qd, goal, obs_p0, obs_p1, obs_r):
             _add_block(A, cols, _sym_lower(Jd[:, k, :, None]
                                            * mj[:, k, None, :]))
 
+    return A, f_sys
+
+
+def fused_qdd_plain(tick: FusedTick, q, qd, goal, obs_p0, obs_p1, obs_r):
+    """The plain PyTorch version of K5: fused_qdd_system and its unrolled
+    Cholesky solve."""
+    A, f = fused_qdd_system(tick, q, qd, goal, obs_p0, obs_p1, obs_r)
     # A is built with the ridge on its diagonal: the solve adds none
-    return cholesky_solve_unrolled(A, f_sys, ridge=0.0)
+    return cholesky_solve_unrolled(A, f, ridge=0.0)
 
 
 def _check(n: int, q, qd, goal, obs_p0, obs_p1, obs_r):
@@ -370,6 +383,13 @@ def _check(n: int, q, qd, goal, obs_p0, obs_p1, obs_r):
         if tuple(args[name].shape) != shape:
             raise ValueError(f"{name} must be {shape}, got "
                              f"{tuple(args[name].shape)}")
+
+
+def wide(tick: FusedTick) -> bool:
+    """Whether the tick's model is past the 16-lane kernel's NARROW reach
+    and takes the warp-per-env kernel."""
+    sizes = (tick.model.n_q, tick.model.n_frames, len(tick.col_frames))
+    return any(x > cap for x, cap in zip(sizes, NARROW))
 
 
 def fused_qdd(tick: FusedTick, q, qd, goal, obs_p0, obs_p1, obs_r):
@@ -402,7 +422,8 @@ def fused_qdd(tick: FusedTick, q, qd, goal, obs_p0, obs_p1, obs_r):
     mt = model_tables(model, q.device)
     tt = tick.tables(q.device)
     out = torch.empty(B, n, dtype=torch.float32, device=q.device)
-    fn = _build.c_function("rmp_fused_qdd_f32", _ARGTYPES)
+    fn = _build.c_function("rmp_fused_qdd_wide_f32" if wide(tick)
+                           else "rmp_fused_qdd_f32", _ARGTYPES)
     rc = fn(q.device.index, B, model.n_frames, n, K, len(tick.col_frames),
             tick.ee_frame, len(tick.identity), mt["parent"].data_ptr(),
             mt["joint_type"].data_ptr(), mt["q_index"].data_ptr(),

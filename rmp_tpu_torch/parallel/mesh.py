@@ -8,11 +8,11 @@ JAX package checks that invariant on compiled HLO; PyTorch has none, so
 `record_collectives` records every collective issued while it is open and
 `audit_collectives` holds the record to the same rule.
 
-Known difference: the port's batched state draws from one torch.Generator
-per batch (EnvState.rng), where the JAX package has a key per env. A
-scene that draws mid-rollout (randomized resampling) therefore gives a
-sharded run other draws than an unsharded one; scenes that draw nothing
-mid-rollout give the same result (ROADMAP Queue 3).
+Where the JAX package keys each env, the port's batched state draws from
+one torch.Generator over the rows of the global batch (EnvState.stream):
+every rank holds the same generator, draws for all rows and keeps its own,
+so a scene that draws mid-rollout (randomized resampling) gives the same
+result sharded as unsharded.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ import torch
 import torch.distributed as dist
 
 from rmp_tpu_torch import default_device
-from rmp_tpu_torch.envs.base import Env, make_rollout
+from rmp_tpu_torch.envs.base import Env, EnvState, make_rollout
 from rmp_tpu_torch.utils.checkpoint import _leaves, _rebuild, batch_of
 
 ENV_AXIS = "env"
@@ -81,13 +81,19 @@ def shard_env_batch(tree, mesh: EnvMesh):
     global batch must split evenly over the ranks, as the JAX package's
     sharding requires. A generator leaf becomes a new generator on the
     rank's device, set to the global one's state where both lie on one
-    kind of device, else seeded with its initial seed."""
+    kind of device, else seeded with its initial seed. An EnvState's
+    stream keeps the global batch's rows (rng_size, rng_offset), so every
+    rank draws what the whole batch draws for its envs."""
     B = batch_of(tree)
     if B % mesh.size:
         raise ValueError(f"a batch of {B} envs does not split over "
                          f"{mesh.size} ranks")
     per = B // mesh.size
     start = mesh.rank * per
+    if isinstance(tree, EnvState):
+        size = tree.rng_size or B
+        tree = dataclasses.replace(
+            tree, rng_size=size, rng_offset=(tree.rng_offset + start) % size)
 
     def local(x):
         if isinstance(x, torch.Generator):

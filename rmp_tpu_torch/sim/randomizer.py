@@ -5,7 +5,10 @@ sampling, robot q/q̇ jitter around the ready pose and goal sampling with a
 branchless rejection of goals inside obstacle clearance (the reference's
 SceneRandomizer, simulation.py:494-548), plus the box-workspace samplers
 and `SceneRandomizer`, the reference's stateful class surface over them.
-Every sampler draws a whole batch from an explicit torch.Generator. The
+Every sampler draws a whole batch from an explicit torch.Generator, or
+from a RowStream: a generator over the rows of a larger batch, of which
+this batch holds some (a rank's slice of a sharded batch, the G copies of
+a sweep's fold). `uniform` and `normal` are the only draws. The
 deterministic core of each (uniforms -> sample, candidates -> pick) is a
 function of its own that takes the draws as arguments: jax.random streams
 are not reproduced, so the tests feed these the JAX package's draws.
@@ -21,6 +24,48 @@ from rmp_tpu_torch import default_device
 from rmp_tpu_torch.models import robots
 from rmp_tpu_torch.ops import geom
 from rmp_tpu_torch.sim.collision import ObstacleSet, capsule_capsule_query
+
+
+@dataclasses.dataclass(frozen=True)
+class RowStream:
+    """A random stream over `size` rows, of which a batch's env i holds row
+    (offset + i) mod size. Every draw is made for all `size` rows, so the
+    generator moves as it does for the whole batch, and each env keeps its
+    own row: a rank's slice draws what the unsharded batch draws for its
+    envs, and the G copies of a fold (offset 0, size the copies' batch)
+    draw alike. JAX keys each env instead; the port keys each row."""
+
+    gen: torch.Generator
+    size: int
+    offset: int = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.gen.device
+
+
+def _draw(fn, gen, batch: int, shape: tuple, dtype):
+    if not isinstance(gen, RowStream):
+        return fn(batch, *shape, generator=gen, device=gen.device,
+                  dtype=dtype)
+    u = fn(gen.size, *shape, generator=gen.gen, device=gen.device,
+           dtype=dtype)
+    if gen.offset == 0 and gen.size == batch:
+        return u
+    rows = (torch.arange(batch, device=gen.device) + gen.offset) % gen.size
+    return u.index_select(0, rows)
+
+
+def uniform(gen, batch: int, *shape: int, dtype=None) -> torch.Tensor:
+    """(batch, *shape) unit uniforms from a torch.Generator or a
+    RowStream."""
+    return _draw(torch.rand, gen, batch, shape, dtype)
+
+
+def normal(gen, batch: int, *shape: int, dtype=None) -> torch.Tensor:
+    """(batch, *shape) standard normals from a torch.Generator or a
+    RowStream."""
+    return _draw(torch.randn, gen, batch, shape, dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,10 +151,8 @@ def randomize_obstacles(gen: torch.Generator, batch: int, n_obstacles: int,
                         space: CylinderSampleSpace | None = None
                         ) -> ObstacleSet:
     """n_obstacles cylinders per env, (batch, n, ...) leaves."""
-    dev = gen.device
-
     def u(*shape):
-        return torch.rand(batch, *shape, generator=gen, device=dev)
+        return uniform(gen, batch, *shape)
     return obstacles_from_uniforms(u(n_obstacles, 3), u(n_obstacles, 3),
                                    u(n_obstacles), u(n_obstacles), space)
 
@@ -119,8 +162,8 @@ def randomize_robot_config(gen: torch.Generator, batch: int,
     """(q, q̇) (batch, n) jittered around the ready pose."""
     space = space or RobotSampleSpace.panda_default()
     n = len(space.q_low)
-    u_q = torch.rand(batch, n, generator=gen, device=gen.device)
-    u_qd = torch.rand(batch, n, generator=gen, device=gen.device)
+    u_q = uniform(gen, batch, n)
+    u_qd = uniform(gen, batch, n)
     return (scale_uniform(u_q, space.q_low, space.q_high),
             scale_uniform(u_qd, space.qd_low, space.qd_high))
 
@@ -148,11 +191,10 @@ def randomize_goal(gen: torch.Generator, batch: int, low=GOAL_CYL_LOW,
     """(batch, 3) goals sampled in cylindrical coordinates (reference
     simulation.py:543-548). With `obstacles` (batch, K, ...), `tries`
     candidates per env at once, kept by pick_clear_candidate."""
-    dev = gen.device
     if obstacles is None or obstacles.count == 0:
-        u = torch.rand(batch, 3, generator=gen, device=dev)
+        u = uniform(gen, batch, 3)
         return _cylindrical_to_cartesian(scale_uniform(u, low, high))
-    u = torch.rand(batch, tries, 3, generator=gen, device=dev)
+    u = uniform(gen, batch, tries, 3)
     cand = _cylindrical_to_cartesian(scale_uniform(u, low, high))
     return pick_clear_candidate(cand, obstacles, clearance)
 
@@ -163,12 +205,9 @@ def randomize_goal_box(gen: torch.Generator, batch: int, low, high,
                        ) -> torch.Tensor:
     """(batch, 3) goals uniform in a Cartesian box, kept clear of
     `obstacles` as randomize_goal keeps them."""
-    dev = gen.device
     if obstacles is None or obstacles.count == 0:
-        return scale_uniform(torch.rand(batch, 3, generator=gen, device=dev),
-                             low, high)
-    cand = scale_uniform(torch.rand(batch, tries, 3, generator=gen,
-                                    device=dev), low, high)
+        return scale_uniform(uniform(gen, batch, 3), low, high)
+    cand = scale_uniform(uniform(gen, batch, tries, 3), low, high)
     return pick_clear_candidate(cand, obstacles, clearance)
 
 
@@ -183,15 +222,12 @@ def randomize_obstacles_box(gen: torch.Generator, batch: int,
     (p0 (B, P, 3), p1 (B, P, 3), radius (P,)) that the obstacles keep
     `avoid_clearance` from: each obstacle draws `tries` centers and keeps
     the first clear one, else the clearest."""
-    dev = gen.device
-    shape = ((batch, n_obstacles, 3) if avoid is None
-             else (batch, n_obstacles, tries, 3))
-    center = scale_uniform(torch.rand(*shape, generator=gen, device=dev),
-                           low, high)
-    rpy = scale_uniform(torch.rand(batch, n_obstacles, 3, generator=gen,
-                                   device=dev), 0.0, np.pi)
-    radius = scale_uniform(torch.rand(batch, n_obstacles, generator=gen,
-                                      device=dev), radius_low, radius_high)
+    shape = ((n_obstacles, 3) if avoid is None
+             else (n_obstacles, tries, 3))
+    center = scale_uniform(uniform(gen, batch, *shape), low, high)
+    rpy = scale_uniform(uniform(gen, batch, n_obstacles, 3), 0.0, np.pi)
+    radius = scale_uniform(uniform(gen, batch, n_obstacles), radius_low,
+                           radius_high)
     axis_dir = geom.rotation_matrix_from_rpy(rpy)[..., :, 2]
     half = (height / 2.0) * axis_dir                      # (B, n, 3)
     if avoid is not None:

@@ -5,8 +5,8 @@ commanded acceleration realised exactly, or through the torque path, with
 penalty or impulse contacts on request) and `sense`, and the imperative
 `Simulation` wrapper with the reference's surface (connect /
 populate_scene / state / step / reset), a batch of one on the card unless
-the caller asks for the CPU. Animation capture is not ported (ROADMAP
-M17)."""
+the caller asks for the CPU, which captures an animation on request
+(utils/render.py, utils/native.py)."""
 from __future__ import annotations
 
 import dataclasses
@@ -136,23 +136,24 @@ class Simulation:
     """Imperative wrapper with the reference Simulation surface, over a
     batch of one on `device` (default: the GPU; raises without one).
     connect() and disconnect() stay for familiarity: there is no physics
-    server. animation_save_path raises NotImplementedError: the frame
-    capture needs the renderers, which are not ported (ROADMAP M17)."""
+    server. With animation_save_path, step() captures a frame every 1/16 s
+    of simulated time (the native ray tracer, utils/native.py, where a C++
+    compiler is there, else matplotlib, as the JAX package chooses), and
+    save_animation() writes them as a GIF."""
 
     def __init__(self, delta_t: float = 0.01, animation_save_path=None,
                  torque_mode: bool = False, device=None):
-        if animation_save_path is not None:
-            raise NotImplementedError(
-                "Simulation(animation_save_path=...): animation capture is "
-                "not ported yet (ROADMAP M17, with utils/native.py and "
-                "utils/render.py)")
         self.device = default_device(device)
         self._delta_t = delta_t
         self.t = 0.0
         self.robot: Robot | None = None
         self.goal: Goal | None = None
         self.obstacles: list[SceneObject] = []
-        self.animation_save_path = None
+        self.animation_save_path = animation_save_path
+        self._frames: list = []
+        self._fps_animation = 16
+        self._t_prev_animation = 0.0
+        self.renderer: str | None = None   # the one the capture took
         self._torque_mode = torque_mode
         self._state: SimState | None = None
         self._model: KinematicModel | None = None
@@ -240,3 +241,21 @@ class Simulation:
                                    self._delta_t,
                                    torque_mode=self._torque_mode)
         self.t += self._delta_t
+        if (self.animation_save_path is not None and self.t
+                > self._t_prev_animation + 1.0 / self._fps_animation):
+            self._capture_frame()
+            self._t_prev_animation = self.t
+
+    def _capture_frame(self):
+        from rmp_tpu_torch.utils.render import render_frame
+        frame, self.renderer = render_frame(self._model, self._state,
+                                            goal=self.goal,
+                                            objects=self.obstacles)
+        self._frames.append(frame)
+
+    def save_animation(self):
+        """Write the captured frames to animation_save_path as a GIF."""
+        if self.animation_save_path and self._frames:
+            from rmp_tpu_torch.utils.render import save_gif
+            save_gif(self._frames, self.animation_save_path,
+                     fps=self._fps_animation)

@@ -195,9 +195,25 @@ def test_simulation_wrapper_reference_loop_matches_jax():
     assert s.robot is None and s.n_obstacles == 0
 
 
-def test_simulation_animation_capture_raises():
-    with pytest.raises(NotImplementedError, match="M17"):
-        sim.Simulation(animation_save_path="out.gif", device="cpu")
+def test_simulation_animation_capture_raises(tmp_path, monkeypatch):
+    """Animation capture, which raised NotImplementedError until the
+    renderers were ported, now captures a frame every 1/16 s of simulated
+    time with the native ray tracer (where a C++ compiler is there) or
+    matplotlib, and save_animation writes them as a GIF."""
+    from PIL import Image
+
+    from rmp_tpu_torch.utils import native
+    for renderer in ("native", "matplotlib"):
+        if renderer == "matplotlib":
+            monkeypatch.setattr(native, "available", lambda: False)
+        path = str(tmp_path / f"{renderer}.gif")
+        s = sim.Simulation(animation_save_path=path, device="cpu")
+        s.populate_scene([sim.FrankaPanda(), sim.Goal([0.6, 0.0, 0.4])])
+        for _ in range(20):             # 0.2 s: frames at 0.07, 0.14 s
+            s.step(np.zeros(9))
+        s.save_animation()
+        assert s.renderer == renderer
+        assert Image.open(path).n_frames == 2
 
 
 def test_simulation_defaults_to_the_gpu(monkeypatch):

@@ -115,6 +115,55 @@ print(f"rank {rank}: ok", flush=True)
 """
 
 
+# Scenes that draw mid-rollout: the randomized Panda (its pre_tick's normal
+# draw every tick, its goals on every resample) and the randomized dual arm
+# (jitter every tick, goals per arm), B envs x RESAMPLE_TICKS with the
+# solved check widened to RESAMPLE_TOL m, so that every env of the Panda
+# reaches a goal, and resamples, within the run (17 resamples over its 8
+# envs, 178 goal events of the dual arm's; CPU run)
+RESAMPLING = (("franka/randomized_cluttered", 8),
+              ("dual_panda/randomized_clutter", 8))
+RESAMPLE_TICKS = 30
+RESAMPLE_TOL = 0.5
+
+# One rank of the resampling case, run as `python -c RESAMPLE_WORKER <port>
+# <rank> <dir> <scene>=<B> ...`: make_sharded_rollout with its aux on the
+# rank's slice of <dir>/<scene>.pt; writes <dir>/resample<rank>.pt.
+RESAMPLE_WORKER = r"""
+import sys
+import torch
+from rmp_tpu_torch import envs
+from rmp_tpu_torch.parallel import distributed, make_sharded_rollout, \
+    shard_env_batch
+from rmp_tpu_torch.utils import checkpoint
+
+torch.set_num_threads(1)
+port, rank, out, ticks, tol = (int(sys.argv[1]), int(sys.argv[2]),
+                               sys.argv[3], int(sys.argv[4]),
+                               float(sys.argv[5]))
+scenes = [(s, int(b)) for s, b in (x.split("=") for x in sys.argv[6:])]
+device = distributed.initialize(f"127.0.0.1:{port}", 2, rank, device="cpu")
+mesh = distributed.global_env_mesh()
+result = {}
+for scene, B in scenes:
+    env = envs.make(scene, device=device)
+    env.solved_tol = tol
+    states = checkpoint.restore_checkpoint(
+        f"{out}/{scene.replace('/', '_')}.pt",
+        envs.make_batched_reset(env, B)())
+    local = shard_env_batch(states, mesh)
+    final, _, aux = make_sharded_rollout(env, ticks, mesh, collect_aux=True)(
+        local, env.gather_params())
+    result[scene] = dict(
+        leaves=[x for x in checkpoint._leaves(final)
+                if isinstance(x, torch.Tensor)],
+        rng=final.rng.get_state(), resamples=int(aux["resample"].sum()))
+torch.save(result, f"{out}/resample{rank}.pt")
+distributed.shutdown()
+print(f"rank {rank}: ok", flush=True)
+"""
+
+
 def free_port() -> int:
     """A port on the loopback address that nothing holds (bound to 0)."""
     with socket.socket() as s:
@@ -183,6 +232,90 @@ def two_ranks(tmp_path_factory):
     ranks = [torch.load(out / f"rank{r}.pt", weights_only=True)
              for r in range(WORLD)]
     return dict(out=out, cases=cases, ranks=ranks)
+
+
+def run_ranks(worker: str, out, *args) -> list:
+    """The logs of WORLD worker processes `python -c worker <port> <rank>
+    <out> *args`, each checked to have ended well."""
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", worker, str(port), str(rank), str(out),
+         *args], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for rank in range(WORLD)]
+    try:
+        logs = [p.communicate(timeout=WORKER_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {rank} failed:\n{log}"
+        assert f"rank {rank}: ok" in log, log
+    return logs
+
+
+@pytest.fixture(scope="module")
+def resampling_ranks(tmp_path_factory):
+    """Each resampling scene's global reset (seed 0) and the two ranks'
+    results on it."""
+    out = tmp_path_factory.mktemp("resample")
+    states = {}
+    for scene, B in RESAMPLING:
+        env = envs.make(scene, device="cpu")
+        states[scene] = envs.make_batched_reset(env, B)()
+        checkpoint.save_checkpoint(str(out / f"{scene.replace('/', '_')}.pt"),
+                                   states[scene])
+    run_ranks(RESAMPLE_WORKER, out, str(RESAMPLE_TICKS), str(RESAMPLE_TOL),
+              *(f"{s}={b}" for s, b in RESAMPLING))
+    return states, [torch.load(out / f"resample{r}.pt", weights_only=True)
+                    for r in range(WORLD)]
+
+
+@pytest.mark.parametrize("scene", [s for s, _ in RESAMPLING])
+def test_two_rank_resampling_rollout_equals_one_process(resampling_ranks,
+                                                        scene):
+    """A scene that draws mid-rollout, sharded over two gloo ranks, equals
+    make_rollout of the global batch in one process bit for bit: every
+    leaf of the final states, stacked, and the generator's state on each
+    rank, with goals resampled on both ranks. Each rank draws for the
+    global batch's rows and keeps its own (EnvState.stream); a generator
+    per rank that drew for its slice alone gave other goals and q."""
+    states, ranks = resampling_ranks
+    env = envs.make(scene, device="cpu")
+    env.solved_tol = RESAMPLE_TOL
+    final, aux = envs.make_rollout(env, RESAMPLE_TICKS)(
+        states[scene], env.gather_params())
+    expect = [x for x in checkpoint._leaves(final)
+              if isinstance(x, torch.Tensor)]
+    got = [torch.cat([r[scene]["leaves"][i] for r in ranks])
+           for i in range(len(expect))]
+    counts = [r[scene]["resamples"] for r in ranks]
+    print(f"{scene}: resamples per rank {counts}, in one process "
+          f"{int(aux['resample'].sum())}")
+    assert all(c > 0 for c in counts), counts
+    assert sum(counts) == int(aux["resample"].sum())
+    for i, (g, e) in enumerate(zip(got, expect)):
+        assert torch.equal(g, e), (i, float((g.double() - e.double())
+                                            .abs().max()))
+    for r in ranks:
+        assert torch.equal(r[scene]["rng"], final.rng.get_state())
+
+
+def test_row_streams_draw_the_global_rows():
+    """randomizer.uniform / normal on a RowStream: a slice at an offset
+    draws the whole stream's rows (offset .. offset + B), a fold repeats
+    them, and the generator moves as for the whole stream."""
+    from rmp_tpu_torch.sim import randomizer as rnd
+    for draw in (rnd.uniform, rnd.normal):
+        whole = draw(torch.Generator().manual_seed(5), 8, 2, 3)
+        gen = torch.Generator().manual_seed(5)
+        part = draw(rnd.RowStream(gen, 8, 4), 4, 2, 3)
+        assert torch.equal(part, whole[4:])
+        fold = draw(rnd.RowStream(torch.Generator().manual_seed(5), 8), 16,
+                    2, 3)
+        assert torch.equal(fold, torch.cat([whole, whole]))
+        after = torch.Generator().manual_seed(5)
+        draw(after, 8, 2, 3)
+        assert torch.equal(gen.get_state(), after.get_state())
 
 
 def unsharded(scene: str, states, aux: bool = False):

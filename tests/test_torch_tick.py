@@ -189,7 +189,14 @@ def test_fused_qdd_is_the_standard_qdd_on_first_capsules(scene):
     assert err.max() <= TOL
 
 
-PLANAR = (5, 12)    # links of the planar arms K5 is held on
+PLANAR = (5, 12, 17, 24, 32)  # links of the planar arms K5 is held on
+# Past 16 links (the wide kernel's models) the chains are ill-conditioned:
+# any float32 solve of a 32-link tick, the batched step's pivoted LU too,
+# lies up to ~5e-4 x max(1, |q̈|) from float64 on single envs. There an env
+# that the one-ulp and float64 screens drop is held to float64 instead:
+# K5's error within max(TOL, SPREAD x the reference's, LONG x the float32
+# LU's on the same env).
+LONG = 2.0
 
 
 @functools.lru_cache(maxsize=None)
@@ -210,6 +217,26 @@ def planar_states(n_links: int) -> dict:
                 obs_r=f32(np.broadcast_to(obs.radius.numpy(), (B, 1))))
 
 
+@functools.lru_cache(maxsize=None)
+def planar_step(n_links: int) -> tuple:
+    """The planar env's own batched step's q̈ ('solve': K1's plain version,
+    pivoted LU, float32) at planar_states, and K5's plain version in
+    float64 on the same inputs (ridge 1e-6 against the step's 0: below
+    4e-6 of |q̈|, the damping metric keeping A's eigenvalues above 0.3)."""
+    env = planar.planar_arm_env(n_links, device="cpu")
+    inputs = planar_states(n_links)
+    args = [torch.tensor(inputs[k]) for k in INPUTS]
+    start = envs.make_batched_reset(env, B)()
+    states = dataclasses.replace(start, sim=dataclasses.replace(
+        start.sim, q=args[0], qd=args[1], goal=args[2],
+        obstacles=collision.ObstacleSet(*args[3:], kinds=("cylinder",))))
+    _, aux = envs.make_batched_control_step(env)(states,
+                                                 env.gather_params())
+    witness = cuda_tick.fused_qdd_plain(
+        cuda_tick.fused_tick(env), *(a.double() for a in args)).numpy()
+    return aux["qdd"].double().numpy(), witness
+
+
 @pytest.mark.parametrize("n_links", PLANAR)
 def test_planar_plain_matches_jax_kernel_body(n_links):
     """The planar env is K5's path in both packages (both `supports` say
@@ -218,7 +245,8 @@ def test_planar_plain_matches_jax_kernel_body(n_links):
     envs, so the degenerate branch of the closest-point parameters (s = 0
     where |a1 - a0|² <= 1e-9) is on the compared path. Some links pierce
     the cylinder, where the 1/d curvature row amplifies rounding: the envs
-    compared and the rest are screened as in the wide test above."""
+    compared and the rest are screened as in the wide test above, past 16
+    links against float64 beside the float32 LU (LONG)."""
     jenv = jax_planar_env(n_links)
     env = planar.planar_arm_env(n_links, device="cpu")
     assert cuda_tick.supports(env) and jpt.supports(jenv)
@@ -250,7 +278,12 @@ def test_planar_plain_matches_jax_kernel_body(n_links):
     assert err[held].max() <= TOL, \
         f"worst env {np.flatnonzero(held)[err[held].argmax()]}"
     rest = ~held
-    assert np.all(port_err[rest] <= np.maximum(TOL, SPREAD * ref_err[rest]))
+    limit = np.maximum(TOL, SPREAD * ref_err[rest])
+    if n_links > cuda_tick.NARROW[0]:
+        step, _ = planar_step(n_links)
+        lu_err = np.abs(step - witness).max(axis=1) / s
+        limit = np.maximum(limit, LONG * lu_err[rest])
+    assert np.all(port_err[rest] <= limit)
 
 
 def test_degenerate_segment_closest_params_match_jax():
@@ -278,35 +311,49 @@ def test_planar_fused_qdd_is_the_batched_step_qdd(n_links):
     """Every collision frame of the planar arm has one primitive, so K5's
     first-primitive reading loses nothing: it equals the env's own batched
     step's q̈ ('solve', K1's plain version, ridge 0) directly, at phase
-    11's 2e-4 x max(1, |q̈|) of chip_smoke.py."""
+    11's 2e-4 x max(1, |q̈|) of chip_smoke.py. Past 16 links on the envs
+    where the step lies within ACCURATE of float64, and elsewhere K5 within
+    max(2e-4, LONG x the step's error) of float64."""
     env = planar.planar_arm_env(n_links, device="cpu")
     inputs = planar_states(n_links)
     args = [torch.tensor(inputs[k]) for k in INPUTS]
-    got = cuda_tick.make_fused_qdd(env)(*args)
-    start = envs.make_batched_reset(env, B)()
-    states = dataclasses.replace(start, sim=dataclasses.replace(
-        start.sim, q=args[0], qd=args[1], goal=args[2],
-        obstacles=collision.ObstacleSet(*args[3:], kinds=("cylinder",))))
-    _, aux = envs.make_batched_control_step(env)(states,
-                                                 env.gather_params())
-    want = aux["qdd"]
-    err = ((got - want).abs().amax(dim=1)
-           / want.abs().amax(dim=1).clamp_min(1.0))
-    print(f"planar {n_links}: K5 vs the batched step's q̈ {float(err.max()):.3e}")
-    assert float(err.max()) <= 2e-4
+    got = cuda_tick.make_fused_qdd(env)(*args).double().numpy()
+    want, witness = planar_step(n_links)
+    err = np.abs(got - want).max(axis=1) / scale(want)
+    print(f"planar {n_links}: K5 vs the batched step's q̈ {err.max():.3e}")
+    if n_links <= cuda_tick.NARROW[0]:
+        assert err.max() <= 2e-4
+        return
+    s = scale(witness)
+    lu_err = np.abs(want - witness).max(axis=1) / s
+    held = lu_err <= ACCURATE
+    k5_err = np.abs(got - witness).max(axis=1) / s
+    print(f"planar {n_links}: {int(held.sum())} of {B} envs held, max "
+          f"{err[held].max():.3e}; elsewhere K5 / LU against float64 "
+          f"{k5_err[~held].max():.3e} / {lu_err[~held].max():.3e}")
+    assert held.sum() >= B // 2
+    assert err[held].max() <= 2e-4
+    assert np.all(k5_err[~held] <= np.maximum(2e-4, LONG * lu_err[~held]))
 
 
 def test_k5_raises_past_its_capacity():
-    """Past 16 motors (and 16 frames) the wrapper raises before any launch
-    (meta tensors stand in for a device here), as it does for any other
-    limit."""
-    env = planar.planar_arm_env(17, device="cpu")
+    """Past 32 motors (and 40 frames, 40 collision frames) the wrapper
+    raises before any launch (meta tensors stand in for a device here), as
+    it does for any other limit; from 17 motors (or 17 frames) up to them
+    it takes the warp-per-env kernel."""
+    env = planar.planar_arm_env(33, device="cpu")
     fn = cuda_tick.make_fused_qdd(env)
-    args = [torch.zeros(4, 17), torch.zeros(4, 17), torch.zeros(4, 3),
+    args = [torch.zeros(4, 33), torch.zeros(4, 33), torch.zeros(4, 3),
             torch.zeros(4, 1, 3), torch.ones(4, 1, 3), torch.ones(4, 1)]
     with pytest.raises(ValueError, match="exceeds the K5 kernel's capacity"):
         fn(*(a.to("meta") for a in args))
-    assert cuda_tick.MAX_N == 16
+    assert (cuda_tick.MAX_N, cuda_tick.MAX_FRAMES,
+            cuda_tick.MAX_COLLISION) == (32, 40, 40)
+    assert cuda_tick.NARROW == (16, 16, 16)
+    picks = {n: cuda_tick.wide(cuda_tick.fused_tick(
+        planar.planar_arm_env(n, device="cpu"))) for n in (12, 15, 16, 32)}
+    # 15 links: 16 frames and collision frames; 16 links: 17 of each
+    assert picks == {12: False, 15: False, 16: True, 32: True}
 
 
 # primitives of a jaxpr that move data and compute nothing
