@@ -130,8 +130,7 @@ printing the result line:
      reports/eval_randomized_hull.json within 3 sigma of the difference of
      two 4096-env samples, nan_rate 0; each with its 10-tick trace; GPU/CPU
      parity, 128 envs of one CPU reset moved to the card, PARITY_TICKS
-     (12) ticks, per
-     (env, tick) before the env's first detour or resample and while the
+     ticks, per (env, tick) before the env's first detour or resample and while the
      one-ulp, float64 (and in the hull tier card-without-K4) screens hold
      (randomized_parity), every K4 call of the hull run against its plain
      version.
@@ -203,7 +202,7 @@ printing the result line:
      (rmp_tpu_torch/experiments/reach_descent_case.npz);
      train_neural_clutter's entry point at its defaults (1024 envs x 100
      ticks, remat) for one step, timed from the inside (time, launches,
-     envs dropped, peak memory), and one step without remat over 25
+     envs dropped, peak memory), and one step without remat over 10
      ticks;
      tune_gains --geometry hull on franka/06 for 3 steps of 20 ticks.
  18. the twelfth slice, K1 and K5 at every n, K1's bf16 loads, the N-link
@@ -252,8 +251,8 @@ printing the result line:
      `python -m rmp_tpu_torch.experiments.evaluate` on
      franka/randomized_cluttered at 4096 x 300 against
      reports/eval_randomized.json (3 sigma, nan_rate 0), latency.measure on
-     the flagship at batches 1, 64, 4096 (50 ticks), the soak at 4096 x
-     500 in chunks of 250 (finite, in limits), `run franka/01 --ticks 40`.
+     the flagship at batches 1, 64, 4096 (25 ticks), the soak at 4096 x
+     250 in chunks of 125 (finite, in limits), `run franka/01 --ticks 40`.
  20. the fourteenth slice, K5 past 16 motors, row-keyed resampling
      streams, M17's second half: the warp-per-env K5's two instantiations'
      build lines (N = 24, 32); the kernel on the 17-, 24- and 32-link arms'
@@ -266,12 +265,37 @@ printing the result line:
      16-lane K5 re-timed on scene 06 against 0.0375 ms (5%); the
      randomized Panda sharded at world size 1 on NCCL (1024 x 30, goals
      resampled) equal to make_rollout bit for bit; sweep_randomized (G = 2,
-     256 x 100) and the dual scene's sweep_escape (256 x 30); trace_report
+     256 x 100) and the dual scene's sweep_escape (256 x 15); trace_report
      on the flagship (its K1 and K3 us per tick within 10% of phase 7's
      trace, and by source); profile_tick at 4096; gjk_warm_accuracy
      (1024 x 20, K4); make_gifs, Simulation's capture and `run --gif`
      through the native renderer into chiprun_out/gifs/; the viewer's
      HTTP round trip on the loopback address.
+ 21. the fifteenth slice, the exported serving step, K1/K3/K4 as
+     torch.library ops, the compile probe and the asset tools:
+     experiments/compile_probe (the cold nvcc build of every source,
+     per source: phase 2's where this process built the kernels, the
+     probe's own into a temporary directory where it found them built;
+     the cached load; the flagship's first and steady tick at 4096; its
+     export at 4096 envs, one tick a call: trace, torch.export, save,
+     load, first and steady call); that capsule artifact's graph holds
+     K1's and K3's ops, and the hull tier's, exported the same way, K4's
+     too; a fresh process that imports torch and the ops module alone
+     (ARTIFACT_CHILD) loads them and runs 150 closed-loop calls of the
+     capsule artifact and 30 of the hull one (steps/s, the wrappers'
+     launches, device kernels a call by torch.profiler, beside phase 7's
+     eager trace of the same tier), each equal bit for bit to the eager
+     rollout on the same 0-d tensor gains, and the capsule artifact within
+     PARITY_ATOL of the eager rollout on Python-number gains, the users'
+     path, on every env (CUDA divides by a host scalar as a reciprocal
+     multiply, so the two part by rounding);
+     a CPU-traced artifact (`--platforms cpu,cuda`, 128 envs) moved to the
+     card in that process launches K1 and K3 and stays within the GPU/CPU
+     parity limit of the eager card run; fit_hulls (96 vertices, every
+     link), fit_capsules (two links, 600 steps, on the card) and
+     collision_mesh_error (4096 configurations) on OBJs written from
+     assets/panda_visual.npz into a temporary directory, outputs and times
+     into chiprun_out/assets15/, assets/ and reports/ untouched.
 Then one JSON line of per-kernel numbers ({"kernels": [...]}) and, last,
 {"ok": true, "device": {...}}. The full record also goes to
 chiprun_out/chip_smoke.json.
@@ -367,7 +391,10 @@ PARITY_ATOL = 1e-3     # GPU vs CPU q after 5 ticks
 STABLE = 1e-5          # a one-ulp move of the start moves the CPU run less
 PROFILE_TICKS = 10
 TRACE_PAD_S = 0.02     # host wait on each side of a traced span
-TRACE_ATTEMPTS = 3     # traces of a span before its device records count
+# traces of a span before its device records count; why torch.profiler
+# sometimes keeps none of a span's device records is not known (PERF.md
+# section 7)
+TRACE_ATTEMPTS = 8
 
 
 def log(msg: str) -> None:
@@ -2382,8 +2409,9 @@ K1_RANDOMIZED_TICKS = 60
 K1_RANDOMIZED_LAYOUT = (("dense", 3), ("identity", 0), ("identity", 0),
                         ("identity", 0), ("scalar", 80))
 PARITY_B = 128
-PARITY_TICKS = 12     # cut from 60 to 30 in the eleventh slice, to 20 in
-                      # the thirteenth, to 12 in the fourteenth, for time
+PARITY_TICKS = 8      # cut from 60 to 30 in the eleventh slice, to 20 in
+                      # the thirteenth, to 12 in the fourteenth, to 8 in the
+                      # fifteenth, for time
 PARITY_SEED = 1
 # least share of the (env, tick) pairs before each env's first event that
 # the rounding screens keep: a floor on what the parity covers, not a
@@ -2830,7 +2858,8 @@ K1_DUAL_LAYOUTS = {
     "dual randomized": (_DUAL_HEAD + (("scalar", 80),) * 2 + _INTER_ARM,
                         DUAL_RANDOMIZED),
 }
-DUAL_K1_TICKS = 60           # the real ticks' blocks, this far in
+DUAL_K1_TICKS = 30           # the real ticks' blocks, this far in (60
+                             # before the fifteenth slice)
 DUAL_HANDOVER_TICKS = 150
 DUAL_GOLDEN_ATOL = 1e-4      # tests/test_envs.py's limit on q (solved exact)
 # the randomized dual parity, cut for time: a CPU tick of 64 envs takes
@@ -2841,7 +2870,8 @@ DUAL_PARITY = {"capsule": (32, 8), "hull": (16, 4)}
 # q̇ ± 0.05: its arms meet at the centre, where the 10-iteration hull GJK
 # turns rounding into different witnesses, so it is held per (env, tick)
 # behind the one-ulp, float64 and card-with-plain-kernels screens
-HANDOVER_HULL_PARITY = (32, 4)                           # (envs, ticks)
+# (envs, ticks)
+HANDOVER_HULL_PARITY = (32, 4)
 
 
 def dual_tick_blocks(scene: str) -> dict:
@@ -3012,10 +3042,12 @@ def phase_slice9(card: str, device) -> dict:
     both tiers with their statistics, the handover's 4096 x 150 rollout,
     and GPU/CPU parity of both scenes (and of franka/03 in the hull tier).
     Every part runs before the statistics' and parities' checks."""
+    parts, t0 = {}, time.perf_counter()
     k1, k1_build, k1_err = phase_k1_dual(device)
     k3, k3_err = phase_k3_dual(device)
     golden = phase_dual_golden()
     k4 = phase_k4_dual()
+    parts["kernels"], t0 = time.perf_counter() - t0, time.perf_counter()
     failed: list = []
     paths = {f"{DUAL_RANDOMIZED} ({g})": randomized_path(
         card, g, failed, scene=DUAL_RANDOMIZED, k3_per_tick=1,
@@ -3023,6 +3055,7 @@ def phase_slice9(card: str, device) -> dict:
     paths[DUAL_HANDOVER] = phase_main_path(card, "capsule", DUAL_HANDOVER,
                                            ticks=DUAL_HANDOVER_TICKS,
                                            method=None)
+    parts["paths"], t0 = time.perf_counter() - t0, time.perf_counter()
     parity = {g: randomized_parity(g, failed, DUAL_RANDOMIZED, *DUAL_PARITY[g])
               for g in ("capsule", "hull")}
     parity["handover (hull)"] = randomized_parity(
@@ -3030,6 +3063,8 @@ def phase_slice9(card: str, device) -> dict:
         spread=(0.1, 0.05))
     parity["witness_q"] = phase_new_scene_parity(
         [(DUAL_HANDOVER, False), ("franka/03_self_avoidance", False, "hull")])
+    parts["parity"] = time.perf_counter() - t0
+    log(f"phase 15 parts (s): {json.dumps(parts)}")
     check(not failed, "; ".join(failed))
     return dict(k1=k1, k1_build=k1_build, k1_err=k1_err, k3=k3,
                 k3_err=k3_err, golden=golden, k4=k4, paths=paths,
@@ -3047,7 +3082,8 @@ PROVOKE_MARGIN = 0.002
 # K3 per contact tick: the policies' FK and one per physics substep
 PROVOKE_K3_PER_TICK = 1 + 10
 PIERCE_TICKS = 29            # the ghost's deepest tick (CPU run): parity start
-CONTACT_PARITY = (128, 5)    # (envs, ticks) from the piercing states
+# (envs, ticks) from the piercing states; 5 ticks before the fifteenth slice
+CONTACT_PARITY = (128, 3)
 IMPULSE_B = 128
 IMPULSE_DT = 0.005
 IMPULSE_LEAN = 0.8           # rad on the shoulder: the arm starts at the floor
@@ -3061,7 +3097,7 @@ HULL_MODELS = {"two_joint/05_obstacle_avoidance": "two-joint (3, 48)",
 HULL_MODEL_SCENES = ("two_joint/05_obstacle_avoidance",
                      "two_joint/05_obstacle_avoidance_variant",
                      "ur5/02_obstacle_avoidance")
-HULL_MODEL_PARITY = (128, 5)     # 10 ticks before the thirteenth slice
+HULL_MODEL_PARITY = (128, 3)     # 10, then 5 ticks before the fifteenth
 K1_UR5_HULL_LAYOUT = (("dense", 3), ("identity", 0), ("dense", 18))
 # the trained reach criteria of tests/test_neural.py: (ticks, the bound on
 # the mean final EE-goal distance, in x and y only)
@@ -3070,10 +3106,11 @@ NEURAL_REACH = {"two_joint/neural_reach": (80, 0.05, True),
 NEURAL_CLUTTER = "franka/neural_clutter"
 NEURAL_REPORTS = {"capsule": "reports/eval_neural_clutter.json"}
 DISCRETE[NEURAL_CLUTTER] = DISCRETE[RANDOMIZED]
-# halved in the thirteenth slice, for time (12, 12, 15 ticks before)
-NEURAL_PARITY = {"two_joint/neural_reach": (128, 6),
-                 "franka/neural_reach": (128, 6),
-                 NEURAL_CLUTTER: (128, 8)}
+# halved in the thirteenth slice and again in the fifteenth, for time
+# (12, 12, 15 ticks, then 6, 6, 8)
+NEURAL_PARITY = {"two_joint/neural_reach": (128, 3),
+                 "franka/neural_reach": (128, 3),
+                 NEURAL_CLUTTER: (128, 4)}
 
 
 def k4_tie_share(ops: dict, iters: int) -> dict:
@@ -3527,7 +3564,7 @@ TUNE_TICKS = 20                   # tune_gains --geometry hull's horizon
 # the clutter trainer's step without remat runs this many ticks (its graph
 # grows with the ticks: 20.64 GB at the default 100 on an H100 80GB HBM3,
 # PERF.md); with remat, the entry point's step at its defaults
-CLUTTER_NO_REMAT_TICKS = 25
+CLUTTER_NO_REMAT_TICKS = 10     # 25 before the fifteenth slice
 GRAD_SCENES = (   # (scene, geometry, resolve, fused_resolve, envs, ticks)
     (SCENE, "capsule", "solve", True, GRAD_B, GRAD_TICKS),
     (SCENE, "hull", "solve", True, GRAD_B, GRAD_TICKS),
@@ -4639,8 +4676,9 @@ K3_INSTANTIATIONS = {"narrow": "fk_derivatives_kernelILi32ELi18ELi8E",
                      "wide": "fk_derivatives_kernelILi40ELi32ELi4E"}
 SHARDED_TICKS = 20            # the sharded flagship at world size 1
 LATENCY_BATCHES = (1, 64, 4096)
-LATENCY_TICKS = 50
-SOAK_TICKS, SOAK_CHUNK = 500, 250    # 1000, 500 before the fourteenth slice
+LATENCY_TICKS = 25     # 50 before the fifteenth slice
+# 1000, 500 before the fourteenth slice, 500, 250 before the fifteenth
+SOAK_TICKS, SOAK_CHUNK = 250, 125
 
 
 def fixed_tail_model(n_links: int, extra: int, radius: float = 0.0):
@@ -5228,12 +5266,13 @@ def phase_k5_wide(card: str, device) -> tuple[dict, float]:
 
 
 SWEEP_CUT = dict(envs_per_config=256, ticks=100)   # of 256 x 300 by default
-ESCAPE_CUT = dict(batch=256, ticks=30)             # of 4096 x 300
+ESCAPE_CUT = dict(batch=256, ticks=15)             # of 4096 x 300; 30 before
+                                                   # the fifteenth slice
 SHARDED_RANDOM = dict(envs=1024, ticks=30, solved_tol=0.5)
 TRACE_TICKS = 10
 TRACE_TOL = 0.10       # trace_report's K1 / K3 us per tick against phase 7
 GJK_CUT = dict(batch=1024, ticks=20)               # of 1024 x 150
-GIF_TICKS, GIF_EVERY = 24, 4
+GIF_TICKS, GIF_EVERY = 12, 4     # 24 ticks before the fifteenth slice
 
 
 def phase_sharded_random(card: str, device) -> dict:
@@ -5425,6 +5464,317 @@ def phase_slice14(card: str, device, main_trace: dict) -> dict:
                              **tools["seconds"]))
 
 
+AOT_DIR = os.path.join(ROOT, "chiprun_out", "aot")
+AOT_CALLS = {"capsule": TICKS, "hull": 30}
+AOT_CPU_BATCH, AOT_CPU_CALLS = 128, 5
+# a serving host: torch and the ops module only. For each artifact
+# (path, calls) on argv: load (moved to the card where it was traced on
+# the CPU), `calls` closed-loop calls from its example state after a
+# 2-call warm-up from the same state, timed; the wrappers' launch counters
+# over those calls; device kernels a call over 10 more under
+# torch.profiler; the final state leaves into <path>.final.npz. One JSON
+# line per artifact, then the modules of the package it imported.
+ARTIFACT_CHILD = r"""
+import json, sys, time
+import numpy as np, torch
+from torch.profiler import ProfilerActivity, profile
+import rmp_tpu_torch.ops.library
+from rmp_tpu_torch.ops import cuda_fk, cuda_gjk, cuda_resolve
+
+COUNTERS = {"pullback_resolve_structured":
+                cuda_resolve.pullback_resolve_structured,
+            "fk_derivatives_batched": cuda_fk.fk_derivatives_batched,
+            "gjk_hull_obstacles": cuda_gjk.gjk_hull_obstacles}
+args = sys.argv[1:]
+for path, calls in zip(args[::2], map(int, args[1::2])):
+    manifest = json.load(open(path + ".json"))
+    t0 = time.perf_counter()
+    ep = torch.export.load(path)
+    if manifest["traced_on"] != "cuda":
+        from torch.export.passes import move_to_device_pass
+        ep = move_to_device_pass(ep, "cuda")
+    step = ep.module()
+    load_s = time.perf_counter() - t0
+    ex = np.load(path + ".npz")
+    leaves = [torch.from_numpy(ex[f"arr_{i}"]).cuda()
+              for i in range(len(ex.files))]
+    n = manifest["n_state_leaves"]
+    params = leaves[n:]
+    assert not manifest["draws"], "a scene that draws"
+
+    def run(k):
+        state = leaves[:n]
+        for _ in range(k):
+            state = list(step(*state, *params))
+        return state
+    t0 = time.perf_counter()
+    run(1)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    run(2)
+    torch.cuda.synchronize()
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    state = run(calls)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in COUNTERS.items()}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        s = state
+        for _ in range(10):
+            s = list(step(*s, *params))
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    np.savez(path + ".final.npz", *[x.cpu().numpy() for x in state])
+    print(json.dumps(dict(path=path, calls=calls, load_s=load_s,
+                          first_call_s=first_s, seconds=seconds,
+                          steps_per_s=manifest["batch"] * calls / seconds,
+                          launches=launches,
+                          device_launches_per_call=len(kernels) / 10)),
+          flush=True)
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.startswith("rmp_tpu_torch."))))
+"""
+
+
+def run_artifacts(runs: list) -> tuple[list, list]:
+    """(one record per (path, calls) of `runs`, the package's modules the
+    serving process imported), from ARTIFACT_CHILD in a fresh process."""
+    cmd = [sys.executable, "-c", ARTIFACT_CHILD]
+    for path, calls in runs:
+        cmd += [path, str(calls)]
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, env={**os.environ, "PYTHONPATH": ROOT})
+    check(out.returncode == 0, f"the serving process failed:\n"
+          f"{out.stderr[-4000:]}")
+    lines = out.stdout.strip().splitlines()
+    return [json.loads(x) for x in lines[:-1]], json.loads(lines[-1])
+
+
+def eager_aot_rollout(geometry: str, batch: int, ticks: int,
+                      tensor_gains: bool, device="cuda") -> tuple[list, float]:
+    """(final state leaves, seconds) of the eager batched rollout the
+    artifact was exported from, from the same reset, on the gains as 0-d
+    tensors (what the artifact takes) or as Python numbers."""
+    from rmp_tpu_torch.experiments import aot_export
+
+    env = envs.make(SCENE, device=device)
+    env.resolve_method = "solve"
+    env.collision_geometry = geometry
+    params = (aot_export.gains_as_tensors(env) if tensor_gains
+              else env.gather_params())
+    rollout = envs.make_batched_rollout(env, ticks, with_aux=False)
+    warm = envs.make_batched_reset(env, batch)()
+    envs.make_batched_rollout(env, 2, with_aux=False)(warm, params)
+    states = envs.make_batched_reset(env, batch)()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, _ = rollout(states, params)
+    torch.cuda.synchronize()
+    return ([x.cpu() for x in aot_export._tensors(final)],
+            time.perf_counter() - t0)
+
+
+def visual_objs(directory: str) -> None:
+    """The collision OBJs the asset tools read (MESH_OF_LINK's files),
+    written from the visual meshes of assets/panda_visual.npz."""
+    from rmp_tpu_torch.experiments.collision_mesh_error import MESH_OF_LINK
+
+    data = np.load(os.path.join(ROOT, "assets", "panda_visual.npz"))
+    for link, (fname, _) in MESH_OF_LINK.items():
+        if link == "panda_rightfinger":   # the left finger's file, turned
+            continue
+        v = data[f"{link}_verts"].astype(np.float64)
+        t = data[f"{link}_tris"] + 1
+        with open(os.path.join(directory, fname), "w") as f:
+            f.writelines(f"v {x:.6f} {y:.6f} {z:.6f}\n" for x, y, z in v)
+            f.writelines(f"f {a} {b} {c}\n" for a, b, c in t)
+
+
+def tree_digest(directory: str) -> dict:
+    """{relative path: sha256} of every file under a directory."""
+    import hashlib
+
+    out = {}
+    for dirpath, _, names in os.walk(directory):
+        for name in names:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, ROOT)] = hashlib.sha256(
+                    f.read()).hexdigest()
+    return out
+
+
+def phase_asset_tools(card: str, device) -> dict:
+    """fit_hulls (96 vertices, every link), fit_capsules (two links, 600
+    steps a fit, on the card) and collision_mesh_error (4096
+    configurations, the capsule tier) on OBJs written from the visual
+    meshes; outputs into chiprun_out/assets15/; assets/ and reports/
+    byte-identical after."""
+    from rmp_tpu_torch.experiments import (collision_mesh_error,
+                                           fit_capsules, fit_hulls)
+
+    out_dir = os.path.join(ROOT, "chiprun_out", "assets15")
+    os.makedirs(out_dir, exist_ok=True)
+    before = {d: tree_digest(os.path.join(ROOT, d))
+              for d in ("assets", "reports")}
+    seconds = {}
+    with tempfile.TemporaryDirectory() as meshes:
+        visual_objs(meshes)
+        t0 = time.perf_counter()
+        check(fit_hulls.main(["--meshes", meshes, "--max-verts", "96",
+                              "--out", os.path.join(out_dir,
+                                                    "panda_hulls.npz")])
+              == 0, "fit_hulls failed")
+        seconds["fit_hulls"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        check(fit_capsules.main(["--meshes", meshes, "--steps", "600",
+                                 "--links", "panda_link1,panda_hand",
+                                 "--out", os.path.join(
+                                     out_dir, "fit_capsules.json")]) == 0,
+              "fit_capsules failed")
+        seconds["fit_capsules"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        check(collision_mesh_error.main([
+            "--configs", "4096", "--meshes", meshes, "--out",
+            os.path.join(out_dir, "collision_mesh_error.json")]) == 0,
+            "collision_mesh_error failed")
+        seconds["collision_mesh_error"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "hull_fit.json")) as f:
+        hulls = json.load(f)
+    with open(os.path.join(out_dir, "fit_capsules.json")) as f:
+        caps = json.load(f)
+    with open(os.path.join(out_dir, "collision_mesh_error.json")) as f:
+        cme = json.load(f)
+    check(len(hulls) == 10 and all(r["hull_verts"] <= 96
+                                   for r in hulls.values()),
+          "fit_hulls: a link missing or over 96 vertices")
+    check(caps["device"].startswith("cuda"), "fit_capsules ran off the card")
+    err = cme["obstacle_distance_error"]
+    check(all(np.isfinite(v) for v in (err["overestimate_max_m"],
+                                       err["mean_abs_m"])),
+          "collision_mesh_error: non-finite errors")
+    for d, digest in before.items():
+        check(tree_digest(os.path.join(ROOT, d)) == digest,
+              f"the asset tools changed {d}/")
+    rec = dict(seconds=seconds,
+               hull_support_error_mm={k: r["support_error_mm"]
+                                      for k, r in hulls.items()},
+               capsules={k: dict(k=r["k"], protrude_mm=r["protrude_mm"],
+                                 bulge_mm=r["bulge_mm"],
+                                 seconds=r["seconds"])
+                         for k, r in caps["links"].items()},
+               collision_mesh_error=err,
+               collision_mesh_error_s=cme["seconds"])
+    log(f"asset tools on the visual meshes: {json.dumps(rec)} [{card}]")
+    return rec
+
+
+def phase_slice15(card: str, device, eager_traces: dict) -> dict:
+    """Phase 21: the compile probe (whose flagship artifact is the capsule
+    one), the hull tier's export, a CPU-traced artifact, all three run in
+    a fresh serving process against the eager rollouts, and the asset
+    tools. eager_traces: phase 7's traces of the flagship's eager ticks,
+    by tier."""
+    from rmp_tpu_torch.experiments import aot_export, compile_probe
+    from rmp_tpu_torch.ops import library
+
+    t_start = time.perf_counter()
+    os.makedirs(AOT_DIR, exist_ok=True)
+    capsule = os.path.join(AOT_DIR, "flagship_capsule.pt2")
+    # where phase 2 built the kernels from nothing in this process (a
+    # checkout has no _build/), the probe reports that build, which is
+    # its own _build.compile_into into a fresh directory
+    probe = compile_probe.probe(SCENE, BATCH, device, capsule)
+    log(f"compile_probe: {json.dumps(probe)} [{card}]")
+    with open(os.path.join(ROOT, "chiprun_out", "compile_probe.json"),
+              "w") as f:
+        json.dump(probe, f, indent=2)
+    want = {"capsule": set(library.OPS[:2]), "hull": set(library.OPS)}
+    check(set(probe["export"]["ops"]) == want["capsule"],
+          f"capsule artifact's ops {probe['export']['ops']}")
+    t0 = time.perf_counter()
+    hull = os.path.join(AOT_DIR, "flagship_hull.pt2")
+    artifact, manifest, flat = aot_export.export_step(
+        SCENE, BATCH, 1, device=device, geometry="hull")
+    aot_export.save(hull, artifact, manifest, flat)
+    hull_export_s = time.perf_counter() - t0
+    hull_ops = manifest["ops"]
+    check(set(hull_ops) == want["hull"], f"hull artifact's ops {hull_ops}")
+    t0 = time.perf_counter()
+    cpu_traced = os.path.join(AOT_DIR, "flagship_cpu_traced.pt2")
+    artifact, manifest, flat = aot_export.export_step(
+        SCENE, AOT_CPU_BATCH, 1, platforms=["cpu", "cuda"], device="cpu")
+    aot_export.save(cpu_traced, artifact, manifest, flat)
+    cpu_export_s = time.perf_counter() - t0
+    log(f"exports: hull {hull_export_s:.1f} s ({hull_ops}), "
+        f"CPU-traced at {AOT_CPU_BATCH} envs {cpu_export_s:.1f} s")
+    del artifact, flat
+
+    t0 = time.perf_counter()
+    runs, modules = run_artifacts([(capsule, AOT_CALLS["capsule"]),
+                                   (hull, AOT_CALLS["hull"]),
+                                   (cpu_traced, AOT_CPU_CALLS)])
+    serving_s = time.perf_counter() - t0
+    check(not any(m.startswith("rmp_tpu_torch.envs") for m in modules),
+          f"the serving process imported the scenes: {modules}")
+    out = dict(probe=probe, hull_ops=hull_ops, hull_export_s=hull_export_s,
+               cpu_export_s=cpu_export_s, serving_s=serving_s,
+               serving_modules=modules, paths={})
+    for geometry, rec in zip(("capsule", "hull"), runs):
+        calls = AOT_CALLS[geometry]
+        got = np.load(rec["path"] + ".final.npz")
+        same, eager_s = eager_aot_rollout(geometry, BATCH, calls, True)
+        equal = all(np.array_equal(got[f"arr_{i}"], x.numpy())
+                    for i, x in enumerate(same))
+        check(equal, f"{geometry} artifact: {calls} calls differ from the "
+              f"eager rollout on the same gains")
+        if geometry == "capsule":
+            # the users' eager path takes the gains as Python numbers
+            python, _ = eager_aot_rollout(geometry, BATCH, calls, False)
+            rec["python_gains_max_abs_q"] = float(
+                np.abs(got["arr_0"] - python[0].numpy()).max())
+            check(rec["python_gains_max_abs_q"] < PARITY_ATOL,
+                  f"capsule artifact: {calls} calls part from the eager "
+                  f"rollout on Python-number gains by "
+                  f"{rec['python_gains_max_abs_q']} (atol {PARITY_ATOL})")
+        want_k = PATH_KERNELS[geometry]
+        for name, count in rec["launches"].items():
+            check(count == (calls if name in want_k else 0),
+                  f"{geometry} artifact: {name} launched {count} times in "
+                  f"{calls} calls")
+        # eager's device kernels a tick: phase 7's trace of this tier (its
+        # gains are Python numbers)
+        rec.update(eager_seconds=eager_s,
+                   eager_steps_per_s=BATCH * calls / eager_s,
+                   eager_device_launches_per_tick=eager_traces[geometry][
+                       "device_launches_per_tick"],
+                   equal_to_eager=equal)
+        log(f"{geometry} artifact, {calls} closed-loop calls in a serving "
+            f"process: {json.dumps(rec)} [{card}]")
+        out["paths"][geometry] = rec
+    rec = runs[2]
+    same, _ = eager_aot_rollout("capsule", AOT_CPU_BATCH, AOT_CPU_CALLS,
+                                True)
+    got = np.load(rec["path"] + ".final.npz")
+    err = float(np.abs(got["arr_0"] - same[0].numpy()).max())
+    check(err < PARITY_ATOL, f"CPU-traced artifact on the card: q parts "
+          f"from the eager card run by {err}")
+    for name in PATH_KERNELS["capsule"]:
+        check(rec["launches"][name] == AOT_CPU_CALLS,
+              f"CPU-traced artifact: {name} launched "
+              f"{rec['launches'][name]} times")
+    rec.update(max_abs_q_vs_eager_card=err)
+    log(f"CPU-traced artifact moved to the card: {json.dumps(rec)} [{card}]")
+    out["paths"]["cpu_traced"] = rec
+    out["assets"] = phase_asset_tools(card, device)
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"phase 21: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5487,6 +5837,8 @@ def main() -> int:
     slice12 = phase_slice12(card, device)
     slice13 = phase_slice13(card, device)
     slice14 = phase_slice14(card, device, main_path["trace"])
+    slice15 = phase_slice15(card, device, {"capsule": main_path["trace"],
+                                           "hull": hull_path["trace"]})
 
     k1["per_layout"] = dict(flagship=dict(n=9, ms=k1["ms"],
                                           device_ms=k1["device_ms"]),
@@ -5531,6 +5883,10 @@ def main() -> int:
                              paths.items())
     # the eleventh slice's gradient and training paths
     path_launches.update(slice11["paths"])
+    # the fifteenth slice's exported steps, run by a serving process
+    for name, rec in slice15["paths"].items():
+        path_launches[f"aot_export {SCENE} {name}"] = {
+            counter: rec["launches"].get(counter, 0) for counter in COUNTERS}
     # the tenth slice's entries: each kernel on its new path, with that
     # path's launch count
     k3_contact = dict(name=f"fk_derivatives_batched ({PROVOKE} contact)",
@@ -5683,7 +6039,7 @@ def main() -> int:
                   slice11=slice11, phase17_s=slice11_s,
                   slice12={k: v for k, v in slice12.items() if k != "paths"},
                   slice13={k: v for k, v in slice13.items() if k != "paths"},
-                  slice14=slice14)
+                  slice14=slice14, slice15=slice15)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 import torch
 
@@ -31,6 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+# {library path: compile_into's seconds} of the builds this process made
+_built: dict[str, dict] = {}
 
 
 CUDA_ROOTS = ("/usr/local/cuda",)
@@ -72,49 +75,83 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, source_hash(), LIB_NAME)
 
 
+def compile_into(work: str) -> dict:
+    """Compile every source into objects under `work`, one nvcc process
+    each, all started together, and link them into `work`/LIB_NAME.
+    Returns {'nvcc_s': {file: wall seconds of its nvcc}, 'link_s',
+    'total_s', 'log': the compiler's messages}; raises if a compile or
+    the link fails."""
+    nvcc = find_nvcc()
+    t0 = time.perf_counter()
+    jobs = []
+    for src in sources():
+        obj = os.path.join(work, os.path.basename(src)[:-3] + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", src, "-o", obj]
+        jobs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    outputs, seconds = {}, {}
+
+    def wait(src, proc):
+        # a thread a process: each one's own finish time, and no pipe left
+        # full while another is waited on
+        outputs[src] = proc.communicate()[0]
+        seconds[os.path.basename(src)] = time.perf_counter() - t0
+    waiters = [threading.Thread(target=wait, args=(src, proc))
+               for src, _, proc in jobs]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
+    log = [f"== {os.path.basename(src)}\n{outputs[src]}"
+           for src, _, _ in jobs]
+    failed = [os.path.basename(src) for src, _, proc in jobs
+              if proc.returncode != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+    t1 = time.perf_counter()
+    link = subprocess.run(
+        [nvcc, "-shared", "-o", os.path.join(work, LIB_NAME),
+         *(obj for _, obj, _ in jobs)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
+    t2 = time.perf_counter()
+    return dict(nvcc_s=seconds, link_s=t2 - t1, total_s=t2 - t0,
+                log="\n".join(log))
+
+
 def build() -> str:
     """Compile and link the kernels unless this source hash is built;
     returns the library path. The compiler's messages (ptxas register and
-    spill counts) are kept in build.log beside the library. Objects go to
-    a per-process directory and the library and log are moved into place
+    spill counts) are kept in build.log beside the library, the build's
+    seconds in this process (`build_times`). Objects go to a per-process
+    directory and the library and log are moved into place
     whole, so processes building at once do not read each other's halves."""
     lib_path = library_path()
     if os.path.exists(lib_path):
         return lib_path
-    nvcc = find_nvcc()
     out_dir = os.path.dirname(lib_path)
     work = os.path.join(out_dir, f"tmp{os.getpid()}")
     os.makedirs(work, exist_ok=True)
     try:
-        jobs = []
-        for src in sources():
-            obj = os.path.join(work, os.path.basename(src)[:-3] + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", src, "-o", obj]
-            jobs.append((src, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
-        log, failed = [], []
-        for src, _, proc in jobs:
-            out, _ = proc.communicate()
-            log.append(f"== {os.path.basename(src)}\n{out}")
-            if proc.returncode != 0:
-                failed.append(os.path.basename(src))
-        if failed:
-            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
-        lib_tmp = os.path.join(work, LIB_NAME)
-        link = subprocess.run(
-            [nvcc, "-shared", "-o", lib_tmp, *(obj for _, obj, _ in jobs)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if link.returncode != 0:
-            raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
-        log_tmp = os.path.join(work, "build.log")
-        with open(log_tmp, "w") as f:
-            f.write("\n".join(log))
-        os.replace(log_tmp, os.path.join(out_dir, "build.log"))
-        os.replace(lib_tmp, lib_path)
+        built = compile_into(work)
+        with open(os.path.join(work, "build.log"), "w") as f:
+            f.write(built.pop("log"))
+        os.replace(os.path.join(work, "build.log"),
+                   os.path.join(out_dir, "build.log"))
+        os.replace(os.path.join(work, LIB_NAME), lib_path)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    _built[lib_path] = built
     return lib_path
+
+
+def build_times() -> dict:
+    """The seconds of this source hash's build (compile_into's nvcc_s,
+    link_s, total_s) if this process made it, else {}: a library found
+    already built has no build to report."""
+    return dict(_built.get(library_path(), {}))
 
 
 def build_log() -> str:

@@ -8,7 +8,10 @@ launches the kernel of csrc/fk_derivatives.cu or raises. Unlike the TPU
 kernel, the batch needs no particular multiple. The kernel takes models of
 up to 40 frames and 32 motors (`TILES`, its two instantiations); a larger
 model raises ValueError on a CUDA tensor before anything is allocated or
-launched (`check_capacity`).
+launched (`check_capacity`). Every call goes through K3's torch.library op
+(ops/library.py) on the model's tables (`model_tables`): its CUDA
+implementation is `launch`, the kernel's one launch site, its CPU one
+`plain_of_tables`, the plain version of the model the tables describe.
 
 Gradients: while q or q̇ requires grad, the call goes through
 `FkDerivatives`, a torch.autograd.Function on both devices. Its forward is
@@ -118,8 +121,9 @@ class FkDerivatives(torch.autograd.Function):
 
 
 def _forward(model: KinematicModel, q: torch.Tensor, qd: torch.Tensor):
-    """K3's forward on the device of q: the plain version on the CPU, the
-    kernel on CUDA (counted), raising on anything else."""
+    """K3's forward on the device of q through K3's op (ops/library.py):
+    the plain version on the CPU, the kernel on CUDA (counted), raising on
+    anything else."""
     n = model.n_q
     if q.dtype != torch.float32 or qd.dtype != torch.float32:
         raise TypeError(f"fk_derivatives_batched takes float32, got "
@@ -129,16 +133,73 @@ def _forward(model: KinematicModel, q: torch.Tensor, qd: torch.Tensor):
                          f"{tuple(q.shape)} and {tuple(qd.shape)}")
     if q.device != qd.device:
         raise ValueError(f"q on {q.device} but qd on {qd.device}")
-    if q.device.type == "cpu":
-        return fk_derivatives(model, q, qd)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no K3 kernel for device {q.device}")
+    if q.device.type == "cuda":
+        check_capacity(model)
+    from rmp_tpu_torch.ops import library
+    tab = model_tables(model, q.device)
+    return library.fk_derivatives(q, qd, *(tab[k] for k in TABLES),
+                                  model.n_frames, n)
+
+
+# the model's tables in the order K3's op takes them
+TABLES = ("parent", "joint_type", "q_index", "axis", "T_constant", "anc")
+_TABLE_MODELS: dict[tuple, KinematicModel] = {}
+
+
+def model_of_tables(parent, joint_type, q_index, axis, T_constant,
+                    n: int) -> KinematicModel:
+    """The kinematic model that K3's tables describe: what the plain
+    version reads (parent, joint types, motor indices, axes and constant
+    transforms, in float32 as the kernel reads them), every other field
+    empty. One model per distinct table content."""
+    host = [t.detach().cpu().contiguous() for t in
+            (parent, joint_type, q_index, axis, T_constant)]
+    key = (n, b"".join(t.numpy().tobytes() for t in host))
+    model = _TABLE_MODELS.get(key)
+    if model is None:
+        parent, joint_type, q_index, axis, T_constant = (
+            t.numpy() for t in host)
+        F = parent.shape[0]
+        zeros = np.zeros(n)
+        model = _TABLE_MODELS[key] = KinematicModel(
+            name="K3 tables", frame_names=tuple(f"frame{i}" for i in range(F)),
+            link_names=tuple(f"link{i}" for i in range(F)),
+            parent=tuple(int(x) for x in parent),
+            joint_type=tuple(int(x) for x in joint_type),
+            q_index=tuple(int(x) for x in q_index),
+            motor_names=tuple(f"motor{i}" for i in range(n)),
+            T_constant=T_constant.astype(np.float64).reshape(F, 4, 4),
+            axis=axis.astype(np.float64), mass=np.zeros(F),
+            com=np.zeros((F, 3)), inertia=np.zeros((F, 3, 3)),
+            q_lower=zeros, q_upper=zeros, velocity_limit=zeros,
+            effort_limit=zeros, joint_damping=zeros, joint_friction=zeros,
+            has_collision=(False,) * F, collision=((),) * F)
+    return model
+
+
+def plain_of_tables(q, qd, parent, joint_type, q_index, axis, T_constant,
+                    anc, F: int, n: int):
+    """The plain version on K3's op operands (CPU tensors), bit for bit
+    `fk_derivatives(model, q, qd)` of the model the tables came from."""
+    del anc, F             # the plain version walks each frame's chain
+    model = model_of_tables(parent, joint_type, q_index, axis, T_constant,
+                            n)
+    return tuple(x.contiguous() for x in fk_derivatives(model, q, qd))
+
+
+def launch(q, qd, parent, joint_type, q_index, axis, T_constant, anc,
+           F: int, n: int):
+    """(T16, Td16, J16, c16) from K3's CUDA kernel: one launch, counted on
+    fk_derivatives_batched.launches. Raises for a model beyond the
+    kernel's capacity, for operands it does not take and for a failed
+    launch."""
     if q.device.type != "cuda":
         raise ValueError(f"no K3 kernel for device {q.device}")
     if not (q.is_contiguous() and qd.is_contiguous()):
         raise ValueError("q and qd must be contiguous")
-    check_capacity(model)
-
-    B, F = q.shape[0], model.n_frames
-    tab = model_tables(model, q.device)
+    B = q.shape[0]
     # separate allocations: views of one buffer would reach the policies'
     # forward-mode jvp as a primal and a tangent that share a base, which
     # PyTorch then copies (4 fills and 4 copies per tick)
@@ -147,15 +208,14 @@ def _forward(model: KinematicModel, q: torch.Tensor, qd: torch.Tensor):
     c16 = torch.empty_like(T16)
     J16 = torch.empty(B, F, 16, n, dtype=torch.float32, device=q.device)
     fn = _build.c_function("rmp_fk_derivatives_f32", _ARGTYPES)
-    rc = fn(q.device.index, B, F, n, tab["parent"].data_ptr(),
-            tab["joint_type"].data_ptr(), tab["q_index"].data_ptr(),
-            tab["axis"].data_ptr(), tab["T_constant"].data_ptr(),
-            tab["anc"].data_ptr(), q.data_ptr(), qd.data_ptr(),
-            T16.data_ptr(), Td16.data_ptr(), J16.data_ptr(), c16.data_ptr(),
-            _build.raw_stream(q.device))
+    rc = fn(q.device.index, B, F, n, parent.data_ptr(),
+            joint_type.data_ptr(), q_index.data_ptr(), axis.data_ptr(),
+            T_constant.data_ptr(), anc.data_ptr(), q.data_ptr(),
+            qd.data_ptr(), T16.data_ptr(), Td16.data_ptr(), J16.data_ptr(),
+            c16.data_ptr(), _build.raw_stream(q.device))
     if rc == -1:
-        raise ValueError(f"model {model.name!r} ({F} frames, {n} motors) "
-                         f"exceeds the K3 kernel's capacity")
+        raise ValueError(f"a model of {F} frames and {n} motors exceeds the "
+                         f"K3 kernel's capacity")
     if rc != 0:
         raise RuntimeError(f"K3 fk_derivatives launch failed: CUDA error {rc}")
     fk_derivatives_batched.launches += 1

@@ -9,7 +9,9 @@ is_cyl (L, M, 1, B). Outputs pa, pb (L, M, 3, B) witnesses on the link and on
 the obstacle, and dist (L, M, B). A CPU tensor takes the plain PyTorch
 version (`gjk_hull_obstacles_plain`); a CUDA tensor launches the kernel of
 csrc/gjk_hull.cu or raises. Unlike the TPU kernel, the batch needs no
-particular multiple.
+particular multiple. Every call goes through K4's torch.library op
+(ops/library.py): its CUDA implementation is `launch`, the kernel's one
+launch site.
 
 Gradients: while any operand requires grad, the call goes through
 `GjkHullObstacles`, a torch.autograd.Function on both devices (the CPU too
@@ -198,13 +200,22 @@ class GjkHullObstacles(torch.autograd.Function):
 
 
 def _forward(verts, R, t, p0, p1, an, radius, is_cyl, d0, iters: int = 10):
-    """K4's forward: the plain version on the CPU, the kernel on CUDA
-    (counted), raising on anything else."""
+    """K4's forward through K4's op (ops/library.py): the plain version on
+    the CPU, the kernel on CUDA (counted), raising on anything else."""
+    _check(verts, R, t, p0, p1, an, radius, is_cyl, d0)
+    if verts.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no K4 kernel for device {verts.device}")
+    from rmp_tpu_torch.ops import library
+    return library.gjk_hull_obstacles(verts, R, t, p0, p1, an, radius,
+                                      is_cyl, d0, int(iters))
+
+
+def launch(verts, R, t, p0, p1, an, radius, is_cyl, d0, iters: int):
+    """(pa, pb, dist) from K4's CUDA kernel: one launch, counted on
+    gjk_hull_obstacles.launches. Raises for operands the kernel does not
+    take and for a failed launch."""
     L, M, V, B = _check(verts, R, t, p0, p1, an, radius, is_cyl, d0)
     device = verts.device
-    if device.type == "cpu":
-        return gjk_hull_obstacles_plain(verts, R, t, p0, p1, an, radius,
-                                        is_cyl, d0, iters)
     if device.type != "cuda":
         raise ValueError(f"no K4 kernel for device {device}")
     args = (verts, R, t, p0, p1, an, radius, is_cyl, d0)

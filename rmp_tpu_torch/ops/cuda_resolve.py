@@ -17,6 +17,11 @@ csrc/pullback_resolve.cu or raises (n = 1..9 on a group of 8 lanes per env,
 n = 10..32 on a warp per env; n > 32 and more than 32 blocks raise). The
 kernel reads every block where it lies, through its strides
 (`block_table`): the call copies no operand and launches nothing else.
+Every call, K2a's and K2b's and the backward's transposed solve too, goes
+through K1's torch.library op (ops/library.py), which a traced graph keeps
+whole: its CUDA implementation is `launch`, the kernel's one launch site
+(counted on the calling entry point's counter, COUNTERS), its CPU one
+`solve_plain`.
 
 Blocks are float32 or bfloat16, each block's tensors of one type; the
 kernel widens a bfloat16 element to float32 as it loads it, and every sum
@@ -133,11 +138,12 @@ MAX_BLOCKS = 32      # descriptors the kernel takes per call
 ROW_WORDS = 15       # kind, rows, 3 addresses, 3 x 3 strides, element type
 
 
-def _check_blocks(tags, blocks):
+def _check_blocks(tags, blocks, table: bool = True):
     """(B, n, device, table) of validated float32 or bfloat16 blocks,
-    `table` their descriptors for the kernel (block_table); raises on
-    anything else. One pass over the tensors: the kernel's call is
-    host-bound."""
+    `table` their descriptors for the kernel (block_table), or None
+    without `table` (what a fake tensor, which has no address, allows);
+    raises on anything else. One pass over the tensors: the kernel's call
+    is host-bound."""
     if len(tags) != len(blocks) or not tags:
         raise ValueError("tags and blocks must be non-empty and aligned")
     first = blocks[0][0]
@@ -169,12 +175,13 @@ def _check_blocks(tags, blocks):
                                 f"block")
             if x.get_device() != index or (index < 0 and x.device != device):
                 raise ValueError(f"blocks on {device} and {x.device}")
-            ptrs[t] = x.data_ptr()
-            st = x.stride()
-            strides += st if len(st) == 3 else (*st, 0)
+            if table:
+                ptrs[t] = x.data_ptr()
+                st = x.stride()
+                strides += st if len(st) == 3 else (*st, 0)
         words += (KINDS[tag], rows, *ptrs, *strides,
                   *(0,) * (9 - len(strides)), elem)
-    return B, n, device, array.array("q", words)
+    return B, n, device, array.array("q", words) if table else None
 
 
 def block_table(tags, blocks) -> array.array:
@@ -187,10 +194,10 @@ def block_table(tags, blocks) -> array.array:
     return _check_blocks(tags, blocks)[3]
 
 
-def _launch(table, count: int, ridge: float, B: int, n: int, device):
-    """q̈ (B, n) from K1's CUDA kernel on `count` validated blocks on
-    `device`, described by `table`: one launch on the blocks where they
-    lie. Raises for an n the kernel is not instantiated for."""
+def check_limits(n: int, count: int, device) -> None:
+    """Raise for a call the kernel does not take: an n it is not
+    instantiated for, more than MAX_BLOCKS blocks, a device other than
+    CUDA."""
     if n not in KERNEL_N:
         raise ValueError(f"no K1 kernel instantiated for n={n}: the kernel "
                          f"takes n from 1 to {MAX_N}")
@@ -199,30 +206,50 @@ def _launch(table, count: int, ridge: float, B: int, n: int, device):
                          f"got {count}")
     if device.type != "cuda":
         raise ValueError(f"no K1 kernel for device {device}")
+
+
+def launch(tags, blocks, ridge: float, counter: int) -> torch.Tensor:
+    """q̈ (B, n) from K1's CUDA kernel: one launch on the blocks where they
+    lie, counted on COUNTERS[counter]. Raises for what the kernel does
+    not take (check_limits) and for a failed launch."""
+    B, n, device, table = _check_blocks(tags, blocks)
+    check_limits(n, len(tags), device)
     out = torch.empty(B, n, dtype=torch.float32, device=device)
     fn = _build.c_function("rmp_pullback_resolve", _ARGTYPES)
-    rc = fn(device.index, n, B, table.buffer_info()[0], count, float(ridge),
-            out.data_ptr(), _build.raw_stream(device))
+    rc = fn(device.index, n, B, table.buffer_info()[0], len(tags),
+            float(ridge), out.data_ptr(), _build.raw_stream(device))
     if rc in (-1, -2, -3):
-        raise ValueError(f"the K1 kernel refused n={n}, {count} blocks "
+        raise ValueError(f"the K1 kernel refused n={n}, {len(tags)} blocks "
                          f"(code {rc})")
     if rc != 0:
         raise RuntimeError(f"K1 pullback_resolve launch failed: CUDA error {rc}")
+    holder, attr = COUNTERS[counter]
+    setattr(holder, attr, getattr(holder, attr) + 1)
     return out
 
 
-def _solve(entry, tags, blocks, ridge: float) -> torch.Tensor:
-    """q̈ of validated blocks: the plain version on the CPU, else K1's
-    kernel, counted on `entry`."""
-    B, n, device, table = _check_blocks(tags, blocks)
-    if device.type == "cpu":
-        return pullback_resolve_structured_plain(tags, blocks, ridge)
-    out = _launch(table, len(tags), ridge, B, n, device)
-    entry.launches += 1
-    return out
+def solve_plain(tags, blocks, ridge: float) -> torch.Tensor:
+    """The plain version on validated CPU blocks, contiguous as the
+    kernel's output is."""
+    _check_blocks(tags, blocks, table=False)
+    return pullback_resolve_structured_plain(tags, blocks,
+                                             ridge).contiguous()
 
 
-def _entry(entry, tags, blocks, ridge: float) -> torch.Tensor:
+def _solve(counter: int, tags, blocks, ridge: float) -> torch.Tensor:
+    """q̈ of the blocks through K1's op (ops/library.py): the plain
+    version on the CPU, the kernel on CUDA, counted on COUNTERS[counter];
+    raises on any other device (on meta tensors, after the limits)."""
+    from rmp_tpu_torch.ops import library
+    unknown = [t for t in tags if t not in KINDS]
+    if unknown:
+        raise ValueError(f"unknown block tag {unknown[0]!r}")
+    return library.pullback_resolve_structured(
+        [x for blk in blocks for x in blk], [KINDS[t] for t in tags],
+        float(ridge), counter)
+
+
+def _entry(counter: int, tags, blocks, ridge: float) -> torch.Tensor:
     """q̈ through `PullbackResolve` while a block requires grad, else the
     forward alone. Raises under grad for bfloat16 blocks, as JAX's K1 has no
     reverse rule."""
@@ -233,9 +260,10 @@ def _entry(entry, tags, blocks, ridge: float) -> torch.Tensor:
                                "(nor has JAX's): call it under "
                                "torch.no_grad() or with float32 blocks")
         sizes = tuple(len(blk) for blk in blocks)
-        return PullbackResolve.apply(entry, tuple(tags), sizes, float(ridge),
+        return PullbackResolve.apply(counter, tuple(tags), sizes,
+                                     float(ridge),
                                      *(x for blk in blocks for x in blk))
-    return _solve(entry, tags, blocks, ridge)
+    return _solve(counter, tags, blocks, ridge)
 
 
 def transposed_solve(A: torch.Tensor, g: torch.Tensor,
@@ -244,13 +272,8 @@ def transposed_solve(A: torch.Tensor, g: torch.Tensor,
     as one identity block, read through its transposed strides; counted on
     pullback_resolve_structured.transposed_launches), the plain version on
     a CPU tensor."""
-    tags, blocks = ("identity",), [(A.transpose(-1, -2), g)]
-    B, n, device, table = _check_blocks(tags, blocks)
-    if device.type == "cpu":
-        return pullback_resolve_structured_plain(tags, blocks, ridge)
-    out = _launch(table, 1, ridge, B, n, device)
-    pullback_resolve_structured.transposed_launches += 1
-    return out
+    return _solve(TRANSPOSED, ("identity",), [(A.transpose(-1, -2), g)],
+                  ridge)
 
 
 def block_cotangents(tags, blocks, x: torch.Tensor, fbar: torch.Tensor):
@@ -288,12 +311,12 @@ def _unflatten(flat, sizes) -> list:
 class PullbackResolve(torch.autograd.Function):
     """K1 (and K2a/K2b, on K1's kernel) with the closed-form backward of
     the module doc. The blocks arrive flattened: `sizes` gives each
-    block's tensor count, `entry` the wrapper whose counter a forward
+    block's tensor count, `counter` the entry of COUNTERS that a forward
     launch raises."""
 
     @staticmethod
-    def forward(ctx, entry, tags, sizes, ridge, *flat):
-        x = _solve(entry, tags, _unflatten(flat, sizes), ridge)
+    def forward(ctx, counter, tags, sizes, ridge, *flat):
+        x = _solve(counter, tags, _unflatten(flat, sizes), ridge)
         ctx.tags, ctx.sizes, ctx.ridge = tags, sizes, ridge
         ctx.save_for_backward(x, *flat)
         return x
@@ -317,7 +340,7 @@ def pullback_resolve_structured(tags, blocks, ridge: float = 0.0,
     (torch.bfloat16 or None) as JAX's; see the module doc."""
     if block_dtype is not None:
         tags, blocks = cast_blocks(tags, blocks, block_dtype)
-    return _entry(pullback_resolve_structured, tags, blocks, ridge)
+    return _entry(STRUCTURED, tags, blocks, ridge)
 
 
 pullback_resolve_structured.launches = 0
@@ -360,10 +383,10 @@ def pullback_resolve_t_plain(Jt, Wt, vt, ridge: float = 1e-6) -> torch.Tensor:
     return pullback_resolve_plain(*_from_batch_minor(Jt, Wt, vt), ridge)
 
 
-def _dense_entry(entry, J_blocks, W_blocks, v_blocks, ridge: float):
+def _dense_entry(counter: int, J_blocks, W_blocks, v_blocks, ridge: float):
     """q̈ of dense blocks: the plain version on the CPU, else K1's kernel,
-    counted on `entry`; through `PullbackResolve` under grad."""
-    return _entry(entry, *_dense(J_blocks, W_blocks, v_blocks), ridge)
+    counted on COUNTERS[counter]; through `PullbackResolve` under grad."""
+    return _entry(counter, *_dense(J_blocks, W_blocks, v_blocks), ridge)
 
 
 def pullback_resolve_blocks(J_blocks, W_blocks, v_blocks,
@@ -372,15 +395,14 @@ def pullback_resolve_blocks(J_blocks, W_blocks, v_blocks,
     J_b, W_b (B, R_b, n) and v_b (B, R_b) -> (B, n), at most MAX_BLOCKS
     blocks; the kernel reads each block, views included, through its
     strides."""
-    return _dense_entry(pullback_resolve_blocks, J_blocks, W_blocks, v_blocks,
-                        ridge)
+    return _dense_entry(BLOCKS, J_blocks, W_blocks, v_blocks, ridge)
 
 
 def pullback_resolve(J: torch.Tensor, W: torch.Tensor, v: torch.Tensor,
                      ridge: float = 1e-6) -> torch.Tensor:
     """K2a: q̈ = (Jᵀ W + ridge I)⁻¹ Jᵀ v for J, W (B, R, n), v (B, R) ->
     (B, n)."""
-    return _dense_entry(pullback_resolve, [J], [W], [v], ridge)
+    return _dense_entry(DENSE, [J], [W], [v], ridge)
 
 
 def pullback_resolve_t(Jt: torch.Tensor, Wt: torch.Tensor, vt: torch.Tensor,
@@ -389,9 +411,18 @@ def pullback_resolve_t(Jt: torch.Tensor, Wt: torch.Tensor, vt: torch.Tensor,
     (R, B) -> (B, n). The kernel reads the permuted (B, R, n) views
     through their strides."""
     J, W, v = _from_batch_minor(Jt, Wt, vt)
-    return _dense_entry(pullback_resolve_t, [J], [W], [v], ridge)
+    return _dense_entry(DENSE_T, [J], [W], [v], ridge)
 
 
 pullback_resolve_blocks.launches = 0
 pullback_resolve.launches = 0
 pullback_resolve_t.launches = 0
+
+# the launch counters of K1's kernel, by the entry that launched it: the
+# `counter` argument of K1's op names one (an exported artifact calls the
+# op with STRUCTURED)
+STRUCTURED, TRANSPOSED, DENSE, DENSE_T, BLOCKS = range(5)
+COUNTERS = ((pullback_resolve_structured, "launches"),
+            (pullback_resolve_structured, "transposed_launches"),
+            (pullback_resolve, "launches"), (pullback_resolve_t, "launches"),
+            (pullback_resolve_blocks, "launches"))

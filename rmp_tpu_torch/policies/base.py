@@ -23,6 +23,9 @@ class Policy:
     # key into the per-tick context dict for policies that consume sensed
     # data; None otherwise
     ctx_key: str | None = None
+    # params that must stay Python numbers (an exported artifact keeps them
+    # as constants of its graph, experiments/aot_export.py)
+    static_params: tuple[str, ...] = ()
 
     def with_params(self, **updates) -> "Policy":
         """A copy with some param entries replaced (a gain, a goal)."""

@@ -106,7 +106,8 @@ def joint_velocity_cap(max_velocity, velocity_damping_region, damping_gain,
     params = dict(max_velocity=max_velocity,
                   velocity_damping_region=velocity_damping_region,
                   damping_gain=damping_gain, metric_weight=metric_weight)
-    return Policy(name, identity(), _velocity_cap_accel_metric, params)
+    return Policy(name, identity(), _velocity_cap_accel_metric, params,
+                  static_params=tuple(params))
 
 
 def _joint_damping_accel_metric(params, x, xd, ctx):

@@ -44,12 +44,46 @@ class RowStream:
         return self.gen.device
 
 
+class Draws:
+    """A stream that hands out given tensors in place of drawing them: what
+    a traced tick draws from, so that an exported artifact takes each
+    tick's draws as inputs (experiments/aot_export.py) and the caller
+    draws them, in order, from its own generator. Without `given` it
+    records each draw's (kind, shape, dtype) in `specs` and hands out
+    zeros, for a trace that is thrown away; with `given` it hands those
+    tensors out in order, each checked against the draw it stands for."""
+
+    def __init__(self, device, given=None):
+        self.device = torch.device(device)
+        self.given = given
+        self.specs: list[tuple[str, tuple, torch.dtype]] = []
+
+    def take(self, fn, size: int, shape: tuple, dtype) -> torch.Tensor:
+        kind = "normal" if fn is torch.randn else "uniform"
+        spec = (kind, (size, *shape), dtype or torch.get_default_dtype())
+        self.specs.append(spec)
+        if self.given is None:
+            return torch.zeros(spec[1], dtype=spec[2], device=self.device)
+        if len(self.specs) > len(self.given):
+            raise ValueError(f"draw {len(self.specs)} of a tick given "
+                             f"{len(self.given)}")
+        x = self.given[len(self.specs) - 1]
+        if tuple(x.shape) != spec[1] or x.dtype != spec[2]:
+            raise ValueError(f"draw {len(self.specs)} is {spec}, given "
+                             f"{tuple(x.shape)} {x.dtype}")
+        return x
+
+
+def _raw(fn, gen, size: int, shape: tuple, dtype) -> torch.Tensor:
+    if isinstance(gen, Draws):
+        return gen.take(fn, size, shape, dtype)
+    return fn(size, *shape, generator=gen, device=gen.device, dtype=dtype)
+
+
 def _draw(fn, gen, batch: int, shape: tuple, dtype):
     if not isinstance(gen, RowStream):
-        return fn(batch, *shape, generator=gen, device=gen.device,
-                  dtype=dtype)
-    u = fn(gen.size, *shape, generator=gen.gen, device=gen.device,
-           dtype=dtype)
+        return _raw(fn, gen, batch, shape, dtype)
+    u = _raw(fn, gen.gen, gen.size, shape, dtype)
     if gen.offset == 0 and gen.size == batch:
         return u
     rows = (torch.arange(batch, device=gen.device) + gen.offset) % gen.size
@@ -57,14 +91,14 @@ def _draw(fn, gen, batch: int, shape: tuple, dtype):
 
 
 def uniform(gen, batch: int, *shape: int, dtype=None) -> torch.Tensor:
-    """(batch, *shape) unit uniforms from a torch.Generator or a
-    RowStream."""
+    """(batch, *shape) unit uniforms from a torch.Generator, a RowStream
+    or Draws."""
     return _draw(torch.rand, gen, batch, shape, dtype)
 
 
 def normal(gen, batch: int, *shape: int, dtype=None) -> torch.Tensor:
-    """(batch, *shape) standard normals from a torch.Generator or a
-    RowStream."""
+    """(batch, *shape) standard normals from a torch.Generator, a
+    RowStream or Draws."""
     return _draw(torch.randn, gen, batch, shape, dtype)
 
 

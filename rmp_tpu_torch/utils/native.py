@@ -47,6 +47,30 @@ def available() -> bool:
     return os.path.exists(library_path()) or shutil.which("g++") is not None
 
 
+def _exports(symbol: str) -> bool:
+    """Whether the library, built or loaded on demand, exports `symbol`:
+    False where it cannot be built (no g++) or loaded."""
+    try:
+        return hasattr(_load(), symbol)
+    except (OSError, RuntimeError):
+        return False
+
+
+def hulls_available() -> bool:
+    """The exact-hull renderer (rmp_render_frame_hulls) is there."""
+    return _exports("rmp_render_frame_hulls")
+
+
+def meshes_available() -> bool:
+    """The visual-mesh renderer (rmp_render_frame_meshes) is there."""
+    return _exports("rmp_render_frame_meshes")
+
+
+def cylinder_rows_available() -> bool:
+    """The renderer draws flat-capped cylinder rows (rmp_has_cylinder_rows)."""
+    return _exports("rmp_has_cylinder_rows")
+
+
 def build() -> str:
     """Build the library unless this source is built; returns its path.
     Raises where g++ is missing or fails. The library is moved into place

@@ -1,10 +1,11 @@
 """Timing and trace capture.
 
 The port's `rmp_tpu/utils/profiling.py`: `block` waits for the device,
-`time_first_and_steady` separates a callable's first call (the kernels'
-build and load, PyTorch's lazy initialisation) from its steady per-call
-time, and `trace` captures a torch.profiler trace as a Chrome trace file,
-which experiments/trace_report.py reads.
+`time_first_and_steady` (and JAX's name for it, `time_jitted`) separates a
+callable's first call (the kernels' build and load, PyTorch's lazy
+initialisation) from its steady per-call time, and `trace` captures a
+torch.profiler trace as a Chrome trace file, which
+experiments/trace_report.py reads.
 """
 from __future__ import annotations
 
@@ -64,6 +65,13 @@ def time_first_and_steady(fn, *args, iters: int = 10, warmup: int = 2):
         out = fn(*args)
     block(out)
     return first_s, (time.perf_counter() - t0) / iters
+
+
+# JAX's name: PyTorch runs eagerly, so the first call holds no XLA compile
+# but the kernels' build or load and PyTorch's lazy initialisation; JAX's
+# compile knobs (unrolled or scanned substeps, donated buffers,
+# tick_unroll) have no counterpart here
+time_jitted = time_first_and_steady
 
 
 @contextlib.contextmanager

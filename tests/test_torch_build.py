@@ -38,7 +38,7 @@ def toolkit(tmp_path, monkeypatch):
     return bin_dir
 
 
-def test_build_compiles_every_source_once_for_sm90a(toolkit):
+def test_build_compiles_every_source_once_for_sm90a(toolkit, monkeypatch):
     lib = _build.build()
     assert lib == _build.library_path()
     assert os.path.isfile(lib)
@@ -57,6 +57,14 @@ def test_build_compiles_every_source_once_for_sm90a(toolkit):
     assert len((toolkit / "calls.log").read_text().splitlines()) == len(calls)
     assert sorted(os.listdir(os.path.dirname(lib))) == sorted(
         ["build.log", _build.LIB_NAME])
+    times = _build.build_times()
+    assert sorted(times["nvcc_s"]) == sorted(
+        os.path.basename(p) for p in _build.sources())
+    assert 0 <= times["link_s"] <= times["total_s"]
+    # a process that finds the library built has no build to report
+    monkeypatch.setattr(_build, "_built", {})
+    assert _build.build() == lib
+    assert _build.build_times() == {}
 
 
 def test_failed_compile_raises_and_leaves_no_library(toolkit, monkeypatch):
@@ -96,3 +104,18 @@ def test_source_hash_follows_the_headers(tmp_path, monkeypatch):
     first = _build.source_hash()
     (src / "common.cuh").write_text("// two\n")
     assert _build.source_hash() != first
+
+
+def test_compile_probe_cold_build_times_each_source(toolkit):
+    """experiments/compile_probe's cold build: every source compiled into
+    a temporary directory (never the package's build directory), each
+    with its own seconds, then the link."""
+    from rmp_tpu_torch.experiments import compile_probe
+
+    built = compile_probe.cold_build()
+    assert sorted(built["nvcc_s"]) == sorted(
+        os.path.basename(p) for p in _build.sources())
+    assert all(0 <= s <= built["total_s"] for s in built["nvcc_s"].values())
+    assert not os.path.exists(_build.BUILD_DIR)
+    calls = (toolkit / "calls.log").read_text().splitlines()
+    assert sum("-c" in c.split() for c in calls) == len(_build.sources())
