@@ -1,9 +1,19 @@
 """Smoke run of the PyTorch/CUDA port (rmp_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases N,N,...]
 
 Phases, in order; any failure raises and the run exits non-zero without
-printing the result line:
+printing the result line. Each logs `phase N: x s` with the seconds of its
+instrumented parts (SPENT) and how many torch.profiler attempts its traces
+needed. `--phases` (development) runs the card, the build and the named
+phases with those whose records they read, and prints no result line.
+After the build, CPU_WORKERS worker processes make the CPU side of the
+GPU/CPU parities (cpu_reference_calls) while the card runs; each phase
+takes its results where it needs them (cpu_run). Rollout traces record the
+CUDA activity alone over PROFILE_TICKS ticks, and the timed rollouts of
+the scenes other than the flagship that carry no statistical check run
+PATH_TICKS ticks (both cut for time in the eighteenth slice: 10 and 150
+ticks before).
   1. card: name and power limit (nvidia-smi), torch version; needs CUDA.
   2. build: every kernel of the main path, built by nvcc from
      rmp_tpu_torch/csrc/ (seconds printed).
@@ -208,7 +218,8 @@ printing the result line:
  18. the twelfth slice, K1 and K5 at every n, K1's bf16 loads, the N-link
      arm (M18): K1 against its plain version at every n from 1 to 32 (the
      lane kernel to 9, the warp kernel above) on float32 and on bfloat16
-     blocks at B = 4096 (random layouts drawn on the card), a 20-block
+     blocks at B = 4096 (the warp kernel also at 1, 7 and 4093; random
+     layouts drawn on the card), a 20-block
      layout, n = 33 and 33 blocks raising before a launch, the flagship's
      real tick in bfloat16 (kernel on the cast blocks, block_dtype the
      same call), timed at n = 5, 12, 18, 32 and on the flagship in bf16
@@ -296,6 +307,16 @@ printing the result line:
      collision_mesh_error (4096 configurations) on OBJs written from
      assets/panda_visual.npz into a temporary directory, outputs and times
      into chiprun_out/assets15/, assets/ and reports/ untouched.
+ 22. the eighteenth slice, K1's warp kernel (n = 10..32,
+     csrc/pullback_resolve_wide.cuh) redesigned: its ptxas lines at every n
+     (no spills); the pivot cases of rmp_tpu_torch/ops/resolve_cases.py
+     (exact ties in a singular integer system, negative pivots, tiny
+     pivots clamped with their sign, NaN) at n = 10, 18 and 32 in float32
+     and bfloat16 at B = 4096, 1, 7 and 4093 against the plain version
+     (envs with a NaN q̈ the same on both sides); the planar twelve-link
+     arm's real tick at those batches; K1's backward solve (A through
+     transposed strides) at n = 18 and 32; the target layouts' device
+     times (phases 15, 18, 19) beside their bounds and half the bound.
 Then one JSON line of per-kernel numbers ({"kernels": [...]}) and, last,
 {"ok": true, "device": {...}}. The full record also goes to
 chiprun_out/chip_smoke.json.
@@ -308,6 +329,7 @@ import dataclasses
 import functools
 import inspect
 import json
+import multiprocessing
 import os
 import re
 import socket
@@ -340,6 +362,8 @@ from rmp_tpu_torch.models.fk_derivatives import fk_derivatives
 from rmp_tpu_torch.models.urdf import FIXED
 from rmp_tpu_torch.ops import (cuda_fk, cuda_gjk, cuda_resolve, cuda_tick,
                                tick_ops)
+from rmp_tpu_torch.ops.resolve_cases import (PIVOT_CASES, SINGULAR,
+                                             pivot_case)
 from rmp_tpu_torch.parallel import (audit_collectives, distributed,
                                     make_sharded_rollout, record_collectives,
                                     shard_env_batch)
@@ -356,6 +380,9 @@ SCENE = "franka/06_cluttered_environment"
 SCENE05 = "franka/05_obstacle_avoidance"
 BATCH = 4096
 TICKS = 150
+# the timed rollouts of the other scenes, which carry no statistical check
+# (150 before the eighteenth slice)
+PATH_TICKS = 50
 WARMUP_TICKS = 2
 REPS = 30
 RAGGED = (1, 7, 4093)  # batches that fill no tile evenly
@@ -389,7 +416,7 @@ K4_CERT_TOL = 1e-5         # float32 rounding slack of the bound checks
 K4_CAP_COS = 0.99          # |cos(x*, cylinder axis)| of an end-cap contact
 PARITY_ATOL = 1e-3     # GPU vs CPU q after 5 ticks
 STABLE = 1e-5          # a one-ulp move of the start moves the CPU run less
-PROFILE_TICKS = 10
+PROFILE_TICKS = 3      # 10 before the eighteenth slice
 TRACE_PAD_S = 0.02     # host wait on each side of a traced span
 # traces of a span before its device records count; why torch.profiler
 # sometimes keeps none of a span's device records is not known (PERF.md
@@ -406,6 +433,112 @@ def check(ok: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
+# seconds spent in the instrumented functions below (keys: the function's
+# name, with its device where `by` names the argument that holds it); a
+# call nested in another counts in both
+SPENT: dict[str, float] = {}
+# (what, attempts) of every span traced with retries (device_launches,
+# profile_ticks): how many `traced` attempts each needed
+TRACE_TRIES: list = []
+
+
+def spent(by: str | None = None):
+    """Decorator: add the wrapped function's wall seconds to SPENT."""
+    def wrap(fn):
+        sig = inspect.signature(fn) if by else None
+
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            key = fn.__name__
+            if by:
+                dev = sig.bind(*args, **kwargs).arguments.get(by)
+                key += f" {getattr(dev, 'type', dev)}"
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                SPENT[key] = SPENT.get(key, 0.0) + time.perf_counter() - t0
+        return inner
+    return wrap
+
+
+PHASE_S: dict[int, float] = {}    # seconds of each phase run
+
+
+def run_phase(number: int, start: float, fn, *args, **kwargs):
+    """fn(*args, **kwargs) as phase `number`: logs `phase N: x s`, with the
+    seconds of the instrumented functions it ran (SPENT) and the attempts
+    its traces needed (TRACE_TRIES); keeps the seconds in PHASE_S."""
+    t0 = time.perf_counter()
+    before, tries = dict(SPENT), len(TRACE_TRIES)
+    out = fn(*args, **kwargs)
+    seconds = time.perf_counter() - t0
+    PHASE_S[number] = seconds
+    parts = {k: round(v - before.get(k, 0.0), 1) for k, v in SPENT.items()
+             if v - before.get(k, 0.0) >= 0.05}
+    attempts: dict[int, int] = {}
+    for _, n in TRACE_TRIES[tries:]:
+        attempts[n] = attempts.get(n, 0) + 1
+    log(f"phase {number}: {seconds:.1f} s (ends at "
+        f"{time.perf_counter() - start:.1f} s); parts {json.dumps(parts)}; "
+        f"traced spans by attempts needed {json.dumps(attempts)}")
+    return out
+
+
+# The CPU side of a GPU/CPU parity (the port on the CPU, its one-ulp and
+# float64 screens) depends only on start states fixed before the card's run,
+# so CPU_WORKERS worker processes (one thread each) make it while the card
+# runs the phases before: start_cpu_runs begins them after the build,
+# cpu_run takes each result where its phase needs it.
+CPU_WORKERS = 5
+_cpu: dict = {}      # "pool": the workers; a call's key: its AsyncResult
+
+
+def _cpu_key(fn, args, kwargs) -> str:
+    return repr((fn.__name__, args, sorted(kwargs.items())))
+
+
+def _cpu_worker() -> None:
+    torch.set_num_threads(1)
+
+
+def _cpu_task(name: str, args, kwargs):
+    return globals()[name](*args, **kwargs)
+
+
+def start_cpu_runs(calls) -> None:
+    """Begin each (fn, args, kwargs) of `calls`, a run on the CPU alone, in
+    the worker processes, in order."""
+    pool = _cpu["pool"] = multiprocessing.get_context("spawn").Pool(
+        CPU_WORKERS, initializer=_cpu_worker)
+    for fn, args, kwargs in calls:
+        _cpu[_cpu_key(fn, args, kwargs)] = pool.apply_async(
+            _cpu_task, (fn.__name__, args, kwargs))
+
+
+def cpu_run(fn, *args, **kwargs):
+    """fn(*args, **kwargs), a run on the CPU alone: the workers' result
+    where start_cpu_runs began it (the worker's exception, if it raised, is
+    raised here), else made here. The seconds spent waiting go to SPENT."""
+    pending = _cpu.pop(_cpu_key(fn, args, kwargs), None)
+    if pending is None:
+        return fn(*args, **kwargs)
+    t0 = time.perf_counter()
+    out = pending.get()
+    SPENT["cpu_run wait"] = (SPENT.get("cpu_run wait", 0.0)
+                             + time.perf_counter() - t0)
+    return out
+
+
+def stop_cpu_runs() -> None:
+    """End the worker processes, whatever they still run."""
+    pool = _cpu.pop("pool", None)
+    _cpu.clear()
+    if pool is not None:
+        pool.terminate()
+        pool.join()
+
+
 def card_lines() -> list[str]:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -414,6 +547,7 @@ def card_lines() -> list[str]:
     return [ln.strip() for ln in out.stdout.splitlines() if ln.strip()]
 
 
+@spent()
 def time_ms(fn, reps: int = REPS, lead: bool = False) -> float:
     """Median device time of fn() over `reps` calls, by CUDA events. The
     stream is idle at each start, so a call's host time up to its last
@@ -435,14 +569,21 @@ def time_ms(fn, reps: int = REPS, lead: bool = False) -> float:
     return float(np.median(times))
 
 
-def traced(fn, warm=None):
+@spent()
+def traced(fn, warm=None, host_ops: bool = True):
     """Events of one torch.profiler trace of fn(). The profiler switches the
     device activities on one step ahead, in a warm-up step that runs `warm`
     (default fn) and is not kept, and the kept step waits TRACE_PAD_S on
     each side of fn. A trace started and stopped around a short span alone
     lost some and once all of its device records on the H100 (K5: 8, 9 and
-    0 of 10 kernels recorded, while the host saw 10 launch calls)."""
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    0 of 10 kernels recorded, while the host saw 10 launch calls). Without
+    host_ops the profiler records the CUDA activity only (kernels and the
+    runtime's calls, no PyTorch operators), which the device's own numbers
+    need: the operators' events are most of a trace and of the seconds
+    prof.events() takes to read it."""
+    activities = ([ProfilerActivity.CPU] if host_ops else []) + [
+        ProfilerActivity.CUDA]
+    with profile(activities=activities,
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
         (warm or fn)()
@@ -463,6 +604,7 @@ def device_kernels(events) -> list:
             and not e.name.startswith("ProfilerStep")]
 
 
+@spent()
 def device_launches(fn, kernel: str, what: str, calls: int = 10) -> float:
     """Kernel launches per call of fn, from a torch.profiler trace of
     `calls` calls: the runtime's launch calls (cudaLaunchKernel*) on the
@@ -492,6 +634,7 @@ def device_launches(fn, kernel: str, what: str, calls: int = 10) -> float:
             best = names, runtime
         if len(names) == runtime:
             break
+    TRACE_TRIES.append((what, attempt))
     names, runtime = best
     other = sorted({n[:80] for n in names if kernel not in n})
     check(not other, f"{what}: the wrapper launches {other}")
@@ -540,6 +683,11 @@ def k1_library(tags, blocks):
     """Yardstick: einsum accumulation + torch.linalg.solve."""
     A, f = cuda_resolve.assemble_structured(tags, blocks)
     return torch.linalg.solve(A, f)
+
+
+# K1's kernels: n <= K1_LANE_N on 8 lanes an env, above on a warp an env
+K1_LANE_N = 9
+K1_WIDE_SOURCE = "pullback_resolve_wide.cuh"   # instantiated in three .cu
 
 
 # the flagship's block layout: (tag, rows) of the EE attractor, the three
@@ -978,6 +1126,7 @@ def k4_lower_bound(ops, pa, pb):
             bound(n))
 
 
+@spent()
 def k4_evidence(ops, got, plain, what: str, cap_fault: bool = False) -> dict:
     """Which of two parting answers is right, pair by pair, held against
     bounds of the true distance. A float64 run of the plain version at
@@ -1330,8 +1479,11 @@ def k5_rel(got, want) -> torch.Tensor:
 def ptxas_counts(source: str, kernel: str | None = None) -> dict:
     """Registers, static shared memory, stack frame and spill bytes of
     `source` from build.log (the largest over its kernels, or over those
-    whose name holds `kernel`)."""
-    text = _build.build_log().split(f"== {source}\n", 1)[-1].split("\n== ")[0]
+    whose name holds `kernel`); a header's kernels are looked for in every
+    source's lines."""
+    text = _build.build_log()
+    if not source.endswith(".cuh"):
+        text = text.split(f"== {source}\n", 1)[-1].split("\n== ")[0]
     if kernel is not None:
         text = "\n".join(c for c in text.split("Compiling entry function")
                          if kernel in c.split("\n", 1)[0])
@@ -1477,6 +1629,7 @@ PATH_KERNELS = {
 }
 
 
+@spent()
 def phase_main_path(card: str, geometry: str, scene: str = SCENE,
                     ticks: int = TICKS, method: str | None = "solve"
                     ) -> tuple[dict, dict]:
@@ -1547,6 +1700,7 @@ def _busy_us(events) -> float:
     return busy
 
 
+@spent()
 def profile_ticks(env, states, params, tick_ms: float,
                   n_ticks: int = PROFILE_TICKS) -> dict:
     """n_ticks ticks under torch.profiler: device busy ms per tick
@@ -1563,10 +1717,12 @@ def profile_ticks(env, states, params, tick_ms: float,
 
     for attempt in range(1, TRACE_ATTEMPTS + 1):
         kernels = device_kernels(traced(lambda: ticks(n_ticks),
-                                        warm=lambda: ticks(1)))
+                                        warm=lambda: ticks(1),
+                                        host_ops=False))
         if kernels:
             break
         log(f"main path trace {attempt}: no device activity recorded")
+    TRACE_TRIES.append(("profile_ticks", attempt))
     check(bool(kernels), "main path trace: no device activity recorded")
     by_name: dict[str, list] = {}
     for e in kernels:
@@ -1611,6 +1767,7 @@ def perturbed_states(env, B: int, seed: int, dq: float, dqd: float,
         states.sim, q=q, qd=qd))
 
 
+@spent(by="dev")
 def parity_q(dev: str, dq: float, dqd: float, ulp: bool = False,
              geometry: str = "capsule", B: int = 128, scene: str = SCENE,
              method: str | None = "solve", torque: bool = False,
@@ -1636,7 +1793,7 @@ def parity_q(dev: str, dq: float, dqd: float, ulp: bool = False,
 def phase_parity() -> dict:
     # near the ready pose every env is well conditioned
     err = float((parity_q("cuda", 0.1, 0.05)
-                 - parity_q("cpu", 0.1, 0.05)).abs().max())
+                 - cpu_run(parity_q, "cpu", 0.1, 0.05)).abs().max())
     log(f"parity: 128 envs x 5 ticks from q ± 0.1, q̇ ± 0.05, "
         f"max|q_gpu - q_cpu| {err:.3e} (atol {PARITY_ATOL})")
     check(err <= PARITY_ATOL, "GPU/CPU parity")
@@ -1644,8 +1801,9 @@ def phase_parity() -> dict:
     # from q ± 0.3, q̇ ± 0.5 envs that reach the velocity cap's clip amplify
     # rounding (tests/test_torch_conditioning.py): held where the CPU run
     # itself is insensitive to a one-ulp move of its start
-    cpu = parity_q("cpu", 0.3, 0.5)
-    sens = (parity_q("cpu", 0.3, 0.5, ulp=True) - cpu).abs().amax(dim=1)
+    cpu = cpu_run(parity_q, "cpu", 0.3, 0.5)
+    sens = (cpu_run(parity_q, "cpu", 0.3, 0.5, ulp=True)
+            - cpu).abs().amax(dim=1)
     gap = (parity_q("cuda", 0.3, 0.5) - cpu).abs().amax(dim=1)
     stable = sens <= STABLE
     wide = dict(stable_envs=int(stable.sum()),
@@ -1691,8 +1849,8 @@ def phase_hull_parity() -> dict:
     out = {}
     for B in (128, 8):
         err = float((parity_q("cuda", 0.1, 0.05, geometry="hull", B=B)
-                     - parity_q("cpu", 0.1, 0.05, geometry="hull",
-                                B=B)).abs().max())
+                     - cpu_run(parity_q, "cpu", 0.1, 0.05, geometry="hull",
+                               B=B)).abs().max())
         log(f"hull parity: {B} envs x 5 ticks from q ± 0.1, q̇ ± 0.05, "
             f"max|q_gpu - q_cpu| {err:.3e} (atol {PARITY_ATOL})")
         check(err <= PARITY_ATOL, f"hull GPU/CPU parity at B={B}")
@@ -1702,7 +1860,8 @@ def phase_hull_parity() -> dict:
 
 def phase_scene05_parity() -> float:
     err = float((parity_q("cuda", 0.1, 0.05, scene=SCENE05)
-                 - parity_q("cpu", 0.1, 0.05, scene=SCENE05)).abs().max())
+                 - cpu_run(parity_q, "cpu", 0.1, 0.05,
+                           scene=SCENE05)).abs().max())
     log(f"scene 05 parity: 128 envs x 5 ticks from q ± 0.1, q̇ ± 0.05, "
         f"max|q_gpu - q_cpu| {err:.3e} (atol {PARITY_ATOL})")
     check(err <= PARITY_ATOL, "scene 05 GPU/CPU parity")
@@ -1718,6 +1877,10 @@ NEW_SCENES = ("two_joint/01_target_rmp_only", "two_joint/02_jointspace_biasing",
               "two_joint/05_obstacle_avoidance",
               "two_joint/05_obstacle_avoidance_variant",
               "franka/01_target_rmp_only") + SCENES_UR5
+# phase_new_scene_parity's default: the new scenes and franka/01 in torque
+# mode, (scene, torque mode)
+NEW_SCENE_RUNS = ([(s, False) for s in NEW_SCENES]
+                  + [("franka/01_target_rmp_only", True)])
 # K1 at n = 6 and 2: each layout (tag, rows per block) and the scene whose
 # real tick has it (the UR5's scenes resolve with 'solve'; the two-joint
 # robot's would at a caller's request)
@@ -1883,6 +2046,7 @@ def plain_kernels(float64: bool = False, grad: bool = False):
             setattr(mod, name, fn)
 
 
+@spent()
 def witness_q(scene: str, torque: bool, geometry: str = "capsule",
               warm_iters: int | None = None):
     """parity_q's CPU run of `scene` in float64 (plain_kernels), so it
@@ -1901,6 +2065,7 @@ def witness_q(scene: str, torque: bool, geometry: str = "capsule",
     return final.sim.q, aux["solved"].any(dim=1)
 
 
+@spent()
 def phase_new_scene_parity(runs=None) -> dict:
     """Every new scene (its own resolve method) and franka/01 in torque
     mode: 128 envs x 5 ticks from q ± 0.1, q̇ ± 0.05, GPU against CPU, on
@@ -1915,13 +2080,13 @@ def phase_new_scene_parity(runs=None) -> dict:
     (scene, torque mode) pairs or (scene, torque mode, geometry) triples,
     default NEW_SCENES and franka/01 in torque mode."""
     out, failed = {}, []
-    for run in runs or ([(s, False) for s in NEW_SCENES]
-                        + [("franka/01_target_rmp_only", True)]):
+    for run in runs or NEW_SCENE_RUNS:
         scene, torque, geometry = (*run, "capsule")[:3]
-        runs = [parity_q(dev, 0.1, 0.05, geometry=geometry, scene=scene,
-                         method=None, torque=torque, solved=True)
-                for dev in ("cuda", "cpu")] + [witness_q(scene, torque,
-                                                         geometry)]
+        kw = dict(geometry=geometry, scene=scene, method=None, torque=torque,
+                  solved=True)
+        runs = [parity_q("cuda", 0.1, 0.05, **kw),
+                cpu_run(parity_q, "cpu", 0.1, 0.05, **kw),
+                cpu_run(witness_q, scene, torque, geometry)]
         (gpu, _), (cpu, _), (exact, _) = runs
         quiet = ~(runs[0][1] | runs[1][1] | runs[2][1])
         rounding = (cpu.double() - exact).abs().amax(dim=1)
@@ -1951,6 +2116,7 @@ def phase_new_scene_parity(runs=None) -> dict:
     return out
 
 
+@spent()
 def golden_rollout(name: str) -> dict:
     """A committed golden of tests/test_golden.py that runs through RmpCore,
     reproduced on the GPU with that file's loop: a v1 target on the EE,
@@ -2022,7 +2188,7 @@ def phase_slice6(card: str, device) -> dict:
     and of torque mode, and the three RmpCore goldens on the card."""
     k1_new, k1_err = phase_k1_new_n(device)
     k3_new, k3_err = phase_k3_new_models(device)
-    paths = {scene: phase_main_path(card, "capsule", scene)
+    paths = {scene: phase_main_path(card, "capsule", scene, PATH_TICKS)
              for scene in SCENES_UR5}
     return dict(k1=k1_new, k1_err=k1_err, k3=k3_new, k3_err=k3_err,
                 paths=paths, parity=phase_new_scene_parity(),
@@ -2049,12 +2215,15 @@ MOVING = "franka/moving_obstacles"
 # warm GJK iterations of moving_obstacles' hull parity: the scene's own, and
 # 16, where the GJK has converged on most pairs
 HULL_PARITY_ITERS = (data.WARM_ITERS, 16)
+# moving_hull_parity's runs of parity_q
+MOVING_HULL_KW = dict(geometry="hull", scene=MOVING, method=None, solved=True)
 SIM_STEPS = 200        # tests/test_subsystems.py's wrapper loop
 # its final q, GPU against CPU (tests/test_torch_ik_sim.py's limit against
 # the JAX wrapper)
 SIM_Q_TOL = 2e-3
 
 
+@spent()
 def pinv_cost(scene: str) -> dict:
     """What the 'pinv' resolve of one real tick of `scene` costs at BATCH
     envs: core.resolve(A, f, 'pinv') (torch.linalg.pinv, a batched SVD)
@@ -2096,6 +2265,7 @@ def pinv_cost(scene: str) -> dict:
     return rec
 
 
+@spent()
 def phase_ik_start() -> dict:
     """franka/04's start pose: the scene's construction runs 200 DLS
     iterations on the card; the result against the CPU's, joint 5 clipped
@@ -2122,6 +2292,7 @@ def phase_ik_start() -> dict:
     return rec
 
 
+@spent(by="device")
 def simulation_loop(device=None):
     """tests/test_subsystems.py's wrapper loop: Simulation and RmpCore
     ('cholesky') on `device` (default the card), a v1 EE target, a new q̈
@@ -2262,6 +2433,7 @@ def k4_in_loop(calls: list, env_gaps: list, failed: list,
     return call
 
 
+@spent()
 def moving_hull_parity(warm_iters: int) -> tuple[dict, list]:
     """franka/moving_obstacles in the hull tier, 128 envs (broad phase, warm
     carry following the moving obstacles) x 5 ticks from q ± 0.1,
@@ -2283,18 +2455,20 @@ def moving_hull_parity(warm_iters: int) -> tuple[dict, list]:
         (a pair's |Δdist| above K4_AGREE or witnesses above
         K4_WITNESS_P99), the witness gap within K4_WITNESS_MAX.
     Returns the record and the failures."""
-    kw = dict(geometry="hull", scene=MOVING, method=None, solved=True)
+    kw = MOVING_HULL_KW
     calls, env_gaps, failed = [], [], []
     with gjk_as(k4_in_loop(calls, env_gaps, failed)):
         gpu, s0 = parity_q("cuda", 0.1, 0.05, warm_iters=warm_iters, **kw)
     with gjk_as(cuda_gjk.gjk_hull_obstacles_plain):
         gpu_plain, s1 = parity_q("cuda", 0.1, 0.05, warm_iters=warm_iters,
                                  **kw)
-    cpu, s2 = parity_q("cpu", 0.1, 0.05, warm_iters=warm_iters, **kw)
-    ulp, s3 = parity_q("cpu", 0.1, 0.05, ulp=True, warm_iters=warm_iters,
-                       **kw)
-    more, s4 = parity_q("cpu", 0.1, 0.05, warm_iters=warm_iters + 1, **kw)
-    exact, s5 = witness_q(MOVING, False, "hull", warm_iters)
+    cpu, s2 = cpu_run(parity_q, "cpu", 0.1, 0.05, warm_iters=warm_iters,
+                      **kw)
+    ulp, s3 = cpu_run(parity_q, "cpu", 0.1, 0.05, ulp=True,
+                      warm_iters=warm_iters, **kw)
+    more, s4 = cpu_run(parity_q, "cpu", 0.1, 0.05,
+                       warm_iters=warm_iters + 1, **kw)
+    exact, s5 = cpu_run(witness_q, MOVING, False, "hull", warm_iters)
 
     def gap(a, b):
         return (a.double() - b.double()).abs().amax(dim=1)
@@ -2378,9 +2552,10 @@ def phase_slice7(card: str, device) -> dict:
     k4_moving = phase_k4_scene()
     paths = {}
     for scene in SCENES7_SOLVE:
-        paths[scene] = phase_main_path(card, "capsule", scene, method=None)
+        paths[scene] = phase_main_path(card, "capsule", scene, PATH_TICKS,
+                                       method=None)
     paths[f"{MOVING} (hull)"] = phase_main_path(card, "hull", MOVING,
-                                                method=None)
+                                                PATH_TICKS, method=None)
     for scene in SCENES7_PINV:
         paths[scene] = phase_main_path(card, "capsule", scene,
                                        ticks=PINV_TICKS, method=None)
@@ -2521,6 +2696,7 @@ def phase_k1_randomized(device, scene: str = RANDOMIZED,
     return {key: rec}, err
 
 
+@spent()
 def randomized_path(card: str, geometry: str, failed: list,
                     scene: str = RANDOMIZED,
                     k3_per_tick: int = 1 + franka.IK_STEPS,
@@ -2620,6 +2796,7 @@ def resolve_recorded(flags: list):
         envs.base.pullback_resolve_structured = resolve
 
 
+@spent(by="device")
 def randomized_run(device, start, geometry: str, plain: bool = False,
                    float64: bool = False, k4=None, scene: str = RANDOMIZED,
                    ticks: int = PARITY_TICKS) -> dict:
@@ -2677,14 +2854,41 @@ def randomized_run(device, start, geometry: str, plain: bool = False,
     return {k: torch.stack(v) for k, v in out.items()}
 
 
+@spent()
+def randomized_cpu_runs(geometry: str, scene: str, B: int, ticks: int,
+                        spread: tuple | None, start_of: str | None):
+    """randomized_parity's CPU side: the start (B envs of one CPU reset of
+    PARITY_SEED, moved by spread = (dq, dqd) where given, or the state the
+    function named start_of returns) and the CPU run from it, from it moved
+    by one ulp, and in float64."""
+    env = envs.make(scene, device="cpu")
+    env.collision_geometry = geometry
+    if start_of is not None:
+        start = globals()[start_of]()
+    elif spread is None:
+        start = env.reset(B, PARITY_SEED)
+    else:
+        start = perturbed_states(env, B, PARITY_SEED, *spread)
+    up = torch.tensor(float("inf"))
+    moved = dataclasses.replace(start, sim=dataclasses.replace(
+        start.sim, q=torch.nextafter(start.sim.q, up),
+        qd=torch.nextafter(start.sim.qd, up)))
+    run = functools.partial(randomized_run, geometry=geometry, scene=scene,
+                            ticks=ticks)
+    return start, dict(cpu=run("cpu", start), ulp=run("cpu", moved),
+                       float64=run("cpu", start, float64=True))
+
+
 def randomized_parity(geometry: str, failed: list, scene: str = RANDOMIZED,
                       B: int = PARITY_B, ticks: int = PARITY_TICKS,
-                      spread: tuple | None = None, start=None) -> dict:
+                      spread: tuple | None = None,
+                      start_of: str | None = None) -> dict:
     """GPU/CPU parity of `scene` (RANDOMIZED, or another scene with its
     DISCRETE entry, or none): B envs of one CPU reset (a scene whose reset
     is deterministic moved by spread = (dq, dqd), perturbed_states), or
-    the CPU EnvState `start` of B envs where one is given, moved to the
-    card, `ticks` ticks on each. The scene is chaotic in
+    the CPU EnvState of B envs that the function named start_of returns,
+    moved to the card, `ticks` ticks on each (randomized_cpu_runs makes the
+    CPU side). The scene is chaotic in
     float32 (a one-ulp move of the start parts q by up to ~1.8 rad in 60
     ticks on some envs of a CPU run), and its bookkeeping has thresholds
     (the progress window's 1 cm, the push's 8 cm) that rounding can tip,
@@ -2706,24 +2910,15 @@ def randomized_parity(geometry: str, failed: list, scene: str = RANDOMIZED,
     version on the same operands (k4_in_loop, random_cylinders;
     k4_evidence on the first and every K4_EVIDENCE_EVERY-th call). A miss
     goes to `failed`."""
-    env = envs.make(scene, device="cpu")
-    env.collision_geometry = geometry
-    if start is None:
-        start = (env.reset(B, PARITY_SEED) if spread is None
-                 else perturbed_states(env, B, PARITY_SEED, *spread))
-    up = torch.tensor(float("inf"))
-    moved = dataclasses.replace(start, sim=dataclasses.replace(
-        start.sim, q=torch.nextafter(start.sim.q, up),
-        qd=torch.nextafter(start.sim.qd, up)))
+    start, cpu_runs = cpu_run(randomized_cpu_runs, geometry, scene, B, ticks,
+                              spread, start_of)
     calls, env_gaps, k4_failed = [], [], []
     k4 = (k4_in_loop(calls, env_gaps, k4_failed, K4_EVIDENCE_EVERY,
                      random_cylinders=True) if geometry == "hull" else None)
     run = functools.partial(randomized_run, geometry=geometry, scene=scene,
                             ticks=ticks)
     runs = dict(gpu=run("cuda", start, k4=k4),
-                card_plain=run("cuda", start, plain=True),
-                cpu=run("cpu", start), ulp=run("cpu", moved),
-                float64=run("cpu", start, float64=True))
+                card_plain=run("cuda", start, plain=True), **cpu_runs)
     T = ticks
     ticks = torch.arange(T)[:, None]
 
@@ -2860,7 +3055,7 @@ K1_DUAL_LAYOUTS = {
 }
 DUAL_K1_TICKS = 30           # the real ticks' blocks, this far in (60
                              # before the fifteenth slice)
-DUAL_HANDOVER_TICKS = 150
+DUAL_HANDOVER_TICKS = PATH_TICKS
 DUAL_GOLDEN_ATOL = 1e-4      # tests/test_envs.py's limit on q (solved exact)
 # the randomized dual parity, cut for time: a CPU tick of 64 envs takes
 # ~0.2 s in the capsule tier and ~0.8 s in the hull tier on an 8-core host
@@ -2904,7 +3099,7 @@ def phase_k1_dual(device) -> tuple[dict, dict, float]:
     plain q̈ is not finite left out and counted) at B = 4096, 1, 7 and
     4093; one device kernel per call; timed at B = 4096 on the real blocks
     beside its bound and the einsum + torch.linalg.solve yardstick."""
-    build = build_counts("pullback_resolve.cu", "K1 n=18",
+    build = build_counts(K1_WIDE_SOURCE, "K1 n=18",
                          "pullback_resolve_wide_kernelILi18E")
     out, err = {}, 0.0
     for key, (layout, scene) in K1_DUAL_LAYOUTS.items():
@@ -3235,6 +3430,7 @@ def provoke_run(env, params, counted: bool):
     return least.cpu(), states, seconds, launches
 
 
+@spent()
 def provoke_path(card: str, failed: list) -> tuple[dict, dict, dict]:
     """franka/02 at BATCH identical envs x PROVOKE_TICKS ticks, with contact
     (penalty forces in each of the 10 substeps) and as the contact-free
@@ -3323,12 +3519,19 @@ def provoke_path(card: str, failed: list) -> tuple[dict, dict, dict]:
     return launches, rec, k3
 
 
+@spent()
 def provoke_parity(failed: list) -> dict:
-    """franka/02's GPU/CPU parity where contact acts: the CPU's ghost (one
-    env) PIERCE_TICKS ticks in, where it pierces the cylinder, copied to
-    CONTACT_PARITY envs moved by q ± 0.02, q̇ ± 0.05 (seeded), then
+    """franka/02's GPU/CPU parity where contact acts: from provoke_start,
     randomized_parity's screens over CONTACT_PARITY ticks with contact."""
-    B, ticks = CONTACT_PARITY
+    return randomized_parity("capsule", failed, PROVOKE, *CONTACT_PARITY,
+                             start_of="provoke_start")
+
+
+def provoke_start():
+    """The CPU's ghost of franka/02 (one env) PIERCE_TICKS ticks in, where
+    it pierces the cylinder, copied to CONTACT_PARITY envs moved by
+    q ± 0.02, q̇ ± 0.05 (seeded)."""
+    B = CONTACT_PARITY[0]
     env = envs.make(PROVOKE, device="cpu")
     ghost = dataclasses.replace(env, contact=False)
     state = envs.make_batched_reset(ghost, 1)()
@@ -3346,8 +3549,7 @@ def provoke_parity(failed: list) -> dict:
     depth = float(-_least_clearance(env, start).min())
     log(f"{PROVOKE} parity start: the ghost {PIERCE_TICKS} ticks in, the "
         f"deepest of {B} moved envs {depth:.4f} m inside the cylinder")
-    return randomized_parity("capsule", failed, PROVOKE, B, ticks,
-                             start=start)
+    return start
 
 
 def impulse_step(model, state):
@@ -3362,6 +3564,7 @@ def impulse_step(model, state):
                         contact_model="impulse")
 
 
+@spent()
 def impulse_on_card(failed: list, device) -> dict:
     """The impulse contact model on the card. The collapsing arm
     (impulse_step: zero torque, ground contact) at IMPULSE_B envs from the
@@ -3474,6 +3677,7 @@ def impulse_on_card(failed: list, device) -> dict:
     return dict(collapse=rec, kkt=kkt)
 
 
+@spent()
 def neural_reach_path(card: str, scene: str, failed: list
                       ) -> tuple[dict, dict]:
     """A learned reach scene: phase_main_path's BATCH x TICKS rollout (K3
@@ -3523,7 +3727,7 @@ def phase_slice10(card: str, device) -> dict:
     t0 = time.perf_counter()
     for scene in HULL_MODEL_SCENES:
         paths[f"{scene} (hull)"] = phase_main_path(card, "hull", scene,
-                                                   method=None)
+                                                   PATH_TICKS, method=None)
     times["hull"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     for scene in NEURAL_REACH:
@@ -3859,6 +4063,7 @@ def _read_counters() -> dict:
     return out
 
 
+@spent(by="device")
 def grad_case(scene: str, geometry: str, method: str, fused: bool, B: int,
               ticks: int, device, float64: bool = False,
               plain: bool = False):
@@ -3907,10 +4112,10 @@ def phase_grad_rollouts(card: str, device) -> tuple[dict, dict]:
         card_s = time.perf_counter() - t0
         v_plain, g_plain, _ = grad_case(scene, geometry, method, fused, B,
                                         ticks, device, plain=True)
-        v_cpu, g_cpu, _ = grad_case(scene, geometry, method, fused, B, ticks,
-                                    cpu)
-        v64, g64, _ = grad_case(scene, geometry, method, fused, B, ticks,
-                                cpu, float64=True)
+        v_cpu, g_cpu, _ = cpu_run(grad_case, scene, geometry, method, fused,
+                                  B, ticks, cpu)
+        v64, g64, _ = cpu_run(grad_case, scene, geometry, method, fused, B,
+                              ticks, cpu, float64=True)
         limit = max(GRAD_RTOL * np.linalg.norm(g_cpu),
                     GRAD_SPREAD * np.linalg.norm(g_cpu - g64))
         v_limit = max(1e-5 * max(1.0, abs(v_cpu)),
@@ -3952,6 +4157,7 @@ def phase_grad_rollouts(card: str, device) -> tuple[dict, dict]:
     return recs, paths
 
 
+@spent()
 def phase_remat(device) -> dict:
     """Remat on the card: tune_gains through the batched 'solve' rollout of
     franka/06 (K1, K3) and two_joint/01 with every env solved at tick 0
@@ -4019,7 +4225,7 @@ def timed_steps(step, n: int) -> list:
 
 def step_trace(step) -> dict:
     """Device launches, busy ms and idle share of one traced step."""
-    kernels = device_kernels(traced(step))
+    kernels = device_kernels(traced(step, host_ops=False))
     busy = _busy_us(kernels) / 1e3
     span = (max(e.time_range.end for e in kernels)
             - min(e.time_range.start for e in kernels)) / 1e3
@@ -4027,6 +4233,7 @@ def step_trace(step) -> dict:
                 traced_span_ms=span)
 
 
+@spent()
 def reach_trainer(card: str, device, failed: list) -> tuple[dict, dict]:
     """train_neural_rmp on the card: its entry point at its defaults for two
     steps (--stop-after 2; the card is its default device); the time,
@@ -4105,6 +4312,7 @@ def train_neural_rmp_case() -> str:
                         "reach_descent_case.npz")
 
 
+@spent()
 def clutter_trainer(card: str, device, failed: list) -> tuple[dict, dict]:
     """train_neural_clutter on the card: its entry point at its defaults
     (batch 1024, 100 ticks, remat, hidden 32 x 32) for one step
@@ -4184,6 +4392,7 @@ def clutter_trainer(card: str, device, failed: list) -> tuple[dict, dict]:
                           defaults=d)
 
 
+@spent()
 def tune_gains_hull(card: str) -> tuple[dict, dict]:
     """tune_gains' entry point on the card in the hull tier of franka/06
     (its default batch of 16: every pair cold through K4), 3 steps of
@@ -4248,7 +4457,7 @@ def phase_slice11(card: str, device) -> dict:
 # ------------------------------------------- phase 18: the twelfth slice ---
 
 PLANAR_LINKS = (5, 12)     # the N-link arms of the generality path
-PLANAR_TICKS = 150
+PLANAR_TICKS = PATH_TICKS
 FINE_TICKS = 30            # the fine-capsule flagship (~1.9x the pairs)
 BF16_CONTRACT = 1e-2       # tests/test_pallas_resolve.py's bf16 bound on q
 # K1's layout at every n (random blocks): the flagship's shape with a
@@ -4318,16 +4527,21 @@ def phase_k1_every_n(env, device) -> tuple[dict, float]:
     times at K1_TIMED_N and on the flagship's real tick in bfloat16."""
     build = dict(lane=ptxas_counts("pullback_resolve.cu",
                                    "pullback_resolve_kernel"),
-                 wide=ptxas_counts("pullback_resolve.cu",
+                 wide=ptxas_counts(K1_WIDE_SOURCE,
                                    "pullback_resolve_wide_kernelILi18E"))
     log(f"K1 builds over every n (largest): {json.dumps(build)}")
     err, errs = 0.0, {}
     for n in cuda_resolve.KERNEL_N:
-        tags, blocks = k1_device_blocks(n, BATCH, n, K1_EVERY_N_LAYOUT,
-                                        device)
-        half = [tuple(x.to(torch.bfloat16) for x in blk) for blk in blocks]
-        errs[n] = (k1_compare(tags, blocks, f"n={n}, float32"),
-                   k1_compare(tags, half, f"n={n}, bfloat16 blocks"))
+        errs[n] = []
+        # the warp kernel (n > 9) also at the batches that fill no CTA
+        for B in (BATCH,) + (RAGGED if n > K1_LANE_N else ()):
+            tags, blocks = k1_device_blocks(n if B == BATCH else n + B, B, n,
+                                            K1_EVERY_N_LAYOUT, device)
+            half = [tuple(x.to(torch.bfloat16) for x in blk)
+                    for blk in blocks]
+            errs[n] += [k1_compare(tags, blocks, f"n={n}, float32, B={B}"),
+                        k1_compare(tags, half,
+                                   f"n={n}, bfloat16 blocks, B={B}")]
         err = max(err, *errs[n])
     tags, blocks = k1_device_blocks(20, BATCH, 9, K1_BLOCKS20, device)
     err = max(err, k1_compare(tags, blocks, "20 blocks, n=9"))
@@ -4490,6 +4704,7 @@ def _ee_goal_distance(env, states) -> torch.Tensor:
     return (ee - states.sim.goal).norm(dim=-1)
 
 
+@spent()
 def rollout_path(card: str, env, what: str, ticks: int,
                  path_kernels: tuple, failed: list) -> tuple[dict, dict]:
     """`env` at BATCH envs x `ticks` from its reset after WARMUP_TICKS,
@@ -4534,6 +4749,7 @@ def rollout_path(card: str, env, what: str, ticks: int,
                           trace=trace)
 
 
+@spent()
 def gpu_cpu_parity(make_env, what: str, B: int = 128, ticks: int = 5
                    ) -> dict:
     """q after `ticks` of the env on the card and on the CPU from the same
@@ -4640,7 +4856,7 @@ def phase_slice12(card: str, device) -> dict:
     for dtype, name in ((None, f"{SCENE} float32"),
                         ("bf16", f"{SCENE} bf16")):
         paths[name], results[name] = rollout_path(
-            card, flagship(device, dtype), name, TICKS, k13, failed)
+            card, flagship(device, dtype), name, PATH_TICKS, k13, failed)
     contract = bf16_contract(device)
     log(f"flagship steps/s: float32 "
         f"{results[f'{SCENE} float32']['control_steps_per_s']:.1f}, bf16 "
@@ -4885,7 +5101,7 @@ def phase_k1_planar(device) -> tuple[dict, float]:
         rec.update(n=n_links, device_launches_per_call=per_call,
                    layout=[[t, b[0].shape[1] if t != "identity" else 0]
                            for t, b in zip(tags, blocks)],
-                   build=ptxas_counts("pullback_resolve.cu",
+                   build=ptxas_counts(K1_WIDE_SOURCE,
                                       f"pullback_resolve_wide_kernelILi"
                                       f"{n_links}E"))
         out[f"n={n_links}"] = rec
@@ -5354,21 +5570,30 @@ def phase_tools14(card: str, device, main_trace: dict) -> dict:
     out["sweep_escape"] = esc
     seconds["sweep_escape"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    # K1 and K3 launch once a tick. The profiler may drop some of a trace's
+    # device records (PERF.md section 7), so each kernel's us a tick is its
+    # mean over the events the trace kept; at least one must be kept
     rep = trace_report.report(SCENE, BATCH, TRACE_TICKS, "capsule", device)
-    per_tick = {k: v / TRACE_TICKS for k, v in rep["totals"].items()}
+    kept = {part: sum(c for k, c in rep["counts"].items() if part in k)
+            for part in ("pullback_resolve", "fk_derivatives_kernel")}
+    log(f"trace_report: K1 / K3 device events kept {json.dumps(kept)} of "
+        f"{TRACE_TICKS} launches each")
+    check(all(0 < c <= TRACE_TICKS for c in kept.values()),
+          f"trace_report: K1 / K3 device events {json.dumps(kept)} of "
+          f"{TRACE_TICKS} launches each")
     phase7 = main_trace["port_kernels_us_per_tick"]
     compare = {}
     for what, part in (("K1", "pullback_resolve"),
                        ("K3", "fk_derivatives_kernel")):
-        got, want = _port_us(per_tick, part), _port_us(phase7, part)
-        compare[what] = dict(trace_report_us=got, phase7_us=want,
+        got = _port_us(rep["totals"], part) / kept[part]
+        want = _port_us(phase7, part)
+        compare[what] = dict(trace_report_us=got, events_kept=kept[part],
+                             phase7_us=want,
                              ratio=got / want if want else None)
-    by_src = trace_report.report(SCENE, BATCH, TRACE_TICKS, "capsule",
-                                 device, by_source=True)
     out["trace_report"] = dict(
         device_us_per_tick=rep["device_us_per_tick"], against=compare,
         top=list(rep["totals"].items())[:8],
-        top_sources=list(by_src["totals"].items())[:8])
+        top_sources=list(rep["source_totals"].items())[:8])
     log(f"trace_report ({SCENE}, {BATCH} x {TRACE_TICKS}): "
         f"{json.dumps(out['trace_report'])} [{card}]")
     for what, c in compare.items():
@@ -5775,70 +6000,283 @@ def phase_slice15(card: str, device, eager_traces: dict) -> dict:
     return out
 
 
-def main() -> int:
+# ------------------------------------------------ the eighteenth slice ----
+
+K1_PIVOT_N = (10, 18, 32)      # tests/test_torch_pivot_cases.py's n
+K1_TRANSPOSED_N = (18, 32)     # K1's backward solve on the warp kernel
+# the warp kernel's time on each layout of PERF.md's targets: (phase
+# record key, what), read from the phases that timed them
+K1_TARGETS = (("n=12", "n = 12, random layout (phase 18)"),
+              ("dual randomized", "n = 18, randomized dual real tick "
+               "(phase 15)"),
+              ("dual handover", "n = 18, handover real tick (phase 15)"),
+              ("planar 24", "n = 24, planar real tick (phase 19)"),
+              ("n=32", "n = 32, random layout (phase 18)"),
+              ("planar 32", "n = 32, planar real tick (phase 19)"))
+
+
+def k1_compare_nan(tags, blocks, what: str, per_env: bool = False) -> float:
+    """K1 against its plain version where a NaN may reach q̈ (the 'nan'
+    pivot case): the envs with a NaN in q̈ must be the same on both sides
+    and compare as equal; every entry of every other env within K1_TOL x
+    max(1, its own |q̈|), or with per_env (a singular case,
+    resolve_cases.SINGULAR) within K1_TOL x max(1, its env's largest
+    |q̈|). Returns max |kernel - plain| over the envs held."""
+    got = cuda_resolve.pullback_resolve_structured(tags, blocks)
+    want = cuda_resolve.pullback_resolve_structured_plain(tags, blocks)
+    torch.cuda.synchronize()
+    nan_got, nan_want = torch.isnan(got).any(dim=1), torch.isnan(want).any(dim=1)
+    g, w = got[~nan_want], want[~nan_want]
+    mag = w.abs().amax(dim=1, keepdim=True) if per_env else w.abs()
+    limit = K1_TOL * mag.clamp(min=1.0)
+    diff = (g - w).abs()
+    err = float(diff.max()) if w.numel() else 0.0
+    worst = float((diff / limit).max()) if w.numel() else 0.0
+    log(f"K1 {what}: max|kernel - plain| {err:.3e}, largest share of its "
+        f"limit (K1_TOL x max(1, |q̈| of the {'env' if per_env else 'entry'}))"
+        f" {worst:.3e}; NaN envs plain / kernel {int(nan_want.sum())} / "
+        f"{int(nan_got.sum())}")
+    check(bool(torch.equal(nan_got, nan_want)), f"K1 {what}: NaN envs part")
+    check(bool(torch.isfinite(g).all()), f"K1 {what}: non-finite output")
+    check(worst <= 1.0, f"K1 {what}: disagrees with plain version")
+    return err
+
+
+def phase_slice18(card: str, device, timed: dict) -> dict:
+    """Phase 22, K1's warp kernel (n = 10..32) redesigned for the H100:
+    its build lines at every n (no spills); the pivot cases of
+    rmp_tpu_torch/ops/resolve_cases.py (ties in a singular integer system,
+    negative pivots, clamped tiny pivots, NaN) at n = 10, 18, 32, float32
+    and bfloat16, B = 4096, 1, 7, 4093; the planar twelve-link arm's real
+    tick at those batches; K1's backward solve (A through transposed
+    strides) at n = 18 and 32; and the target layouts' times, which phases
+    15, 18 and 19 took (`timed`), beside their bounds and half the bound."""
+    t0 = time.perf_counter()
+    builds = {n: ptxas_counts(K1_WIDE_SOURCE,
+                              f"pullback_resolve_wide_kernelILi{n}E")
+              for n in range(K1_LANE_N + 1, cuda_resolve.MAX_N + 1)}
+    log(f"K1 warp kernel builds: {json.dumps(builds)}")
+    err = 0.0
+    for case in PIVOT_CASES:
+        for n in K1_PIVOT_N:
+            for B in (BATCH,) + RAGGED:
+                tags, blocks = pivot_case(case, B, B, n)
+                blocks = [tuple(torch.tensor(x, device=device) for x in blk)
+                          for blk in blocks]
+                half = [tuple(x.to(torch.bfloat16) for x in blk)
+                        for blk in blocks]
+                single = case in SINGULAR
+                err = max(err, k1_compare_nan(tags, blocks,
+                                              f"{case}, n={n}, B={B}",
+                                              single),
+                          k1_compare_nan(tags, half,
+                                         f"{case}, n={n}, B={B}, bfloat16",
+                                         single))
+    env = planar.planar_arm_env(12)
+    for B in (BATCH,) + RAGGED:
+        err = max(err, k1_compare(*real_tick_blocks(env, B, 12),
+                                  f"planar_12link (n=12) real tick, B={B}"))
+    for n in K1_TRANSPOSED_N:
+        for B in (BATCH,) + RAGGED:
+            tags, blocks = k1_device_blocks(200 + n + B, B, n,
+                                            K1_EVERY_N_LAYOUT, device)
+            A, _ = cuda_resolve.assemble_structured(tags, blocks)
+            g = torch.randn(B, n, generator=torch.Generator(
+                device=device).manual_seed(n + B), device=device)
+            got = cuda_resolve.transposed_solve(A, g, 0.0)
+            want = cuda_resolve.pullback_resolve_structured_plain(
+                ("identity",), [(A.transpose(-1, -2), g)])
+            torch.cuda.synchronize()
+            scale = max(1.0, float(want.abs().max()))
+            e = _err(got, want)
+            log(f"K1 transposed solve n={n}, B={B}: max|kernel - plain| "
+                f"{e:.3e} (limit {K1_TOL * scale:.3e})")
+            check(bool(torch.isfinite(got).all()) and e <= K1_TOL * scale,
+                  f"K1 transposed solve n={n}, B={B}")
+            err = max(err, e)
+    targets = {}
+    for key, what in K1_TARGETS:
+        rec = timed.get(key)
+        if rec is None:     # a run of chosen phases may lack it
+            continue
+        targets[what] = dict(
+            device_ms=rec["device_ms"], bound_ms=rec["bound_ms"],
+            half_bound_ms=2.0 * rec["bound_ms"],
+            met_half_bound=rec["device_ms"] <= 2.0 * rec["bound_ms"])
+        log(f"K1 target {what}: device {rec['device_ms']:.4f} ms, bound "
+            f"{rec['bound_ms']:.6f} ms, goal (half the bound's rate) "
+            f"{2.0 * rec['bound_ms']:.4f} ms [{card}]")
+    for n, b in builds.items():
+        check(b["registers"] is not None, f"K1 n={n}: no ptxas line")
+        check(not b["spill_store_bytes"] and not b["spill_load_bytes"],
+              f"K1 n={n}: registers spill ({b})")
+    return dict(builds={str(k): v for k, v in builds.items()}, k1_err=err,
+                targets=targets, seconds=time.perf_counter() - t0)
+
+
+# the phases whose records a later phase reads
+PHASE_NEEDS = {20: (7,), 21: (7, 8), 22: (15, 18, 19)}
+
+
+def cpu_reference_calls() -> list:
+    """(phase, fn, args, kwargs) of every CPU run the phases take through
+    cpu_run, in the order they need them: each call as its phase makes
+    it."""
+    calls = [(9, parity_q, ("cpu", 0.1, 0.05), {}),
+             (9, parity_q, ("cpu", 0.3, 0.5), {}),
+             (9, parity_q, ("cpu", 0.3, 0.5), dict(ulp=True))]
+    calls += [(10, parity_q, ("cpu", 0.1, 0.05), dict(geometry="hull", B=B))
+              for B in (128, 8)]
+    calls += [(11, parity_q, ("cpu", 0.1, 0.05), dict(scene=SCENE05))]
+
+    def scenes(phase, runs):
+        out = []
+        for run in runs:
+            scene, torque, geometry = (*run, "capsule")[:3]
+            out += [(phase, parity_q, ("cpu", 0.1, 0.05), dict(
+                geometry=geometry, scene=scene, method=None, torque=torque,
+                solved=True)), (phase, witness_q, (scene, torque, geometry),
+                                {})]
+        return out
+    calls += scenes(12, NEW_SCENE_RUNS)
+    calls += scenes(13, [(s, False) for s in SCENES7])
+    for iters in HULL_PARITY_ITERS:
+        calls += [(13, parity_q, ("cpu", 0.1, 0.05),
+                   dict(warm_iters=iters, **MOVING_HULL_KW)),
+                  (13, parity_q, ("cpu", 0.1, 0.05),
+                   dict(ulp=True, warm_iters=iters, **MOVING_HULL_KW)),
+                  (13, parity_q, ("cpu", 0.1, 0.05),
+                   dict(warm_iters=iters + 1, **MOVING_HULL_KW)),
+                  (13, witness_q, (MOVING, False, "hull", iters), {})]
+    randomized = [(14, (g, RANDOMIZED, PARITY_B, PARITY_TICKS, None, None))
+                  for g in ("capsule", "hull")]
+    randomized += [(15, (g, DUAL_RANDOMIZED, *DUAL_PARITY[g], None, None))
+                   for g in ("capsule", "hull")]
+    randomized += [(15, ("hull", DUAL_HANDOVER, *HANDOVER_HULL_PARITY,
+                         (0.1, 0.05), None))]
+    calls += [(phase, randomized_cpu_runs, args, {})
+              for phase, args in randomized]
+    calls += scenes(15, [(DUAL_HANDOVER, False),
+                         ("franka/03_self_avoidance", False, "hull")])
+    randomized = [("capsule", PROVOKE, *CONTACT_PARITY, None,
+                   "provoke_start")]
+    randomized += [("hull", scene, *HULL_MODEL_PARITY, (0.1, 0.05), None)
+                   for scene in HULL_MODEL_SCENES]
+    randomized += [("capsule", scene, B, ticks, None, None)
+                   for scene, (B, ticks) in NEURAL_PARITY.items()]
+    calls += [(16, randomized_cpu_runs, args, {}) for args in randomized]
+    cpu = torch.device("cpu")
+    for scene, geometry, method, fused, B, ticks in GRAD_SCENES:
+        args = (scene, geometry, method, fused, B, ticks, cpu)
+        calls += [(17, grad_case, args, {}),
+                  (17, grad_case, args, dict(float64=True))]
+    return calls
+
+
+def chosen_phases(argv) -> set | None:
+    """The phases named on the command line (`--phases 3,15,22`), with the
+    phases they read; None (every phase) without arguments. Phases 1 and 2
+    (the card and the build) always run."""
+    if not argv:
+        return None
+    if len(argv) != 2 or argv[0] != "--phases":
+        raise SystemExit("usage: python3 chip_smoke.py [--phases N,N,...]")
+    chosen = {int(x) for x in argv[1].split(",")}
+    for number in sorted(chosen, reverse=True):
+        chosen.update(PHASE_NEEDS.get(number, ()))
+    return chosen
+
+
+def main(argv=None) -> int:
+    chosen = chosen_phases(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    start = time.perf_counter()
     check(torch.cuda.device_count() == 1,
           f"needs one card, sees {torch.cuda.device_count()}")
     device = torch.device("cuda")
-    cards = card_lines()
-    card = cards[0]
-    log(f"card: {'; '.join(cards)}")
-    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)}")
 
-    t0 = time.perf_counter()
-    lib = _build.build()
-    build_s = time.perf_counter() - t0
-    log(f"build: {lib} in {build_s:.1f} s")
-    for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            log(f"  {line.strip()}")
+    def phase_card():
+        cards = card_lines()
+        log(f"card: {'; '.join(cards)}")
+        log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+            f"{torch.cuda.get_device_name(0)}")
+        return cards[0]
 
+    def phase_build():
+        t0 = time.perf_counter()
+        lib = _build.build()
+        seconds = time.perf_counter() - t0
+        log(f"build: {lib} in {seconds:.1f} s")
+        for line in _build.build_log().splitlines():
+            if "registers" in line or "spill" in line or line.startswith("=="):
+                log(f"  {line.strip()}")
+        return seconds
+
+    card = run_phase(1, start, phase_card)
+    build_s = run_phase(2, start, phase_build)
+    start_cpu_runs([call[1:] for call in cpu_reference_calls()
+                    if chosen is None or call[0] in chosen])
+    try:
+        return run_phases(card, build_s, chosen, start, device)
+    finally:
+        stop_cpu_runs()
+
+
+def run_phases(card: str, build_s: float, chosen: set | None, start: float,
+               device) -> int:
+    """Phases 3 on (main's, after the card and the build), the result
+    lines."""
     env = envs.make(SCENE)
-    k1 = phase_k1(env, device)
-    k2a, k2b = phase_k2(device)
-    k3 = phase_k3(device)
-    k4 = phase_k4(env, device)
-    launches, main_path = phase_main_path(card, "capsule")
-    hull_launches, hull_path = phase_main_path(card, "hull")
-    parity = phase_parity()
-    hull_parity = phase_hull_parity()
-    t0 = time.perf_counter()
-    k5 = phase_k5(device)
-    scene05_parity = phase_scene05_parity()
-    k5_s = time.perf_counter() - t0
-    log(f"phase 11 and scene 05 parity: {k5_s:.1f} s")
-    t0 = time.perf_counter()
-    slice6 = phase_slice6(card, device)
-    slice6_s = time.perf_counter() - t0
-    log(f"phase 12: {slice6_s:.1f} s")
-    t0 = time.perf_counter()
-    slice7 = phase_slice7(card, device)
-    slice7_s = time.perf_counter() - t0
-    log(f"phase 13: {slice7_s:.1f} s")
-    t0 = time.perf_counter()
-    slice8 = phase_slice8(card, device)
-    slice8_s = time.perf_counter() - t0
-    log(f"phase 14: {slice8_s:.1f} s")
-    t0 = time.perf_counter()
-    slice9 = phase_slice9(card, device)
-    slice9_s = time.perf_counter() - t0
-    log(f"phase 15: {slice9_s:.1f} s")
-    t0 = time.perf_counter()
-    slice10 = phase_slice10(card, device)
-    slice10_s = time.perf_counter() - t0
-    log(f"phase 16: {slice10_s:.1f} s")
-    t0 = time.perf_counter()
-    slice11 = phase_slice11(card, device)
-    slice11_s = time.perf_counter() - t0
-    log(f"phase 17: {slice11_s:.1f} s")
-    slice12 = phase_slice12(card, device)
-    slice13 = phase_slice13(card, device)
-    slice14 = phase_slice14(card, device, main_path["trace"])
-    slice15 = phase_slice15(card, device, {"capsule": main_path["trace"],
-                                           "hull": hull_path["trace"]})
+    out = {}
+
+    def phase(number: int, fn, *args):
+        if chosen is None or number in chosen:
+            out[number] = run_phase(number, start, fn, *args)
+        return out.get(number)
+
+    slice14 = slice15 = slice18 = None
+    k1 = phase(3, phase_k1, env, device)
+    k2a, k2b = phase(4, phase_k2, device) or (None, None)
+    k3 = phase(5, phase_k3, device)
+    k4 = phase(6, phase_k4, env, device)
+    launches, main_path = phase(7, phase_main_path, card, "capsule") or (
+        None, None)
+    hull_launches, hull_path = phase(8, phase_main_path, card, "hull") or (
+        None, None)
+    parity = phase(9, phase_parity)
+    hull_parity = phase(10, phase_hull_parity)
+    k5, scene05_parity = phase(11, lambda: (
+        phase_k5(device), phase_scene05_parity())) or (None, None)
+    slice6 = phase(12, phase_slice6, card, device)
+    slice7 = phase(13, phase_slice7, card, device)
+    slice8 = phase(14, phase_slice8, card, device)
+    slice9 = phase(15, phase_slice9, card, device)
+    slice10 = phase(16, phase_slice10, card, device)
+    slice11 = phase(17, phase_slice11, card, device)
+    slice12 = phase(18, phase_slice12, card, device)
+    slice13 = phase(19, phase_slice13, card, device)
+    if main_path is not None:
+        slice14 = phase(20, phase_slice14, card, device, main_path["trace"])
+    if hull_path is not None:
+        slice15 = phase(21, phase_slice15, card, device,
+                        {"capsule": main_path["trace"],
+                         "hull": hull_path["trace"]})
+    if slice9 is not None and slice12 is not None and slice13 is not None:
+        slice18 = phase(22, phase_slice18, card, device, {
+            "n=12": slice12["k1"]["times"]["n=12"],
+            "n=32": slice12["k1"]["times"]["n=32"],
+            "dual randomized": slice9["k1"]["dual randomized"],
+            "dual handover": slice9["k1"]["dual handover"],
+            "planar 24": slice13["k1"]["n=24"],
+            "planar 32": slice13["k1"]["n=32"]})
+    if chosen is not None:
+        log(f"phases (s): {json.dumps({str(k): round(v, 1) for k, v in PHASE_S.items()})}"
+            f"; a run of chosen phases prints no result line")
+        return 0
+    k5_s, slice6_s, slice7_s, slice8_s, slice9_s, slice10_s, slice11_s = (
+        PHASE_S[i] for i in range(11, 18))
 
     k1["per_layout"] = dict(flagship=dict(n=9, ms=k1["ms"],
                                           device_ms=k1["device_ms"]),
@@ -5856,7 +6294,7 @@ def main() -> int:
     k4["dual_randomized_operands"] = slice9["k4"]
     k4["max_abs_err"] = max(k4["max_abs_err"], slice9["k4"]["dist_max"])
     k1_dual = dict(name="pullback_resolve_structured (n=18)", route="cuda",
-                   source="rmp_tpu_torch/csrc/pullback_resolve.cu",
+                   source=f"rmp_tpu_torch/csrc/{K1_WIDE_SOURCE}",
                    replaces="rmp_tpu/ops/pallas_resolve.py:226",
                    max_abs_err=slice9["k1_err"], build=slice9["k1_build"],
                    per_layout=slice9["k1"], counter=k1["name"], dual=True,
@@ -5937,7 +6375,9 @@ def main() -> int:
     k1_times = slice12["k1"]["times"]
     k1_slice12 = [
         dict(name=f"pullback_resolve_structured ({label})", route="cuda",
-             source="rmp_tpu_torch/csrc/pullback_resolve.cu",
+             source="rmp_tpu_torch/csrc/" + (
+                 K1_WIDE_SOURCE if "warp kernel" in label
+                 else "pullback_resolve.cu"),
              replaces="rmp_tpu/ops/pallas_resolve.py:226",
              counter=k1["name"], path=path, max_abs_err=slice12["k1_err"],
              **{k: k1_times[key][k] for k in
@@ -5972,7 +6412,7 @@ def main() -> int:
                        for n in WIDE_LINKS)]
     k1_wide = [
         dict(name=f"pullback_resolve_structured (n={n}, planar real tick)",
-             route="cuda", source="rmp_tpu_torch/csrc/pullback_resolve.cu",
+             route="cuda", source=f"rmp_tpu_torch/csrc/{K1_WIDE_SOURCE}",
              replaces="rmp_tpu/ops/pallas_resolve.py:226",
              counter=k1["name"], path=f"planar_{n}link",
              max_abs_err=slice13["k1_err"],
@@ -6039,10 +6479,15 @@ def main() -> int:
                   slice11=slice11, phase17_s=slice11_s,
                   slice12={k: v for k, v in slice12.items() if k != "paths"},
                   slice13={k: v for k, v in slice13.items() if k != "paths"},
-                  slice14=slice14, slice15=slice15)
+                  slice14=slice14, slice15=slice15,
+                  slice18=slice18,
+                  phase_s={str(k): v for k, v in PHASE_S.items()},
+                  spent_s=SPENT, trace_tries=TRACE_TRIES)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
+    log(f"phases (s): {json.dumps({str(k): round(v, 1) for k, v in PHASE_S.items()})}; "
+        f"whole run {time.perf_counter() - start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,10 @@
 """Where the time of the port's K1, K3, K4 and K5 calls goes, on one NVIDIA
 GPU.
 
-    python3 kernel_probe.py [part ...]
+    python3 kernel_probe.py [part ...] [--against DIR]
 
-Parts (all when none is named): sass, k3, k3tile, k4, k5, host,
-traces.
+Parts (all when none is named): sass, k3, k3tile, k4, k5, k1, k1parts,
+k1ab, host, traces.
 
 1. Phase splits by edited copies of csrc/: each variant is rebuilt from a
    copy of csrc/ with an edit and runs in its own process (the library loads
@@ -27,6 +27,23 @@ traces.
      items (before the butterfly), or the whole kernel.
    - A diagnostic variant of K4 loads no table row in its first scan (its
      results are wrong; it times the scan's arithmetic alone).
+   - K1's warp kernel (n = 10..32, part k1) at B = 4096 at n = 12 and 32
+     (random layout), n = 18 (the randomized dual scene's and the
+     handover's real ticks, made through the plain versions) and n = 24,
+     32 (the planar arms' real ticks):
+     return after the rows are staged and accumulated, after [A | f] is
+     formed, after the elimination, or the whole kernel; with the ptxas
+     counts of those four instantiations. The library of these variants
+     holds K1's sources alone, and their inputs are made through the
+     plain versions. Part k1parts: diagnostic variants (wrong results)
+     that leave out the staging, the rows' sums into the tiles or the
+     identity blocks' sums, and the kernel with larger tiles at n <= 20.
+     Part k1ab: the kernel against the one in another checkout's csrc/
+     (`--against DIR`, e.g. the parent commit unpacked by git archive)
+     and against variants that prefetch the blocks ahead into L2, each
+     timed in K1_ROUNDS processes, the order turned every round, with
+     each layout's largest |q̈ - plain| / max(1, |plain|). A variant that
+     fails to build or run is reported and the probe exits 1.
 2. Instructions per kernel and their opcodes, from cuobjdump -sass of the
    built library (the listing goes to chiprun_out/kernel_probe_sass.txt).
 3. Host cost of the K1 and K3 wrappers' parts (validation and descriptor
@@ -101,6 +118,116 @@ K3_TILES = {
     },
 }
 K4_ITERS = (0, 1, 2, 4)
+# K1's warp kernel (n = 10..32): return after the rows are staged and
+# accumulated, after [A + ridge I | f] is formed (the identity seed added),
+# after the elimination
+K1_STOP = "  if (B > 0) return;\n"
+K1_SOURCE = "pullback_resolve_wide.cuh"
+K1_SPLITS = {
+    K1_SOURCE: {
+        "full": [],
+        "accumulated": [("  // ---- rows of [A + ridge I | f]",
+                         K1_STOP + "  // ---- rows of [A + ridge I | f]")],
+        "rows_formed": [("  // ---- elimination ----",
+                         K1_STOP + "  // ---- elimination ----")],
+        "eliminated": [("  // ---- back substitution, by columns ----",
+                        K1_STOP + "  // ---- back substitution, by columns "
+                        "----")],
+    },
+}
+K1_PROBE_N = (12, 18, 24, 32)
+# diagnostic variants of the warp kernel (part k1parts; wrong results):
+# the staging, the rows' sums into the tiles, the identity blocks' sums
+# each left out
+K1_PARTS = {
+    K1_SOURCE: {
+        "full": [],
+        "no_staging": [("  if (blk.elem == kBFloat16)\n    stage_chunk<N, P, "
+                        "bf16_t>", "  if (b >= 0) return;\n  if (blk.elem "
+                        "== kBFloat16)\n    stage_chunk<N, P, bf16_t>")],
+        "no_row_sums": [
+            ("      constexpr int kC = chunk_rows(N, kScalar);\n      if "
+             "(active) {", "      constexpr int kC = chunk_rows(N, "
+             "kScalar);\n      if (b < 0) {"),
+            ("      constexpr int kD = chunk_rows(N, kDense);\n      if "
+             "(active) {", "      constexpr int kD = chunk_rows(N, "
+             "kDense);\n      if (b < 0) {")],
+        "no_identity_sums": [("      if (active && group == 0) {",
+                              "      if (b < 0) {")],
+        # up to 36 tile entries a lane at n <= 20 (24 in the kernel)
+        "acc_36_to_n20": [("  return n <= 20 ? 24 : n <= 28",
+                           "  return n <= 20 ? 36 : n <= 28")],
+    },
+}
+
+
+# part k1ab: the warp kernel against another checkout's (`--against DIR`)
+# and against variants that prefetch blocks ahead into L2, K1_AHEAD blocks
+# before the ring stages them (each contiguous run of a block's tensors a
+# lane, a line at a time), all timed in K1_ROUNDS rounds of a process each,
+# the order turned every round
+K1_ROUNDS = 3
+K1_PREFETCH = r"""// L2 prefetches of rows 0..nr-1, columns 0..nc-1 of env b
+// of a block tensor (es bytes an element; nc = 1: a vector along s[1]):
+// each contiguous run a lane, a line at a time
+__device__ __forceinline__ void prefetch_rows(const void* p,
+                                              const long long* s, int es,
+                                              long long b, int nr, int nc,
+                                              int lane) {
+  const long long srow = s[1] < 0 ? -s[1] : s[1];
+  const long long scol = s[2] < 0 ? -s[2] : s[2];
+  const bool along = nc == 1 || srow <= scol;
+  const int runs = along ? nc : nr, len = along ? nr : nc;
+  const long long step = along ? s[2] : s[1];
+  const long long inner = along ? s[1] : s[2];
+  const long long ib = (inner < 0 ? -inner : inner) * es;
+  if (ib > 128 || len < 1) return;
+  const long long span = (len - 1) * ib;
+  const char* base = static_cast<const char*>(p) + b * s[0] * es +
+                     (inner < 0 ? (len - 1) * inner * es : 0);
+  for (int r = lane; r < runs; r += 32) {
+    const char* lo = base + (runs > 1 ? r * step * es : 0);
+    for (long long o = 0; o < span + 128; o += 128) {
+      const char* a = lo + (o < span ? o : span);
+      asm volatile("prefetch.L2 [%0];\n" ::"l"(a));
+    }
+  }
+}
+template <int N>
+__device__ __forceinline__ void prefetch_block(const Block& blk, long long b,
+                                               int lane) {
+  const int es = blk.elem == kBFloat16 ? 2 : 4;
+  const int R = block_rows(blk, N);
+  prefetch_rows(blk.ptr[0], blk.stride[0], es, b, R, N, lane);
+  prefetch_rows(blk.ptr[1], blk.stride[1], es, b, R,
+                blk.kind == kDense ? N : 1, lane);
+  if (blk.kind != kIdentity)
+    prefetch_rows(blk.ptr[2], blk.stride[2], es, b, R, 1, lane);
+}
+
+"""
+K1_KERNEL = ("template <int N>\n"
+             "__global__ void __launch_bounds__(32 * kEnvs, 8)")
+K1_NEXT = "  int ik = 0, ir0 = 0;  // the next chunk to stage\n"
+K1_STAGE = ("      const Block& blk = table.block[ik];\n"
+            "      stage_any<N, P>(ring + ((slot")
+
+
+def k1_prefetch(ahead: int) -> list:
+    """Edits of the warp kernel that prefetch `ahead` blocks ahead."""
+    return [(K1_KERNEL, K1_PREFETCH + K1_KERNEL),
+            (K1_NEXT, K1_NEXT + f"  for (int d = 1; d <= {ahead} && d < "
+             "table.count; ++d)\n    prefetch_block<N>(table.block[d], b, "
+             "lane);\n"),
+            (K1_STAGE, K1_STAGE.replace(
+                "      stage_any", f"      if (ir0 == 0 && ik + {ahead} < "
+                "table.count)\n        prefetch_block<N>(table.block[ik + "
+                f"{ahead}], b, lane);\n      stage_any"))]
+
+
+K1_AB = {K1_SOURCE: {"full": [], "prefetch_1": k1_prefetch(1),
+                     "prefetch_2": k1_prefetch(2)}}
+
 
 CHILD = r"""
 import json, sys
@@ -127,6 +254,48 @@ elif src == "gjk_hull.cu":
     ops, _ = cs.k4_main_path_operands()
     calls = {{f"iters{{i}}": (lambda i=i: cuda_gjk.gjk_hull_obstacles(
         **ops, iters=i)) for i in {iters!r}}}
+elif src.startswith("pullback_resolve"):
+    from rmp_tpu_torch.envs import planar
+    from rmp_tpu_torch.ops import cuda_resolve
+    dev = torch.device("cuda")
+    # the inputs come through the plain versions (the dual scene's from a
+    # rollout), so that no variant's results reach them and the library
+    # needs K1 alone; the first variant's process saves them (views and
+    # strides kept) for the others
+    import os
+    if os.path.exists({inputs!r}):
+        inputs, want = torch.load({inputs!r}, map_location=dev)
+    else:
+        with cs.plain_kernels():
+            inputs = {{
+                "n=12 random": cs.k1_device_blocks(12, cs.BATCH, 12,
+                                                   cs.K1_EVERY_N_LAYOUT, dev),
+                "n=18 randomized dual": cs.dual_tick_blocks(
+                    cs.DUAL_RANDOMIZED)[cs.BATCH],
+                "n=18 handover": cs.dual_tick_blocks(
+                    cs.DUAL_HANDOVER)[cs.BATCH],
+                "n=24 planar real tick": cs.real_tick_blocks(
+                    planar.planar_arm_env(24), cs.BATCH, 24),
+                "n=32 random": cs.k1_device_blocks(32, cs.BATCH, 32,
+                                                   cs.K1_EVERY_N_LAYOUT, dev),
+                "n=32 planar real tick": cs.real_tick_blocks(
+                    planar.planar_arm_env(32), cs.BATCH, 32)}}
+        want = {{k: cuda_resolve.pullback_resolve_structured_plain(t, b)
+                 for k, (t, b) in inputs.items()}}
+        torch.save((inputs, want), {inputs!r})
+    calls = {{k: (lambda t=t, b=b: cuda_resolve.pullback_resolve_structured(
+        t, b)) for k, (t, b) in inputs.items()}}
+    # |q̈ - plain| / max(1, |plain|) where the plain version is finite (the
+    # split's variants return early: theirs is no result), and the envs
+    # whose finiteness differs
+    err = {{}}
+    for k, fn in calls.items():
+        got, ref = fn(), want[k]
+        fin = torch.isfinite(ref).all(1)
+        err[k] = [float(((got[fin] - ref[fin]).abs()
+                         / ref[fin].abs().clamp(min=1.0)).max())
+                  if fin.any() else 0.0,
+                  int((torch.isfinite(got).all(1) != fin).sum())]
 else:
     env = envs.make(cs.SCENE)
     fn = cuda_tick.make_fused_qdd(env)
@@ -134,7 +303,11 @@ else:
     calls = dict(call=lambda: fn(*near))
 extra = (dict(build_wide=cs.ptxas_counts(
     src, "fk_derivatives_kernelILi40ELi32E")) if src == "fk_derivatives.cu"
-    else {{}})
+    else {{f"build_n{{n}}": cs.ptxas_counts(
+        src, f"pullback_resolve_wide_kernelILi{{n}}E") for n in {k1_n!r}}}
+    if src.startswith("pullback_resolve") else {{}})
+if src.startswith("pullback_resolve"):
+    extra["err"] = err
 print("RESULT", json.dumps(dict(
     build=cs.ptxas_counts(src), **extra,
     device_ms={{k: [cs.time_ms(c, lead=True) for _ in range(3)]
@@ -142,14 +315,42 @@ print("RESULT", json.dumps(dict(
 """
 
 
-def split(source: str, variants: dict = VARIANTS) -> dict:
-    """Every variant of `source` built and timed in its own process."""
-    out = {}
-    for name, edits in variants[source].items():
-        work = tempfile.mkdtemp()
-        try:
+BUILD_CHILD = r"""
+import sys
+sys.path.insert(0, {root!r})
+from rmp_tpu_torch import _build
+_build.CSRC_DIR, _build.BUILD_DIR = {csrc!r}, {build!r}
+_build.build()
+"""
+
+
+def split(source: str, variants: dict = VARIANTS, only: str | None = None,
+          rounds: int = 1, against: str | None = None) -> dict:
+    """Every variant of `source` built (all at once, a process each) and
+    then timed in its own process, one after the other; with `rounds` > 1
+    that many times, the order turned every round, and a variant's results
+    are a list, one a round. `only`: the sources whose names start so are
+    the library's (the headers always). `against`: a checkout whose csrc/,
+    unedited, is one more variant ("against"). A variant that fails to
+    build or to run is reported (`error`) and left out of later rounds."""
+    out, works = {}, {}
+    cache = tempfile.mkdtemp()
+    inputs = os.path.join(cache, "inputs.pt")   # K1's, made once
+    todo = dict(variants[source])
+    if against is not None:
+        todo["against"] = None
+    try:
+        for name, edits in todo.items():
+            src_dir = os.path.join(ROOT if edits is not None else against,
+                                   "rmp_tpu_torch", "csrc")
+            keep = (None if only is None else shutil.ignore_patterns(*(
+                f for f in os.listdir(src_dir)
+                if f.endswith(".cu") and not f.startswith(only))))
+            work = works[name] = tempfile.mkdtemp()
             csrc = os.path.join(work, "csrc")
-            shutil.copytree(os.path.join(ROOT, "rmp_tpu_torch", "csrc"), csrc)
+            shutil.copytree(src_dir, csrc, ignore=keep)
+            if not edits:
+                continue
             path = os.path.join(csrc, source)
             with open(path) as f:
                 text = f.read()
@@ -160,20 +361,48 @@ def split(source: str, variants: dict = VARIANTS) -> dict:
                 text = text.replace(old, new)
             with open(path, "w") as f:
                 f.write(text)
-            code = CHILD.format(root=ROOT, csrc=csrc,
-                                build=os.path.join(work, "build"), src=source,
-                                iters=K4_ITERS)
-            run = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                                 capture_output=True, text=True, timeout=600)
-        finally:
+        builds = {name: subprocess.Popen(
+            [sys.executable, "-c", BUILD_CHILD.format(
+                root=ROOT, csrc=os.path.join(work, "csrc"),
+                build=os.path.join(work, "build"))], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for name, work in works.items()}
+        for name, proc in builds.items():
+            _, err = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                out[name] = dict(error=f"build failed:\n{err[-4000:]}")
+                print(f"{source} {name}: {out[name]['error']}", flush=True)
+        names = [n for n in works if n not in out]
+        runs: dict[str, list] = {n: [] for n in names}
+        for r in range(rounds):
+            for name in (names if r % 2 == 0 else names[::-1]):
+                if name in out:
+                    continue
+                work = works[name]
+                code = CHILD.format(root=ROOT, csrc=os.path.join(work, "csrc"),
+                                    build=os.path.join(work, "build"),
+                                    src=source, iters=K4_ITERS,
+                                    k1_n=K1_PROBE_N, inputs=inputs)
+                run = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                                     capture_output=True, text=True,
+                                     timeout=600)
+                lines = [ln for ln in run.stdout.splitlines()
+                         if ln.startswith("RESULT ")]
+                if run.returncode != 0 or not lines:
+                    out[name] = dict(error=f"run failed:\n"
+                                     f"{run.stderr[-4000:]}")
+                    print(f"{source} {name}: {out[name]['error']}",
+                          flush=True)
+                    continue
+                runs[name].append(json.loads(lines[0][len("RESULT "):]))
+                print(f"{source} {name} (round {r + 1}): "
+                      f"{json.dumps(runs[name][-1])}", flush=True)
+        for name in names:
+            if name not in out:
+                out[name] = runs[name][0] if rounds == 1 else runs[name]
+    finally:
+        for work in list(works.values()) + [cache]:
             shutil.rmtree(work, ignore_errors=True)
-        lines = [ln for ln in run.stdout.splitlines()
-                 if ln.startswith("RESULT ")]
-        if run.returncode != 0 or not lines:
-            raise RuntimeError(f"{source} variant {name} failed:\n"
-                               f"{run.stderr}")
-        out[name] = json.loads(lines[0][len("RESULT "):])
-        print(f"{source} {name}: {json.dumps(out[name])}", flush=True)
     return out
 
 
@@ -316,13 +545,25 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
 
+    args = sys.argv[1:]
+    against = None
+    if "--against" in args:
+        i = args.index("--against")
+        against = os.path.abspath(args[i + 1])
+        del args[i:i + 2]
     parts = dict(sass=sass_counts,
                  k3=lambda: split("fk_derivatives.cu"),
                  k3tile=lambda: split("fk_derivatives.cu", K3_TILES),
                  k4=lambda: split("gjk_hull.cu"),
+                 k1=lambda: split(K1_SOURCE, K1_SPLITS,
+                                  only="pullback_resolve"),
+                 k1parts=lambda: split(K1_SOURCE, K1_PARTS,
+                                       only="pullback_resolve"),
+                 k1ab=lambda: split(K1_SOURCE, K1_AB, only="pullback_resolve",
+                                    rounds=K1_ROUNDS, against=against),
                  k5=lambda: split("fused_tick.cu"), host=host_costs,
                  traces=trace_loss)
-    chosen = sys.argv[1:] or list(parts)
+    chosen = args or list(parts)
     unknown = sorted(set(chosen) - set(parts))
     if unknown:
         print(f"kernel_probe: unknown parts {unknown}; parts: {list(parts)}",
@@ -336,7 +577,12 @@ def main() -> int:
     with open(os.path.join(ROOT, "chiprun_out", "kernel_probe.json"),
               "w") as f:
         json.dump(record, f, indent=1)
-    return 0
+    failed = [f"{part} {name}" for part, res in record.items()
+              if isinstance(res, dict) for name, v in res.items()
+              if isinstance(v, dict) and "error" in v]
+    if failed:
+        print(f"kernel_probe: failed variants {failed}", file=sys.stderr)
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

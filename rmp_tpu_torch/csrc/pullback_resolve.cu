@@ -22,9 +22,11 @@
 //
 // Reach: every n from 1 to kMaxN = 32, as the TPU kernel unrolls over any
 // n. The kernel below is instantiated for n = 1..9 (the two-joint robot, the
-// UR5, the Panda, the planar N-link arms), a second kernel of its own for
-// n = 10..32 (a warp per env: the dual-arm Panda at 18, the N-link arms);
-// picked at run time, n > 32 and more than kMaxBlocks blocks are refused.
+// UR5, the Panda, the planar N-link arms); n = 10..32 (the dual-arm Panda at
+// 18, the N-link arms) run on the warp-per-env kernel of
+// pullback_resolve_wide.cu; picked at run time, n > 32 and more than
+// kMaxBlocks blocks are refused. The descriptor table, the element loads and
+// the clamp are pullback_resolve.cuh's.
 //
 // Block element types: each block's tensors are float32 or bfloat16 (the
 // TPU kernel's block_dtype). A bfloat16 element is widened to float32 as it
@@ -64,70 +66,18 @@
 //   byte lines, which L1 keeps.
 #include <cuda_runtime.h>
 
+#include "pullback_resolve.cuh"
+
 namespace {
+
+using namespace rmp_k1;
 
 constexpr int kGroup = 8;       // lanes per environment
 constexpr int kThreads = 128;   // 16 environments per CTA
-constexpr int kMaxLaneN = 9;    // n of the lane-group kernel; above, a warp
-constexpr int kMaxN = 32;       // n of the warp kernel: one row per lane
-// descriptors per call; the by-value table (3,592 bytes) stays inside the
-// 4 KB of kernel parameters every CUDA version takes
-constexpr int kMaxBlocks = 32;
-constexpr int kIdentity = 0, kScalar = 1, kDense = 2;
-constexpr int kFloat32 = 0, kBFloat16 = 1;  // element types
-
-// One policy block: identity (M (B, n, n), v (B, n)), scalar (J (B, R, n),
-// m (B, R), v (B, R)) or dense (J (B, R, n), W (B, R, n), v (B, R)), all
-// of element type `elem`.
-struct Block {
-  int kind;
-  int rows;
-  int elem;
-  const void* ptr[3];
-  long long stride[3][3];  // (batch, row, column) of each tensor, elements
-};
-
-struct Table {
-  int count;
-  Block block[kMaxBlocks];
-};
 
 // The wrapper's descriptor row: kind, rows, 3 pointers, 9 strides, the
 // element type.
 constexpr int kRowWords = 15;
-
-__device__ __forceinline__ float safe_denom(float d) {
-  const float eps = 1e-12f;
-  return d >= 0.0f ? fmaxf(d, eps) : fminf(d, -eps);
-}
-
-// A bfloat16 element: the high 16 bits of the float32 of the same value.
-struct bf16_t {
-  unsigned short bits;
-};
-
-__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load(const bf16_t* p) {
-  const unsigned short h = __ldg(reinterpret_cast<const unsigned short*>(p));
-  return __uint_as_float(static_cast<unsigned int>(h) << 16);
-}
-
-// Element (b, r, c) of a block tensor of element type T, as float32. The
-// row loops are instantiated per element type, so their loads branch on
-// nothing.
-template <class T>
-__device__ __forceinline__ float at(const void* p, const long long* s,
-                                    long long b, long long r, long long c) {
-  return load(static_cast<const T*>(p) + b * s[0] + r * s[1] + c * s[2]);
-}
-// The same for the block's element type read at run time (the lane
-// kernel's identity seed).
-__device__ __forceinline__ float at(const void* p, int elem,
-                                    const long long* s, long long b,
-                                    long long r, long long c) {
-  return elem == kBFloat16 ? at<bf16_t>(p, s, b, r, c)
-                           : at<float>(p, s, b, r, c);
-}
 
 // The rows of one scalar or dense block into a lane's partial sums: lane
 // r % kGroup takes row r.
@@ -309,309 +259,26 @@ __global__ void __launch_bounds__(kThreads) pullback_resolve_kernel(
   }
 }
 
-// ---- n = 10..32: one warp per environment ---------------------------------
-//
-// The n <= 9 design above keeps all of A and f on every lane of a group; at
-// n = 18 that is 342 accumulators per lane, which spill. Here a warp takes
-// an env.
-// - Rows: each block's rows are staged kTileRows at a time into the warp's
-//   shared tile, read where they lie through the block's strides, with the
-//   lanes running along whichever of the row and column axes is contiguous
-//   in memory (the motor-major scalar J of the obstacle policies: rows; a
-//   (B, R, n) dense block: columns), so the warp's loads coalesce. Lane
-//   t < GA GB owns a TA x TB tile of A (rows TA (t / GB).., columns
-//   TB (t % GB)..) in registers and adds J[i][r] W[i][c] (dense) or
-//   (J[i][r] m[i]) J[i][c] (scalar) for each staged row i, reading its
-//   TA + TB factors from the tile; the column-0 lanes also add J[i][r] v[i]
-//   to f. The tile shape is the one with the fewest products per lane:
-//   TB = 2 TA (the column factors come as float2s), TA the least with
-//   ceil(n / TA) ceil(n / TB) <= 32 tiles (3 x 6 on 18 lanes at n = 18,
-//   4 x 8 on 32 at n = 32). Tile entries past n compute on the staged
-//   tile's unused columns and are never stored. The tiles go through shared
-//   memory into rows, lane r holding row r of [A | f]. Then the identity
-//   blocks are summed in tag order into a seed, row r on lane r, read only
-//   now so that its n + 1 sums hold no registers through the rows, and
-//   A = seed + rows, as at n <= 9. Lanes past the tiles and past n idle.
-//   The kernel is latency-bound, far from its byte bound: on the randomized
-//   dual layout (n = 18; H100 80GB HBM3, 700 W) a first design, lane r
-//   owning row r of A through the rows and reading a row's 18 factors as
-//   broadcast float4s, took 0.160 ms at 80 registers; the tiles at 64
-//   registers (8 CTAs an SM, no spill) 0.127 ms, at 80 (6 CTAs) 0.132.
-// - Elimination: the reference's pivot rule is a sequential scan. At
-//   column k the running pivot starts as row k; each row i > k whose
-//   |a_ik| is STRICTLY greater than every magnitude before it (rows k..i-1)
-//   takes the pivot's place, and the displaced candidate moves into row
-//   i. So the rows that take form a chain k -> i1 -> ... -> im: row k goes
-//   to i1, i1 to i2, ..., im becomes the pivot. A warp prefix maximum of
-//   the magnitudes (NaN-propagating, as the reference's running maximum)
-//   finds the rows that take, a ballot their chain, and one shuffle per
-//   column moves every row at once. Then the pivot row is broadcast by
-//   shuffles and lanes i > k eliminate, with safe_denom on the pivot. Lanes
-//   at n and past it take no part in the scan and never move a row.
-// - Back substitution in the reference's order: x_i = (f_i - sum over j
-//   = i+1..n-1 of a_ij x_j) / safe_denom(a_ii), every lane on its own row,
-//   lane i's value broadcast; lane r stores x_r.
-constexpr int kWideEnvs = 4;    // warps, one env each, per CTA
-constexpr int kTileRows = 32;   // rows staged per pass
-
-// The warp kernel's tile rows TA (TB = 2 TA) at n.
-__host__ __device__ constexpr int tile_rows(int n, int ta = 1) {
-  return ((n + ta - 1) / ta) * ((n + 2 * ta - 1) / (2 * ta)) <= 32
-             ? ta
-             : tile_rows(n, ta + 1);
-}
-// Columns the tiles cover at n, and floats per staged row: those columns
-// and [A | f]'s n + 1, rounded up to 16 bytes.
-__host__ __device__ constexpr int tile_cols(int n) {
-  return (n + 2 * tile_rows(n) - 1) / (2 * tile_rows(n)) * 2 * tile_rows(n);
-}
-__host__ __device__ constexpr int wide_pitch(int n) {
-  return ((tile_cols(n) > n + 1 ? tile_cols(n) : n + 1) + 3) / 4 * 4;
-}
-// resident CTAs per SM asked of the compiler: at n <= 18, 64 registers a
-// thread, 32 warps an SM (9 or 10 CTAs spill at n = 18); above, the rows'
-// n + 1 and the solution's n floats per lane need up to 128
-__host__ __device__ constexpr int wide_ctas(int n) { return n <= 18 ? 8 : 4; }
-
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
-}
-
-// Stage rows r0..r0+nr-1 (all N columns) of block tensor p, of element
-// type T, into tile.
-template <int N, class T, int P>
-__device__ __forceinline__ void stage_rows(float (*tile)[P], const void* p,
-                                           const long long* s, long long b,
-                                           int r0, int nr, int lane) {
-  const long long srow = s[1] < 0 ? -s[1] : s[1];
-  const long long scol = s[2] < 0 ? -s[2] : s[2];
-  if (srow <= scol) {  // rows contiguous: lane i takes row i
-    if (lane < nr) {
-#pragma unroll
-      for (int c = 0; c < N; ++c)
-        tile[lane][c] = at<T>(p, s, b, r0 + lane, c);
-    }
-  } else {  // columns contiguous: element e is (e / n, e % n)
-    for (int e = lane; e < nr * N; e += 32) {
-      const int i = e / N;
-      const int c = e - i * N;
-      tile[i][c] = at<T>(p, s, b, r0 + i, c);
-    }
-  }
-}
-
-// Stage rows r0..r0+nr-1 of a scalar or dense block of element type T: J
-// (and a dense block's W) into the tiles, a scalar block's m and the
-// block's v into sM, sV.
-template <int N, class T, int P>
-__device__ __forceinline__ void stage_block(float (*tJ)[P], float (*tX)[P],
-                                            float* tM, float* tV,
-                                            const Block& blk, bool scalar,
-                                            long long b, int r0, int nr,
-                                            int lane) {
-  stage_rows<N, T>(tJ, blk.ptr[0], blk.stride[0], b, r0, nr, lane);
-  if (!scalar) stage_rows<N, T>(tX, blk.ptr[1], blk.stride[1], b, r0, nr,
-                                lane);
-  if (lane < nr) {
-    tM[lane] = scalar ? at<T>(blk.ptr[1], blk.stride[1], b, r0 + lane, 0)
-                      : 0.0f;
-    tV[lane] = at<T>(blk.ptr[2], blk.stride[2], b, r0 + lane, 0);
-  }
-}
-
-// Row r of an identity block of element type T added into seed.
-template <int N, class T>
-__device__ __forceinline__ void add_seed(float (&seed)[N + 1],
-                                         const Block& blk, long long b,
-                                         int r) {
-#pragma unroll
-  for (int c = 0; c < N; ++c)
-    seed[c] += at<T>(blk.ptr[0], blk.stride[0], b, r, c);
-  seed[N] += at<T>(blk.ptr[1], blk.stride[1], b, r, 0);
-}
-
-template <int N>
-__global__ void __launch_bounds__(32 * kWideEnvs, wide_ctas(N))
-    pullback_resolve_wide_kernel(
-    int B, const __grid_constant__ Table table, float ridge,
-    float* __restrict__ out) {
-  constexpr int kTileA = tile_rows(N), kTileB = 2 * kTileA;
-  constexpr int kGroupsB = (N + kTileB - 1) / kTileB;
-  constexpr int kTiles = ((N + kTileA - 1) / kTileA) * kGroupsB;
-  constexpr int kPitch = wide_pitch(N);
-  static_assert(kTiles <= 32 && kTileA * ((N + kTileA - 1) / kTileA) <= kPitch,
-                "the tiles must fit a warp and the staged rows");
-  __shared__ __align__(16) float sJ[kWideEnvs][kTileRows][kPitch];
-  __shared__ __align__(16) float sX[kWideEnvs][kTileRows][kPitch];
-  __shared__ float sM[kWideEnvs][kTileRows];
-  __shared__ float sV[kWideEnvs][kTileRows];
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  const int env = blockIdx.x * kWideEnvs + w;
-  // the ragged tail computes on a valid env and stores nothing
-  const long long b = env < B ? env : B - 1;
-  const int r = lane < N ? lane : N - 1;  // lanes >= N shadow row N - 1
-
-  // the rows of every other block, in tag order, into lane t's tile of
-  // A: rows kTileA g + a, columns kTileB h + c (t = kGroupsB g + h <
-  // kTiles; the lanes past the tiles shadow lane 0); the h = 0 lanes also
-  // sum f of their rows
-  const int t = lane < kTiles ? lane : 0;
-  const int ra = kTileA * (t / kGroupsB), cb = kTileB * (t % kGroupsB);
-  float acc[kTileA][kTileB], facc[kTileA];
-#pragma unroll
-  for (int a = 0; a < kTileA; ++a) {
-    facc[a] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < kTileB; ++c) acc[a][c] = 0.0f;
-  }
-  for (int k = 0; k < table.count; ++k) {
-    const Block& blk = table.block[k];
-    if (blk.kind == kIdentity) continue;
-    const bool scalar = blk.kind == kScalar;
-    for (int r0 = 0; r0 < blk.rows; r0 += kTileRows) {
-      const int nr = min(kTileRows, blk.rows - r0);
-      __syncwarp();
-      if (blk.elem == kBFloat16)
-        stage_block<N, bf16_t>(sJ[w], sX[w], sM[w], sV[w], blk, scalar, b,
-                               r0, nr, lane);
-      else
-        stage_block<N, float>(sJ[w], sX[w], sM[w], sV[w], blk, scalar, b,
-                              r0, nr, lane);
-      __syncwarp();
-      for (int i = 0; i < nr; ++i) {
-        const float* Jrow = sJ[w][i];
-        // the other factor: J itself (scalar, its rows scaled by m) or W
-        const float* X = scalar ? Jrow : sX[w][i];
-        const float m = sM[w][i];
-        const float v = sV[w][i];
-        float xc[kTileB];
-#pragma unroll
-        for (int c = 0; c < kTileB; c += 2) {
-          const float2 x2 = *reinterpret_cast<const float2*>(X + cb + c);
-          xc[c] = x2.x;
-          xc[c + 1] = x2.y;
-        }
-#pragma unroll
-        for (int a = 0; a < kTileA; ++a) {
-          const float jr = Jrow[ra + a];
-          facc[a] += jr * v;
-          const float w_r = scalar ? jr * m : jr;
-#pragma unroll
-          for (int c = 0; c < kTileB; ++c) acc[a][c] += w_r * xc[c];
-        }
-      }
-    }
-  }
-  // the tiles into rows: lane r takes row r of [A | f] through the warp's
-  // staging tile
-  __syncwarp();
-  float (*sA)[kPitch] = sJ[w];
-  if (lane < kTiles) {
-#pragma unroll
-    for (int a = 0; a < kTileA; ++a) {
-      if (ra + a >= N) continue;
-#pragma unroll
-      for (int c = 0; c < kTileB; ++c)
-        if (cb + c < N) sA[ra + a][cb + c] = acc[a][c];
-      if (cb == 0) sA[ra + a][N] = facc[a];
-    }
-  }
-  __syncwarp();
-
-  // the identity seed, row r, summed over the identity blocks in tag order
-  float seed[N + 1];
-#pragma unroll
-  for (int c = 0; c <= N; ++c) seed[c] = 0.0f;
-  bool has_identity = false;
-  for (int k = 0; k < table.count; ++k) {
-    const Block& blk = table.block[k];
-    if (blk.kind != kIdentity) continue;
-    has_identity = true;
-    if (blk.elem == kBFloat16)
-      add_seed<N, bf16_t>(seed, blk, b, r);
-    else
-      add_seed<N, float>(seed, blk, b, r);
-  }
-
-  // row r of [A + ridge I | f]
-  float row[N + 1];
-#pragma unroll
-  for (int c = 0; c < N; ++c) {
-    row[c] = has_identity ? seed[c] + sA[r][c] : sA[r][c];
-    row[c] += (c == r) ? ridge : 0.0f;
-  }
-  row[N] = has_identity ? seed[N] + sA[r][N] : sA[r][N];
-
-  constexpr unsigned kAll = 0xffffffffu;
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    // the rows that take the pivot: |a_ik| above every magnitude of rows
-    // k..i-1 (an inclusive prefix maximum over lanes k..N-1, shifted)
-    const float mag = fabsf(row[k]);
-    float run = (lane >= k && lane < N) ? mag : -1.0f;
-#pragma unroll
-    for (int off = 1; off < 32; off *= 2) {
-      const float up = __shfl_up_sync(kAll, run, off);
-      if (lane >= off) run = nan_max(run, up);
-    }
-    const float before = __shfl_up_sync(kAll, run, 1);
-    const bool take = lane > k && lane < N && mag > before;
-    const unsigned takes = __ballot_sync(kAll, take);
-    const unsigned below = takes & ((1u << lane) - 1u);
-    const int src = take ? (below ? 31 - __clz(below) : k)
-                         : (lane == k ? (takes ? 31 - __clz(takes) : k)
-                                      : lane);
-#pragma unroll
-    for (int c = k; c <= N; ++c) row[c] = __shfl_sync(kAll, row[c], src);
-
-    const float inv_pivot =
-        1.0f / safe_denom(__shfl_sync(kAll, row[k], k));
-    const float factor = row[k] * inv_pivot;
-#pragma unroll
-    for (int c = k; c <= N; ++c) {
-      const float p = __shfl_sync(kAll, row[c], k);
-      if (lane > k) row[c] -= factor * p;
-    }
-  }
-
-  float x[N];
-  float mine = 0.0f;
-#pragma unroll
-  for (int i = N - 1; i >= 0; --i) {
-    float s = row[N];
-#pragma unroll
-    for (int j = i + 1; j < N; ++j) s -= row[j] * x[j];
-    const float xi = s / safe_denom(row[i]);
-    x[i] = __shfl_sync(kAll, xi, i);
-    if (lane == i) mine = xi;
-  }
-  if (lane < N && env < B) out[b * N + lane] = mine;
-}
-
 template <int N>
 void launch(int B, const Table& table, float ridge, float* out,
             cudaStream_t stream) {
-  if constexpr (N <= kMaxLaneN) {
-    constexpr int envs_per_cta = kThreads / kGroup;
-    const int blocks = (B + envs_per_cta - 1) / envs_per_cta;
-    pullback_resolve_kernel<N><<<blocks, kThreads, 0, stream>>>(B, table,
-                                                                ridge, out);
-  } else {
-    pullback_resolve_wide_kernel<N>
-        <<<(B + kWideEnvs - 1) / kWideEnvs, 32 * kWideEnvs, 0, stream>>>(
-            B, table, ridge, out);
-  }
+  constexpr int envs_per_cta = kThreads / kGroup;
+  const int blocks = (B + envs_per_cta - 1) / envs_per_cta;
+  pullback_resolve_kernel<N><<<blocks, kThreads, 0, stream>>>(B, table,
+                                                              ridge, out);
 }
 
-// launch<N> for the run-time n = N, N + 1, ..., kMaxN
+// launch<N> for the run-time n = N, N + 1, ..., kMaxLaneN; above, the warp
+// kernel
 template <int N>
 void launch_n(int n, int B, const Table& table, float ridge, float* out,
               cudaStream_t stream) {
   if (n == N) {
     launch<N>(B, table, ridge, out, stream);
-  } else if constexpr (N < kMaxN) {
+  } else if constexpr (N < kMaxLaneN) {
     launch_n<N + 1>(n, B, table, ridge, out, stream);
+  } else {
+    launch_wide(n, B, table, ridge, out, stream);
   }
 }
 

@@ -1,0 +1,76 @@
+// K1's shared pieces: the block descriptor table the wrapper passes by
+// value, the element loads (float32, bfloat16 widened on load) and the
+// sign-preserving clamp. pullback_resolve.cu (n <= 9, and the C entry
+// point) and pullback_resolve_wide.cu (n = 10..32) both include it.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace rmp_k1 {
+
+constexpr int kMaxLaneN = 9;    // n of the lane-group kernel; above, a warp
+constexpr int kMaxN = 32;       // n of the warp kernel: one row per lane
+// descriptors per call; the by-value table (3,592 bytes) stays inside the
+// 4 KB of kernel parameters every CUDA version takes
+constexpr int kMaxBlocks = 32;
+constexpr int kIdentity = 0, kScalar = 1, kDense = 2;
+constexpr int kFloat32 = 0, kBFloat16 = 1;  // element types
+
+// One policy block: identity (M (B, n, n), v (B, n)), scalar (J (B, R, n),
+// m (B, R), v (B, R)) or dense (J (B, R, n), W (B, R, n), v (B, R)), all
+// of element type `elem`.
+struct Block {
+  int kind;
+  int rows;
+  int elem;
+  const void* ptr[3];
+  long long stride[3][3];  // (batch, row, column) of each tensor, elements
+};
+
+struct Table {
+  int count;
+  Block block[kMaxBlocks];
+};
+
+__device__ __forceinline__ float safe_denom(float d) {
+  const float eps = 1e-12f;
+  return d >= 0.0f ? fmaxf(d, eps) : fminf(d, -eps);
+}
+
+// A bfloat16 element: the high 16 bits of the float32 of the same value.
+struct bf16_t {
+  unsigned short bits;
+};
+
+__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load(const bf16_t* p) {
+  const unsigned short h = __ldg(reinterpret_cast<const unsigned short*>(p));
+  return __uint_as_float(static_cast<unsigned int>(h) << 16);
+}
+
+// Element (b, r, c) of a block tensor of element type T, as float32.
+template <class T>
+__device__ __forceinline__ float at(const void* p, const long long* s,
+                                    long long b, long long r, long long c) {
+  return load(static_cast<const T*>(p) + b * s[0] + r * s[1] + c * s[2]);
+}
+// The same for the block's element type read at run time.
+__device__ __forceinline__ float at(const void* p, int elem,
+                                    const long long* s, long long b,
+                                    long long r, long long c) {
+  return elem == kBFloat16 ? at<bf16_t>(p, s, b, r, c)
+                           : at<float>(p, s, b, r, c);
+}
+
+// n = 10..kMaxN on the warp kernel (pullback_resolve_wide.cuh; n = 18..24
+// instantiated in pullback_resolve_wide_18.cu, 25..32 in
+// pullback_resolve_wide_25.cu): launches on `stream`, returns nothing; the
+// caller reads cudaGetLastError().
+void launch_wide(int n, int B, const Table& table, float ridge, float* out,
+                 cudaStream_t stream);
+void launch_wide_18(int n, int B, const Table& table, float ridge,
+                    float* out, cudaStream_t stream);
+void launch_wide_25(int n, int B, const Table& table, float ridge,
+                    float* out, cudaStream_t stream);
+
+}  // namespace rmp_k1

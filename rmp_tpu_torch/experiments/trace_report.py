@@ -74,6 +74,12 @@ def device_op_durations(events) -> collections.Counter:
     return totals
 
 
+def device_op_counts(events) -> collections.Counter:
+    """{kernel name: device events recorded}: a caller that knows how
+    often a kernel was launched can tell a trace that dropped records."""
+    return collections.Counter(e.get("name", "?") for e in events)
+
+
 def _frame_source(name: str) -> str | None:
     """'path:line' of a Python frame event named 'path(line): function',
     relative to the repository, or None for a frame outside it."""
@@ -137,8 +143,9 @@ def device_source_durations(dev_events, events) -> collections.Counter:
 def report(env_name: str, batch: int, ticks: int, geometry: str, device,
            by_source: bool = False) -> dict:
     """A rollout of `ticks` batched ticks ('solve') after one warm-up
-    tick, under utils/profiling.trace: device us in all and per tick, and
-    the totals by kernel (or by source)."""
+    tick, under utils/profiling.trace: device us in all and per tick, the
+    totals by kernel (or by source), the totals by source in any case
+    (the same trace), and the device events recorded by kernel."""
     from rmp_tpu_torch import envs
     from rmp_tpu_torch.utils import profiling
 
@@ -158,14 +165,16 @@ def report(env_name: str, batch: int, ticks: int, geometry: str, device,
             profiling.block(final.sim.q)
         events = load_trace_events(path)
     dev = device_events(events)
-    totals = (device_source_durations(dev, events) if by_source
-              else device_op_durations(dev))
+    sources = device_source_durations(dev, events)
+    totals = sources if by_source else device_op_durations(dev)
     total = sum(totals.values())
     return dict(env=env_name, batch=batch, ticks=ticks, geometry=geometry,
                 device=str(device), device_us=total,
                 device_us_per_tick=total / ticks,
                 by="source" if by_source else "kernel",
-                totals=dict(totals.most_common()))
+                totals=dict(totals.most_common()),
+                source_totals=dict(sources.most_common()),
+                counts=dict(device_op_counts(dev)))
 
 
 def main(argv=None) -> None:

@@ -20,7 +20,9 @@ and finite ones clipped to --env-clip. The port takes them in one backward
 through per-env replicas of the net (each weight a (B, ...) leaf; the envs
 do not interact, so each replica's grad is its env's gradient). Every
 rollout rematerializes its ticks in the backward. Checkpoints as in
-train_neural_rmp.
+train_neural_rmp; each also records the criterion that scored its best
+iterate (--select, --resample-every), and a resume under another one starts
+the best again from the restored net.
 """
 from __future__ import annotations
 
@@ -40,7 +42,8 @@ from rmp_tpu_torch.envs.neural_reach import load_trained_net
 from rmp_tpu_torch.experiments.common import Trainer, device_of, leaves
 from rmp_tpu_torch.policies import neural as neural_mod
 from rmp_tpu_torch.utils.checkpoint import (restore_train_checkpoint,
-                                            save_train_checkpoint)
+                                            save_train_checkpoint,
+                                            train_checkpoint_meta)
 
 
 def episode_metrics(env, states, rollout, params, clear_margin: float,
@@ -239,6 +242,10 @@ def main(argv=None):
     trainer = Trainer(net, args.lr, args.steps, args.clip)
     best_val, best_net = float("inf"), {k: v.detach().clone()
                                         for k, v in net.items()}
+    # what scores the best iterate: a best kept under another criterion
+    # is not comparable with this run's scores
+    criterion = dict(select=args.select,
+                     resample_every=int(args.resample_every))
     start = 0
     if args.ckpt and args.resume and os.path.exists(args.ckpt):
         start, saved, opt_state, best_val, best_net = \
@@ -248,6 +255,13 @@ def main(argv=None):
                 net[k].copy_(v)
         trainer.opt.load_state_dict(opt_state)
         print(f"resumed {args.ckpt} at step {start}")
+        scored = train_checkpoint_meta(args.ckpt).get("criterion")
+        if scored != criterion:
+            best_val = float("inf")
+            best_net = {k: v.detach().clone() for k, v in net.items()}
+            print(f"the checkpoint's best was scored by {scored}, this run "
+                  f"scores by {criterion}: the best starts again from the "
+                  f"restored net")
     train_states = states
     if args.resample_every and start:
         # a resumed run trains on the batch the unbroken run would have:
@@ -289,7 +303,7 @@ def main(argv=None):
                           or done - start == args.stop_after):
             save_train_checkpoint(args.ckpt, done, net,
                                   trainer.opt.state_dict(), best_val,
-                                  best_net)
+                                  best_net, meta=dict(criterion=criterion))
         if args.stop_after and done - start >= args.stop_after:
             print(f"stopping after {args.stop_after} steps "
                   f"(at step {done}/{args.steps})")

@@ -12,9 +12,10 @@ batch axis B on every tensor):
 
 give q̈ = (A + ridge I)^{-1} f with A = Σ identity M + Σ Jᵀ diag(m) J +
 Σ Jᵀ W and f = Σ v + Σ Jᵀ v. A CPU tensor takes the plain PyTorch version
-(`pullback_resolve_structured_plain`); a CUDA tensor launches the kernel of
-csrc/pullback_resolve.cu or raises (n = 1..9 on a group of 8 lanes per env,
-n = 10..32 on a warp per env; n > 32 and more than 32 blocks raise). The
+(`pullback_resolve_structured_plain`); a CUDA tensor launches the kernel or
+raises (n = 1..9 on a group of 8 lanes per env, csrc/pullback_resolve.cu;
+n = 10..32 on a warp per env, csrc/pullback_resolve_wide.cu; n > 32 and
+more than 32 blocks raise). The
 kernel reads every block where it lies, through its strides
 (`block_table`): the call copies no operand and launches nothing else.
 Every call, K2a's and K2b's and the backward's transposed solve too, goes

@@ -99,17 +99,21 @@ def restore_checkpoint(path: str, like):
 
 
 def save_train_checkpoint(path: str, step: int, net: dict, opt_state: dict,
-                          best_val: float, best_net: dict) -> None:
+                          best_val: float, best_net: dict,
+                          meta: dict | None = None) -> None:
     """Training-loop checkpoint of the port's trainers
     (rmp_tpu_torch/experiments/train_neural_rmp.py, train_neural_clutter.py):
     the loop position, the best loss so far, the live net, the
     torch.optim state_dict (Adam's moments and step counts) and the best
-    iterate. Written atomically (a temporary file, then os.replace), so a
-    kill mid-write leaves the previous checkpoint whole."""
+    iterate, and `meta`, plain values the trainer needs to read the rest
+    (train_neural_clutter: the criterion that scored the best iterate).
+    Written atomically (a temporary file, then os.replace), so a kill
+    mid-write leaves the previous checkpoint whole."""
     tree = dict(format=_FORMAT, step=int(step), best_val=float(best_val),
                 net={k: v.detach().cpu() for k, v in net.items()},
                 opt_state=opt_state,
-                best_net={k: v.detach().cpu() for k, v in best_net.items()})
+                best_net={k: v.detach().cpu() for k, v in best_net.items()},
+                meta=dict(meta or {}))
     tmp = path + ".tmp"
     torch.save(tree, tmp)
     os.replace(tmp, path)
@@ -131,6 +135,15 @@ def restore_train_checkpoint(path: str, net: dict):
         return {k: _from_saved(saved[k], net[k].detach()) for k in net}
     return (int(c["step"]), like(c["net"]), c["opt_state"],
             float(c["best_val"]), like(c["best_net"]))
+
+
+def train_checkpoint_meta(path: str) -> dict:
+    """The `meta` of a save_train_checkpoint file ({} where none was
+    saved)."""
+    c = torch.load(path, weights_only=True)
+    if c.get("format") != _FORMAT:
+        raise ValueError(f"{path} is not a training checkpoint of this port")
+    return dict(c.get("meta") or {})
 
 
 def batch_of(tree) -> int:

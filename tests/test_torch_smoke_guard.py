@@ -1,0 +1,131 @@
+"""What chip_smoke.py, the port's one run on the card, must keep, read from
+its source with `ast` (nothing here runs it): every `phase_*` function is
+reached from main(), the phases are numbered 1, 2, ... with no gap, no
+`except` swallows a failure wholesale (bare, Exception, BaseException),
+nothing of JAX or the JAX package is imported, and no parity or
+statistical horizon is smaller than the depths the smoke was last cut to."""
+import ast
+import os
+
+import pytest
+
+SMOKE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "chip_smoke.py")
+
+# the least depths: (envs, ticks) or ticks, as the smoke was last cut
+LEAST = {
+    "PARITY_TICKS": 8,
+    "RANDOMIZED_TICKS": 300,
+    "DUAL_PARITY": {"capsule": (32, 8), "hull": (16, 4)},
+    "HANDOVER_HULL_PARITY": (32, 4),
+    "CONTACT_PARITY": (128, 3),
+    "HULL_MODEL_PARITY": (128, 3),
+    "NEURAL_PARITY": {"two_joint/neural_reach": (128, 3),
+                      "franka/neural_reach": (128, 3),
+                      "franka/neural_clutter": (128, 4)},
+}
+
+
+@pytest.fixture(scope="module")
+def tree():
+    with open(SMOKE) as f:
+        return ast.parse(f.read())
+
+
+def functions(tree) -> dict:
+    return {node.name: node for node in tree.body
+            if isinstance(node, ast.FunctionDef)}
+
+
+def names_in(node) -> set:
+    return {n.id for n in ast.walk(node) if isinstance(n, ast.Name)}
+
+
+def test_every_phase_is_reached_from_main(tree):
+    defs = functions(tree)
+    reached, todo = set(), ["main"]
+    while todo:
+        name = todo.pop()
+        if name in reached or name not in defs:
+            continue
+        reached.add(name)
+        todo.extend(names_in(defs[name]))
+    phases = {name for name in defs if name.startswith("phase_")}
+    assert phases, "no phase_* function"
+    assert not phases - reached, sorted(phases - reached)
+
+
+def test_main_numbers_its_phases_without_a_gap(tree):
+    numbers = [call.args[0].value for call in ast.walk(tree)
+               if isinstance(call, ast.Call)
+               and isinstance(call.func, ast.Name)
+               and call.func.id in ("run_phase", "phase")
+               and call.args and isinstance(call.args[0], ast.Constant)
+               and isinstance(call.args[0].value, int)]
+    assert sorted(numbers) == list(range(1, len(numbers) + 1)), numbers
+    assert len(numbers) >= 21
+
+
+def test_no_wholesale_except(tree):
+    caught = []
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.ExceptHandler):
+            continue
+        kinds = (node.type.elts if isinstance(node.type, ast.Tuple)
+                 else [node.type])
+        for kind in kinds:
+            if kind is None or (isinstance(kind, ast.Name) and kind.id in
+                                ("Exception", "BaseException")):
+                caught.append(node.lineno)
+    assert not caught, f"wholesale except at lines {caught}"
+
+
+def test_imports_nothing_of_jax(tree):
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods = [node.module or ""]
+        else:
+            continue
+        found += [m for m in mods
+                  if m.split(".")[0] in ("jax", "jaxlib", "rmp_tpu")]
+    assert not found, found
+
+
+def constants(tree) -> dict:
+    """Module-level NAME = literal assignments (dict keys that are names
+    read as the name's own literal)."""
+    out = {}
+    for node in tree.body:
+        if not (isinstance(node, ast.Assign) and len(node.targets) == 1
+                and isinstance(node.targets[0], ast.Name)):
+            continue
+        value = node.value
+        if isinstance(value, ast.Dict):
+            value = ast.Dict(keys=[ast.Constant(out[k.id]) if isinstance(
+                k, ast.Name) and k.id in out else k for k in value.keys],
+                values=value.values)
+        try:
+            out[node.targets[0].id] = ast.literal_eval(value)
+        except ValueError:
+            pass
+    return out
+
+
+def no_smaller(got, least) -> bool:
+    if isinstance(least, dict):
+        return set(got) >= set(least) and all(no_smaller(got[k], v)
+                                              for k, v in least.items())
+    if isinstance(least, tuple):
+        return len(got) == len(least) and all(g >= v for g, v in
+                                              zip(got, least))
+    return got >= least
+
+
+@pytest.mark.parametrize("name", sorted(LEAST))
+def test_parity_and_statistics_depths_are_kept(tree, name):
+    got = constants(tree)
+    assert name in got, f"{name} is no longer a literal constant"
+    assert no_smaller(got[name], LEAST[name]), (name, got[name])

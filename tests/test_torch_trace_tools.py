@@ -79,6 +79,8 @@ def test_trace_report_device_events_and_sums():
                                                     for e in device)
     assert tr.device_op_durations(dev) == {"gemv": 14, "fused_qdd_kernel": 5,
                                            "Memcpy HtoD": 7, "Memset": 1}
+    assert tr.device_op_counts(dev) == {"gemv": 2, "fused_qdd_kernel": 1,
+                                        "Memcpy HtoD": 1, "Memset": 1}
     # gemv 1: the innermost repo frame around its launch is core.py:41
     # (the torch frame between is not the repository's); fused_qdd: the
     # inner repo frame; gemv 3: launched from a thread without a stack
@@ -111,6 +113,7 @@ def test_trace_report_reads_a_real_cpu_trace(tmp_path):
     assert tr.device_events(events) == []
     rep = tr.report("two_joint/01_target_rmp_only", 2, 2, "capsule", "cpu")
     assert rep["device_us"] == 0 and rep["ticks"] == 2
+    assert rep["counts"] == {} and rep["source_totals"] == {}
     json.dumps(rep)
 
 
