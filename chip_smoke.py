@@ -238,14 +238,16 @@ ticks before).
      flagship with RMP_PANDA_CAPS=fine (47 capsules) at 4096 x 30 with
      GPU/CPU parity.
  19. the thirteenth slice, K3 past 18 motors, M16 and M17's entry points:
-     K3's two instantiations' build lines (32 frames, 18 motors, 8 envs a
-     CTA; 40, 32, 4); the kernel against its plain version on the 24- and
-     32-link arms, two odd n (19, 31) and 40 frames with 32 motors at
+     K3's two kernels' build lines (the narrow one: 32 frames, 18 motors,
+     8 envs a CTA; the wide one of fk_derivatives_wide.cuh: 40, 32, 4);
+     the kernel against its plain version on the 24- and 32-link arms,
+     two odd n (19, 31), 40 frames with 32 motors and a branched tree at
      B = 4096, 1, 7 and 4093 (2e-4 x max(1, max |plain|) per output, each
      beside its and the plain version's gap to float64), 41 frames and 33
      motors raising before a launch, the two arms timed beside their
-     bounds and the Panda and dual Panda re-timed beside their earlier
-     0.0268 / 0.0824 ms; K1's warp kernel at n = 24 and 32 on the arms'
+     bounds with the wide kernel's shared bytes a CTA and envs an SM, and
+     the Panda and dual Panda re-timed beside their earlier 0.0268 /
+     0.0824 ms; K1's warp kernel at n = 24 and 32 on the arms'
      real ticks (strided blocks) at B = 4096, 1, 7 and 4093, kernel and
      plain version each against a float64 plain run (float32 q̈ there
      parts from it by ~4e-4 of |q̈|: the kernel's backward error within
@@ -4888,8 +4890,11 @@ WIDE_LINKS = (24, 32)         # the N-link arms past K3's narrow tile
 # K3's earlier times on an H100 80GB HBM3 at 700 W (PERF.md), device alone
 # at B = 4096, before the wide instantiation: the narrow one must keep them
 K3_EARLIER_MS = {"panda": 0.0268, "dual_panda": 0.0824}
-K3_INSTANTIATIONS = {"narrow": "fk_derivatives_kernelILi32ELi18ELi8E",
-                     "wide": "fk_derivatives_kernelILi40ELi32ELi4E"}
+# each K3 kernel's source and mangled name
+K3_INSTANTIATIONS = {
+    "narrow": ("fk_derivatives.cu", "fk_derivatives_kernelILi32ELi18ELi8E"),
+    "wide": ("fk_derivatives_wide.cu",
+             "fk_derivatives_kernel_wideILi40ELi32ELi4E")}
 SHARDED_TICKS = 20            # the sharded flagship at world size 1
 LATENCY_BATCHES = (1, 64, 4096)
 LATENCY_TICKS = 25     # 50 before the fifteenth slice
@@ -4916,14 +4921,41 @@ def fixed_tail_model(n_links: int, extra: int, radius: float = 0.0):
         joints=tuple(joints)))
 
 
+def branched_model(n_links: int = 20, n_branch: int = 8, at: int = 10):
+    """The n_links planar arm with a branch of n_branch revolute links off
+    link `at` (about y and z in turn, the first tilted) and a fixed tip:
+    n_links + n_branch motors, n_links + n_branch + 2 frames. The frames
+    are in BFS order, so past the branch the two chains interleave and a
+    frame's parent is not the frame before it."""
+    spec = specs.make_planar_arm_spec(n_links)
+    links, joints, parent = list(spec.links), list(spec.joints), f"link_{at}"
+    for k in range(n_branch):
+        links.append(specs.LinkSpec(f"branch_{k + 1}", 0.2))
+        joints.append(specs.JointSpec(
+            f"branch_joint_{k + 1}", "revolute", parent, f"branch_{k + 1}",
+            xyz=(0.25, 0.0, 0.1) if k == 0 else (0.3, 0.0, 0.0),
+            rpy=(0.3, 0.0, 0.2) if k == 0 else (0.0, 0.0, 0.0),
+            axis=(0, 1, 0) if k % 2 == 0 else (0, 0, 1), lower=-np.pi,
+            upper=np.pi, velocity=5, effort=50))
+        parent = f"branch_{k + 1}"
+    links.append(specs.LinkSpec("branch_tip", 0.05))
+    joints.append(specs.JointSpec("branch_tip_joint", "fixed", parent,
+                                  "branch_tip", xyz=(0.3, 0.0, 0.0)))
+    return specs.build_model(dataclasses.replace(
+        spec, name=f"{spec.name}_branch{n_branch}", links=tuple(links),
+        joints=tuple(joints)))
+
+
 def k3_wide_models() -> dict:
     """K3's models past the narrow tile: the 24- and 32-link arms of the
-    path, two odd n and the wide tile's capacity (40 frames, 32 motors)."""
+    path, two odd n, the wide tile's capacity (40 frames, 32 motors) and a
+    branched tree (frames whose parent is not the frame before)."""
     return {"planar_24 (F=25, n=24)": planar_model(24),
             "planar_32 (F=33, n=32)": planar_model(32),
             "planar_19 (F=20, n=19)": planar_model(19),
             "planar_31 (F=32, n=31)": planar_model(31),
-            "planar_32 + 7 fixed (F=40, n=32)": fixed_tail_model(32, 7)}
+            "planar_32 + 7 fixed (F=40, n=32)": fixed_tail_model(32, 7),
+            "branched 20 + 8 (F=30, n=28)": branched_model()}
 
 
 def planar_model(n_links: int):
@@ -4991,6 +5023,9 @@ def k3_times(model, what: str, device) -> dict:
                dynamic_smem_bytes=_build.c_function(
                    "rmp_fk_derivatives_shared_bytes",
                    [ctypes.c_int, ctypes.c_int])(model.n_frames, model.n_q),
+               envs_per_sm=_build.c_function(
+                   "rmp_fk_derivatives_envs_per_sm",
+                   [ctypes.c_int, ctypes.c_int])(model.n_frames, model.n_q),
                device_launches_per_call=per_call, ms=time_ms(call),
                device_ms=time_ms(call, lead=True),
                plain_ms=time_ms(lambda: fk_derivatives(model, q, qd),
@@ -5001,7 +5036,7 @@ def k3_times(model, what: str, device) -> dict:
         f"alone {rec['device_ms']:.4f} ms), plain {rec['plain_ms']:.4f} ms, "
         f"bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}); tile "
         f"{rec['tile_envs']} envs, {rec['dynamic_smem_bytes']} B of shared "
-        f"memory per CTA")
+        f"memory per CTA, {rec['envs_per_sm']} envs per SM")
     return rec
 
 
@@ -5009,10 +5044,11 @@ def phase_k3_wide(card: str, device) -> tuple[dict, float]:
     """K3 past 18 motors: each instantiation's build line; the kernel
     against its plain version on k3_wide_models at B = 4096, 1, 7, 4093;
     41 frames and 33 motors raising before a launch; the two planar arms
-    of the path timed beside their bounds, and the Panda and the dual
-    Panda (the narrow instantiation) timed again beside K3_EARLIER_MS."""
-    build = {k: build_counts("fk_derivatives.cu", f"K3 {k}", kernel)
-             for k, kernel in K3_INSTANTIATIONS.items()}
+    of the path timed beside their bounds, with the wide kernel's shared
+    bytes per CTA and envs per SM, and the Panda and the dual Panda (the
+    narrow instantiation) timed again beside K3_EARLIER_MS."""
+    build = {k: build_counts(source, f"K3 {k}", kernel)
+             for k, (source, kernel) in K3_INSTANTIATIONS.items()}
     err = max(k3_check(m, what, device)
               for what, m in k3_wide_models().items())
     raised = {"41 frames": k3_raises(fixed_tail_model(32, 8),
@@ -6401,13 +6437,15 @@ def run_phases(card: str, build_s: float, chosen: set | None, start: float,
     # path's launches
     k3_wide = [
         dict(name=f"fk_derivatives_batched (planar_{n}link, wide tile)",
-             route="cuda", source="rmp_tpu_torch/csrc/fk_derivatives.cu",
+             route="cuda",
+             source="rmp_tpu_torch/csrc/fk_derivatives_wide.cuh",
              replaces="rmp_tpu/ops/pallas_fk.py:218", counter=k3["name"],
              path=f"planar_{n}link", max_abs_err=slice13["k3_err"],
              **{k: rec[k] for k in ("ms", "device_ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms",
                                     "device_launches_per_call", "frames",
-                                    "tile_envs", "dynamic_smem_bytes")})
+                                    "tile_envs", "dynamic_smem_bytes",
+                                    "envs_per_sm")})
         for n, rec in ((n, slice13["k3"]["times"][f"planar_{n}"])
                        for n in WIDE_LINKS)]
     k1_wide = [

@@ -3,19 +3,32 @@ GPU.
 
     python3 kernel_probe.py [part ...] [--against DIR]
 
-Parts (all when none is named): sass, k3, k3tile, k4, k5, k1, k1parts,
-k1ab, host, traces.
+Parts (all when none is named): sass, k3, k3narrow, k3tile, k3ab, k4,
+k5, k1, k1parts, k1ab, host, traces.
 
 1. Phase splits by edited copies of csrc/: each variant is rebuilt from a
    copy of csrc/ with an edit and runs in its own process (the library loads
    once per process); its kernel is timed with the stream kept busy ahead
    (chip_smoke.time_ms with lead), three medians of 30 calls each, and its
    ptxas counts are kept.
-   - K3 (csrc/fk_derivatives.cu) at B = 4096 on the Panda, the dual-arm
-     Panda and the 24- and 32-link planar arms: return after the table
-     loads, after the prologue, before the stores or before J's stores, or
-     skip the recursion. Part k3tile builds the kernel as it is and with
-     the wide instantiation's tile at 8 envs per CTA in place of 4.
+   - K3's wide kernel (part k3, csrc/fk_derivatives_wide.cuh) at
+     B = 4096 on chip_smoke.k3_wide_models (the 24- and 32-link arms, n =
+     19 and 31, 40 frames, the branched tree): return after q and the
+     constants are in, skip every store (the recursion alone), skip J's
+     stores, or skip the recursion's arithmetic (the stores alone); with
+     the ptxas counts of both instantiations. Part k3narrow: the narrow
+     kernel (csrc/fk_derivatives.cu) on the Panda and the dual-arm Panda:
+     return after the table loads, after the prologue, before the stores
+     or before J's stores, or skip the recursion. Part k3tile builds the
+     wide kernel as it is, at 2 and 8 envs per CTA in place of 4, and
+     launched without whole waves (always the layout's own shared
+     memory).
+     Part k3ab: the kernels against another checkout's (`--against DIR`)
+     on the narrow and the wide layouts, each timed in K3_ROUNDS
+     processes, the order turned every round, with each layout's largest
+     |kernel - plain| / max(1, |plain|) over the outputs' entries, and a
+     fill_ of as many floats as each wide layout writes (the card's write
+     rate); it prints each layout's median of the medians.
    - K4 (csrc/gjk_hull.cu) on the hull main path's own warm operands
      (chip_smoke.k4_main_path_operands): the kernel as it is at iters = 0,
      1, 2 and 4 (fixed cost and cost per iteration), with the tie pass
@@ -64,6 +77,7 @@ import json
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -76,8 +90,22 @@ K5_SLOTS = "  // ---- the point frames' slots"
 K5_ITEMS = "  // ---- work items:"
 K5_BUTTERFLY = "  // ---- butterfly over the env's 16 lanes ----"
 
-# source -> variant -> (old, new) edits of that source
+# source -> variant -> edits of that source: (old, new), or (file, old,
+# new) for another file of csrc/
+K3_WIDE = "fk_derivatives_wide.cuh"
+K3_FRAMES = "  // ---- the frames, in topological order ----"
+K3_STEP = "    {  // ---- the step of frame f: T, G, W, Wd ----"
+K3_ROWS = "    // ---- frame f's rows of T, Td and c ----"
+K3_J = "    // ---- frame f's row of J: motors r and r + 16 ----"
 VARIANTS = {
+    K3_WIDE: {
+        "full": [],
+        "tables_only": [(K3_FRAMES, STOP + K3_FRAMES)],
+        "no_stores": [(K3_ROWS, "    if (F > 0) continue;\n" + K3_ROWS)],
+        "no_J_stores": [(K3_J, "    if (F > 0) {\n      __syncwarp();\n"
+                         "      continue;\n    }\n" + K3_J)],
+        "no_recursion": [(K3_STEP, K3_STEP.replace("    {", "    if (F < 0) {"))],
+    },
     "fk_derivatives.cu": {
         "full": [],
         "tables_only": [("  // ---- per frame, once:",
@@ -109,14 +137,26 @@ VARIANTS = {
         "no_reduction_or_solve": [(K5_BUTTERFLY, STOP + K5_BUTTERFLY)],
     },
 }
-# the wide K3 instantiation's tile at 8 envs per CTA (the kernel has 4)
-K3_TILES = {
-    "fk_derivatives.cu": {
-        "full": [],
-        "wide_tile_8": [("{{32, 18, 8}, {40, 32, 4}};",
-                         "{{32, 18, 8}, {40, 32, 8}};")],
-    },
-}
+
+
+def k3_wide_envs(envs: int) -> list:
+    """Edits that give the wide kernel's tile `envs` envs per CTA."""
+    return [("constexpr int kWideEnvs = 4;", f"constexpr int kWideEnvs = {envs};"),
+            ("fk_derivatives.cu", "{{32, 18, 8}, {40, 32, 4}};",
+             f"{{{{32, 18, 8}}, {{40, 32, {envs}}}}};")]
+
+
+# the wide kernel's tile at 2 and 8 envs per CTA (the kernel has 4), and
+# its launch without whole waves (the layout's own shared memory always)
+K3_TILES = {K3_WIDE: {"full": [], "wide_tile_2": k3_wide_envs(2),
+                      "wide_tile_8": k3_wide_envs(8),
+                      "unbalanced_waves": [(
+                          "fk_derivatives_wide.cu",
+                          "  if (most <= 0 || need <= most) return bytes;",
+                          "  if (need > 0) return bytes;")]}}
+# part k3ab: the kernels as they are against another checkout's
+K3_AB = {K3_WIDE: {"full": []}}
+K3_ROUNDS = 3
 K4_ITERS = (0, 1, 2, 4)
 # K1's warp kernel (n = 10..32): return after the rows are staged and
 # accumulated, after [A + ridge I | f] is formed (the identity seed added),
@@ -240,16 +280,32 @@ from rmp_tpu_torch.models import robots
 from rmp_tpu_torch.ops import cuda_fk, cuda_gjk, cuda_tick
 _build.build()
 src = {src!r}
-if src == "fk_derivatives.cu":
-    from rmp_tpu_torch.models.specs import build_model, make_planar_arm_spec
-    calls = {{}}
-    for name, model in (("call", robots.franka_panda()),
-                        ("dual_panda", robots.dual_panda()),
-                        ("planar_24", build_model(make_planar_arm_spec(24))),
-                        ("planar_32", build_model(make_planar_arm_spec(32)))):
+if src.startswith("fk_derivatives"):
+    from rmp_tpu_torch.models.fk_derivatives import fk_derivatives
+    models = {{}}
+    if src == "fk_derivatives.cu" or {k3_all!r}:
+        models.update(panda=robots.franka_panda(),
+                      dual_panda=robots.dual_panda())
+    if src != "fk_derivatives.cu":
+        models.update(cs.k3_wide_models())
+    calls, err = {{}}, {{}}
+    for name, model in models.items():
         q, qd = cs.k3_inputs(model, cs.BATCH, torch.device("cuda"))
         calls[name] = (lambda m=model, q=q, qd=qd:
                        cuda_fk.fk_derivatives_batched(m, q, qd))
+        if {k3_all!r}:
+            # the largest |kernel - plain| / max(1, |plain|) over the
+            # outputs' entries
+            got, want = calls[name](), fk_derivatives(model, q, qd)
+            err[name] = max(float(((g - w).abs() / w.abs().clamp(min=1.0))
+                                  .max()) for g, w in zip(got, want))
+    if {k3_all!r}:
+        # the card's write rate on the wide layouts' bytes: one fill_ of
+        # as many floats as the kernel writes
+        for name, model in list(models.items())[2:]:
+            F, n = model.n_frames, model.n_q
+            buf = torch.empty(cs.BATCH * F * 16 * (3 + n), device="cuda")
+            calls["fill " + name] = lambda buf=buf: buf.fill_(0.0)
 elif src == "gjk_hull.cu":
     ops, _ = cs.k4_main_path_operands()
     calls = {{f"iters{{i}}": (lambda i=i: cuda_gjk.gjk_hull_obstacles(
@@ -301,12 +357,15 @@ else:
     fn = cuda_tick.make_fused_qdd(env)
     near = cs.k5_inputs(env, cs.BATCH, 11, wide=False)
     calls = dict(call=lambda: fn(*near))
-extra = (dict(build_wide=cs.ptxas_counts(
-    src, "fk_derivatives_kernelILi40ELi32E")) if src == "fk_derivatives.cu"
+extra = (dict(build_narrow=cs.ptxas_counts(
+    "fk_derivatives_wide.cuh", "fk_derivatives_kernelILi32ELi18E"),
+               build_wide=cs.ptxas_counts("fk_derivatives_wide.cuh",
+                                          "ILi40ELi32E"))
+    if src.startswith("fk_derivatives")
     else {{f"build_n{{n}}": cs.ptxas_counts(
         src, f"pullback_resolve_wide_kernelILi{{n}}E") for n in {k1_n!r}}}
     if src.startswith("pullback_resolve") else {{}})
-if src.startswith("pullback_resolve"):
+if src.startswith("pullback_resolve") or {k3_all!r}:
     extra["err"] = err
 print("RESULT", json.dumps(dict(
     build=cs.ptxas_counts(src), **extra,
@@ -325,14 +384,17 @@ _build.build()
 
 
 def split(source: str, variants: dict = VARIANTS, only: str | None = None,
-          rounds: int = 1, against: str | None = None) -> dict:
+          rounds: int = 1, against: str | None = None,
+          k3_all: bool = False) -> dict:
     """Every variant of `source` built (all at once, a process each) and
     then timed in its own process, one after the other; with `rounds` > 1
     that many times, the order turned every round, and a variant's results
     are a list, one a round. `only`: the sources whose names start so are
     the library's (the headers always). `against`: a checkout whose csrc/,
     unedited, is one more variant ("against"). A variant that fails to
-    build or to run is reported (`error`) and left out of later rounds."""
+    build or to run is reported (`error`) and left out of later rounds.
+    `k3_all`: K3's children time the narrow and the wide layouts and
+    report each one's error against the plain version."""
     out, works = {}, {}
     cache = tempfile.mkdtemp()
     inputs = os.path.join(cache, "inputs.pt")   # K1's, made once
@@ -351,16 +413,16 @@ def split(source: str, variants: dict = VARIANTS, only: str | None = None,
             shutil.copytree(src_dir, csrc, ignore=keep)
             if not edits:
                 continue
-            path = os.path.join(csrc, source)
-            with open(path) as f:
-                text = f.read()
-            for old, new in edits:
+            for edit in edits:
+                target, old, new = (source, *edit) if len(edit) == 2 else edit
+                path = os.path.join(csrc, target)
+                with open(path) as f:
+                    text = f.read()
                 if text.count(old) != 1:
-                    raise RuntimeError(f"{source} {name}: edit anchor not "
+                    raise RuntimeError(f"{target} {name}: edit anchor not "
                                        f"found once")
-                text = text.replace(old, new)
-            with open(path, "w") as f:
-                f.write(text)
+                with open(path, "w") as f:
+                    f.write(text.replace(old, new))
         builds = {name: subprocess.Popen(
             [sys.executable, "-c", BUILD_CHILD.format(
                 root=ROOT, csrc=os.path.join(work, "csrc"),
@@ -382,7 +444,8 @@ def split(source: str, variants: dict = VARIANTS, only: str | None = None,
                 code = CHILD.format(root=ROOT, csrc=os.path.join(work, "csrc"),
                                     build=os.path.join(work, "build"),
                                     src=source, iters=K4_ITERS,
-                                    k1_n=K1_PROBE_N, inputs=inputs)
+                                    k1_n=K1_PROBE_N, inputs=inputs,
+                                    k3_all=k3_all)
                 run = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                                      capture_output=True, text=True,
                                      timeout=600)
@@ -403,6 +466,29 @@ def split(source: str, variants: dict = VARIANTS, only: str | None = None,
     finally:
         for work in list(works.values()) + [cache]:
             shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def medians(out: dict) -> dict:
+    """Part k3ab's summary, printed and kept under "summary": per layout,
+    each variant's median over its rounds' medians, the against
+    checkout's over the kernel's, and the largest error of any round."""
+    runs = {k: v for k, v in out.items() if isinstance(v, list)}
+    summary: dict = {}
+    for name, rounds in runs.items():
+        for layout in rounds[0]["device_ms"]:
+            rec = summary.setdefault(layout, {})
+            rec[name] = statistics.median(
+                m for r in rounds for m in r["device_ms"][layout])
+            if layout in rounds[0]["err"]:
+                rec[f"{name}_err"] = max(r["err"][layout] for r in rounds)
+    for layout, rec in summary.items():
+        if "full" in rec and "against" in rec:
+            rec["speed_up"] = rec["against"] / rec["full"]
+        print(f"k3ab {layout}: " + ", ".join(
+            f"{k} {v:.4f}" if not k.endswith("_err") else f"{k} {v:.2e}"
+            for k, v in rec.items()), flush=True)
+    out["summary"] = summary
     return out
 
 
@@ -552,8 +638,14 @@ def main() -> int:
         against = os.path.abspath(args[i + 1])
         del args[i:i + 2]
     parts = dict(sass=sass_counts,
-                 k3=lambda: split("fk_derivatives.cu"),
-                 k3tile=lambda: split("fk_derivatives.cu", K3_TILES),
+                 k3=lambda: split(K3_WIDE, only="fk_derivatives"),
+                 k3narrow=lambda: split("fk_derivatives.cu",
+                                        only="fk_derivatives"),
+                 k3tile=lambda: split(K3_WIDE, K3_TILES,
+                                      only="fk_derivatives"),
+                 k3ab=lambda: medians(split(
+                     K3_WIDE, K3_AB, only="fk_derivatives", rounds=K3_ROUNDS,
+                     against=against, k3_all=True)),
                  k4=lambda: split("gjk_hull.cu"),
                  k1=lambda: split(K1_SOURCE, K1_SPLITS,
                                   only="pullback_resolve"),

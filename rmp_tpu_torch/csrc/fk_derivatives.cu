@@ -21,26 +21,27 @@
 // Design.
 // - A CTA takes a tile of kEnvs consecutive envs; the last tile is masked.
 // - The kernel is a template on its capacity (kMaxFrames, kMaxMotors) and
-//   its tile, with two instantiations (kTiles): (32 frames, 18 motors, 8
+//   its tile, instantiated here once (kTiles[0]: 32 frames, 18 motors, 8
 //   envs), which serves every robot up to the dual-arm Panda (F = 26,
-//   n = 18), and (40, 32, 4) for the rest up to 32 motors, K1's ceiling
-//   (the N-link arms: F = 25, n = 24 and F = 33, n = 32). The launcher
-//   takes the first that fits; past the last it launches nothing and
-//   returns -1. The narrow instantiation keeps its register preloads sized
-//   by its own maxima, so the wide one costs the Panda nothing.
+//   n = 18). The rest up to 40 frames and 32 motors, K1's ceiling (the
+//   N-link arms: F = 25, n = 24 and F = 33, n = 32), go to the wide
+//   kernel (kTiles[1], fk_derivatives_wide.cuh: a design of its own, which
+//   stores each frame's rows as its step ends). The launcher takes the
+//   first tile that fits; past the last it launches nothing and returns
+//   -1.
 // - The model's tables (parent, joint type, motor index, axis, constant
 //   transforms, ancestor table anc[f][m]) and the tile's q, qd are loaded
 //   into shared memory once per CTA, each thread issuing its loads of every
-//   table before its first shared store (the wide instantiation copies the
-//   ancestor table, up to 1,280 entries, in a loop instead: a preload
-//   would hold 20 registers a thread).
+//   table before its first shared store (an instantiation whose ancestor
+//   table would take more than kMaxAncPreload registers a thread copies
+//   it in a loop instead).
 // - Shared memory is ~12-13 KB per env at 26-33 frames (Layout(26, 18):
 //   97,440 bytes per CTA of 8, opted in above the 48 KB default). At the
 //   dual-arm Panda 8 envs and 4 fit the same 16 envs on an SM, so the
 //   narrow tile stays 8. At F = 33, n = 32 a CTA of 8 envs takes 123,128
 //   bytes and only one fits an SM (8 envs), while CTAs of 4 (66,504 bytes)
-//   fit three (12 envs); at F = 25, n = 24 both tiles fit 16 envs. So the
-//   wide tile is 4 envs (64 threads).
+//   fit three (12 envs); at F = 25, n = 24 both tiles fit 16 envs (this
+//   layout; the wide kernel has its own).
 // - The recursion runs on 16 threads per env, thread (i, j) owning entry
 //   (i, j) of every 4x4 product; the 16 threads of an env sit in one half
 //   warp, so __syncwarp orders them. T (and its transpose), W, Wd and G of
@@ -70,6 +71,7 @@
 #include <cuda_runtime.h>
 
 #include "fk_common.cuh"
+#include "fk_derivatives_wide.cuh"
 
 namespace {
 
@@ -84,6 +86,10 @@ struct Tile {
   int frames, motors, envs;
 };
 constexpr Tile kTiles[] = {{32, 18, 8}, {40, 32, 4}};
+static_assert(kTiles[1].frames == rmp_k3::kWideFrames &&
+                  kTiles[1].motors == rmp_k3::kWideMotors &&
+                  kTiles[1].envs == rmp_k3::kWideEnvs,
+              "kTiles[1] is the wide kernel's tile");
 
 __host__ __device__ constexpr int cdiv(int a, int b) {
   return (a + b - 1) / b;
@@ -361,7 +367,32 @@ extern "C" int rmp_fk_derivatives_shared_bytes(int F, int n) {
     case 0:
       return Layout<kTiles[0].envs>(F, n).bytes();
     case 1:
-      return Layout<kTiles[1].envs>(F, n).bytes();
+      return rmp_k3::wide_shared_bytes(F, n);
+    default:
+      return -1;
+  }
+}
+
+// Envs that one SM holds at once for a model of F frames and n motors, by
+// the occupancy calculator on the current device (-1: no instantiation
+// takes the model, or a CUDA error).
+extern "C" int rmp_fk_derivatives_envs_per_sm(int F, int n) {
+  switch (tile_of(F, n)) {
+    case 0: {
+      auto kernel = fk_derivatives_kernel<kTiles[0].frames,
+                                          kTiles[0].motors, kTiles[0].envs>;
+      const int bytes = Layout<kTiles[0].envs>(F, n).bytes();
+      int ctas = 0;
+      if (cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes) != cudaSuccess ||
+          cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              &ctas, kernel, 16 * kTiles[0].envs, bytes) != cudaSuccess)
+        return -1;
+      return ctas * kTiles[0].envs;
+    }
+    case 1:
+      return rmp_k3::wide_envs_per_sm(F, n);
     default:
       return -1;
   }
@@ -396,9 +427,9 @@ extern "C" int rmp_fk_derivatives_f32(
       t == 0 ? launch<kTiles[0].frames, kTiles[0].motors, kTiles[0].envs>(
                    B, F, n, parent, joint_type, q_index, axis, T_constant,
                    anc, q, qd, T16, Td16, J16, c16, s)
-             : launch<kTiles[1].frames, kTiles[1].motors, kTiles[1].envs>(
-                   B, F, n, parent, joint_type, q_index, axis, T_constant,
-                   anc, q, qd, T16, Td16, J16, c16, s);
+             : rmp_k3::launch_wide(B, F, n, parent, joint_type, q_index,
+                                   axis, T_constant, anc, q, qd, T16, Td16,
+                                   J16, c16, s);
   if (previous != device) cudaSetDevice(previous);
   return rc;
 }

@@ -6,9 +6,10 @@ Td16 (B, F, 16), J16 (B, F, 16, n), c16 (B, F, 16)). A CPU tensor takes the
 plain PyTorch version (models/fk_derivatives.fk_derivatives); a CUDA tensor
 launches the kernel of csrc/fk_derivatives.cu or raises. Unlike the TPU
 kernel, the batch needs no particular multiple. The kernel takes models of
-up to 40 frames and 32 motors (`TILES`, its two instantiations); a larger
-model raises ValueError on a CUDA tensor before anything is allocated or
-launched (`check_capacity`). Every call goes through K3's torch.library op
+up to 40 frames and 32 motors (`TILES`: up to 32 frames and 18 motors
+the narrow kernel of that file, past them the wide kernel of
+csrc/fk_derivatives_wide.cuh); a larger model raises ValueError on a CUDA
+tensor before anything is allocated or launched (`check_capacity`). Every call goes through K3's torch.library op
 (ops/library.py) on the model's tables (`model_tables`): its CUDA
 implementation is `launch`, the kernel's one launch site, its CPU one
 `plain_of_tables`, the plain version of the model the tables describe.
@@ -34,7 +35,7 @@ from rmp_tpu_torch.models.urdf import FIXED, KinematicModel, model_cache
 _TABLES: dict[tuple, tuple] = {}
 _ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 13
 # csrc/fk_derivatives.cu's kTiles, first fit first: (frames, motors, envs
-# per CTA) of each instantiation
+# per CTA) of the narrow kernel and of the wide one
 TILES = ((32, 18, 8), (40, 32, 4))
 
 

@@ -3,8 +3,11 @@ on the N-link planar arms at N = 19, 24 and 32 against the JAX package's
 `rmp_tpu/models/fk_derivatives.fk_derivatives` under vmap (the TPU
 kernel's own oracle), K3's backward at N = 24, the capacity that the
 wrapper checks before a launch (40 frames, 32 motors) and its table of
-instantiations against the CUDA source's, and the kernel's store map on
-the wide tile at an odd n."""
+instantiations against the CUDA sources', the wide kernel's store map
+(each frame's rows stored as its step ends) at an odd n, and a branched
+tree on the wide tile (a revolute branch off a middle link: in BFS order
+the two chains interleave, so a frame's parent is not the frame before)
+against JAX and through the store map."""
 import dataclasses
 import os
 import re
@@ -20,7 +23,7 @@ from rmp_tpu.models import specs as jspecs
 from rmp_tpu_torch.models import fk_derivatives as fkd
 from rmp_tpu_torch.models import specs
 from rmp_tpu_torch.ops import cuda_fk
-from test_torch_kinematics import replay_k3_stores
+from test_torch_kinematics import CSRC, k3_source_tiles, replay_k3_stores
 
 torch.set_num_threads(1)
 
@@ -48,6 +51,31 @@ def with_fixed_tail(n_links: int, extra: int):
         parent = f"tail_{k}"
     return specs.build_model(dataclasses.replace(
         spec, name=f"{spec.name}_tail{extra}", links=tuple(links),
+        joints=tuple(joints)))
+
+
+def branched(sp, n_links: int = 14, n_branch: int = 6, at: int = 7):
+    """The n_links planar arm of specs module `sp` (the port's or JAX's)
+    with a branch of n_branch revolute links off link `at`, about y and z
+    in turn, the first tilted, and a fixed tip (chip_smoke.branched_model
+    at other sizes): n_links + n_branch motors, n_links + n_branch + 2
+    frames."""
+    spec = sp.make_planar_arm_spec(n_links)
+    links, joints, parent = list(spec.links), list(spec.joints), f"link_{at}"
+    for k in range(n_branch):
+        links.append(sp.LinkSpec(f"branch_{k + 1}", 0.2))
+        joints.append(sp.JointSpec(
+            f"branch_joint_{k + 1}", "revolute", parent, f"branch_{k + 1}",
+            xyz=(0.25, 0.0, 0.1) if k == 0 else (0.3, 0.0, 0.0),
+            rpy=(0.3, 0.0, 0.2) if k == 0 else (0.0, 0.0, 0.0),
+            axis=(0, 1, 0) if k % 2 == 0 else (0, 0, 1), lower=-np.pi,
+            upper=np.pi, velocity=5, effort=50))
+        parent = f"branch_{k + 1}"
+    links.append(sp.LinkSpec("branch_tip", 0.05))
+    joints.append(sp.JointSpec("branch_tip_joint", "fixed", parent,
+                               "branch_tip", xyz=(0.3, 0.0, 0.0)))
+    return sp.build_model(dataclasses.replace(
+        spec, name=f"{spec.name}_branch{n_branch}", links=tuple(links),
         joints=tuple(joints)))
 
 
@@ -137,27 +165,61 @@ def test_capacity_is_checked_before_a_launch():
 
 def test_tiles_are_the_sources_instantiations():
     """cuda_fk.TILES, which check_capacity reads, is kTiles of
-    csrc/fk_derivatives.cu, the table its launcher reads."""
-    src = os.path.join(os.path.dirname(cuda_fk.__file__), os.pardir, "csrc",
-                       "fk_derivatives.cu")
-    with open(src) as f:
-        table = re.search(r"constexpr Tile kTiles\[\] = \{(.*)\};",
-                          f.read()).group(1)
-    tiles = tuple(tuple(int(v) for v in t.split(","))
-                  for t in re.findall(r"\{([^{}]*)\}", table))
-    assert tiles == cuda_fk.TILES
+    csrc/fk_derivatives.cu, the table its launcher reads, and its second
+    tile is the wide kernel's own capacity and tile
+    (csrc/fk_derivatives_wide.cuh, instantiated in fk_derivatives_wide.cu)
+    that the launcher hands every model past the first."""
+    assert k3_source_tiles() == cuda_fk.TILES
+    with open(os.path.join(CSRC, "fk_derivatives_wide.cuh")) as f:
+        wide = dict(re.findall(r"constexpr int kWide(\w+) = (\d+);",
+                               f.read()))
+    assert (int(wide["Frames"]), int(wide["Motors"]),
+            int(wide["Envs"])) == cuda_fk.TILES[1]
+    with open(os.path.join(CSRC, "fk_derivatives.cu")) as f:
+        launcher = f.read()
+    assert "rmp_k3::launch_wide(" in launcher
+    with open(os.path.join(CSRC, "fk_derivatives_wide.cu")) as f:
+        assert ("fk_derivatives_kernel_wide<kWideFrames, kWideMotors, "
+                "kWideEnvs>") in f.read()
 
 
-@pytest.mark.parametrize("n_links,batch", [(19, 5), (24, 6)])
+@pytest.mark.parametrize("n_links,batch", [(19, 5), (24, 6), ("branched", 6)])
 def test_wide_tile_store_map_reassembles_the_outputs(n_links, batch):
-    """The store map on the wide tile (4 envs per CTA) at an odd n, where a
-    float4 of a J row spans two entries' motor ranges, and at n = 24: every
-    element written once, the plain version's outputs reassembled (a full
-    tile and a ragged one)."""
-    model = planar(n_links)
+    """The wide kernel's stores (4 envs per CTA, each frame's rows as its
+    step ends, J by motor lanes r and r + 16) at an odd n, where lane r's
+    second motor exists for r < 3 only, at n = 24 and on the branched tree:
+    every element written once, the plain version's outputs reassembled
+    (a full tile and a ragged one)."""
+    model = (branched(specs) if n_links == "branched"
+             else planar(n_links))
+    n_links = model.n_q
     q, qd = (torch.tensor(x) for x in inputs(n_links, batch=batch))
     got = replay_k3_stores(model, q, qd)
     want = fkd.fk_derivatives(model, q, qd)
     for name, g, w in zip(NAMES, got, want):
         assert not np.isnan(g).any(), name
         np.testing.assert_allclose(g, w.numpy(), atol=ATOL, err_msg=name)
+
+
+def test_branched_tree_on_the_wide_tile_matches_jax():
+    """K3's plain version (the wrapper on CPU tensors) on the branched
+    tree (F = 22, n = 20) against JAX's fk_derivatives under vmap on the
+    same inputs: the tree reaches the wide tile, and past the branch a
+    frame's parent is not the frame before it."""
+    model, jmodel = branched(specs), branched(jspecs)
+    assert (model.n_frames, model.n_q) == (22, 20)
+    assert cuda_fk.tile_of(model) == cuda_fk.TILES[1]
+    assert any(p != f - 1 for f, p in enumerate(model.parent))
+    assert model.parent == tuple(jmodel.parent)
+    q, qd = inputs(model.n_q)
+    want = jax.vmap(lambda a, b: jfkd.fk_derivatives(jmodel, a, b))(
+        jnp.asarray(q), jnp.asarray(qd))
+    got = cuda_fk.fk_derivatives_batched(model, torch.tensor(q),
+                                         torch.tensor(qd))
+    for name, g, w in zip(NAMES, got, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape, name
+        err = float(np.abs(g.numpy() - w).max())
+        print(f"branched {name}: max|port - JAX| {err:.3e} (max |JAX| "
+              f"{float(np.abs(w).max()):.3e})")
+        assert err <= ATOL, name

@@ -110,39 +110,63 @@ def test_ancestor_table_matches_jacobian_columns():
         assert got == want
 
 
-def _k3_tile_envs(model) -> int:
-    """Envs per CTA of the instantiation of csrc/fk_derivatives.cu that
-    serves `model`: the first entry of the source's kTiles (frames, motors,
-    envs) that fits it."""
-    src = os.path.join(os.path.dirname(cuda_fk.__file__), os.pardir, "csrc",
-                       "fk_derivatives.cu")
-    with open(src) as f:
+CSRC = os.path.join(os.path.dirname(cuda_fk.__file__), os.pardir, "csrc")
+
+
+def k3_source_tiles() -> tuple:
+    """kTiles of csrc/fk_derivatives.cu, the launcher's table: (frames,
+    motors, envs per CTA) of each tile, first fit first. The first is the
+    narrow kernel's (that file), the second the wide kernel's
+    (fk_derivatives_wide.cuh)."""
+    with open(os.path.join(CSRC, "fk_derivatives.cu")) as f:
         table = re.search(r"constexpr Tile kTiles\[\] = \{(.*)\};",
                           f.read()).group(1)
-    for t in re.findall(r"\{([^{}]*)\}", table):
-        frames, motors, envs = (int(v) for v in t.split(","))
+    return tuple(tuple(int(v) for v in t.split(","))
+                 for t in re.findall(r"\{([^{}]*)\}", table))
+
+
+def _k3_tile(model) -> int:
+    """Index into k3_source_tiles of the tile that serves `model`."""
+    for k, (frames, motors, _) in enumerate(k3_source_tiles()):
         if model.n_frames <= frames and model.n_q <= motors:
-            return envs
+            return k
     raise ValueError(f"no K3 instantiation takes {model.name}")
 
 
-def replay_k3_stores(model, q: torch.Tensor, qd: torch.Tensor):
-    """K3's store pass, replayed in numpy. The tile's shared arrays (T, its
-    transpose, W, Wd + W W, G per (env, frame) row ef = e F + f) come from
-    the plain recursion; then, tile by tile, float4 v of each output's
-    contiguous range is mapped as the kernel maps it: T, Td, c -> (row ef,
-    matrix row i); J -> (row ef, frame f = ef % F, entry rr, motor m) and
-    the operands row rr / 4 of G[anc[f][m]] and row rr % 4 of T_f's
-    transpose. Elements no float4 reaches stay NaN."""
-    E = _k3_tile_envs(model)
+def _k3_shared_arrays(model, q, qd):
+    """What K3's shared memory holds once the recursion has passed every
+    frame, from the plain recursion: T, W, Wd + W W and G per (env,
+    frame), zero where a frame has no generator."""
     rec = fkd.FkDerivatives(model, q, qd)
-    B, F, n = q.shape[0], model.n_frames, model.n_q
+    B = q.shape[0]
 
     def frames(mats):
         return np.stack([np.zeros((B, 4, 4), np.float32) if m is None
                          else m.numpy() for m in mats], axis=1)
     T, W, Wd, G = (frames(x) for x in (rec.T, rec.W, rec.Wd, rec.G))
-    C = Wd + W @ W
+    return T, W, Wd + W @ W, G
+
+
+def replay_k3_stores(model, q: torch.Tensor, qd: torch.Tensor):
+    """K3's stores, replayed in numpy: the index map from what shared
+    memory holds to the four outputs, tile by tile, as the kernel that
+    serves `model` makes it (`_k3_tile`); the values come from the plain
+    recursion. Elements no store reaches stay NaN; an element stored twice
+    raises."""
+    if _k3_tile(model) == 0:
+        return _replay_narrow(model, q, qd)
+    return _replay_wide(model, q, qd)
+
+
+def _replay_narrow(model, q, qd):
+    """The narrow kernel's store pass after the recursion: float4 v of
+    each output's contiguous range of the tile is mapped as the kernel
+    maps it: T, Td, c -> (row ef = e F + f, matrix row i); J -> (row ef,
+    frame f = ef % F, entry rr, motor m) and the operands row rr / 4 of
+    G[anc[f][m]] and row rr % 4 of T_f's transpose."""
+    E = k3_source_tiles()[0][2]
+    B, F, n = q.shape[0], model.n_frames, model.n_q
+    T, W, C, G = _k3_shared_arrays(model, q, qd)
     anc = cuda_fk.ancestor_table(model)
     outs = [np.full(B * F * 16, np.nan, np.float32) for _ in range(3)]
     J = np.full(B * F * 16 * n, np.nan, np.float32)
@@ -176,6 +200,70 @@ def replay_k3_stores(model, q: torch.Tensor, qd: torch.Tensor):
                     m, rr = 0, rr + 1
     return (outs[0].reshape(B, F, 16), outs[1].reshape(B, F, 16),
             J.reshape(B, F, 16, n), outs[2].reshape(B, F, 16))
+
+
+def _replay_wide(model, q, qd):
+    """The wide kernel's stores (fk_derivatives_wide.cuh): CTA `cta` holds
+    envs cta E .. cta E + E - 1, a half warp each (an env past B stores
+    nothing); right after the step of frame f, lane r = 4 i + j of env b
+    stores entry r of T_f, Td_f = W_f T_f and c_f = (Wd_f + W_f W_f) T_f
+    at (b F + f) 16 + r, the constants of row 3 (T: 0 0 0 1, Td and c:
+    0) where i = 3. J's row of (b, f), 16 n floats at (b F + f) 16 n, goes
+    out in passes gi = 0-2: for its motors m = r and r + 16 below n the
+    lane stages J[4 gi + jj][m] = row gi of G[anc[f][m]] (the zero matrix
+    when there is no ancestor) . column jj of T_f at jj n + m of the env's
+    4 n-float stage, and then the half warp copies the stage out, float4
+    w = r, r + 16, ... below n to float4 gi n + w of the row; a last pass
+    stores zeros at float4s 3 n + w (rows 12-15). Every element is
+    counted, and a stage must be whole before it goes out."""
+    E = k3_source_tiles()[1][2]
+    B, F, n = q.shape[0], model.n_frames, model.n_q
+    T, W, C, G = _k3_shared_arrays(model, q, qd)
+    anc = cuda_fk.ancestor_table(model)
+    zero = np.zeros((4, 4), np.float32)
+    outs = [np.full(B * F * 16, np.nan, np.float32) for _ in range(4)]
+    outs[2] = np.full(B * F * 16 * n, np.nan, np.float32)
+    stored = [np.zeros(x.size, np.int64) for x in outs]
+    entry = np.arange(16)                      # 4 gi + jj
+
+    def store(k, at, values):
+        outs[k][at] = values
+        np.add.at(stored[k], at, 1)
+    for cta in range(-(-B // E)):
+        for f in range(F):
+            for b in range(cta * E, min(cta * E + E, B)):
+                row = (b * F + f) * 16
+                for r in range(16):
+                    i, j = r >> 2, r & 3
+                    if i == 3:
+                        store(0, row + r, float(j == 3))
+                        store(1, row + r, 0.0)
+                        store(3, row + r, 0.0)
+                    else:
+                        store(0, row + r, T[b, f, i, j])
+                        store(1, row + r, W[b, f, i] @ T[b, f, :, j])
+                        store(3, row + r, C[b, f, i] @ T[b, f, :, j])
+                for gi in range(3):
+                    stage = np.full(4 * n, np.nan, np.float32)
+                    for r in range(16):
+                        for m in (r, r + 16):
+                            if m < n:
+                                a = anc[f, m]
+                                Ga = G[b, a] if a >= 0 else zero
+                                stage[entry[:4] * n + m] = Ga[gi] @ T[b, f]
+                    assert not np.isnan(stage).any(), "stage not whole"
+                    for r in range(16):
+                        for w in range(r, n, 16):
+                            store(2, row * n + 4 * (gi * n + w)
+                                  + np.arange(4), stage[4 * w:4 * w + 4])
+                for r in range(16):
+                    for w in range(r, n, 16):
+                        store(2, row * n + 4 * (3 * n + w) + np.arange(4),
+                              np.zeros(4, np.float32))
+    for count in stored:
+        assert count.max() <= 1, "an element stored twice"
+    return (outs[0].reshape(B, F, 16), outs[1].reshape(B, F, 16),
+            outs[2].reshape(B, F, 16, n), outs[3].reshape(B, F, 16))
 
 
 @pytest.mark.parametrize("batch", [5, 13])
