@@ -267,13 +267,16 @@ ticks before).
      the flagship at batches 1, 64, 4096 (25 ticks), the soak at 4096 x
      250 in chunks of 125 (finite, in limits), `run franka/01 --ticks 40`.
  20. the fourteenth slice, K5 past 16 motors, row-keyed resampling
-     streams, M17's second half: the warp-per-env K5's two instantiations'
-     build lines (N = 24, 32); the kernel on the 17-, 24- and 32-link arms'
-     inputs at B = 4096, 1, 7 and 4093 against its plain version on the
-     envs a float64 plain run keeps within 1e-5, and on the rest against
-     the float64 system beside the plain version (backward and forward
-     error at the 99th percentile within twice the plain version's; the
-     largest printed); one device kernel a call; timed at 24 and 32 links
+     streams, M17's second half: the wide K5's two instantiations' build
+     lines (N = 24, 32); the kernel on every layout of k5_wide_layouts (the
+     17-, 24- and 32-link arms, also at B = 1, 7 and 4093; n = 19 and 31;
+     the 40-frame tail; a branched tree; four cylinders an env) at B =
+     4096 against its plain version on the envs that the card's and the
+     CPU's float32 plain runs both keep within 1e-5 of float64, and on the
+     rest against the float64 system beside the plain version (backward
+     and forward error at the 99th percentile within twice the plain
+     version's; the largest printed), each timed beside its shared bytes a
+     CTA and envs an SM; one device kernel a call; timed at 24 and 32 links
      beside its bound; 33 motors and grad raising before a launch; the
      16-lane K5 re-timed on scene 06 against 0.0375 ms (5%); the
      randomized Panda sharded at world size 1 on NCCL (1024 x 30, goals
@@ -5340,10 +5343,25 @@ def k5_backward(x, A, f) -> torch.Tensor:
                 + f.abs().amax(dim=1))
 
 
-def k5_wide_check(env, args, what: str) -> dict:
+def k5_held(want, cpu_want, exact) -> torch.Tensor:
+    """The (B,) envs held to the plain version: both float32 plain runs,
+    on the card (`want`) and on the CPU (`cpu_want`, the same arithmetic
+    rounded elsewhere), within K5_ACCURATE of the float64 one (`exact`).
+    One run alone is a draw where a one-ulp change of the FK's rounding
+    moves q̈ by ~6e-4: an env of the 31-link arm (env 1954 of
+    planar_inputs(.., 11), a link 5 mm into the cylinder) lands 7.0e-6 from
+    float64 in the card's plain run, 2.3e-5 in the CPU's and 6.3e-4 in
+    either CUDA kernel's, and the plain version on the float64 FK rounded
+    to float32 with one-ulp noise lands on 6.3e-4 in 6 of 20 draws (CPU
+    runs, PR 20)."""
+    return ((k5_rel(want.double(), exact) <= K5_ACCURATE)
+            & (k5_rel(cpu_want.double(), exact) <= K5_ACCURATE))
+
+
+def k5_wide_check(env, args, what: str, cpu_want) -> dict:
     """The wide K5 against its plain version on the envs whose float32
-    plain run a float64 one keeps within K5_ACCURATE (2e-4 x max(1,
-    |q̈|)); on the rest against the float64 system, kernel beside plain as
+    plain runs a float64 one keeps within K5_ACCURATE (k5_held; 2e-4 x
+    max(1, |q̈|)); on the rest against the float64 system, kernel beside plain as
     k1_compare_conditioned holds K1: the backward error |A x - f| / (|A|
     |x| + |f|) within max(K1_RESIDUAL, twice the plain version's) and the
     forward error within max(K1_TOL, twice the plain version's), each at
@@ -5363,7 +5381,7 @@ def k5_wide_check(env, args, what: str) -> dict:
     plain_err = k5_rel(want.double(), exact)
     kern_err = k5_rel(got.double(), exact)
     bwd_k, bwd_p = k5_backward(got, A, f), k5_backward(want, A, f)
-    held = plain_err <= K5_ACCURATE
+    held = k5_held(want, cpu_want, exact)
     rest = ~held
     rel = k5_rel(got, want)
     gap = float(rel[held].max()) if held.any() else 0.0
@@ -5405,79 +5423,157 @@ def k5_wide_check(env, args, what: str) -> dict:
 
 
 def k5_tail_env(arm, extra: int):
-    """The planar arm env `arm` on fixed_tail_model(n, extra, spheres): its
-    policies rebuilt on that model (the grouped obstacle policy over every
-    collision frame), for K5 alone."""
-    model = fixed_tail_model(arm.model.n_q, extra, radius=0.04)
-    return dataclasses.replace(
-        arm, name=model.name, model=model,
-        policies=planar.planar_policies(model, arm.device))
+    """The planar env on fixed_tail_model(n, extra, spheres) of the arm env
+    `arm` (the grouped obstacle policy over every collision frame), for K5
+    alone."""
+    return planar.planar_env(fixed_tail_model(arm.model.n_q, extra,
+                                              radius=0.04), arm.device)
+
+
+K5_WIDE_ODD = (19, 31)  # odd n, padded to 24 and 32
+K5_WIDE_TAIL = "planar_32 + 7 fixed (F=40, 40 collision)"
+K5_WIDE_CYLINDERS = 4   # the obstacles an env of the K = 4 layout
+
+
+def k5_cylinders(args, K: int, seed: int):
+    """K5's inputs `args` with K cylinders an env: its own and K - 1 copies
+    moved 0.8-1.2 m in the x-y plane (seeded), within the obstacle policy's
+    reach of some links. Nearer copies pierce more links, where the 1/d
+    curvature rows leave fewer envs that float32 solves well (60% of 256
+    at 0-0.5 m, 66% here, 84% with the one cylinder; CPU run)."""
+    q, qd, goal, p0, p1, r = args
+    B = q.shape[0]
+    rng = np.random.default_rng(seed)
+    shift = np.zeros((B, K, 3), np.float32)
+    mag = rng.uniform(0.8, 1.2, (B, K - 1))
+    ang = rng.uniform(0.0, 2.0 * np.pi, (B, K - 1))
+    shift[:, 1:, 0], shift[:, 1:, 1] = mag * np.cos(ang), mag * np.sin(ang)
+    shift = torch.tensor(shift, device=q.device)
+    return (q, qd, goal, (p0 + shift).contiguous(), (p1 + shift).contiguous(),
+            r.expand(B, K).contiguous())
+
+
+def k5_wide_layouts(B: int = BATCH, seed: int = 11) -> dict:
+    """The wide K5's layouts, name -> (env, its inputs at B): the 17-, 24-,
+    32-link arms and n = 19, 31 (planar_inputs); the 32-link arm with 7
+    fixed tail links carrying spheres (F = 40, 40 collision frames) on the
+    arm's inputs; the branched tree (F = 30, n = 28) under the planar
+    policies; the 32-link arm with K5_WIDE_CYLINDERS cylinders an env."""
+    out = {}
+    for n_links in K5_WIDE_LINKS + K5_WIDE_ODD:
+        env = planar.planar_arm_env(n_links)
+        out[f"planar_{n_links}"] = (env, planar_inputs(env, B, seed))
+    arm, args = out[f"planar_{K5_WIDE_LINKS[-1]}"]
+    out[K5_WIDE_TAIL] = (k5_tail_env(arm, 7), args)
+    tree = planar.planar_env(branched_model())
+    out["branched 20 + 8 (F=30, n=28)"] = (tree, planar_inputs(tree, B, seed))
+    out[f"planar_32, K={K5_WIDE_CYLINDERS}"] = (
+        arm, k5_cylinders(args, K5_WIDE_CYLINDERS, seed))
+    return out
+
+
+def k5_held_error(tick, args) -> float:
+    """The largest |kernel - plain| / max(1, |plain|) over k5_wide_check's
+    held envs (k5_held)."""
+    got = cuda_tick.fused_qdd(tick, *args)
+    want = cuda_tick.fused_qdd_plain(tick, *args)
+    exact = cuda_tick.fused_qdd_plain(tick, *(x.double() for x in args))
+    cpu_want = cuda_tick.fused_qdd_plain(tick, *(x.cpu() for x in args))
+    held = k5_held(want, cpu_want.to(want.device), exact)
+    return float(k5_rel(got, want)[held].max()) if held.any() else 0.0
+
+
+def k5_wide_residency(tick) -> dict:
+    """The wide K5's dynamic shared memory a CTA at the tick's model, and
+    the envs an SM holds at once (None where the library has no such
+    entry point)."""
+    model, n_col = tick.model, len(tick.col_frames)
+    sizes = (model.n_frames, model.n_q, n_col)
+    rec = dict(shared_bytes=_build.c_function(
+        "rmp_fused_qdd_wide_shared_bytes", [ctypes.c_int] * 3)(*sizes))
+    try:
+        envs_per_sm = _build.c_function("rmp_fused_qdd_wide_envs_per_sm",
+                                        [ctypes.c_int] * 3)
+    except AttributeError:
+        return dict(rec, envs_per_sm=None)
+    return dict(rec, envs_per_sm=envs_per_sm(*sizes))
 
 
 def phase_k5_wide(card: str, device) -> tuple[dict, float]:
     """K5 past 16 motors: the wide kernel's two instantiations' build
-    lines, the kernel on the 17-, 24- and 32-link arms' inputs (planar_
-    inputs) at B = 4096, 1, 7 and 4093 against its plain version behind
-    the float64 screen (k5_wide_check), one device kernel a call, timed at
-    24 and 32 links beside its bound; at the capacity, 40 frames and 40
-    collision frames (k5_tail_env) at B = 4096; 33 motors, 41 frames and
-    grad raising before a launch; the 16-lane kernel re-timed on scene 06
-    against K5_EARLIER_MS."""
-    shared = _build.c_function("rmp_fused_qdd_wide_shared_bytes",
-                               [ctypes.c_int] * 3)
+    lines; the kernel on every layout of k5_wide_layouts at B = 4096 (the
+    17-, 24- and 32-link arms also at B = 1, 7 and 4093) against its plain
+    version behind the float64 screen (k5_wide_check), each layout's
+    device time beside its shared memory a CTA and envs an SM; at 24 and
+    32 links one device kernel a call and the wrapper's and the plain
+    version's times beside the bound; the capacity (40 frames and 40
+    collision frames); 33 motors, 41 frames and grad raising before a
+    launch; the 16-lane kernel re-timed on scene 06 against
+    K5_EARLIER_MS."""
     builds = {n: build_counts("fused_tick_wide.cu", f"K5 wide <{n}>", k)
               for n, k in K5_WIDE_INSTANTIATIONS.items()}
-    out, err = {}, 0.0
-    for n_links in K5_WIDE_LINKS:
-        env = planar.planar_arm_env(n_links)
+    layouts = k5_wide_layouts()
+    arms = {f"planar_{n}" for n in K5_WIDE_LINKS}
+    out, err = {"layouts": {}}, 0.0
+    for name, (env, args) in layouts.items():
         tick = cuda_tick.fused_tick(env)
-        check(cuda_tick.wide(tick), f"K5 n={n_links}: not the wide kernel")
-        args = planar_inputs(env, BATCH, 11)
-        checks = {}
-        for B in (BATCH,) + RAGGED:
-            checks[B] = k5_wide_check(
-                env, tuple(x[:B].contiguous() for x in args),
-                f"wide, planar_{n_links}link, B={B}")
-            err = max(err, checks[B]["gap"])
-        out[f"planar_{n_links}_checks"] = checks
-        if n_links == K5_WIDE_LINKS[0]:
-            continue
+        check(cuda_tick.wide(tick), f"K5 {name}: not the wide kernel")
+        fn = cuda_tick.make_fused_qdd(env)
+        cpu_want = cuda_tick.fused_qdd_plain(
+            tick, *(x.cpu() for x in args)).to(device)
+        checks = {B: k5_wide_check(env, tuple(x[:B].contiguous()
+                                              for x in args),
+                                   f"wide, {name}, B={B}", cpu_want[:B])
+                  for B in (BATCH,) + (RAGGED if name in arms else ())}
+        err = max([err] + [c["gap"] for c in checks.values()])
+        rec = dict(frames=tick.model.n_frames, n=tick.model.n_q,
+                   collision_frames=len(tick.col_frames),
+                   obstacles=args[5].shape[1], checks=checks,
+                   device_ms=time_ms(lambda: fn(*args), lead=True),
+                   **k5_wide_residency(tick))
+        log(f"K5 wide {name} (F={rec['frames']}, n={rec['n']}, "
+            f"{rec['collision_frames']} collision frames, K="
+            f"{rec['obstacles']}) at B={BATCH}: device {rec['device_ms']:.4f}"
+            f" ms, {rec['shared_bytes']} B of shared memory a CTA, "
+            f"{rec['envs_per_sm']} envs an SM [{card}]")
+        out["layouts"][name] = rec
+    for n_links in K5_WIDE_LINKS[1:]:
+        env, args = layouts[f"planar_{n_links}"]
+        tick = cuda_tick.fused_tick(env)
         fn = cuda_tick.make_fused_qdd(env)
         per_call = device_launches(lambda: fn(*args), "fused_qdd_wide_kernel",
                                    f"K5 wide n={n_links}")
         check(per_call == 1, "K5 wide: not one launch per wrapper call")
         b_ms, b_by = k5_bound(tick, BATCH, 1)
         total, mirrored = tick_ops.fused_qdd_ops(tick, 1)
-        smem = shared(tick.model.n_frames, n_links, len(tick.col_frames))
+        lay = out["layouts"][f"planar_{n_links}"]
         rec = dict(n=n_links, frames=tick.model.n_frames,
                    collision_frames=len(tick.col_frames),
                    ms=time_ms(lambda: fn(*args)),
-                   device_ms=time_ms(lambda: fn(*args), lead=True),
+                   device_ms=lay["device_ms"],
                    plain_ms=time_ms(lambda: cuda_tick.fused_qdd_plain(
                        tick, *args), reps=5),
                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
                    ops_per_env=total - mirrored,
                    device_launches_per_call=per_call,
-                   dynamic_smem_bytes=smem,
+                   dynamic_smem_bytes=lay["shared_bytes"],
+                   envs_per_sm=lay["envs_per_sm"],
                    build=builds[24 if n_links <= 24 else 32])
         log(f"K5 wide planar_{n_links}link times at B={BATCH}: kernel "
             f"{rec['ms']:.4f} ms (device alone {rec['device_ms']:.4f} ms), "
             f"plain {rec['plain_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by}, "
-            f"{total - mirrored} operations per env); {smem} B of shared "
-            f"memory a CTA [{card}]")
+            f"{total - mirrored} operations per env, "
+            f"{(total - mirrored) * BATCH / rec['device_ms'] / 1e9:.2f} "
+            f"TFLOP/s achieved); {rec['dynamic_smem_bytes']} B of shared "
+            f"memory a CTA, {rec['envs_per_sm']} envs an SM [{card}]")
         out[f"planar_{n_links}"] = rec
     # the capacity: 40 frames and 40 collision frames (the 32-link arm and
-    # 7 fixed tail links with a sphere each), on the 32-link arm's inputs
-    arm = planar.planar_arm_env(K5_WIDE_LINKS[-1])
-    tail = k5_tail_env(arm, 7)
+    # 7 fixed tail links with a sphere each), checked above
+    arm, args = layouts[f"planar_{K5_WIDE_LINKS[-1]}"]
+    tail = layouts[K5_WIDE_TAIL][0]
     check((tail.model.n_frames, len(cuda_tick.fused_tick(tail).col_frames))
           == (cuda_tick.MAX_FRAMES, cuda_tick.MAX_COLLISION),
           "K5: the capacity model is not 40 frames and 40 collision frames")
-    args = planar_inputs(arm, BATCH, 11)
-    out["planar_32_tail7_check"] = k5_wide_check(
-        tail, args, f"wide, {tail.name} (F=40, 40 collision frames), "
-        f"B={BATCH}")
-    err = max(err, out["planar_32_tail7_check"]["gap"])
     raised = []
     for env_big, big_args in (
             (planar.planar_arm_env(33),
@@ -6458,17 +6554,17 @@ def run_phases(card: str, build_s: float, chosen: set | None, start: float,
                                     "bound_ms", "bound_by", "library_ms",
                                     "device_launches_per_call")})
         for n, rec in ((n, slice13["k1"][f"n={n}"]) for n in WIDE_LINKS)]
-    # the fourteenth slice's entries: K5's warp-per-env kernel at the 24-
-    # and 32-link arms (no path runs K5)
+    # the fourteenth slice's entries: K5's wide kernel at the 24- and
+    # 32-link arms (no path runs K5)
     k5_wide = [
-        dict(name=f"fused_qdd (planar_{n}link, warp per env)", route="cuda",
-             source="rmp_tpu_torch/csrc/fused_tick_wide.cu",
+        dict(name=f"fused_qdd (planar_{n}link, wide kernel)", route="cuda",
+             source="rmp_tpu_torch/csrc/fused_tick_wide.cuh",
              replaces="rmp_tpu/ops/pallas_tick.py:421", counter=k5["name"],
              max_abs_err=slice14["k5_err"],
              **{k: rec[k] for k in ("ms", "device_ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms",
                                     "device_launches_per_call",
-                                    "dynamic_smem_bytes")})
+                                    "dynamic_smem_bytes", "envs_per_sm")})
         for n, rec in ((n, slice14["k5"][f"planar_{n}"])
                        for n in K5_WIDE_LINKS[1:])]
     kernels = [k1, k2a, k2b, k3, k4, k5, k1_dual, k3_dual, k3_contact,

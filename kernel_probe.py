@@ -4,7 +4,8 @@ GPU.
     python3 kernel_probe.py [part ...] [--against DIR]
 
 Parts (all when none is named): sass, k3, k3narrow, k3tile, k3ab, k4,
-k5, k1, k1parts, k1ab, host, traces.
+k5, k5wide, k5parent, k5ab, k1, k1parts, k1ab, host, traces (k5parent
+and k5ab need --against).
 
 1. Phase splits by edited copies of csrc/: each variant is rebuilt from a
    copy of csrc/ with an edit and runs in its own process (the library loads
@@ -38,6 +39,23 @@ k5, k1, k1parts, k1ab, host, traces.
    - K5 (csrc/fused_tick.cu) at scene 06, B = 4096, near the ready pose:
      return after the FK recursion, after the frame slots, after the work
      items (before the butterfly), or the whole kernel.
+   - K5's wide kernel (part k5wide, csrc/fused_tick_wide.cuh) at B = 4096
+     on the 24- and 32-link arms (chip_smoke.k5_wide_layouts): return
+     after the tables (q, qd, sin q, cos q, the first frame's entries),
+     after the recursion, after the attractor and the identity leaves (the
+     origin terms formed on the way), after the pairs, or the whole kernel
+     (the Cholesky and both substitutions); each early return stores a
+     value of the work done under a condition that never holds, so the
+     compiler keeps that work. Part k5parent: the same split of the kernel
+     before this design (fused_tick_wide.cu up to PR 19, on its own
+     markers) in the checkout `--against DIR`. Part k5ab: the kernel
+     against another checkout's (`--against DIR`) on every layout of
+     chip_smoke.k5_wide_layouts and scene 06 on the 16-lane kernel, in
+     K5_ROUNDS processes, the order turned every round, with each layout's
+     largest |kernel - plain| / max(1, |plain|) on the envs whose plain
+     run lies within K5_ACCURATE of float64; it prints each layout's median
+     of the medians. Each child reports the layouts' shared bytes a CTA
+     and envs an SM, and both instantiations' ptxas counts.
    - A diagnostic variant of K4 loads no table row in its first scan (its
      results are wrong; it times the scan's arithmetic alone).
    - K1's warp kernel (n = 10..32, part k1) at B = 4096 at n = 12 and 32
@@ -58,7 +76,8 @@ k5, k1, k1parts, k1ab, host, traces.
      each layout's largest |q̈ - plain| / max(1, |plain|). A variant that
      fails to build or run is reported and the probe exits 1.
 2. Instructions per kernel and their opcodes, from cuobjdump -sass of the
-   built library (the listing goes to chiprun_out/kernel_probe_sass.txt).
+   built library (the listing goes to
+   chiprun_out/kernel_probe_sass.txt.gz).
 3. Host cost of the K1 and K3 wrappers' parts (validation and descriptor
    table, allocation, stream handle) and of whole wrapper calls at
    B = 16, in microseconds per call over 2,000 calls.
@@ -73,6 +92,7 @@ The results also go to chiprun_out/kernel_probe.json. Needs CUDA and nvcc.
 """
 from __future__ import annotations
 
+import gzip
 import json
 import os
 import re
@@ -152,10 +172,64 @@ K3_TILES = {K3_WIDE: {"full": [], "wide_tile_2": k3_wide_envs(2),
                       "wide_tile_8": k3_wide_envs(8),
                       "unbalanced_waves": [(
                           "fk_derivatives_wide.cu",
-                          "  if (most <= 0 || need <= most) return bytes;",
-                          "  if (need > 0) return bytes;")]}}
+                          "  if (d.sms == 0) return bytes;",
+                          "  if (d.sms >= 0) return bytes;")]}}
 # part k3ab: the kernels as they are against another checkout's
 K3_AB = {K3_WIDE: {"full": []}}
+
+
+def k5_stop(anchor: str, guard: str) -> list:
+    """An edit that returns before `anchor`, after a store of `guard` (a
+    value of the work done so far) under a condition that never holds, so
+    the compiler keeps that work."""
+    return [(anchor, f"  if ({guard} == 1.2345e-30f) out[threadIdx.x] = 1.0f;\n"
+             + STOP + anchor)]
+
+
+# the sum of the lane's row of [A | f]: the guard of the later stops
+K5_ROW_SUM = "row_sum(row, fr)"
+K5_ROW_SUM_FN = ("template <int N>\n__device__ __forceinline__ float row_sum("
+                 "const float (&row)[N], float fr) {\n#pragma unroll\n  for "
+                 "(int c = 0; c < N; ++c) fr += row[c];\n  return fr;\n}\n\n")
+# K5's wide kernel before this design (fused_tick_wide.cu up to PR 19): its
+# split on that file's own markers (part k5parent, on `--against DIR`)
+K5_PARENT = "fused_tick_wide.cu"
+P_RECURSION = "  // ---- the recursion on 16 lanes an env: the first two warps ----"
+P_WARP = "  // ---- a warp an env from here on ----"
+P_PAIRS = "  // ---- the pairs, frame by frame, 32 staged at a time ----"
+P_CHOL = "  // ---- Cholesky of the symmetrized A, right-looking, by shuffles ----"
+P_KERNEL = "template <int N>\n__global__ void __launch_bounds__(kThreads, 3)"
+K5_PARENT_SPLITS = {K5_PARENT: {
+    "full": [],
+    "tables": k5_stop(P_RECURSION, "smem[L.U + tid]"),
+    "recursion": k5_stop(P_WARP, "smem[L.T + tid]"),
+    "slots_attractor_identity": [(P_KERNEL, K5_ROW_SUM_FN + P_KERNEL)]
+    + k5_stop(P_PAIRS, K5_ROW_SUM),
+    "pairs": [(P_KERNEL, K5_ROW_SUM_FN + P_KERNEL)]
+    + k5_stop(P_CHOL, K5_ROW_SUM),
+}}
+# the wide kernel's split on its own markers (part k5wide)
+K5_WIDE = "fused_tick_wide.cuh"
+W_FRAMES = "  // ---- the frames, in topological order ----"
+W_ROWS = "  // rows r and r + 16 of [A | f]"
+W_PAIRS = "  // ---- the pairs, 16 staged at a time ----"
+W_CHOL = "  // ---- Cholesky of the symmetrized A"
+W_KERNEL = ("template <int N>\n__global__ void __launch_bounds__(kThreads, 4) "
+            "fused_qdd_wide_kernel(")
+W_ROW_SUM = "row_sum(rowA, fA + dA) + row_sum(rowB, fB + dB)"
+K5_WIDE_SPLITS = {K5_WIDE: {
+    "full": [],
+    "tables": k5_stop(W_FRAMES, "qA + qdA + qB + qdB + sinA + cosA + sinB + "
+                      "cosB + next.tc.x"),
+    "recursion": k5_stop(W_ROWS, "s[L.D + kRows3 * (F - 1) + r % 12]"),
+    "slots_attractor_identity": [(W_KERNEL, K5_ROW_SUM_FN + W_KERNEL)]
+    + k5_stop(W_PAIRS, W_ROW_SUM),
+    "pairs": [(W_KERNEL, K5_ROW_SUM_FN + W_KERNEL)]
+    + k5_stop(W_CHOL, W_ROW_SUM),
+}}
+# part k5ab: the wide kernel as it is against another checkout's
+K5_AB = {K5_WIDE: {"full": []}}
+K5_ROUNDS = 3
 K3_ROUNDS = 3
 K4_ITERS = (0, 1, 2, 4)
 # K1's warp kernel (n = 10..32): return after the rows are staged and
@@ -352,6 +426,27 @@ elif src.startswith("pullback_resolve"):
                          / ref[fin].abs().clamp(min=1.0)).max())
                   if fin.any() else 0.0,
                   int((torch.isfinite(got).all(1) != fin).sum())]
+elif src.startswith("fused_tick_wide"):
+    # the wide K5 at B = 4096: the 24- and 32-link arms (the split), or
+    # every layout of chip_smoke.k5_wide_layouts with its largest error on
+    # the held envs and scene 06 on the 16-lane kernel (k5ab)
+    layouts = cs.k5_wide_layouts()
+    if not {k3_all!r}:
+        layouts = {{k: v for k, v in layouts.items()
+                    if k in ("planar_24", "planar_32")}}
+    calls, err, shared = {{}}, {{}}, {{}}
+    for name, (env, args) in layouts.items():
+        tick = cuda_tick.fused_tick(env)
+        fn = cuda_tick.make_fused_qdd(env)
+        calls[name] = lambda fn=fn, args=args: fn(*args)
+        shared[name] = cs.k5_wide_residency(tick)
+        if {k3_all!r}:
+            err[name] = cs.k5_held_error(tick, args)
+    if {k3_all!r}:
+        env06 = envs.make(cs.SCENE)
+        fn06 = cuda_tick.make_fused_qdd(env06)
+        near = cs.k5_inputs(env06, cs.BATCH, 11, wide=False)
+        calls["scene 06 (16-lane)"] = lambda: fn06(*near)
 else:
     env = envs.make(cs.SCENE)
     fn = cuda_tick.make_fused_qdd(env)
@@ -364,7 +459,12 @@ extra = (dict(build_narrow=cs.ptxas_counts(
     if src.startswith("fk_derivatives")
     else {{f"build_n{{n}}": cs.ptxas_counts(
         src, f"pullback_resolve_wide_kernelILi{{n}}E") for n in {k1_n!r}}}
-    if src.startswith("pullback_resolve") else {{}})
+    if src.startswith("pullback_resolve")
+    else {{f"build_n{{n}}": cs.ptxas_counts(
+        src, f"fused_qdd_wide_kernelILi{{n}}E") for n in (24, 32)}}
+    if src.startswith("fused_tick_wide") else {{}})
+if src.startswith("fused_tick_wide"):
+    extra["residency"] = shared
 if src.startswith("pullback_resolve") or {k3_all!r}:
     extra["err"] = err
 print("RESULT", json.dumps(dict(
@@ -385,16 +485,19 @@ _build.build()
 
 def split(source: str, variants: dict = VARIANTS, only: str | None = None,
           rounds: int = 1, against: str | None = None,
-          k3_all: bool = False) -> dict:
+          k3_all: bool = False, base: str = ROOT) -> dict:
     """Every variant of `source` built (all at once, a process each) and
     then timed in its own process, one after the other; with `rounds` > 1
     that many times, the order turned every round, and a variant's results
     are a list, one a round. `only`: the sources whose names start so are
     the library's (the headers always). `against`: a checkout whose csrc/,
-    unedited, is one more variant ("against"). A variant that fails to
-    build or to run is reported (`error`) and left out of later rounds.
+    unedited, is one more variant ("against"). A variant whose edit anchor
+    is not found once, or that fails to build or to run, is reported
+    (`error`) and left out of later rounds.
     `k3_all`: K3's children time the narrow and the wide layouts and
-    report each one's error against the plain version."""
+    report each one's error against the plain version (the wide K5's
+    children every layout, and scene 06). `base`: the checkout whose csrc/
+    the variants edit (this one by default)."""
     out, works = {}, {}
     cache = tempfile.mkdtemp()
     inputs = os.path.join(cache, "inputs.pt")   # K1's, made once
@@ -403,7 +506,7 @@ def split(source: str, variants: dict = VARIANTS, only: str | None = None,
         todo["against"] = None
     try:
         for name, edits in todo.items():
-            src_dir = os.path.join(ROOT if edits is not None else against,
+            src_dir = os.path.join(base if edits is not None else against,
                                    "rmp_tpu_torch", "csrc")
             keep = (None if only is None else shutil.ignore_patterns(*(
                 f for f in os.listdir(src_dir)
@@ -419,8 +522,11 @@ def split(source: str, variants: dict = VARIANTS, only: str | None = None,
                 with open(path) as f:
                     text = f.read()
                 if text.count(old) != 1:
-                    raise RuntimeError(f"{target} {name}: edit anchor not "
-                                       f"found once")
+                    out[name] = dict(error=f"{target}: edit anchor not "
+                                     f"found once: {old.strip()[:60]!r}")
+                    print(f"{source} {name}: {out[name]['error']}",
+                          flush=True)
+                    break
                 with open(path, "w") as f:
                     f.write(text.replace(old, new))
         builds = {name: subprocess.Popen(
@@ -428,7 +534,7 @@ def split(source: str, variants: dict = VARIANTS, only: str | None = None,
                 root=ROOT, csrc=os.path.join(work, "csrc"),
                 build=os.path.join(work, "build"))], cwd=ROOT,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for name, work in works.items()}
+            for name, work in works.items() if name not in out}
         for name, proc in builds.items():
             _, err = proc.communicate(timeout=900)
             if proc.returncode != 0:
@@ -469,8 +575,8 @@ def split(source: str, variants: dict = VARIANTS, only: str | None = None,
     return out
 
 
-def medians(out: dict) -> dict:
-    """Part k3ab's summary, printed and kept under "summary": per layout,
+def medians(out: dict, part: str = "k3ab") -> dict:
+    """Part k3ab's (k5ab's) summary, printed and kept under "summary": per layout,
     each variant's median over its rounds' medians, the against
     checkout's over the kernel's, and the largest error of any round."""
     runs = {k: v for k, v in out.items() if isinstance(v, list)}
@@ -485,7 +591,7 @@ def medians(out: dict) -> dict:
     for layout, rec in summary.items():
         if "full" in rec and "against" in rec:
             rec["speed_up"] = rec["against"] / rec["full"]
-        print(f"k3ab {layout}: " + ", ".join(
+        print(f"{part} {layout}: " + ", ".join(
             f"{k} {v:.4f}" if not k.endswith("_err") else f"{k} {v:.2e}"
             for k, v in rec.items()), flush=True)
     out["summary"] = summary
@@ -495,7 +601,7 @@ def medians(out: dict) -> dict:
 def sass_counts() -> dict:
     """Instructions per kernel of the built library (cuobjdump -sass), with
     each kernel's opcode histogram; the listing goes to
-    chiprun_out/kernel_probe_sass.txt."""
+    chiprun_out/kernel_probe_sass.txt.gz."""
     from rmp_tpu_torch import _build
 
     lib = _build.build()
@@ -503,8 +609,8 @@ def sass_counts() -> dict:
     text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
                           text=True, check=True, timeout=300).stdout
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "kernel_probe_sass.txt"),
-              "w") as f:
+    with gzip.open(os.path.join(ROOT, "chiprun_out",
+                                "kernel_probe_sass.txt.gz"), "wt") as f:
         f.write(text)
     out = {}
     for chunk in text.split("Function : ")[1:]:
@@ -516,7 +622,9 @@ def sass_counts() -> dict:
             hist[op.split(".")[0]] = hist.get(op.split(".")[0], 0) + 1
         out[name] = dict(instructions=len(ops), opcodes=dict(
             sorted(hist.items(), key=lambda kv: -kv[1])))
-        print(f"sass {name[:70]}: {len(ops)} instructions", flush=True)
+        short = re.search(r"[a-z_]*kernel[a-z_]*(?:I(?:Li\d+E)+)?", name)
+        print(f"sass {short.group(0) if short else name[:70]}: {len(ops)} "
+              f"instructions", flush=True)
     return out
 
 
@@ -637,6 +745,11 @@ def main() -> int:
         i = args.index("--against")
         against = os.path.abspath(args[i + 1])
         del args[i:i + 2]
+    def needs(path):
+        if path is None:
+            raise SystemExit("kernel_probe: this part needs --against DIR")
+        return path
+
     parts = dict(sass=sass_counts,
                  k3=lambda: split(K3_WIDE, only="fk_derivatives"),
                  k3narrow=lambda: split("fk_derivatives.cu",
@@ -653,7 +766,16 @@ def main() -> int:
                                        only="pullback_resolve"),
                  k1ab=lambda: split(K1_SOURCE, K1_AB, only="pullback_resolve",
                                     rounds=K1_ROUNDS, against=against),
-                 k5=lambda: split("fused_tick.cu"), host=host_costs,
+                 k5=lambda: split("fused_tick.cu"),
+                 k5wide=lambda: split(K5_WIDE, K5_WIDE_SPLITS,
+                                      only="fused_tick"),
+                 k5parent=lambda: split(K5_PARENT, K5_PARENT_SPLITS,
+                                        only="fused_tick",
+                                        base=needs(against)),
+                 k5ab=lambda: medians(split(
+                     K5_WIDE, K5_AB, only="fused_tick", rounds=K5_ROUNDS,
+                     against=needs(against), k3_all=True), "k5ab"),
+                 host=host_costs,
                  traces=trace_loss)
     chosen = args or list(parts)
     unknown = sorted(set(chosen) - set(parts))

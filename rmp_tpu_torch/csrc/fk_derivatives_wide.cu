@@ -1,34 +1,24 @@
 // K3's wide kernel (fk_derivatives_wide.cuh, whose head note holds its
 // design and what bounds it), instantiated at its capacity (40 frames, 32
 // motors, kWideEnvs envs a CTA), and its launch; fk_derivatives.cu's
-// launcher calls it for every model past the narrow tile.
-//
-// Whole waves. An SM holds as many CTAs as the layout's shared memory
-// lets it (32 envs at F = 33, n = 32; 24 at F = 40). Where the grid needs
-// more than that, the last wave is part-filled, and its few envs an SM
-// each take a whole env's chain of frame steps with the memory rate to
-// spare (0.1652 ms at F = 40, n = 32, B = 4096: 1.29 waves of 24 envs an
-// SM). So the launch asks for more shared memory than the layout needs
-// where that keeps the number of waves and makes them whole: the fewest
-// CTAs an SM that take the grid in as many waves as the most would.
+// launcher calls it for every model past the narrow tile. An SM holds 32
+// envs at F = 33, n = 32 and 24 at F = 40; the launch makes the waves
+// whole (whole_waves.cuh).
 #include "fk_derivatives_wide.cuh"
+#include "whole_waves.cuh"
 
 namespace rmp_k3 {
 
 namespace {
 
 constexpr int kThreads = 16 * kWideEnvs;
-constexpr int kDevices = 16;  // devices whose attributes are kept
+constexpr int kDevices = 16;  // devices whose CTA counts are kept
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// A device's SM count, shared memory an SM and its part reserved a CTA;
-// the CTAs an SM holds at each layout's own size (0: not asked yet).
-struct Device {
-  int sms = 0, smem = 0, reserved = 0;
-  unsigned char ctas[kWideFrames + 1][kWideMotors + 1] = {};
-};
-Device g_device[kDevices];
+// The CTAs an SM of each device holds at each layout's own size (0: not
+// asked yet).
+unsigned char g_ctas[kDevices][kWideFrames + 1][kWideMotors + 1];
 
 // Opt in above the default 48 KB of dynamic shared memory, and give the
 // SM's unified memory to shared memory: its envs hide the steps' latency.
@@ -59,41 +49,14 @@ int most_ctas(int F, int n) {
 }
 
 // The dynamic shared memory a CTA of a grid of `grid` CTAs asks for: the
-// layout's own, or, where the grid takes more than one wave, enough that
-// no more CTAs fit an SM than the fewest that keep the number of waves.
+// layout's own, made up to whole waves (rmp::whole_wave_bytes).
 int balanced_bytes(int F, int n, int grid) {
   const int bytes = WideLayout(F, n).bytes(kWideEnvs);
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kDevices)
-    return bytes;
-  Device& d = g_device[dev];
-  if (d.sms == 0) {
-    int smem = 0, reserved = 0, sms = 0;
-    if (cudaDeviceGetAttribute(
-            &smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev) !=
-            cudaSuccess ||
-        cudaDeviceGetAttribute(
-            &reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev) !=
-            cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      return bytes;
-    d.smem = smem;
-    d.reserved = reserved;
-    d.sms = sms;
-  }
-  if (d.ctas[F][n] == 0) d.ctas[F][n] = static_cast<unsigned char>(
-      most_ctas(F, n));
-  const int most = d.ctas[F][n];
-  const int need = cdiv(grid, d.sms);  // CTAs an SM takes in all
-  if (most <= 0 || need <= most) return bytes;
-  const int fewest = cdiv(need, cdiv(need, most));
-  if (fewest >= most) return bytes;
-  // the least size, in 128-byte units, at which fewest + 1 CTAs no longer
-  // fit an SM
-  const int padded =
-      (d.smem / (fewest + 1) - d.reserved + 1 + 127) / 128 * 128;
-  return padded > bytes ? padded : bytes;
+  const rmp::SmShape d = rmp::current_sm_shape();
+  if (d.sms == 0) return bytes;
+  unsigned char& most = g_ctas[d.device][F][n];
+  if (most == 0) most = static_cast<unsigned char>(most_ctas(F, n));
+  return rmp::whole_wave_bytes(bytes, most, grid, d);
 }
 
 }  // namespace

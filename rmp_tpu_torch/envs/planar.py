@@ -56,16 +56,23 @@ def planar_policies(model, device) -> tuple:
 
 def planar_arm_env(n_links: int, device=None) -> Env:
     """The N-link planar arm's env on `device` (default: the GPU)."""
+    return planar_env(build_model(make_planar_arm_spec(n_links)), device,
+                      name=f"planar_{n_links}link")
+
+
+def planar_env(model, device=None, name: str | None = None) -> Env:
+    """The planar arm's env on `model`, any model that keeps the arm's
+    'ee_joint' frame (the arm with links added, a branch, a fixed tail):
+    its goal, cylinder and policy stack, q = Q_START on every motor."""
     device = default_device(device)
-    model = build_model(make_planar_arm_spec(n_links))
     obstacle = cylinder_obstacle(*OBSTACLE, device=device)
-    q0 = [Q_START] * n_links
+    q0 = [Q_START] * model.n_q
 
     def reset(batch: int, seed: int = 0):
         return env_state(init_state(model, batch, device, q=q0,
                                     obstacles=obstacle, goal=GOAL), seed)
 
-    return Env(name=f"planar_{n_links}link", model=model,
+    return Env(name=name or model.name, model=model,
                policies=planar_policies(model, device), reset=reset,
                ee_frame=model.frame_index(EE), device=device,
                bind_params=bind_goal(("target", "attractor")),

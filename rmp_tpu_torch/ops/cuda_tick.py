@@ -13,9 +13,9 @@ clamped to 1e-12). A CPU tensor takes the plain PyTorch version
 NARROW = (16 motors, 16 frames, 16 collision frames) csrc/fused_tick.cu
 (16 lanes an env, an instantiation per n), past it up to MAX_N = 32
 motors, MAX_FRAMES = 40 frames and MAX_COLLISION = 40 collision frames
-csrc/fused_tick_wide.cu (a warp an env); at most 8 identity-space leaves
-in both; past them ValueError before any launch. The JAX kernel needs
-B % 1024 == 0; the port takes any B.
+csrc/fused_tick_wide.cuh (a half warp an env); at most 8 identity-space
+leaves in both; past them ValueError before any launch. The JAX kernel
+needs B % 1024 == 0; the port takes any B.
 K5 has no derivative rule, as JAX's `pallas_call` has none: `fused_qdd`
 raises while grad is enabled and an input requires grad, on both
 devices.
@@ -68,7 +68,7 @@ IDENTITY_BASE = 24
 #            goal (n)
 VELCAP, DAMPING, CSPACE = 1, 2, 3
 # the kernels' capacities, mirrored in csrc/fused_tick.cu (NARROW: motors,
-# frames, collision frames) and csrc/fused_tick_wide.cu
+# frames, collision frames) and csrc/fused_tick_wide.cuh
 NARROW = (16, 16, 16)
 MAX_N, MAX_FRAMES, MAX_COLLISION, MAX_IDENTITY = 32, 40, 40, 8
 
@@ -387,7 +387,7 @@ def _check(n: int, q, qd, goal, obs_p0, obs_p1, obs_r):
 
 def wide(tick: FusedTick) -> bool:
     """Whether the tick's model is past the 16-lane kernel's NARROW reach
-    and takes the warp-per-env kernel."""
+    and takes the wide kernel."""
     sizes = (tick.model.n_q, tick.model.n_frames, len(tick.col_frames))
     return any(x > cap for x, cap in zip(sizes, NARROW))
 

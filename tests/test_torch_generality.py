@@ -117,10 +117,13 @@ def test_planar_spec_and_model_field_for_field(n_links):
             assert _fields(b) == _fields(a), f.name
 
 
-def jax_planar_env(n_links: int):
+def jax_planar_env(n_links: int, model=None):
     """envs/planar.planar_arm_env(n_links) built from the JAX package's
-    public pieces, with the port module's constants."""
-    model = jspecs.build_model(jspecs.make_planar_arm_spec(n_links))
+    public pieces, with the port module's constants; on `model` (a JAX
+    model that keeps the arm's 'ee_joint' frame), envs/planar.planar_env's
+    counterpart."""
+    if model is None:
+        model = jspecs.build_model(jspecs.make_planar_arm_spec(n_links))
     policies = (
         jv2.target_attractor(
             goal=planar.GOAL, taskmap=jtm.chain(
@@ -138,7 +141,7 @@ def jax_planar_env(n_links: int):
 
     def reset(key):
         return jbase.env_state(jworld.init_state(
-            model, q=[planar.Q_START] * n_links, obstacles=obstacle,
+            model, q=[planar.Q_START] * model.n_q, obstacles=obstacle,
             goal=planar.GOAL), key)
 
     return jbase.Env(name=f"planar_{n_links}link", model=model,

@@ -23,6 +23,10 @@ LEAST = {
     "NEURAL_PARITY": {"two_joint/neural_reach": (128, 3),
                       "franka/neural_reach": (128, 3),
                       "franka/neural_clutter": (128, 4)},
+    # phase 20's wide K5 layouts: the arms, the odd n, the obstacles an env
+    "K5_WIDE_LINKS": (17, 24, 32),
+    "K5_WIDE_ODD": (19, 31),
+    "K5_WIDE_CYLINDERS": 4,
 }
 
 
@@ -129,3 +133,16 @@ def test_parity_and_statistics_depths_are_kept(tree, name):
     got = constants(tree)
     assert name in got, f"{name} is no longer a literal constant"
     assert no_smaller(got[name], LEAST[name]), (name, got[name])
+
+
+@pytest.mark.parametrize("function, needs", [
+    ("phase_k5_wide", {"k5_wide_layouts", "k5_wide_check", "RAGGED",
+                       "K5_WIDE_TAIL"}),
+    ("k5_wide_layouts", {"K5_WIDE_LINKS", "K5_WIDE_ODD", "K5_WIDE_TAIL",
+                         "k5_tail_env", "branched_model", "k5_cylinders",
+                         "K5_WIDE_CYLINDERS"})])
+def test_phase_20_holds_every_wide_k5_layout(tree, function, needs):
+    """Phase 20 holds the wide K5 on every layout of k5_wide_layouts (the
+    arms, the odd n, the 40-frame tail, the branched tree, K = 4) behind
+    k5_wide_check, with the ragged batches."""
+    assert needs <= names_in(functions(tree)[function])

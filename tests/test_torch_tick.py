@@ -24,12 +24,15 @@ import pytest
 import torch
 
 from rmp_tpu import envs as jenvs
+from rmp_tpu.models import specs as jspecs
 from rmp_tpu.ops import pallas_tick as jpt
 from rmp_tpu_torch import convert, envs
 from rmp_tpu_torch.envs import planar
 from rmp_tpu_torch.models import kinematics as K
+from rmp_tpu_torch.models import specs
 from rmp_tpu_torch.ops import cuda_tick, tick_ops
 from rmp_tpu_torch.sim import collision
+import test_torch_fk_wide as fk_wide
 from test_torch_envs import jax_state_leaves
 from test_torch_generality import jax_planar_env
 
@@ -199,17 +202,15 @@ PLANAR = (5, 12, 17, 24, 32)  # links of the planar arms K5 is held on
 LONG = 2.0
 
 
-@functools.lru_cache(maxsize=None)
-def planar_states(n_links: int) -> dict:
-    """Seeded inputs at B = 1024 near the planar env's reset (q = 0.3 ±
-    0.1, q̇ ± 0.05, goal ± 0.05) with its cylinder: every env has links
-    within the obstacle policy's 0.5 m, some pierce it."""
-    env = planar.planar_arm_env(n_links, device="cpu")
+def arm_states(env, seed: int) -> dict:
+    """Seeded inputs at B = 1024 near a planar env's reset (q = 0.3 ± 0.1,
+    q̇ ± 0.05, goal ± 0.05) with its cylinder."""
+    n = env.model.n_q
     obs = env.reset(1).sim.obstacles
-    rng = np.random.default_rng(50 + n_links)
+    rng = np.random.default_rng(seed)
     f32 = functools.partial(np.asarray, dtype=np.float32)
-    return dict(q=f32(planar.Q_START + rng.uniform(-0.1, 0.1, (B, n_links))),
-                qd=f32(rng.uniform(-0.05, 0.05, (B, n_links))),
+    return dict(q=f32(planar.Q_START + rng.uniform(-0.1, 0.1, (B, n))),
+                qd=f32(rng.uniform(-0.05, 0.05, (B, n))),
                 goal=f32(np.asarray(planar.GOAL)
                          + rng.uniform(-0.05, 0.05, (B, 3))),
                 obs_p0=f32(np.broadcast_to(obs.p0.numpy(), (B, 1, 3))),
@@ -218,23 +219,36 @@ def planar_states(n_links: int) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def planar_step(n_links: int) -> tuple:
-    """The planar env's own batched step's q̈ ('solve': K1's plain version,
-    pivoted LU, float32) at planar_states, and K5's plain version in
-    float64 on the same inputs (ridge 1e-6 against the step's 0: below
-    4e-6 of |q̈|, the damping metric keeping A's eigenvalues above 0.3)."""
-    env = planar.planar_arm_env(n_links, device="cpu")
-    inputs = planar_states(n_links)
+def planar_states(n_links: int) -> dict:
+    """arm_states of the n_links arm: every env has links within the
+    obstacle policy's 0.5 m, some pierce the cylinder."""
+    return arm_states(planar.planar_arm_env(n_links, device="cpu"),
+                      50 + n_links)
+
+
+def batched_step(env, inputs: dict) -> tuple:
+    """A planar env's own batched step's q̈ ('solve': K1's plain version,
+    pivoted LU, float32) at `inputs`, and K5's plain version in float64 on
+    the same inputs (ridge 1e-6 against the step's 0: below 4e-6 of |q̈|,
+    the damping metric keeping A's eigenvalues above 0.3)."""
     args = [torch.tensor(inputs[k]) for k in INPUTS]
-    start = envs.make_batched_reset(env, B)()
+    start = envs.make_batched_reset(env, args[0].shape[0])()
     states = dataclasses.replace(start, sim=dataclasses.replace(
         start.sim, q=args[0], qd=args[1], goal=args[2],
-        obstacles=collision.ObstacleSet(*args[3:], kinds=("cylinder",))))
+        obstacles=collision.ObstacleSet(
+            *args[3:], kinds=("cylinder",) * args[5].shape[1])))
     _, aux = envs.make_batched_control_step(env)(states,
                                                  env.gather_params())
     witness = cuda_tick.fused_qdd_plain(
         cuda_tick.fused_tick(env), *(a.double() for a in args)).numpy()
     return aux["qdd"].double().numpy(), witness
+
+
+@functools.lru_cache(maxsize=None)
+def planar_step(n_links: int) -> tuple:
+    """batched_step of the n_links arm at planar_states."""
+    return batched_step(planar.planar_arm_env(n_links, device="cpu"),
+                        planar_states(n_links))
 
 
 @pytest.mark.parametrize("n_links", PLANAR)
@@ -247,10 +261,18 @@ def test_planar_plain_matches_jax_kernel_body(n_links):
     the cylinder, where the 1/d curvature row amplifies rounding: the envs
     compared and the rest are screened as in the wide test above, past 16
     links against float64 beside the float32 LU (LONG)."""
-    jenv = jax_planar_env(n_links)
-    env = planar.planar_arm_env(n_links, device="cpu")
+    hold_to_jax(jax_planar_env(n_links),
+                planar.planar_arm_env(n_links, device="cpu"),
+                planar_states(n_links), f"planar {n_links}",
+                lambda: planar_step(n_links)[0])
+
+
+def hold_to_jax(jenv, env, inputs: dict, what: str, step=None):
+    """K5's plain version against JAX's kernel body on the same env, envs
+    screened as test_planar_plain_matches_jax_kernel_body says; step(): the
+    batched step's q̈ (LONG) where the model is past the 16-lane kernel."""
+    n_links = env.model.n_q
     assert cuda_tick.supports(env) and jpt.supports(jenv)
-    inputs = planar_states(n_links)
     want = jax_k5_body(jenv, inputs)
     up = np.float32(np.inf)
     moved = dict(inputs, q=np.nextafter(inputs["q"], up),
@@ -269,7 +291,7 @@ def test_planar_plain_matches_jax_kernel_body(n_links):
     held = (sens <= STABLE) & (ref_err <= ACCURATE)
     ee = K.fk_position(env.model, args[0], env.ee_frame)
     reach = (ee - args[3][:, 0]).norm(dim=-1) < 0.5 + 0.09  # + both radii
-    print(f"planar {n_links}: {int(held.sum())} of {B} envs compared, max "
+    print(f"{what}: {int(held.sum())} of {B} envs compared, max "
           f"rel err {err[held].max():.3e} ({err.max():.3e} over all); EE "
           f"near the cylinder on {int(reach.sum())} envs")
     if n_links == 5:
@@ -280,8 +302,7 @@ def test_planar_plain_matches_jax_kernel_body(n_links):
     rest = ~held
     limit = np.maximum(TOL, SPREAD * ref_err[rest])
     if n_links > cuda_tick.NARROW[0]:
-        step, _ = planar_step(n_links)
-        lu_err = np.abs(step - witness).max(axis=1) / s
+        lu_err = np.abs(step() - witness).max(axis=1) / s
         limit = np.maximum(limit, LONG * lu_err[rest])
     assert np.all(port_err[rest] <= limit)
 
@@ -318,22 +339,91 @@ def test_planar_fused_qdd_is_the_batched_step_qdd(n_links):
     inputs = planar_states(n_links)
     args = [torch.tensor(inputs[k]) for k in INPUTS]
     got = cuda_tick.make_fused_qdd(env)(*args).double().numpy()
-    want, witness = planar_step(n_links)
+    hold_to_the_step(got, *planar_step(n_links), f"planar {n_links}",
+                     n_links > cuda_tick.NARROW[0])
+
+
+def hold_to_the_step(got, want, witness, what: str, screened: bool):
+    """K5's q̈ `got` against the batched step's `want`: everywhere within
+    2e-4 x max(1, |q̈|), or (screened) where the step lies within ACCURATE
+    of float64 (`witness`), and elsewhere within max(2e-4, LONG x the
+    step's error) of float64."""
     err = np.abs(got - want).max(axis=1) / scale(want)
-    print(f"planar {n_links}: K5 vs the batched step's q̈ {err.max():.3e}")
-    if n_links <= cuda_tick.NARROW[0]:
+    print(f"{what}: K5 vs the batched step's q̈ {err.max():.3e}")
+    if not screened:
         assert err.max() <= 2e-4
         return
+    B = len(got)
     s = scale(witness)
     lu_err = np.abs(want - witness).max(axis=1) / s
     held = lu_err <= ACCURATE
     k5_err = np.abs(got - witness).max(axis=1) / s
-    print(f"planar {n_links}: {int(held.sum())} of {B} envs held, max "
+    print(f"{what}: {int(held.sum())} of {B} envs held, max "
           f"{err[held].max():.3e}; elsewhere K5 / LU against float64 "
-          f"{k5_err[~held].max():.3e} / {lu_err[~held].max():.3e}")
+          f"{k5_err[~held].max(initial=0.0):.3e} / "
+          f"{lu_err[~held].max(initial=0.0):.3e}")
     assert held.sum() >= B // 2
     assert err[held].max() <= 2e-4
     assert np.all(k5_err[~held] <= np.maximum(2e-4, LONG * lu_err[~held]))
+
+
+# Two layouts of K5's wide kernel that no planar arm covers, as
+# chip_smoke.py's phase 20 holds them on the card: a branched tree
+# (test_torch_fk_wide.branched at F = 30, n = 28: a 20-link arm with 8
+# revolute links off link 10, so past the branch a frame's parent is not
+# the frame before) on the planar env's policies, and the 32-link arm with
+# CYLINDERS cylinders an env (its own and copies moved 0.8-1.2 m in the x-y
+# plane: 132 pairs an env).
+WIDE_CASES = ("branched", "four_cylinders")
+CYLINDERS = 4
+SMALL = 128     # envs of the batched-step comparison
+
+
+def branched_tree(sp):
+    """The branched tree of specs module `sp` (the port's or JAX's)."""
+    return fk_wide.branched(sp, n_links=20, n_branch=8, at=10)
+
+
+@functools.lru_cache(maxsize=None)
+def wide_case(case: str) -> tuple:
+    """(env on the CPU, seeded inputs at B = 1024) of a WIDE_CASES case."""
+    if case == "branched":
+        env = planar.planar_env(branched_tree(specs), device="cpu")
+        return env, arm_states(env, 61)
+    env = planar.planar_arm_env(32, device="cpu")
+    inputs = dict(planar_states(32))
+    rng = np.random.default_rng(62)
+    shift = np.zeros((B, CYLINDERS, 3), np.float32)
+    mag = rng.uniform(0.8, 1.2, (B, CYLINDERS - 1))
+    ang = rng.uniform(0.0, 2.0 * np.pi, (B, CYLINDERS - 1))
+    shift[:, 1:, 0], shift[:, 1:, 1] = mag * np.cos(ang), mag * np.sin(ang)
+    inputs["obs_p0"] = (inputs["obs_p0"] + shift).astype(np.float32)
+    inputs["obs_p1"] = (inputs["obs_p1"] + shift).astype(np.float32)
+    inputs["obs_r"] = np.repeat(inputs["obs_r"], CYLINDERS, axis=1)
+    return env, inputs
+
+
+@pytest.mark.parametrize("case", WIDE_CASES)
+def test_wide_layout_fused_qdd_is_the_batched_step_qdd(case):
+    """As test_planar_fused_qdd_is_the_batched_step_qdd past 16 links, on
+    the first SMALL envs of each WIDE_CASES layout."""
+    env, inputs = wide_case(case)
+    small = {k: v[:SMALL] for k, v in inputs.items()}
+    tick = cuda_tick.fused_tick(env)
+    assert cuda_tick.wide(tick)
+    assert small["obs_r"].shape[1] == (1 if case == "branched" else CYLINDERS)
+    args = [torch.tensor(small[k]) for k in INPUTS]
+    got = cuda_tick.make_fused_qdd(env)(*args).double().numpy()
+    hold_to_the_step(got, *batched_step(env, small), case, True)
+
+
+def test_branched_plain_matches_jax_kernel_body():
+    """K5's plain version on the branched tree against JAX's kernel body on
+    the same tree built from the JAX package's specs and policies
+    (jax_planar_env on it), screened as the planar arms are."""
+    env, inputs = wide_case("branched")
+    hold_to_jax(jax_planar_env(0, branched_tree(jspecs)), env, inputs,
+                "branched", lambda: batched_step(env, inputs)[0])
 
 
 def test_k5_raises_past_its_capacity():
