@@ -1747,6 +1747,7 @@ def profile_ticks(env, states, params, tick_ms: float,
             k[:60]: sum(v) / n_ticks for k, v in by_name.items()
             if any(n in k for n in ("pullback_resolve_kernel",
                                     "pullback_resolve_wide_kernel",
+                                    "pullback_resolve_cta_kernel",
                                     "fk_derivatives_kernel",
                                     "gjk_hull_kernel"))},
         top_kernels=[dict(name=k[:80], us_per_tick=t / n_ticks,
@@ -4470,6 +4471,9 @@ BF16_CONTRACT = 1e-2       # tests/test_pallas_resolve.py's bf16 bound on q
 K1_EVERY_N_LAYOUT = (("dense", 3), ("identity", 0), ("identity", 0),
                      ("scalar", 20))
 K1_TIMED_N = (5, 12, 18, 32)
+# phase 18's sweep: the lane and warp kernels' n, by name (the CTA kernel's
+# n = 33..64 are phase 23's)
+K1_EVERY_N = range(1, 33)
 K1_BLOCKS20 = ((("identity", 0),) * 3 + (("dense", 3),) * 9
                + (("scalar", 7),) * 8)
 
@@ -4499,6 +4503,21 @@ def k1_device_blocks(seed: int, B: int, n: int, layout, device):
     return tuple(tag for tag, _ in layout), blocks
 
 
+def k1_raises(tags, blocks, what: str) -> str:
+    """K1's wrapper must raise ValueError before any launch."""
+    before = cuda_resolve.pullback_resolve_structured.launches
+    try:
+        cuda_resolve.pullback_resolve_structured(tags, blocks)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    check(raised is not None and before ==
+          cuda_resolve.pullback_resolve_structured.launches,
+          f"K1 {what}: no ValueError before a launch")
+    log(f"K1 {what} raises: {raised}")
+    return raised
+
+
 def k1_times(what: str, tags, blocks, block_dtype=None) -> dict:
     """K1 on the blocks timed as phase 3 times it (the wrapper from an idle
     stream, the device alone with the stream kept busy), its plain version,
@@ -4526,17 +4545,19 @@ def k1_times(what: str, tags, blocks, block_dtype=None) -> dict:
 
 
 def phase_k1_every_n(env, device) -> tuple[dict, float]:
-    """K1 against its plain version at every n from 1 to MAX_N, on float32
-    and on bfloat16 blocks, at B = BATCH; a 20-block layout; n = 33 and 33
-    blocks raising before a launch; the lane and warp kernels' build lines;
-    times at K1_TIMED_N and on the flagship's real tick in bfloat16."""
+    """K1 against its plain version at every n of K1_EVERY_N (1 to 32: the
+    lane and warp kernels), on float32 and on bfloat16 blocks, at B =
+    BATCH; a 20-block layout; 33 blocks raising before a launch (n = 65,
+    past the CTA kernel, raises in phase 23); the lane and warp kernels'
+    build lines; times at K1_TIMED_N and on the flagship's real tick in
+    bfloat16."""
     build = dict(lane=ptxas_counts("pullback_resolve.cu",
                                    "pullback_resolve_kernel"),
                  wide=ptxas_counts(K1_WIDE_SOURCE,
                                    "pullback_resolve_wide_kernelILi18E"))
     log(f"K1 builds over every n (largest): {json.dumps(build)}")
     err, errs = 0.0, {}
-    for n in cuda_resolve.KERNEL_N:
+    for n in K1_EVERY_N:
         errs[n] = []
         # the warp kernel (n > 9) also at the batches that fill no CTA
         for B in (BATCH,) + (RAGGED if n > K1_LANE_N else ()):
@@ -4550,20 +4571,8 @@ def phase_k1_every_n(env, device) -> tuple[dict, float]:
         err = max(err, *errs[n])
     tags, blocks = k1_device_blocks(20, BATCH, 9, K1_BLOCKS20, device)
     err = max(err, k1_compare(tags, blocks, "20 blocks, n=9"))
-    for what, (tags, blocks) in (
-            ("n=33", k1_device_blocks(33, 4, 33, K1_EVERY_N_LAYOUT, device)),
-            ("33 blocks", k1_device_blocks(34, 4, 3, (("dense", 2),) * 33,
-                                           device))):
-        before = cuda_resolve.pullback_resolve_structured.launches
-        try:
-            cuda_resolve.pullback_resolve_structured(tags, blocks)
-            raised = None
-        except ValueError as e:
-            raised = str(e)
-        check(raised is not None and before ==
-              cuda_resolve.pullback_resolve_structured.launches,
-              f"K1 {what}: no ValueError before a launch")
-        log(f"K1 {what} raises: {raised}")
+    k1_raises(*k1_device_blocks(34, 4, 3, (("dense", 2),) * 33, device),
+              "33 blocks")
     times = {}
     for n in K1_TIMED_N:
         tags, blocks = k1_device_blocks(n, BATCH, n, K1_EVERY_N_LAYOUT,
@@ -4755,19 +4764,22 @@ def rollout_path(card: str, env, what: str, ticks: int,
 
 
 @spent()
-def gpu_cpu_parity(make_env, what: str, B: int = 128, ticks: int = 5
-                   ) -> dict:
+def gpu_cpu_parity(make_env, what: str, B: int = 128, ticks: int = 5,
+                   ulp: bool = False) -> dict:
     """q after `ticks` of the env on the card and on the CPU from the same
     perturbed reset (q ± 0.1, q̇ ± 0.05), held to PARITY_ATOL on the envs
     whose CPU run lies within STABLE of a float64 run of the same problem
     (witness_q's screen: the planar arms pierce their cylinder from these
-    states, and the twelve-link arm's float32 runs part there), at least
-    half of them; the GPU also within PARITY_ATOL of float64 there."""
+    states, and the twelve-link arm's float32 runs part there), and with
+    `ulp` also within STABLE of a CPU run from the start moved by one ulp,
+    at least half of them; the GPU also within PARITY_ATOL of float64
+    there."""
     q = {}
-    for dev in ("cuda", "cpu"):
-        env = make_env(dev)
+    for dev in ("cuda", "cpu") + (("ulp",) if ulp else ()):
+        env = make_env("cpu" if dev == "ulp" else dev)
         final, _ = envs.make_batched_rollout(env, ticks, with_aux=False)(
-            perturbed_states(env, B, 4, 0.1, 0.05), env.gather_params())
+            perturbed_states(env, B, 4, 0.1, 0.05, ulp=dev == "ulp"),
+            env.gather_params())
         q[dev] = final.sim.q.cpu()
     env = make_env("cpu")
     states = _as_dtype(perturbed_states(env, B, 4, 0.1, 0.05), torch.float64)
@@ -4780,6 +4792,8 @@ def gpu_cpu_parity(make_env, what: str, B: int = 128, ticks: int = 5
     rounding = (q["cpu"].double() - exact).abs().amax(dim=1)
     gap = (q["cuda"] - q["cpu"]).abs().amax(dim=1)
     keep = rounding <= STABLE
+    if ulp:
+        keep &= (q["ulp"] - q["cpu"]).abs().amax(dim=1) <= STABLE
     rec = dict(envs_compared=int(keep.sum()), max_abs_q=float(gap[keep].max()),
                max_abs_q_all=float(gap.max()),
                max_cpu_vs_float64=float(rounding.max()),
@@ -5045,8 +5059,9 @@ def k3_times(model, what: str, device) -> dict:
 
 def phase_k3_wide(card: str, device) -> tuple[dict, float]:
     """K3 past 18 motors: each instantiation's build line; the kernel
-    against its plain version on k3_wide_models at B = 4096, 1, 7, 4093;
-    41 frames and 33 motors raising before a launch; the two planar arms
+    against its plain version on k3_wide_models at B = 4096, 1, 7, 4093
+    (the models past the wide tile, and 73 frames and 65 motors raising
+    before a launch, are phase 23's); the two planar arms
     of the path timed beside their bounds, with the wide kernel's shared
     bytes per CTA and envs per SM, and the Panda and the dual Panda (the
     narrow instantiation) timed again beside K3_EARLIER_MS."""
@@ -5054,10 +5069,6 @@ def phase_k3_wide(card: str, device) -> tuple[dict, float]:
              for k, (source, kernel) in K3_INSTANTIATIONS.items()}
     err = max(k3_check(m, what, device)
               for what, m in k3_wide_models().items())
-    raised = {"41 frames": k3_raises(fixed_tail_model(32, 8),
-                                     "41 frames, 32 motors", device),
-              "33 motors": k3_raises(planar_model(33),
-                                     "34 frames, 33 motors", device)}
     times = {f"planar_{n}": k3_times(planar_model(n), f"planar_{n}link",
                                      device) for n in WIDE_LINKS}
     for name, model in (("panda", robots.franka_panda()),
@@ -5067,7 +5078,7 @@ def phase_k3_wide(card: str, device) -> tuple[dict, float]:
         log(f"K3 {name} (narrow tile) device {times[name]['device_ms']:.4f} "
             f"ms beside {K3_EARLIER_MS[name]} ms before the wide tile "
             f"[{card}]")
-    return dict(build=build, raised=raised, times=times), err
+    return dict(build=build, times=times), err
 
 
 K1_RESIDUAL = 1e-5    # float64 backward error of a float32 solve, K1 and plain
@@ -6186,7 +6197,7 @@ def phase_slice18(card: str, device, timed: dict) -> dict:
     t0 = time.perf_counter()
     builds = {n: ptxas_counts(K1_WIDE_SOURCE,
                               f"pullback_resolve_wide_kernelILi{n}E")
-              for n in range(K1_LANE_N + 1, cuda_resolve.MAX_N + 1)}
+              for n in range(K1_LANE_N + 1, K1_EVERY_N[-1] + 1)}
     log(f"K1 warp kernel builds: {json.dumps(builds)}")
     err = 0.0
     for case in PIVOT_CASES:
@@ -6244,6 +6255,211 @@ def phase_slice18(card: str, device, timed: dict) -> dict:
               f"K1 n={n}: registers spill ({b})")
     return dict(builds={str(k): v for k, v in builds.items()}, k1_err=err,
                 targets=targets, seconds=time.perf_counter() - t0)
+
+
+# ------------------------------------------ the twenty-first slice ----
+
+PAST32_K1_N = (33, 36, 47, 48, 63, 64)   # K1's CTA kernel, both instantiations
+PAST32_RAGGED = (7, 4093)
+PAST32_LINKS = 64                  # the slice's arm: 65 frames, 64 motors
+PAST32_TICKS = 10                  # its timed rollout at BATCH envs
+PAST32_PARITY = (32, 3)            # (envs, ticks) of its GPU/CPU parity
+PAST32_TRANSPOSED_N = 36           # K1's backward solve on the CTA kernel
+K1_CTA_SOURCE = "pullback_resolve_cta.cu"
+K1_CTA_KERNELS = {48: "pullback_resolve_cta_kernelILi48E",
+                  64: "pullback_resolve_cta_kernelILi64E"}
+K3_XL = ("fk_derivatives_xl.cu", "fk_derivatives_kernel_wideILi72ELi64ELi2E")
+# the plain version's float32 q̈ within this share of K1_TOL of float64 (per
+# env, relative to max(1, the env's largest |q̈|)): the envs held to K1_TOL
+PAST32_SCREEN = 0.1
+
+
+def four_pandas():
+    """Four Pandas in one tree (make_multi_spec over PANDA_SPEC): 52 frames,
+    36 motors."""
+    return specs.build_model(specs.make_multi_spec(
+        specs.PANDA_SPEC, ((0.0, 0.45, 0.0), (0.0, -0.45, 0.0),
+                           (1.2, 0.45, 0.0), (1.2, -0.45, 0.0)),
+        (0.0, 0.0, np.pi, np.pi), ("A_", "B_", "C_", "D_"),
+        name="panda_x4"))
+
+
+def past32_models() -> dict:
+    """K3's models past the wide tile: the 33-link arm, four Pandas, the
+    64-link arm of the path, the capacity (72 frames, 64 motors) and a
+    branched tree past 32 motors."""
+    return {"planar_33 (F=34, n=33)": planar_model(33),
+            "four Pandas (F=52, n=36)": four_pandas(),
+            "planar_64 (F=65, n=64)": planar_model(PAST32_LINKS),
+            "planar_64 + 7 fixed (F=72, n=64)": fixed_tail_model(64, 7),
+            "branched 40 + 8 (F=50, n=48)": branched_model(40, 8, 20)}
+
+
+def k1_held(tags, blocks, what: str, got=None, want=None,
+            exact=None) -> dict:
+    """K1 against its plain version behind a float64 plain run: the envs
+    whose float32 plain q̈ lies within PAST32_SCREEN x K1_TOL x max(1, the
+    env's largest |q̈|) of float64 (at least half of them) are held to
+    K1_TOL x max(1, |q̈|) entry by entry against the plain version; every
+    env's backward error in float64 within K1_RESIDUAL. `want` and `exact`
+    may come from a larger batch whose first envs these are."""
+    if got is None:
+        got = cuda_resolve.pullback_resolve_structured(tags, blocks)
+    if want is None:
+        want = cuda_resolve.pullback_resolve_structured_plain(tags, blocks)
+    wide = [tuple(x.double() for x in blk) for blk in blocks]
+    if exact is None:
+        exact = cuda_resolve.pullback_resolve_structured_plain(tags, wide)
+    A, f = cuda_resolve.assemble_structured(tags, wide)
+    torch.cuda.synchronize()
+    env_scale = exact.abs().amax(dim=1).clamp_min(1.0)
+    plain_err = (want.double() - exact).abs().amax(dim=1) / env_scale
+    keep = plain_err <= PAST32_SCREEN * K1_TOL
+    limit = K1_TOL * want.abs().clamp_min(1.0)
+    share = ((got - want).abs() / limit).amax(dim=1)
+    x = got.double()
+    r = (torch.einsum("bnm,bm->bn", A, x) - f).abs().amax(dim=1)
+    backward = float((r / (A.abs().sum(dim=2).amax(dim=1)
+                           * x.abs().amax(dim=1)
+                           + f.abs().amax(dim=1))).max())
+    rec = dict(envs=int(keep.numel()), held=int(keep.sum()),
+               max_abs_err=float((got - want)[keep].abs().max())
+               if bool(keep.any()) else 0.0,
+               largest_share=float(share[keep].max()) if bool(keep.any())
+               else 0.0, backward=backward)
+    log(f"K1 {what}: {json.dumps(rec)} (held envs: K1_TOL x max(1, |q̈|) "
+        f"against plain; backward limit {K1_RESIDUAL})")
+    check(bool(torch.isfinite(got).all()), f"K1 {what}: non-finite output")
+    check(2 * rec["held"] >= rec["envs"], f"K1 {what}: too few envs held")
+    check(rec["largest_share"] <= 1.0,
+          f"K1 {what}: disagrees with plain version")
+    check(backward <= K1_RESIDUAL, f"K1 {what}: backward error")
+    return rec
+
+
+def phase_k1_past32(device) -> tuple[dict, float]:
+    """K1's CTA kernel at every n of PAST32_K1_N on random blocks, float32
+    and bfloat16, at B = BATCH and PAST32_RAGGED (the first envs of the
+    BATCH blocks, against the same plain runs), behind k1_held's float64
+    screen; its backward solve at PAST32_TRANSPOSED_N; n = 65 raising
+    before a launch."""
+    err, out = 0.0, {}
+    for n in PAST32_K1_N:
+        tags, blocks = k1_device_blocks(400 + n, BATCH, n, K1_EVERY_N_LAYOUT,
+                                        device)
+        for dtype in (torch.float32, torch.bfloat16):
+            cast = [tuple(x.to(dtype) for x in blk) for blk in blocks]
+            want = cuda_resolve.pullback_resolve_structured_plain(tags, cast)
+            exact = cuda_resolve.pullback_resolve_structured_plain(
+                tags, [tuple(x.double() for x in blk) for blk in cast])
+            for B in (BATCH,) + PAST32_RAGGED:
+                part = [tuple(x[:B] for x in blk) for blk in cast]
+                rec = k1_held(tags, part, f"n={n}, {str(dtype)[6:]}, B={B}",
+                              want=want[:B], exact=exact[:B])
+                out[f"n={n} {str(dtype)[6:]} B={B}"] = rec
+                err = max(err, rec["max_abs_err"])
+    n = PAST32_TRANSPOSED_N
+    for B in (BATCH,) + PAST32_RAGGED:
+        tags, blocks = k1_device_blocks(500 + B, B, n, K1_EVERY_N_LAYOUT,
+                                        device)
+        A, _ = cuda_resolve.assemble_structured(tags, blocks)
+        g = torch.randn(B, n, generator=torch.Generator(
+            device=device).manual_seed(n + B), device=device)
+        before = cuda_resolve.pullback_resolve_structured.transposed_launches
+        got = cuda_resolve.transposed_solve(A, g, 0.0)
+        check(cuda_resolve.pullback_resolve_structured.transposed_launches
+              == before + 1, f"K1 transposed solve n={n}: not one launch")
+        rec = k1_held(("identity",), [(A.transpose(-1, -2), g)],
+                      f"transposed solve n={n}, B={B}", got=got)
+        out[f"transposed n={n} B={B}"] = rec
+        err = max(err, rec["max_abs_err"])
+    out["raised"] = k1_raises(*k1_device_blocks(65, 4, 65, K1_EVERY_N_LAYOUT,
+                                                device), "n=65")
+    return out, err
+
+
+def k3_real_tick(env, device) -> float:
+    """K3 on the env's perturbed reset states (q ± 0.1, q̇ ± 0.05) at
+    BATCH, against its plain version at K3_ATOL x max(1, max |plain|)."""
+    states = perturbed_states(env, BATCH, 5, 0.1, 0.05)
+    q, qd = states.sim.q, states.sim.qd
+    got = cuda_fk.fk_derivatives_batched(env.model, q, qd)
+    want = fk_derivatives(env.model, q, qd)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, g, w in zip(("T16", "Td16", "J16", "c16"), got, want):
+        e = float((g - w).abs().max())
+        check(e <= K3_ATOL * max(1.0, float(w.abs().max())),
+              f"K3 {env.name} real tick {name}: disagrees with plain version")
+        err = max(err, e)
+    log(f"K3 {env.name} real tick, B={BATCH}: max|kernel - plain| {err:.3e}")
+    return err
+
+
+def phase_slice21(card: str, device) -> dict:
+    """Phase 23, models past 32 motors and 40 frames: the builds of K1's CTA
+    kernel (n = 33..64) and of K3's instantiation at 72 frames and 64
+    motors; K1 at PAST32_K1_N (phase_k1_past32); K3 on past32_models
+    against its plain version, 73 frames and 65 motors raising before a
+    launch; K1 and K3 on the 64-link arm's real tick; the times of both
+    beside their bounds, the plain versions and, for K1, einsum +
+    torch.linalg.solve at n = 33, 36 and 64; the 64-link arm's rollout at
+    BATCH x PAST32_TICKS (K1 and K3 once a tick, a trace) and its GPU/CPU
+    parity behind the float64 and one-ulp screens."""
+    t_start = time.perf_counter()
+    failed: list = []
+    builds = {f"K1 n<={n}": build_counts(K1_CTA_SOURCE, f"K1 CTA {n}", kernel)
+              for n, kernel in K1_CTA_KERNELS.items()}
+    builds["K3 (72, 64, 2)"] = build_counts(K3_XL[0], "K3 (72, 64)",
+                                           K3_XL[1])
+    for what, b in builds.items():
+        if b["spill_store_bytes"] or b["spill_load_bytes"]:
+            log(f"{what}: registers spill ({json.dumps(b)})")
+    k1, k1_err = phase_k1_past32(device)
+    k3_err = max(k3_check(m, what, device)
+                 for what, m in past32_models().items())
+    raised = {"65 motors": k3_raises(planar_model(65), "66 frames, 65 motors",
+                                     device),
+              "73 frames": k3_raises(fixed_tail_model(64, 8),
+                                     "73 frames, 64 motors", device)}
+    name = f"planar_{PAST32_LINKS}link"
+    env = planar.planar_arm_env(PAST32_LINKS)
+    k3_err = max(k3_err, k3_real_tick(env, device))
+    for B in (BATCH,) + PAST32_RAGGED:
+        tags, blocks = real_tick_blocks(env, B, PAST32_LINKS)
+        k1_err = max(k1_err, k1_compare_conditioned(
+            tags, blocks, f"{name} (n={PAST32_LINKS}) real tick, B={B}"))
+    times = {}
+    tags, blocks = real_tick_blocks(env, BATCH, PAST32_LINKS)
+
+    def call():
+        return cuda_resolve.pullback_resolve_structured(tags, blocks)
+    per_call = device_launches(call, "pullback_resolve_cta_kernel",
+                               f"K1 n={PAST32_LINKS}")
+    check(per_call == 1, f"K1 n={PAST32_LINKS}: not one launch per call")
+    times["K1 n=64"] = dict(k1_times(f"{name} real tick", tags, blocks),
+                            device_launches_per_call=per_call)
+    times["K1 n=33"] = k1_times("planar_33link real tick",
+                                *real_tick_blocks(planar.planar_arm_env(33),
+                                                  BATCH, 33))
+    times["K1 n=36"] = k1_times("n=36 (random layout)", *k1_device_blocks(
+        36, BATCH, 36, K1_EVERY_N_LAYOUT, device))
+    for what, model in past32_models().items():
+        if "branched" not in what:
+            times[f"K3 {what}"] = k3_times(model, what, device)
+    launches, res = rollout_path(
+        card, env, name, PAST32_TICKS,
+        ("pullback_resolve_structured", "fk_derivatives_batched"), failed)
+    envs_n, ticks = PAST32_PARITY
+    res["parity"] = gpu_cpu_parity(
+        lambda dev: planar.planar_arm_env(PAST32_LINKS, dev), name,
+        B=envs_n, ticks=ticks, ulp=True)
+    seconds = time.perf_counter() - t_start
+    log(f"phase 23: {seconds:.1f} s")
+    check(not failed, "; ".join(failed))
+    return dict(builds=builds, k1=k1, k1_err=k1_err, k3_err=k3_err,
+                raised=raised, times=times, result=res,
+                paths={name: (launches, res)}, seconds=seconds)
 
 
 # the phases whose records a later phase reads
@@ -6340,7 +6556,8 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         lib = _build.build()
         seconds = time.perf_counter() - t0
-        log(f"build: {lib} in {seconds:.1f} s")
+        log(f"build: {lib} in {seconds:.1f} s; nvcc seconds by source "
+            f"{json.dumps(_build.build_times().get('nvcc_s', {}))}")
         for line in _build.build_log().splitlines():
             if "registers" in line or "spill" in line or line.startswith("=="):
                 log(f"  {line.strip()}")
@@ -6403,6 +6620,7 @@ def run_phases(card: str, build_s: float, chosen: set | None, start: float,
             "dual handover": slice9["k1"]["dual handover"],
             "planar 24": slice13["k1"]["n=24"],
             "planar 32": slice13["k1"]["n=32"]})
+    slice21 = phase(23, phase_slice21, card, device)
     if chosen is not None:
         log(f"phases (s): {json.dumps({str(k): round(v, 1) for k, v in PHASE_S.items()})}"
             f"; a run of chosen phases prints no result line")
@@ -6448,7 +6666,7 @@ def run_phases(card: str, build_s: float, chosen: set | None, start: float,
     path_launches = {"capsule": launches, "hull": hull_launches}
     for paths in (slice6["paths"], slice7["paths"], slice8["paths"],
                   slice9["paths"], slice10["paths"], slice12["paths"],
-                  slice13["paths"]):
+                  slice13["paths"], slice21["paths"]):
         path_launches.update((scene, counts) for scene, (counts, _) in
                              paths.items())
     # the eleventh slice's gradient and training paths
@@ -6567,9 +6785,30 @@ def run_phases(card: str, build_s: float, chosen: set | None, start: float,
                                     "dynamic_smem_bytes", "envs_per_sm")})
         for n, rec in ((n, slice14["k5"][f"planar_{n}"])
                        for n in K5_WIDE_LINKS[1:])]
+    # the twenty-first slice's entries: K1's CTA kernel and K3's
+    # instantiation at (72, 64) on the 64-link arm's path
+    path64 = f"planar_{PAST32_LINKS}link"
+    k1_cta = dict(
+        name=f"pullback_resolve_structured (n={PAST32_LINKS}, CTA kernel, "
+        f"{path64} real tick)", route="cuda",
+        source="rmp_tpu_torch/csrc/pullback_resolve_cta.cuh",
+        replaces="rmp_tpu/ops/pallas_resolve.py:226", counter=k1["name"],
+        path=path64, max_abs_err=slice21["k1_err"],
+        **{k: slice21["times"]["K1 n=64"][k] for k in
+           ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "device_launches_per_call")})
+    k3_xl = dict(
+        name=f"fk_derivatives_batched ({path64}, 72-frame 64-motor tile)",
+        route="cuda", source="rmp_tpu_torch/csrc/fk_derivatives_wide.cuh",
+        replaces="rmp_tpu/ops/pallas_fk.py:218", counter=k3["name"],
+        path=path64, max_abs_err=slice21["k3_err"],
+        **{k: slice21["times"]["K3 planar_64 (F=65, n=64)"][k] for k in
+           ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "device_launches_per_call", "frames", "tile_envs",
+            "dynamic_smem_bytes", "envs_per_sm")})
     kernels = [k1, k2a, k2b, k3, k4, k5, k1_dual, k3_dual, k3_contact,
                k1_neural] + k4_models + [k1_backward_rec] + k1_slice12 \
-        + k5_slice12 + k3_wide + k1_wide + k5_wide
+        + k5_slice12 + k3_wide + k1_wide + k5_wide + [k1_cta, k3_xl]
     for rec in kernels:
         # each kernel's count from the paths that run it (K2a/K2b, K5:
         # none); K1 and K3 on the dual-arm Panda (n = 18, F = 26) apart
@@ -6615,6 +6854,7 @@ def run_phases(card: str, build_s: float, chosen: set | None, start: float,
                   slice13={k: v for k, v in slice13.items() if k != "paths"},
                   slice14=slice14, slice15=slice15,
                   slice18=slice18,
+                  slice21={k: v for k, v in slice21.items() if k != "paths"},
                   phase_s={str(k): v for k, v in PHASE_S.items()},
                   spent_s=SPENT, trace_tries=TRACE_TRIES)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -3,9 +3,10 @@ GPU.
 
     python3 kernel_probe.py [part ...] [--against DIR]
 
-Parts (all when none is named): sass, k3, k3narrow, k3tile, k3ab, k4,
-k5, k5wide, k5parent, k5ab, k1, k1parts, k1ab, host, traces (k5parent
-and k5ab need --against).
+Parts: sass, k3, k3narrow, k3tile, k3ab, k4, k5, k5wide, k5ab, k1, k1parts,
+k1ab, host, traces. k5ab needs --against; a run that names no part runs
+every part but those that need --against where none is given, and names
+the parts it skips on stderr (`choose_parts`).
 
 1. Phase splits by edited copies of csrc/: each variant is rebuilt from a
    copy of csrc/ with an edit and runs in its own process (the library loads
@@ -46,9 +47,7 @@ and k5ab need --against).
      origin terms formed on the way), after the pairs, or the whole kernel
      (the Cholesky and both substitutions); each early return stores a
      value of the work done under a condition that never holds, so the
-     compiler keeps that work. Part k5parent: the same split of the kernel
-     before this design (fused_tick_wide.cu up to PR 19, on its own
-     markers) in the checkout `--against DIR`. Part k5ab: the kernel
+     compiler keeps that work. Part k5ab: the kernel
      against another checkout's (`--against DIR`) on every layout of
      chip_smoke.k5_wide_layouts and scene 06 on the 16-lane kernel, in
      K5_ROUNDS processes, the order turned every round, with each layout's
@@ -116,7 +115,7 @@ K3_WIDE = "fk_derivatives_wide.cuh"
 K3_FRAMES = "  // ---- the frames, in topological order ----"
 K3_STEP = "    {  // ---- the step of frame f: T, G, W, Wd ----"
 K3_ROWS = "    // ---- frame f's rows of T, Td and c ----"
-K3_J = "    // ---- frame f's row of J: motors r and r + 16 ----"
+K3_J = "    // ---- frame f's row of J: motors r + 16 k ----"
 VARIANTS = {
     K3_WIDE: {
         "full": [],
@@ -162,8 +161,8 @@ VARIANTS = {
 def k3_wide_envs(envs: int) -> list:
     """Edits that give the wide kernel's tile `envs` envs per CTA."""
     return [("constexpr int kWideEnvs = 4;", f"constexpr int kWideEnvs = {envs};"),
-            ("fk_derivatives.cu", "{{32, 18, 8}, {40, 32, 4}};",
-             f"{{{{32, 18, 8}}, {{40, 32, {envs}}}}};")]
+            ("fk_derivatives.cu", "{{32, 18, 8}, {40, 32, 4}, {72, 64, 2}};",
+             f"{{{{32, 18, 8}}, {{40, 32, {envs}}}, {{72, 64, 2}}}};")]
 
 
 # the wide kernel's tile at 2 and 8 envs per CTA (the kernel has 4), and
@@ -171,9 +170,9 @@ def k3_wide_envs(envs: int) -> list:
 K3_TILES = {K3_WIDE: {"full": [], "wide_tile_2": k3_wide_envs(2),
                       "wide_tile_8": k3_wide_envs(8),
                       "unbalanced_waves": [(
-                          "fk_derivatives_wide.cu",
-                          "  if (d.sms == 0) return bytes;",
-                          "  if (d.sms >= 0) return bytes;")]}}
+                          "fk_wide_launch.cuh",
+                          "    if (d.sms == 0) return bytes;",
+                          "    if (d.sms >= 0) return bytes;")]}}
 # part k3ab: the kernels as they are against another checkout's
 K3_AB = {K3_WIDE: {"full": []}}
 
@@ -191,23 +190,6 @@ K5_ROW_SUM = "row_sum(row, fr)"
 K5_ROW_SUM_FN = ("template <int N>\n__device__ __forceinline__ float row_sum("
                  "const float (&row)[N], float fr) {\n#pragma unroll\n  for "
                  "(int c = 0; c < N; ++c) fr += row[c];\n  return fr;\n}\n\n")
-# K5's wide kernel before this design (fused_tick_wide.cu up to PR 19): its
-# split on that file's own markers (part k5parent, on `--against DIR`)
-K5_PARENT = "fused_tick_wide.cu"
-P_RECURSION = "  // ---- the recursion on 16 lanes an env: the first two warps ----"
-P_WARP = "  // ---- a warp an env from here on ----"
-P_PAIRS = "  // ---- the pairs, frame by frame, 32 staged at a time ----"
-P_CHOL = "  // ---- Cholesky of the symmetrized A, right-looking, by shuffles ----"
-P_KERNEL = "template <int N>\n__global__ void __launch_bounds__(kThreads, 3)"
-K5_PARENT_SPLITS = {K5_PARENT: {
-    "full": [],
-    "tables": k5_stop(P_RECURSION, "smem[L.U + tid]"),
-    "recursion": k5_stop(P_WARP, "smem[L.T + tid]"),
-    "slots_attractor_identity": [(P_KERNEL, K5_ROW_SUM_FN + P_KERNEL)]
-    + k5_stop(P_PAIRS, K5_ROW_SUM),
-    "pairs": [(P_KERNEL, K5_ROW_SUM_FN + P_KERNEL)]
-    + k5_stop(P_CHOL, K5_ROW_SUM),
-}}
 # the wide kernel's split on its own markers (part k5wide)
 K5_WIDE = "fused_tick_wide.cuh"
 W_FRAMES = "  // ---- the frames, in topological order ----"
@@ -730,6 +712,31 @@ def host_costs() -> dict:
     return out
 
 
+# the parts that compare with another checkout and run only with one
+NEEDS_AGAINST = ("k5ab",)
+
+
+def choose_parts(args: list, against: bool, parts: list) -> tuple:
+    """(the parts to run, the parts skipped) for the parts named in `args`
+    (every part when none is named), `against` whether --against DIR was
+    given. With no part named and no --against, the parts of NEEDS_AGAINST
+    are skipped; a part named that needs --against without it, and an
+    unknown part, end the run before anything is built."""
+    unknown = sorted(set(args) - set(parts))
+    if unknown:
+        raise SystemExit(f"kernel_probe: unknown parts {unknown}; parts: "
+                         f"{parts}")
+    if against:
+        return list(args or parts), []
+    missing = [p for p in args if p in NEEDS_AGAINST]
+    if missing:
+        raise SystemExit(f"kernel_probe: {missing} need --against DIR")
+    if args:
+        return list(args), []
+    return ([p for p in parts if p not in NEEDS_AGAINST],
+            [p for p in parts if p in NEEDS_AGAINST])
+
+
 def main() -> int:
     import torch
 
@@ -745,11 +752,6 @@ def main() -> int:
         i = args.index("--against")
         against = os.path.abspath(args[i + 1])
         del args[i:i + 2]
-    def needs(path):
-        if path is None:
-            raise SystemExit("kernel_probe: this part needs --against DIR")
-        return path
-
     parts = dict(sass=sass_counts,
                  k3=lambda: split(K3_WIDE, only="fk_derivatives"),
                  k3narrow=lambda: split("fk_derivatives.cu",
@@ -769,20 +771,15 @@ def main() -> int:
                  k5=lambda: split("fused_tick.cu"),
                  k5wide=lambda: split(K5_WIDE, K5_WIDE_SPLITS,
                                       only="fused_tick"),
-                 k5parent=lambda: split(K5_PARENT, K5_PARENT_SPLITS,
-                                        only="fused_tick",
-                                        base=needs(against)),
                  k5ab=lambda: medians(split(
                      K5_WIDE, K5_AB, only="fused_tick", rounds=K5_ROUNDS,
-                     against=needs(against), k3_all=True), "k5ab"),
+                     against=against, k3_all=True), "k5ab"),
                  host=host_costs,
                  traces=trace_loss)
-    chosen = args or list(parts)
-    unknown = sorted(set(chosen) - set(parts))
-    if unknown:
-        print(f"kernel_probe: unknown parts {unknown}; parts: {list(parts)}",
-              file=sys.stderr)
-        return 2
+    chosen, skipped = choose_parts(args, against is not None, list(parts))
+    if skipped:
+        print(f"kernel_probe: no --against DIR, so these parts are skipped: "
+              f"{skipped}", file=sys.stderr)
     card = cs.card_lines()[0]
     print(f"card: {card}", flush=True)
     record = dict(card=card)

@@ -26,9 +26,11 @@
 //   n = 18). The rest up to 40 frames and 32 motors, K1's ceiling (the
 //   N-link arms: F = 25, n = 24 and F = 33, n = 32), go to the wide
 //   kernel (kTiles[1], fk_derivatives_wide.cuh: a design of its own, which
-//   stores each frame's rows as its step ends). The launcher takes the
-//   first tile that fits; past the last it launches nothing and returns
-//   -1.
+//   stores each frame's rows as its step ends), and the rest up to 72
+//   frames and 64 motors (four Pandas, the 64-link arm) to the same kernel
+//   instantiated at that capacity (kTiles[2], fk_derivatives_xl.cu). The
+//   launcher takes the first tile that fits; past the last it launches
+//   nothing and returns -1.
 // - The model's tables (parent, joint type, motor index, axis, constant
 //   transforms, ancestor table anc[f][m]) and the tile's q, qd are loaded
 //   into shared memory once per CTA, each thread issuing its loads of every
@@ -85,11 +87,15 @@ using rmp::odd_half;
 struct Tile {
   int frames, motors, envs;
 };
-constexpr Tile kTiles[] = {{32, 18, 8}, {40, 32, 4}};
+constexpr Tile kTiles[] = {{32, 18, 8}, {40, 32, 4}, {72, 64, 2}};
 static_assert(kTiles[1].frames == rmp_k3::kWideFrames &&
                   kTiles[1].motors == rmp_k3::kWideMotors &&
                   kTiles[1].envs == rmp_k3::kWideEnvs,
               "kTiles[1] is the wide kernel's tile");
+static_assert(kTiles[2].frames == rmp_k3::kXlFrames &&
+                  kTiles[2].motors == rmp_k3::kXlMotors &&
+                  kTiles[2].envs == rmp_k3::kXlEnvs,
+              "kTiles[2] is the wide kernel's second instantiation");
 
 __host__ __device__ constexpr int cdiv(int a, int b) {
   return (a + b - 1) / b;
@@ -368,6 +374,8 @@ extern "C" int rmp_fk_derivatives_shared_bytes(int F, int n) {
       return Layout<kTiles[0].envs>(F, n).bytes();
     case 1:
       return rmp_k3::wide_shared_bytes(F, n);
+    case 2:
+      return rmp_k3::xl_shared_bytes(F, n);
     default:
       return -1;
   }
@@ -393,6 +401,8 @@ extern "C" int rmp_fk_derivatives_envs_per_sm(int F, int n) {
     }
     case 1:
       return rmp_k3::wide_envs_per_sm(F, n);
+    case 2:
+      return rmp_k3::xl_envs_per_sm(F, n);
     default:
       return -1;
   }
@@ -427,9 +437,12 @@ extern "C" int rmp_fk_derivatives_f32(
       t == 0 ? launch<kTiles[0].frames, kTiles[0].motors, kTiles[0].envs>(
                    B, F, n, parent, joint_type, q_index, axis, T_constant,
                    anc, q, qd, T16, Td16, J16, c16, s)
-             : rmp_k3::launch_wide(B, F, n, parent, joint_type, q_index,
-                                   axis, T_constant, anc, q, qd, T16, Td16,
-                                   J16, c16, s);
+      : t == 1 ? rmp_k3::launch_wide(B, F, n, parent, joint_type, q_index,
+                                     axis, T_constant, anc, q, qd, T16, Td16,
+                                     J16, c16, s)
+               : rmp_k3::launch_xl(B, F, n, parent, joint_type, q_index, axis,
+                                   T_constant, anc, q, qd, T16, Td16, J16,
+                                   c16, s);
   if (previous != device) cudaSetDevice(previous);
   return rc;
 }

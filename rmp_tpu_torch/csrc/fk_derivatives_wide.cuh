@@ -1,6 +1,8 @@
 // K3's wide kernel: batched closed-form FK derivatives for models past the
 // narrow tile (fk_derivatives.cu), up to 40 frames and 32 motors: the
-// N-link arms (F = 25, n = 24; F = 33, n = 32) and any tree of that size.
+// N-link arms (F = 25, n = 24; F = 33, n = 32) and any tree of that size;
+// instantiated again at 72 frames and 64 motors (fk_derivatives_xl.cu) for
+// the models past that: four Pandas (F = 52, n = 36), the 64-link arm.
 //
 // Replaces the TPU kernel rmp_tpu/ops/pallas_fk.py::fk_derivatives_batched
 // (_build / _make_kernel) for those models; fk_derivatives.cu's head note
@@ -23,7 +25,8 @@
 //   the SM's other warps run their steps: the stores overlap the
 //   recursion, and no pass over the whole tile follows it.
 // - J's row of (env, f), 16 rows of n motors, is made by motor lanes:
-//   lane r takes motors r and r + 16 and reads row gi of G[anc[f][m]] (a
+//   lane r takes motors r + 16 k (k < kMaxMotors / 16: r and r + 16 up to
+//   32 motors) and reads row gi of G[anc[f][m]] (a
 //   float4; non-ancestors read a zero matrix, so no lane diverges on anc)
 //   for the four entries J[4 gi + jj][m], a quarter of a shared load per
 //   output (four in the narrow kernel's store pass). Four rows at a time
@@ -46,8 +49,8 @@
 //   those constants and computes the other rows as before.
 // - The model's tables are read through the read-only cache, a frame
 //   ahead; each lane makes only its own column of the joint motion and of
-//   the generator. q, qd, sin q and cos q are made once, motor r and r + 16
-//   on lane r, and reach a frame's step by __shfl_sync.
+//   the generator. q, qd, sin q and cos q are made once, motors r + 16 k on
+//   lane r, and reach a frame's step by __shfl_sync.
 // - Every sum is taken in the order of the narrow kernel (dot4: a.x b.x
 //   first), so both kernels give the same values up to the compiler's
 //   contractions.
@@ -67,6 +70,12 @@ using rmp::ld4;
 constexpr int kWideFrames = 40;
 constexpr int kWideMotors = 32;
 constexpr int kWideEnvs = 4;
+// Its second instantiation (fk_derivatives_xl.cu), kTiles[2]: at (72, 64)
+// an env holds 3,760 floats (15.0 KB) of shared memory, so a CTA of 2 envs
+// lets an SM hold 14 of them, 4 envs a CTA 12.
+constexpr int kXlFrames = 72;
+constexpr int kXlMotors = 64;
+constexpr int kXlEnvs = 2;
 
 // Floats of a frame's T, W, Wd and G in shared memory: rows 0-2.
 constexpr int kRows3 = 12;
@@ -153,6 +162,19 @@ __device__ __forceinline__ float4 col3(const float* m, int j, float last) {
   return make_float4(m[j], m[4 + j], m[8 + j], last);
 }
 
+// Ancestors of a frame for motors r + 16 k, k = 2 .. kMore + 1, of lane r
+// (-1: none): the motors past r and r + 16 of the (72, 64) tile.
+template <int kMore>
+__device__ __forceinline__ void more_ancestors(int (&out)[kMore], int f,
+                                               int n, int r,
+                                               const int* __restrict__ anc) {
+#pragma unroll
+  for (int k = 0; k < kMore; ++k) {
+    const int m = r + 16 * (k + 2);
+    out[k] = m < n ? __ldg(anc + f * n + m) : -1;
+  }
+}
+
 // J[4 gi + jj][m], jj = 0-3, of frame f for the lane's motor m, from row
 // gi of G[anc[f][m]] and T_f's columns c0..c3: 4 floats, n apart.
 __device__ __forceinline__ void stage_j_rows(float* __restrict__ out, int n,
@@ -173,7 +195,12 @@ __global__ void __launch_bounds__(16 * kEnvs) fk_derivatives_kernel_wide(
     const float* __restrict__ qd, float* __restrict__ T16,
     float* __restrict__ Td16, float* __restrict__ J16,
     float* __restrict__ c16) {
-  static_assert(kMaxMotors <= 32, "motors r and r + 16 on lane r");
+  // motors r and r + 16 on lane r, and past 32 motors r + 16 k for k = 2 ..
+  // kSlots - 1 (kept apart, so that a tile of up to 32 motors compiles as
+  // it did before the (72, 64) tile)
+  constexpr int kSlots = (kMaxMotors + 15) / 16;
+  constexpr int kMore = kSlots > 2 ? kSlots - 2 : 1;
+  static_assert(kEnvs % 2 == 0, "whole warps: shuffles take every lane");
   extern __shared__ float4 smem4[];
   const WideLayout L(F, n);
   const int tid = threadIdx.x;
@@ -207,6 +234,20 @@ __global__ void __launch_bounds__(16 * kEnvs) fk_derivatives_kernel_wide(
   float sin0, cos0, sin1, cos1;
   sincosf(q0, &sin0, &cos0);
   sincosf(q1, &sin1, &cos1);
+  // motors r + 32, r + 48 (the (72, 64) tile)
+  float qm[kMore], qdm[kMore], sinm[kMore], cosm[kMore];
+  int ancm_next[kMore];
+  if constexpr (kSlots > 2) {
+    const size_t o = static_cast<size_t>(live ? b : 0) * n;
+#pragma unroll
+    for (int k = 0; k < kMore; ++k) {
+      const int m = r + 16 * (k + 2);
+      qm[k] = live && m < n ? q[o + m] : 0.0f;
+      qdm[k] = live && m < n ? qd[o + m] : 0.0f;
+      sincosf(qm[k], &sinm[k], &cosm[k]);
+    }
+    more_ancestors<kMore>(ancm_next, 0, n, r, anc);
+  }
   s[L.eye + r] = (r % 5 == 0) ? 1.0f : 0.0f;
   s[L.zero + r] = 0.0f;
   const size_t row0 = static_cast<size_t>(live ? b : 0) * F;
@@ -221,6 +262,12 @@ __global__ void __launch_bounds__(16 * kEnvs) fk_derivatives_kernel_wide(
   // ---- the frames, in topological order ----
   for (int f = 0; f < F; ++f) {
     const FrameTables tab = next;
+    int ancm[kMore];
+    if constexpr (kSlots > 2) {
+#pragma unroll
+      for (int k = 0; k < kMore; ++k) ancm[k] = ancm_next[k];
+      if (f + 1 < F) more_ancestors<kMore>(ancm_next, f + 1, n, r, anc);
+    }
     if (f + 1 < F)
       next = frame_tables(f + 1, n, r, parent, joint_type, q_index, axis,
                           T_constant, anc);
@@ -230,10 +277,23 @@ __global__ void __launch_bounds__(16 * kEnvs) fk_derivatives_kernel_wide(
     // holds them (every lane runs the shuffles: qs is the same on all)
     const int src = half + (qs & 15);
     const bool lo = qs < 16;
-    const float qv = __shfl_sync(0xffffffffu, lo ? q0 : q1, src);
-    const float qdv = __shfl_sync(0xffffffffu, lo ? qd0 : qd1, src);
-    const float sv = __shfl_sync(0xffffffffu, lo ? sin0 : sin1, src);
-    const float cv = __shfl_sync(0xffffffffu, lo ? cos0 : cos1, src);
+    float qo = lo ? q0 : q1, qdo = lo ? qd0 : qd1;
+    float so = lo ? sin0 : sin1, co = lo ? cos0 : cos1;
+    if constexpr (kSlots > 2) {
+#pragma unroll
+      for (int k = 0; k < kMore; ++k) {
+        if (qs >= 16 * (k + 2)) {
+          qo = qm[k];
+          qdo = qdm[k];
+          so = sinm[k];
+          co = cosm[k];
+        }
+      }
+    }
+    const float qv = __shfl_sync(0xffffffffu, qo, src);
+    const float qdv = __shfl_sync(0xffffffffu, qdo, src);
+    const float sv = __shfl_sync(0xffffffffu, so, src);
+    const float cv = __shfl_sync(0xffffffffu, co, src);
     const float* Tp = p < 0 ? s + L.eye : s + L.T + kRows3 * p;
     const float* Wp = p < 0 ? s + L.zero : s + L.W + kRows3 * p;
     const float* Dp = p < 0 ? s + L.zero : s + L.D + kRows3 * p;
@@ -291,7 +351,7 @@ __global__ void __launch_bounds__(16 * kEnvs) fk_derivatives_kernel_wide(
       oc[16 * f + r] = row3 ? 0.0f : cc;
     }
     __syncwarp();  // the J row is staged over sC
-    // ---- frame f's row of J: motors r and r + 16 ----
+    // ---- frame f's row of J: motors r + 16 k ----
     {
       const float4 t0 = ld4(Tf), t1 = ld4(Tf + 4), t2 = ld4(Tf + 8);
       const float4 c0 = make_float4(t0.x, t1.x, t2.x, 0.0f);
@@ -302,6 +362,12 @@ __global__ void __launch_bounds__(16 * kEnvs) fk_derivatives_kernel_wide(
           tab.anc0 < 0 ? s + L.zero : s + L.G + kRows3 * tab.anc0;
       const float* G1 =
           tab.anc1 < 0 ? s + L.zero : s + L.G + kRows3 * tab.anc1;
+      const float* Gm[kMore];
+      if constexpr (kSlots > 2) {
+#pragma unroll
+        for (int k = 0; k < kMore; ++k)
+          Gm[k] = ancm[k] < 0 ? s + L.zero : s + L.G + kRows3 * ancm[k];
+      }
       float4* dst = reinterpret_cast<float4*>(oJ + static_cast<size_t>(f) *
                                                        16 * n);
       // rows 4 gi .. 4 gi + 3 a pass (n float4s of the row): staged by the
@@ -311,6 +377,13 @@ __global__ void __launch_bounds__(16 * kEnvs) fk_derivatives_kernel_wide(
         if (r < n) stage_j_rows(sJ + r, n, ld4(G0 + 4 * gi), c0, c1, c2, c3);
         if (r + 16 < n)
           stage_j_rows(sJ + r + 16, n, ld4(G1 + 4 * gi), c0, c1, c2, c3);
+        if constexpr (kSlots > 2) {
+#pragma unroll
+          for (int k = 0; k < kMore; ++k)
+            if (r + 16 * (k + 2) < n)
+              stage_j_rows(sJ + r + 16 * (k + 2), n, ld4(Gm[k] + 4 * gi), c0,
+                           c1, c2, c3);
+        }
         __syncwarp();
         if (live)
           for (int w = r; w < n; w += 16) dst[gi * n + w] = ld4(sJ + 4 * w);
@@ -325,15 +398,22 @@ __global__ void __launch_bounds__(16 * kEnvs) fk_derivatives_kernel_wide(
   }
 }
 
-// Declared here, defined in fk_derivatives_wide.cu (the instantiation and
-// its launch): the launch on `stream` (cudaGetLastError() after it), the
-// layout's dynamic shared memory a CTA, and the envs an SM holds at once
-// at that size (-1 on an error).
+// Declared here, defined in fk_derivatives_wide.cu (the instantiation at
+// kWide*) and fk_derivatives_xl.cu (at kXl*), each with its launch
+// (fk_wide_launch.cuh): the launch on `stream` (cudaGetLastError() after
+// it), the layout's dynamic shared memory a CTA, and the envs an SM holds at
+// once at that size (-1 on an error).
 int launch_wide(int B, int F, int n, const int* parent, const int* joint_type,
                 const int* q_index, const float* axis, const float* T_constant,
                 const int* anc, const float* q, const float* qd, float* T16,
                 float* Td16, float* J16, float* c16, cudaStream_t stream);
 int wide_shared_bytes(int F, int n);
 int wide_envs_per_sm(int F, int n);
+int launch_xl(int B, int F, int n, const int* parent, const int* joint_type,
+              const int* q_index, const float* axis, const float* T_constant,
+              const int* anc, const float* q, const float* qd, float* T16,
+              float* Td16, float* J16, float* c16, cudaStream_t stream);
+int xl_shared_bytes(int F, int n);
+int xl_envs_per_sm(int F, int n);
 
 }  // namespace rmp_k3

@@ -20,12 +20,13 @@
 // block of 70 x 11, 9 out) the call moves 1,106 floats per env, 18.1 MB at
 // B = 4096, so 5.4 us; its ~12 kFLOP per env take ~0.7 us at the fp32 peak.
 //
-// Reach: every n from 1 to kMaxN = 32, as the TPU kernel unrolls over any
+// Reach: every n from 1 to kMaxN = 64, as the TPU kernel unrolls over any
 // n. The kernel below is instantiated for n = 1..9 (the two-joint robot, the
 // UR5, the Panda, the planar N-link arms); n = 10..32 (the dual-arm Panda at
 // 18, the N-link arms) run on the warp-per-env kernel of
-// pullback_resolve_wide.cu; picked at run time, n > 32 and more than
-// kMaxBlocks blocks are refused. The descriptor table, the element loads and
+// pullback_resolve_wide.cu, and n = 33..64 (four Pandas, the 64-link arm)
+// on the CTA-per-env kernel of pullback_resolve_cta.cu; picked at run time,
+// n > 64 and more than kMaxBlocks blocks are refused. The descriptor table, the element loads and
 // the clamp are pullback_resolve.cuh's.
 //
 // Block element types: each block's tensors are float32 or bfloat16 (the
@@ -269,7 +270,7 @@ void launch(int B, const Table& table, float ridge, float* out,
 }
 
 // launch<N> for the run-time n = N, N + 1, ..., kMaxLaneN; above, the warp
-// kernel
+// kernel, and past kMaxWarpN the CTA kernel
 template <int N>
 void launch_n(int n, int B, const Table& table, float ridge, float* out,
               cudaStream_t stream) {
@@ -278,7 +279,10 @@ void launch_n(int n, int B, const Table& table, float ridge, float* out,
   } else if constexpr (N < kMaxLaneN) {
     launch_n<N + 1>(n, B, table, ridge, out, stream);
   } else {
-    launch_wide(n, B, table, ridge, out, stream);
+    if (n <= kMaxWarpN)
+      launch_wide(n, B, table, ridge, out, stream);
+    else
+      launch_cta(n, B, table, ridge, out, stream);
   }
 }
 

@@ -1,7 +1,9 @@
 // K1's shared pieces: the block descriptor table the wrapper passes by
-// value, the element loads (float32, bfloat16 widened on load) and the
-// sign-preserving clamp. pullback_resolve.cu (n <= 9, and the C entry
-// point) and pullback_resolve_wide.cu (n = 10..32) both include it.
+// value, the element loads (float32, bfloat16 widened on load), the
+// sign-preserving clamp, and the staging by cp.async that the warp and CTA
+// kernels share. pullback_resolve.cu (n <= 9, and the C entry
+// point), pullback_resolve_wide.cu (n = 10..32) and pullback_resolve_cta.cu
+// (n = 33..64) include it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -9,7 +11,8 @@
 namespace rmp_k1 {
 
 constexpr int kMaxLaneN = 9;    // n of the lane-group kernel; above, a warp
-constexpr int kMaxN = 32;       // n of the warp kernel: one row per lane
+constexpr int kMaxWarpN = 32;   // n of the warp kernel: one row per lane
+constexpr int kMaxN = 64;       // n of the CTA kernel: [A | f] in shared memory
 // descriptors per call; the by-value table (3,592 bytes) stays inside the
 // 4 KB of kernel parameters every CUDA version takes
 constexpr int kMaxBlocks = 32;
@@ -62,7 +65,36 @@ __device__ __forceinline__ float at(const void* p, int elem,
                            : at<float>(p, s, b, r, c);
 }
 
-// n = 10..kMaxN on the warp kernel (pullback_resolve_wide.cuh; n = 18..24
+// safe_denom as the reference and the plain version write it,
+// where(d >= 0, max(d, eps), min(d, -eps)), a NaN kept (fminf would drop it)
+__device__ __forceinline__ float clamp_ref(float d) {
+  return d != d ? d : safe_denom(d);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+}
+
+// One element into shared memory: float32 by cp.async, bfloat16 widened
+// through a register.
+__device__ __forceinline__ void copy(float* dst, const float* src) {
+  cp_async4(dst, src);
+}
+__device__ __forceinline__ void copy(float* dst, const bf16_t* src) {
+  *dst = load(src);
+}
+
+// n = 10..kMaxWarpN on the warp kernel (pullback_resolve_wide.cuh; n = 18..24
 // instantiated in pullback_resolve_wide_18.cu, 25..32 in
 // pullback_resolve_wide_25.cu): launches on `stream`, returns nothing; the
 // caller reads cudaGetLastError().
@@ -72,5 +104,9 @@ void launch_wide_18(int n, int B, const Table& table, float ridge,
                     float* out, cudaStream_t stream);
 void launch_wide_25(int n, int B, const Table& table, float ridge,
                     float* out, cudaStream_t stream);
+// n = kMaxWarpN + 1..kMaxN on the CTA kernel (pullback_resolve_cta.cuh,
+// instantiated in pullback_resolve_cta.cu); launches likewise.
+void launch_cta(int n, int B, const Table& table, float ridge, float* out,
+                cudaStream_t stream);
 
 }  // namespace rmp_k1

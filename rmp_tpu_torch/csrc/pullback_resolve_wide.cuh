@@ -146,35 +146,6 @@ __host__ __device__ constexpr int chunk_rows(int n, int kind) {
                            : cap_rows(kStageFloats / (2 * pitch(n)));
 }
 
-// safe_denom as the reference and the plain version write it,
-// where(d >= 0, max(d, eps), min(d, -eps)), a NaN kept (fminf would drop it)
-__device__ __forceinline__ float clamp_ref(float d) {
-  return d != d ? d : safe_denom(d);
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int Pending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
-}
-
-// One element into shared memory: float32 by cp.async, bfloat16 widened
-// through a register.
-__device__ __forceinline__ void copy(float* dst, const float* src) {
-  cp_async4(dst, src);
-}
-__device__ __forceinline__ void copy(float* dst, const bf16_t* src) {
-  *dst = load(src);
-}
-
 // Rows r0..r0+nr-1, columns 0..N-1 of block tensor p (element type T)
 // into dst (pitch P): lane i takes row i where rows are contiguous in
 // memory, else the lanes run along the columns.

@@ -6,10 +6,12 @@ Td16 (B, F, 16), J16 (B, F, 16, n), c16 (B, F, 16)). A CPU tensor takes the
 plain PyTorch version (models/fk_derivatives.fk_derivatives); a CUDA tensor
 launches the kernel of csrc/fk_derivatives.cu or raises. Unlike the TPU
 kernel, the batch needs no particular multiple. The kernel takes models of
-up to 40 frames and 32 motors (`TILES`: up to 32 frames and 18 motors
-the narrow kernel of that file, past them the wide kernel of
-csrc/fk_derivatives_wide.cuh); a larger model raises ValueError on a CUDA
-tensor before anything is allocated or launched (`check_capacity`). Every call goes through K3's torch.library op
+up to 72 frames and 64 motors (`TILES`: up to 32 frames and 18 motors
+the narrow kernel of that file, past them up to 40 frames and 32 motors
+the wide kernel of csrc/fk_derivatives_wide.cuh, and past those that
+kernel instantiated at 72 frames and 64 motors, csrc/fk_derivatives_xl.cu);
+a larger model raises ValueError on a CUDA tensor before anything is
+allocated or launched (`check_capacity`). Every call goes through K3's torch.library op
 (ops/library.py) on the model's tables (`model_tables`): its CUDA
 implementation is `launch`, the kernel's one launch site, its CPU one
 `plain_of_tables`, the plain version of the model the tables describe.
@@ -35,8 +37,8 @@ from rmp_tpu_torch.models.urdf import FIXED, KinematicModel, model_cache
 _TABLES: dict[tuple, tuple] = {}
 _ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 13
 # csrc/fk_derivatives.cu's kTiles, first fit first: (frames, motors, envs
-# per CTA) of the narrow kernel and of the wide one
-TILES = ((32, 18, 8), (40, 32, 4))
+# per CTA) of the narrow kernel and of the wide one's two instantiations
+TILES = ((32, 18, 8), (40, 32, 4), (72, 64, 2))
 
 
 def tile_of(model: KinematicModel) -> tuple[int, int, int] | None:
@@ -47,7 +49,7 @@ def tile_of(model: KinematicModel) -> tuple[int, int, int] | None:
 
 def check_capacity(model: KinematicModel) -> None:
     """Raise ValueError when no instantiation of the kernel takes the
-    model (more than 40 frames or 32 motors)."""
+    model (more than 72 frames or 64 motors)."""
     if tile_of(model) is None:
         raise ValueError(
             f"model {model.name!r} ({model.n_frames} frames, {model.n_q} "

@@ -47,10 +47,11 @@ def test_build_compiles_every_source_once_for_sm90a(toolkit, monkeypatch):
     compiles = [c for c in calls if "-c" in c.split()]
     assert len(compiles) == len(_build.sources())
     assert sorted(os.path.basename(p) for p in _build.sources()) == [
-        "fk_derivatives.cu", "fk_derivatives_wide.cu", "fused_tick.cu",
-        "fused_tick_wide.cu",
-        "gjk_hull.cu", "pullback_resolve.cu", "pullback_resolve_wide.cu",
-        "pullback_resolve_wide_18.cu", "pullback_resolve_wide_25.cu"]
+        "fk_derivatives.cu", "fk_derivatives_wide.cu",
+        "fk_derivatives_xl.cu", "fused_tick.cu", "fused_tick_wide.cu",
+        "gjk_hull.cu", "pullback_resolve.cu", "pullback_resolve_cta.cu",
+        "pullback_resolve_wide.cu", "pullback_resolve_wide_18.cu",
+        "pullback_resolve_wide_25.cu"]
     assert all("arch=compute_90a,code=sm_90a" in c for c in compiles)
     assert all(f"-I {_build.CSRC_DIR}" in c for c in compiles)
     assert sum("-shared" in c.split() for c in calls) == 1

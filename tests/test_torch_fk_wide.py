@@ -142,25 +142,50 @@ def test_k3_backward_at_24_motors():
 
 
 def test_capacity_is_checked_before_a_launch():
-    """41 frames (32 motors) and 33 motors (34 frames) exceed both
-    instantiations: check_capacity raises, as the wrapper does on a CUDA
-    tensor before it allocates or launches; 40 frames and 32 motors, and
-    the models of the narrow tile, fit."""
-    for model in (with_fixed_tail(32, 8), planar(33)):
+    """73 frames (64 motors) and 65 motors (66 frames) exceed every
+    instantiation: check_capacity raises, as the wrapper does on a CUDA
+    tensor before it allocates or launches; 72 frames and 64 motors fit
+    the third tile, 40 frames and 32 motors still the wide one, and the
+    models of the narrow tile the narrow one."""
+    for model in (with_fixed_tail(64, 8), planar(65)):
         assert cuda_fk.tile_of(model) is None
         with pytest.raises(ValueError, match="capacity"):
             cuda_fk.check_capacity(model)
-    fits = with_fixed_tail(32, 7)
-    assert (fits.n_frames, fits.n_q) == (40, 32)
-    assert cuda_fk.tile_of(fits) == (40, 32, 4)
+    fits = with_fixed_tail(64, 7)
+    assert (fits.n_frames, fits.n_q) == (72, 64)
+    assert cuda_fk.tile_of(fits) == (72, 64, 2)
     cuda_fk.check_capacity(fits)
+    wide = with_fixed_tail(32, 7)
+    assert (wide.n_frames, wide.n_q) == (40, 32)
+    assert cuda_fk.tile_of(wide) == (40, 32, 4)
+    cuda_fk.check_capacity(wide)
+    assert cuda_fk.tile_of(with_fixed_tail(32, 8)) == (72, 64, 2)
+    assert cuda_fk.tile_of(planar(33)) == (72, 64, 2)
     assert cuda_fk.tile_of(planar(18)) == (32, 18, 8)
     assert cuda_fk.tile_of(planar(19)) == (40, 32, 4)
     # the plain version takes any model on the CPU
-    q, qd = inputs(33, batch=2)
-    out = cuda_fk.fk_derivatives_batched(planar(33), torch.tensor(q),
+    q, qd = inputs(65, batch=2)
+    out = cuda_fk.fk_derivatives_batched(planar(65), torch.tensor(q),
                                          torch.tensor(qd))
-    assert out[2].shape == (2, 34, 16, 33)
+    assert out[2].shape == (2, 66, 16, 65)
+
+
+def source_tile(tile: int, prefix: str, source: str, launch: str):
+    """Tile `tile` of cuda_fk.TILES is the wide kernel's capacity and tile
+    of the constants kXxxFrames, Motors and Envs of
+    csrc/fk_derivatives_wide.cuh (prefix kXxx), instantiated at them in
+    `source`, which the launcher reaches through rmp_k3::`launch`."""
+    with open(os.path.join(CSRC, "fk_derivatives_wide.cuh")) as f:
+        wide = dict(re.findall(rf"constexpr int {prefix}(\w+) = (\d+);",
+                               f.read()))
+    assert (int(wide["Frames"]), int(wide["Motors"]),
+            int(wide["Envs"])) == cuda_fk.TILES[tile]
+    with open(os.path.join(CSRC, "fk_derivatives.cu")) as f:
+        launcher = f.read()
+    assert f"rmp_k3::{launch}(" in launcher
+    with open(os.path.join(CSRC, source)) as f:
+        assert (f"WideLaunch<{prefix}Frames, {prefix}Motors, "
+                f"{prefix}Envs>") in f.read()
 
 
 def test_tiles_are_the_sources_instantiations():
@@ -170,17 +195,15 @@ def test_tiles_are_the_sources_instantiations():
     (csrc/fk_derivatives_wide.cuh, instantiated in fk_derivatives_wide.cu)
     that the launcher hands every model past the first."""
     assert k3_source_tiles() == cuda_fk.TILES
-    with open(os.path.join(CSRC, "fk_derivatives_wide.cuh")) as f:
-        wide = dict(re.findall(r"constexpr int kWide(\w+) = (\d+);",
-                               f.read()))
-    assert (int(wide["Frames"]), int(wide["Motors"]),
-            int(wide["Envs"])) == cuda_fk.TILES[1]
-    with open(os.path.join(CSRC, "fk_derivatives.cu")) as f:
-        launcher = f.read()
-    assert "rmp_k3::launch_wide(" in launcher
-    with open(os.path.join(CSRC, "fk_derivatives_wide.cu")) as f:
-        assert ("fk_derivatives_kernel_wide<kWideFrames, kWideMotors, "
-                "kWideEnvs>") in f.read()
+    source_tile(1, "kWide", "fk_derivatives_wide.cu", "launch_wide")
+
+
+def test_third_tile_is_the_wide_kernel_at_72_frames_64_motors():
+    """The third tile of TILES is the wide kernel instantiated again at
+    (72, 64) in fk_derivatives_xl.cu, which the launcher hands every model
+    past the wide tile."""
+    assert cuda_fk.TILES[2] == (72, 64, 2)
+    source_tile(2, "kXl", "fk_derivatives_xl.cu", "launch_xl")
 
 
 @pytest.mark.parametrize("n_links,batch", [(19, 5), (24, 6), ("branched", 6)])

@@ -191,12 +191,12 @@ def test_fake_calls_give_the_shapes_and_read_no_address():
 
 def test_meta_calls_raise_where_the_kernels_would():
     """Off the CPU the fake implementations hold the kernels' limits: K1
-    past n = 32, more than 32 blocks, and then no kernel for the meta
+    past n = 64, more than 32 blocks, and then no kernel for the meta
     device, before anything is allocated or launched."""
-    tags, blocks = k1_inputs(B=2, n=33, layout=(("dense", 2),))
+    tags, blocks = k1_inputs(B=2, n=65, layout=(("dense", 2),))
     meta = [tuple(x.to("meta") for x in b) for b in blocks]
     with pytest.raises(ValueError, match="no K1 kernel instantiated for "
-                       "n=33"):
+                       "n=65"):
         library.pullback_resolve_structured(*k1_op_args(tags, meta))
     tags, blocks = k1_inputs(B=2, n=3, layout=(("dense", 2),) * 33)
     meta = [tuple(x.to("meta") for x in b) for b in blocks]

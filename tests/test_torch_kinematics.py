@@ -209,14 +209,15 @@ def _replay_wide(model, q, qd):
     stores entry r of T_f, Td_f = W_f T_f and c_f = (Wd_f + W_f W_f) T_f
     at (b F + f) 16 + r, the constants of row 3 (T: 0 0 0 1, Td and c:
     0) where i = 3. J's row of (b, f), 16 n floats at (b F + f) 16 n, goes
-    out in passes gi = 0-2: for its motors m = r and r + 16 below n the
-    lane stages J[4 gi + jj][m] = row gi of G[anc[f][m]] (the zero matrix
+    out in passes gi = 0-2: for its motors m = r + 16 k below n (k below
+    the tile's motors / 16: r and r + 16 on the (40, 32) tile) the lane
+    stages J[4 gi + jj][m] = row gi of G[anc[f][m]] (the zero matrix
     when there is no ancestor) . column jj of T_f at jj n + m of the env's
     4 n-float stage, and then the half warp copies the stage out, float4
     w = r, r + 16, ... below n to float4 gi n + w of the row; a last pass
     stores zeros at float4s 3 n + w (rows 12-15). Every element is
     counted, and a stage must be whole before it goes out."""
-    E = k3_source_tiles()[1][2]
+    _, motors, E = k3_source_tiles()[_k3_tile(model)]
     B, F, n = q.shape[0], model.n_frames, model.n_q
     T, W, C, G = _k3_shared_arrays(model, q, qd)
     anc = cuda_fk.ancestor_table(model)
@@ -246,7 +247,7 @@ def _replay_wide(model, q, qd):
                 for gi in range(3):
                     stage = np.full(4 * n, np.nan, np.float32)
                     for r in range(16):
-                        for m in (r, r + 16):
+                        for m in range(r, motors, 16):
                             if m < n:
                                 a = anc[f, m]
                                 Ga = G[b, a] if a >= 0 else zero

@@ -117,17 +117,17 @@ def test_plain_k1_matches_jax_pallas_kernel_interpret(layout):
     np.testing.assert_allclose(got, want, atol=ATOL)
 
 
-@pytest.mark.parametrize("n", [33, 40])
+@pytest.mark.parametrize("n", [65, 80])
 def test_k1_raises_for_an_n_without_a_kernel(n):
-    """The kernel is instantiated for every n from 1 to 32; off the CPU a
-    larger n raises before a launch, with no fallback, and the message
-    names the limit (meta tensors stand in for a device here)."""
+    """The kernel takes every n from 1 to 64 (the CTA kernel past 32); off
+    the CPU a larger n raises before a launch, with no fallback, and the
+    message names the limit (meta tensors stand in for a device here)."""
     tags, blocks = layout_blocks(1, 4, n, (("dense", 3), ("identity", 0)))
     meta = [tuple(torch.tensor(x).to("meta") for x in b) for b in blocks]
     with pytest.raises(ValueError, match=f"no K1 kernel instantiated for "
-                       f"n={n}: the kernel takes n from 1 to 32"):
+                       f"n={n}: the kernel takes n from 1 to 64"):
         cuda_resolve.pullback_resolve_structured(tags, meta)
-    assert cuda_resolve.KERNEL_N == range(1, 33)
+    assert cuda_resolve.KERNEL_N == range(1, 65)
 
 
 @pytest.mark.parametrize("ridge", [0.0, 1e-3])

@@ -27,6 +27,11 @@ LEAST = {
     "K5_WIDE_LINKS": (17, 24, 32),
     "K5_WIDE_ODD": (19, 31),
     "K5_WIDE_CYLINDERS": 4,
+    # phase 23's K1 n, the slice's arm, its timed ticks and its parity
+    "PAST32_K1_N": (33, 36, 47, 48, 63, 64),
+    "PAST32_LINKS": 64,
+    "PAST32_TICKS": 10,
+    "PAST32_PARITY": (32, 3),
 }
 
 
@@ -146,3 +151,44 @@ def test_phase_20_holds_every_wide_k5_layout(tree, function, needs):
     arms, the odd n, the 40-frame tail, the branched tree, K = 4) behind
     k5_wide_check, with the ragged batches."""
     assert needs <= names_in(functions(tree)[function])
+
+
+@pytest.mark.parametrize("function, needs", [
+    ("phase_slice21", {"phase_k1_past32", "past32_models", "k3_check",
+                       "k3_raises", "k3_real_tick", "k1_compare_conditioned",
+                       "rollout_path", "gpu_cpu_parity", "PAST32_LINKS",
+                       "PAST32_TICKS", "PAST32_PARITY", "PAST32_RAGGED"}),
+    ("phase_k1_past32", {"PAST32_K1_N", "PAST32_RAGGED", "BATCH", "k1_held",
+                         "PAST32_TRANSPOSED_N", "k1_raises"}),
+    ("past32_models", {"planar_model", "four_pandas", "fixed_tail_model",
+                       "branched_model", "PAST32_LINKS"})])
+def test_phase_23_holds_every_model_past_32(tree, function, needs):
+    """Phase 23 holds K1 at the n of PAST32_K1_N (ragged batches, float32
+    and bfloat16, its backward, n = 65 raising), K3 on the five models of
+    past32_models (65 motors and 73 frames raising) and the 64-link arm's
+    rollout with its GPU/CPU parity."""
+    assert needs <= names_in(functions(tree)[function])
+
+
+def test_phase_23_is_run_by_main(tree):
+    calls = [call for call in ast.walk(functions(tree)["run_phases"])
+             if isinstance(call, ast.Call) and isinstance(call.func, ast.Name)
+             and call.func.id == "phase" and len(call.args) >= 2]
+    assert any(isinstance(c.args[0], ast.Constant) and c.args[0].value == 23
+               and isinstance(c.args[1], ast.Name)
+               and c.args[1].id == "phase_slice21" for c in calls)
+
+
+def test_phase_18_sweeps_k1_at_1_to_32_by_name(tree):
+    """Phase 18's K1 sweep runs over K1_EVERY_N = range(1, 33), named, not
+    over cuda_resolve.KERNEL_N (which now reaches 64: the CTA kernel's n
+    are phase 23's), so its cost stays as it was."""
+    value = next(node.value for node in tree.body
+                 if isinstance(node, ast.Assign)
+                 and isinstance(node.targets[0], ast.Name)
+                 and node.targets[0].id == "K1_EVERY_N")
+    assert ast.unparse(value) == "range(1, 33)"
+    sweep = functions(tree)["phase_k1_every_n"]
+    assert "K1_EVERY_N" in names_in(sweep)
+    assert "KERNEL_N" not in {n.attr for n in ast.walk(sweep)
+                              if isinstance(n, ast.Attribute)}
