@@ -265,7 +265,10 @@ ticks before).
      franka/randomized_cluttered at 4096 x 300 against
      reports/eval_randomized.json (3 sigma, nan_rate 0), latency.measure on
      the flagship at batches 1, 64, 4096 (25 ticks), the soak at 4096 x
-     250 in chunks of 125 (finite, in limits), `run franka/01 --ticks 40`.
+     250 in chunks of 125 (finite, in limits); then, once that timed work
+     is done, the processes that nothing times, started together
+     (run_together): `run franka/01 --ticks 40`, phase 20's `run --gif`
+     and phase 21's asset tools, which those phases read (ran).
  20. the fourteenth slice, K5 past 16 motors, row-keyed resampling
      streams, M17's second half: the wide K5's two instantiations' build
      lines (N = 24, 32); the kernel on every layout of k5_wide_layouts (the
@@ -337,10 +340,12 @@ import json
 import multiprocessing
 import os
 import re
+import shutil
 import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -467,6 +472,16 @@ def spent(by: str | None = None):
     return wrap
 
 
+@contextlib.contextmanager
+def part(name: str):
+    """Add the wall seconds of the block to SPENT[name]."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        SPENT[name] = SPENT.get(name, 0.0) + time.perf_counter() - t0
+
+
 PHASE_S: dict[int, float] = {}    # seconds of each phase run
 
 
@@ -544,6 +559,84 @@ def stop_cpu_runs() -> None:
         pool.join()
 
 
+# The entry points that nothing times run together in phase 19, once its
+# timed work is done: `run`, `run --gif` (phase 20's check) and the asset
+# tools (phase 21's). Phases 20 and 21 read theirs here (`ran`): key ->
+# (stdout, seconds from the start to its end, taken beside the others').
+_RAN: dict = {}
+RUN = [sys.executable, "-m", "rmp_tpu_torch.experiments.run"]
+GIF_RUN = os.path.join(ROOT, "chiprun_out", "gifs", "run_franka01.gif")
+GIF_RUN_CMD = RUN + ["franka/01_target_rmp_only", "--ticks", "10", "--gif",
+                     GIF_RUN]
+# phase 21's asset tools in a process of their own: argv the function's
+# name and the card's line; the record on the last line
+ASSET_CHILD = r"""
+import json, sys
+import torch
+import chip_smoke as cs
+print(json.dumps(getattr(cs, sys.argv[1])(sys.argv[2],
+                                          torch.device("cuda"))))
+"""
+TOGETHER_S = 900                   # the most run_together waits
+
+
+def asset_tools_cmd(card: str) -> list:
+    """The command of phase 21's asset tools (phase_asset_tools) in a
+    process of their own."""
+    return [sys.executable, "-c", ASSET_CHILD, phase_asset_tools.__name__,
+            card]
+
+
+@spent()
+def run_together(cmds: dict) -> dict:
+    """{key: (stdout, seconds from the start to its end)} of each command
+    of `cmds` (key -> argv), all started at once, each a process of its own
+    (the card its default device). A failure, or a process still running
+    after TOGETHER_S, raises; every process has ended when this returns."""
+    t0 = time.perf_counter()
+    logs = tempfile.mkdtemp(prefix="chip_smoke_together_")
+    procs, ended = {}, {}
+    try:
+        for i, (key, cmd) in enumerate(cmds.items()):
+            # files, not pipes: a full pipe would stop a process unread
+            out = open(os.path.join(logs, f"{i}.out"), "w+")
+            err = open(os.path.join(logs, f"{i}.err"), "w+")
+            procs[key] = (subprocess.Popen(
+                cmd, cwd=ROOT, stdout=out, stderr=err, text=True,
+                env={**os.environ, "PYTHONPATH": ROOT}), out, err)
+        while len(ended) < len(procs):
+            check(time.perf_counter() - t0 < TOGETHER_S,
+                  f"{sorted(set(procs) - set(ended))} still running after "
+                  f"{TOGETHER_S} s")
+            for key, (proc, _, _) in procs.items():
+                if key not in ended and proc.poll() is not None:
+                    ended[key] = time.perf_counter() - t0
+            time.sleep(0.1)
+        result = {}
+        for key, (proc, out, err) in procs.items():
+            out.seek(0)
+            err.seek(0)
+            check(proc.returncode == 0, f"{key} failed: {err.read()[-2000:]}")
+            result[key] = (out.read(), ended[key])
+        return result
+    finally:
+        for proc, out, err in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()
+        shutil.rmtree(logs, ignore_errors=True)
+
+
+def ran(key: str, cmd: list) -> tuple[str, float]:
+    """(stdout, seconds) of `cmd` as phase 19 ran it under `key`, read once;
+    run now, alone, where phase 19 did not run it."""
+    if key in _RAN:
+        return _RAN.pop(key)
+    return run_together({key: cmd})[key]
+
+
 def card_lines() -> list[str]:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -601,12 +694,30 @@ def traced(fn, warm=None, host_ops: bool = True):
     return prof.events()
 
 
-def device_kernels(events) -> list:
+def device_records(events) -> list:
     """The device records of a trace, less the profiler's own step spans."""
     return [e for e in events
             if e.device_type == torch.autograd.DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)
             and not e.name.startswith("ProfilerStep")]
+
+
+def device_kernels(events) -> list:
+    """device_records of a trace less those of work that ran before it: a
+    record that starts more than TRACE_PAD_S / 2 before the trace's first
+    host event (other than a profiler step span). CUPTI may hand a record on
+    late, into a later trace (on the H100 a trace of 10 K1 calls held 12
+    kernels for its 10 launch calls); traced's kept span begins TRACE_PAD_S
+    after the last work before it, so no record of that span is dropped.
+    A trace with no host event keeps every record."""
+    records = device_records(events)
+    host = [e.time_range.start for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and not e.name.startswith("ProfilerStep")]
+    if not host:
+        return records
+    first = min(host) - TRACE_PAD_S * 1e6 / 2    # time_range is in us
+    return [e for e in records if e.time_range.start >= first]
 
 
 @spent()
@@ -629,12 +740,14 @@ def device_launches(fn, kernel: str, what: str, calls: int = 10) -> float:
     for attempt in range(1, TRACE_ATTEMPTS + 1):
         events = traced(calls_of_fn)
         names = [e.name for e in device_kernels(events)]
+        late = len(device_records(events)) - len(names)
         runtime = sum(1 for e in events
                       if e.device_type == torch.autograd.DeviceType.CPU
                       and e.name.startswith(("cudaLaunchKernel",
                                              "cuLaunchKernel")))
         log(f"{what} trace {attempt} of {calls} calls: {runtime} launch "
-            f"calls, {len(names)} device kernels recorded")
+            f"calls, {len(names)} device kernels recorded"
+            + (f" ({late} records of earlier work dropped)" if late else ""))
         if best is None or len(names) > len(best[0]):
             best = names, runtime
         if len(names) == runtime:
@@ -666,6 +779,7 @@ def k1_layout(tags, blocks):
     return B, n, Rd, Rs
 
 
+@spent()
 def k1_bound(tags, blocks):
     """Bound of the wrapper call: it reads each identity block (n² + n),
     the dense rows (2n + 1 each) and the scalar rows (n + 2 each) once, in
@@ -684,6 +798,7 @@ def k1_bound(tags, blocks):
     return bound_ms(float(n_bytes), float(flops) * B)
 
 
+@spent()
 def k1_library(tags, blocks):
     """Yardstick: einsum accumulation + torch.linalg.solve."""
     A, f = cuda_resolve.assemble_structured(tags, blocks)
@@ -701,6 +816,7 @@ K1_FLAGSHIP_LAYOUT = (("dense", 3), ("identity", 0), ("identity", 0),
                       ("identity", 0), ("scalar", 70))
 
 
+@spent()
 def k1_layout_blocks(seed: int, B: int, n: int, layout, device):
     """Seeded blocks of `layout`, a sequence of (tag, rows): dense blocks
     with W = S J (S SPD), identity blocks with SPD metrics, scalar blocks
@@ -726,6 +842,7 @@ def k1_layout_blocks(seed: int, B: int, n: int, layout, device):
     return tuple(tag for tag, _ in layout), blocks
 
 
+@spent()
 def k1_compare(tags, blocks, what: str, nonfinite_ok: bool = False) -> float:
     """Max |kernel - plain| of K1 on the blocks, held to K1_TOL x
     max(1, |q̈|). nonfinite_ok: envs whose plain q̈ is not finite (a real
@@ -754,6 +871,7 @@ def k1_compare(tags, blocks, what: str, nonfinite_ok: bool = False) -> float:
     return err
 
 
+@spent()
 def real_tick_blocks(env, B: int, seed: int):
     """Structured blocks of one real tick of the scene `env`, from mildly
     perturbed reset states (so the envs differ)."""
@@ -779,9 +897,25 @@ def build_counts(source: str, what: str, kernel: str | None = None) -> dict:
     return build
 
 
+@spent()
+def warm_dispatch() -> None:
+    """K1 through its op on tiny CPU blocks (the plain version): what the
+    first call of a process imports and sets up, without the card."""
+    cuda_resolve.pullback_resolve_structured(*k1_layout_blocks(
+        1, 1, 9, K1_FLAGSHIP_LAYOUT, torch.device("cpu")))
+
+
 def phase_k1(env, device) -> dict:
     build = build_counts("pullback_resolve.cu", "K1",
                          "pullback_resolve_kernelILi9E")
+    # the process's first kernel call (the library's load and its first
+    # launch), apart from the comparisons' seconds
+    with part("K1 library load"):
+        _build.load()
+    with part("K1 first call"):
+        cuda_resolve.pullback_resolve_structured(*k1_layout_blocks(
+            1, 1, 9, K1_FLAGSHIP_LAYOUT, device))
+        torch.cuda.synchronize()
     err, real = 0.0, {}
     for B in (BATCH,) + RAGGED:
         tags, blocks = k1_layout_blocks(0 if B == BATCH else B, B, 9,
@@ -1511,7 +1645,7 @@ def k5_check(what: str, err: torch.Tensor, limit: float) -> float:
 
 
 def phase_k5(device) -> dict:
-    build = build_counts("fused_tick.cu", "K5")
+    build = build_counts("fused_tick.cuh", "K5", "fused_qdd_kernelI")
     shared = _build.c_function("rmp_fused_qdd_shared_bytes",
                                [ctypes.c_int] * 3)
     rec = dict(name="fused_qdd", route="cuda",
@@ -4703,7 +4837,7 @@ def phase_producers_and_k5(device) -> tuple[dict, float, float, float]:
                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
                    device_launches_per_call=per_call,
                    dynamic_smem_bytes=smem,
-                   build=ptxas_counts("fused_tick.cu",
+                   build=ptxas_counts("fused_tick.cuh",
                                       f"fused_qdd_kernelILi{n_links}E"))
         log(f"K5 planar_{n_links}link times at B={BATCH}: kernel "
             f"{rec['ms']:.4f} ms (device alone {rec['device_ms']:.4f} ms), "
@@ -5282,14 +5416,18 @@ def phase_tools(card: str, device, failed: list) -> dict:
     log(f"soak ({SCENE}, {BATCH} x {SOAK_TICKS}): {json.dumps(out['soak'])}")
     check(out["soak"]["all_finite"] and out["soak"]["always_in_limits"],
           "soak: non-finite or out of limits")
-    t0 = time.perf_counter()
-    rn = subprocess.run(
-        [sys.executable, "-m", "rmp_tpu_torch.experiments.run",
-         "franka/01_target_rmp_only", "--ticks", "40", *cpu],
-        cwd=ROOT, capture_output=True, text=True, timeout=600)
-    check(rn.returncode == 0, f"run failed: {rn.stderr[-2000:]}")
-    out["run"] = dict(tail=rn.stdout.strip().splitlines()[-4:],
-                      process_s=time.perf_counter() - t0)
+    # what nothing times, together once the timed work above is done: the
+    # run entry point, and phases 20 and 21's run with a GIF and asset tools
+    cmds = {"run": RUN + ["franka/01_target_rmp_only", "--ticks", "40",
+                          *cpu]}
+    if not cpu:
+        os.makedirs(os.path.dirname(GIF_RUN), exist_ok=True)
+        cmds.update({"run --gif": GIF_RUN_CMD,
+                     "asset tools": asset_tools_cmd(card)})
+    _RAN.update(run_together(cmds))
+    stdout, process_s = ran("run", cmds["run"])
+    out["run"] = dict(tail=stdout.strip().splitlines()[-4:],
+                      process_s=process_s, beside=sorted(set(cmds) - {"run"}))
     log(f"run franka/01 --ticks 40: {json.dumps(out['run'])}")
     return out
 
@@ -5618,7 +5756,7 @@ def phase_k5_wide(card: str, device) -> tuple[dict, float]:
         f"(earlier {K5_EARLIER_MS}, limit x{K5_KEEP}) [{card}]")
     check(narrow_ms <= K5_KEEP * K5_EARLIER_MS, "K5 scene 06 slowed")
     out["scene06_device_ms"] = narrow_ms
-    out["narrow_build"] = ptxas_counts("fused_tick.cu",
+    out["narrow_build"] = ptxas_counts("fused_tick.cuh",
                                        "fused_qdd_kernelILi9E")
     out["raises"] = raised
     return out, err
@@ -5762,6 +5900,7 @@ def phase_tools14(card: str, device, main_trace: dict) -> dict:
     t0 = time.perf_counter()
     check(native.available(), "the native renderer is not available")
     gif_dir = os.path.join(ROOT, "chiprun_out", "gifs")
+    os.makedirs(gif_dir, exist_ok=True)
     gif = make_gifs.make_gif(SCENE, GIF_TICKS, GIF_EVERY, "capsule",
                              gif_dir, device)
     sim_path = os.path.join(gif_dir, "simulation.gif")
@@ -5770,15 +5909,11 @@ def phase_tools14(card: str, device, main_trace: dict) -> dict:
     for _ in range(40):
         sim_.step(np.zeros(9))
     sim_.save_animation()
-    run_path = os.path.join(gif_dir, "run_franka01.gif")
-    rn = subprocess.run(
-        [sys.executable, "-m", "rmp_tpu_torch.experiments.run",
-         "franka/01_target_rmp_only", "--ticks", "10", "--gif", run_path],
-        cwd=ROOT, capture_output=True, text=True, timeout=600)
-    check(rn.returncode == 0, f"run --gif failed: {rn.stderr[-2000:]}")
+    run_path = GIF_RUN
+    stdout, _ = ran("run --gif", GIF_RUN_CMD)
     out["gifs"] = dict(make_gifs=gif, simulation=dict(
         path=sim_path, renderer=sim_.renderer, frames=len(sim_._frames)),
-        run=rn.stdout.strip().splitlines()[-1])
+        run=stdout.strip().splitlines()[-1])
     log(f"gifs: {json.dumps(out['gifs'])}")
     check(gif["renderer"] == "native" and sim_.renderer == "native"
           and "native renderer" in out["gifs"]["run"]
@@ -5907,6 +6042,7 @@ print(json.dumps(sorted(m for m in sys.modules
 """
 
 
+@spent()
 def run_artifacts(runs: list) -> tuple[list, list]:
     """(one record per (path, calls) of `runs`, the package's modules the
     serving process imported), from ARTIFACT_CHILD in a fresh process."""
@@ -5921,6 +6057,21 @@ def run_artifacts(runs: list) -> tuple[list, list]:
     return [json.loads(x) for x in lines[:-1]], json.loads(lines[-1])
 
 
+def cpu_traced_export(path: str) -> float:
+    """The flagship's step exported on the CPU (AOT_CPU_BATCH envs, for the
+    CPU and the card) and saved at `path`: a run on the CPU alone, made by
+    a worker (cpu_reference_calls); its seconds."""
+    from rmp_tpu_torch.experiments import aot_export
+
+    t0 = time.perf_counter()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    artifact, manifest, flat = aot_export.export_step(
+        SCENE, AOT_CPU_BATCH, 1, platforms=["cpu", "cuda"], device="cpu")
+    aot_export.save(path, artifact, manifest, flat)
+    return time.perf_counter() - t0
+
+
+@spent()
 def eager_aot_rollout(geometry: str, batch: int, ticks: int,
                       tensor_gains: bool, device="cuda") -> tuple[list, float]:
     """(final state leaves, seconds) of the eager batched rollout the
@@ -5975,6 +6126,7 @@ def tree_digest(directory: str) -> dict:
     return out
 
 
+@spent()
 def phase_asset_tools(card: str, device) -> dict:
     """fit_hulls (96 vertices, every link), fit_capsules (two links, 600
     steps a fit, on the card) and collision_mesh_error (4096
@@ -6055,7 +6207,8 @@ def phase_slice15(card: str, device, eager_traces: dict) -> dict:
     # where phase 2 built the kernels from nothing in this process (a
     # checkout has no _build/), the probe reports that build, which is
     # its own _build.compile_into into a fresh directory
-    probe = compile_probe.probe(SCENE, BATCH, device, capsule)
+    with part("compile_probe"):
+        probe = compile_probe.probe(SCENE, BATCH, device, capsule)
     log(f"compile_probe: {json.dumps(probe)} [{card}]")
     with open(os.path.join(ROOT, "chiprun_out", "compile_probe.json"),
               "w") as f:
@@ -6065,21 +6218,20 @@ def phase_slice15(card: str, device, eager_traces: dict) -> dict:
           f"capsule artifact's ops {probe['export']['ops']}")
     t0 = time.perf_counter()
     hull = os.path.join(AOT_DIR, "flagship_hull.pt2")
-    artifact, manifest, flat = aot_export.export_step(
-        SCENE, BATCH, 1, device=device, geometry="hull")
-    aot_export.save(hull, artifact, manifest, flat)
+    with part("hull export"):
+        artifact, manifest, flat = aot_export.export_step(
+            SCENE, BATCH, 1, device=device, geometry="hull")
+        aot_export.save(hull, artifact, manifest, flat)
     hull_export_s = time.perf_counter() - t0
     hull_ops = manifest["ops"]
     check(set(hull_ops) == want["hull"], f"hull artifact's ops {hull_ops}")
-    t0 = time.perf_counter()
-    cpu_traced = os.path.join(AOT_DIR, "flagship_cpu_traced.pt2")
-    artifact, manifest, flat = aot_export.export_step(
-        SCENE, AOT_CPU_BATCH, 1, platforms=["cpu", "cuda"], device="cpu")
-    aot_export.save(cpu_traced, artifact, manifest, flat)
-    cpu_export_s = time.perf_counter() - t0
-    log(f"exports: hull {hull_export_s:.1f} s ({hull_ops}), "
-        f"CPU-traced at {AOT_CPU_BATCH} envs {cpu_export_s:.1f} s")
     del artifact, flat
+    # the CPU-traced artifact, exported by a CPU worker while the card ran
+    cpu_traced = os.path.join(AOT_DIR, "flagship_cpu_traced.pt2")
+    cpu_export_s = cpu_run(cpu_traced_export, cpu_traced)
+    log(f"exports: hull {hull_export_s:.1f} s ({hull_ops}), "
+        f"CPU-traced at {AOT_CPU_BATCH} envs {cpu_export_s:.1f} s (a CPU "
+        f"worker's)")
 
     t0 = time.perf_counter()
     runs, modules = run_artifacts([(capsule, AOT_CALLS["capsule"]),
@@ -6137,7 +6289,12 @@ def phase_slice15(card: str, device, eager_traces: dict) -> dict:
     rec.update(max_abs_q_vs_eager_card=err)
     log(f"CPU-traced artifact moved to the card: {json.dumps(rec)} [{card}]")
     out["paths"]["cpu_traced"] = rec
-    out["assets"] = phase_asset_tools(card, device)
+    # the asset tools, which phase 19 ran beside its other untimed processes
+    stdout, _ = ran("asset tools", asset_tools_cmd(card))
+    lines = stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(line)
+    out["assets"] = json.loads(lines[-1])
     out["seconds"] = time.perf_counter() - t_start
     log(f"phase 21: {out['seconds']:.1f} s")
     return out
@@ -6158,13 +6315,15 @@ K1_TARGETS = (("n=12", "n = 12, random layout (phase 18)"),
               ("planar 32", "n = 32, planar real tick (phase 19)"))
 
 
-def k1_compare_nan(tags, blocks, what: str, per_env: bool = False) -> float:
+def k1_compare_nan(tags, blocks, what: str,
+                   per_env: bool = False) -> tuple[float, float]:
     """K1 against its plain version where a NaN may reach q̈ (the 'nan'
     pivot case): the envs with a NaN in q̈ must be the same on both sides
     and compare as equal; every entry of every other env within K1_TOL x
     max(1, its own |q̈|), or with per_env (a singular case,
     resolve_cases.SINGULAR) within K1_TOL x max(1, its env's largest
-    |q̈|). Returns max |kernel - plain| over the envs held."""
+    |q̈|). Returns (max |kernel - plain| over the envs held, its largest
+    share of the limit)."""
     got = cuda_resolve.pullback_resolve_structured(tags, blocks)
     want = cuda_resolve.pullback_resolve_structured_plain(tags, blocks)
     torch.cuda.synchronize()
@@ -6182,7 +6341,7 @@ def k1_compare_nan(tags, blocks, what: str, per_env: bool = False) -> float:
     check(bool(torch.equal(nan_got, nan_want)), f"K1 {what}: NaN envs part")
     check(bool(torch.isfinite(g).all()), f"K1 {what}: non-finite output")
     check(worst <= 1.0, f"K1 {what}: disagrees with plain version")
-    return err
+    return err, worst
 
 
 def phase_slice18(card: str, device, timed: dict) -> dict:
@@ -6211,10 +6370,10 @@ def phase_slice18(card: str, device, timed: dict) -> dict:
                 single = case in SINGULAR
                 err = max(err, k1_compare_nan(tags, blocks,
                                               f"{case}, n={n}, B={B}",
-                                              single),
+                                              single)[0],
                           k1_compare_nan(tags, half,
                                          f"{case}, n={n}, B={B}, bfloat16",
-                                         single))
+                                         single)[0])
     env = planar.planar_arm_env(12)
     for B in (BATCH,) + RAGGED:
         err = max(err, k1_compare(*real_tick_blocks(env, B, 12),
@@ -6265,9 +6424,10 @@ PAST32_LINKS = 64                  # the slice's arm: 65 frames, 64 motors
 PAST32_TICKS = 10                  # its timed rollout at BATCH envs
 PAST32_PARITY = (32, 3)            # (envs, ticks) of its GPU/CPU parity
 PAST32_TRANSPOSED_N = 36           # K1's backward solve on the CTA kernel
-K1_CTA_SOURCE = "pullback_resolve_cta.cu"
-K1_CTA_KERNELS = {48: "pullback_resolve_cta_kernelILi48E",
-                  64: "pullback_resolve_cta_kernelILi64E"}
+K1_CTA_SOURCE = "pullback_resolve_cta.cuh"   # instantiated in two .cu
+K1_CTA_KERNELS = {m: f"pullback_resolve_cta_kernelILi{m}E" for m in (40, 64)}
+# the pivot cases (ops/resolve_cases.py) on the CTA kernel: n and envs
+PAST32_PIVOT = ((40, 64), 1024)
 K3_XL = ("fk_derivatives_xl.cu", "fk_derivatives_kernel_wideILi72ELi64ELi2E")
 # the plain version's float32 q̈ within this share of K1_TOL of float64 (per
 # env, relative to max(1, the env's largest |q̈|)): the envs held to K1_TOL
@@ -6293,6 +6453,21 @@ def past32_models() -> dict:
             "planar_64 (F=65, n=64)": planar_model(PAST32_LINKS),
             "planar_64 + 7 fixed (F=72, n=64)": fixed_tail_model(64, 7),
             "branched 40 + 8 (F=50, n=48)": branched_model(40, 8, 20)}
+
+
+def k1_cta_residency(n: int, B: int = BATCH) -> dict:
+    """The CTA kernel that takes n at B envs: its instantiation (kMaxN), the
+    dynamic shared bytes a CTA (an env) and the envs an SM holds."""
+    out = (ctypes.c_int * 3)()
+    fn = _build.c_function("rmp_pullback_resolve_cta_residency",
+                           [ctypes.c_int, ctypes.c_int,
+                            ctypes.POINTER(ctypes.c_int)])
+    check(fn(n, B, out) == 0, f"K1 CTA residency at n={n}")
+    rec = dict(instantiation=out[2], dynamic_smem_bytes=out[0],
+               envs_per_sm=out[1])
+    log(f"K1 CTA kernel at n={n}, B={B}: {json.dumps(rec)}")
+    check(rec["envs_per_sm"] > 0, f"K1 CTA kernel at n={n}: no env an SM")
+    return rec
 
 
 def k1_held(tags, blocks, what: str, got=None, want=None,
@@ -6341,8 +6516,9 @@ def phase_k1_past32(device) -> tuple[dict, float]:
     """K1's CTA kernel at every n of PAST32_K1_N on random blocks, float32
     and bfloat16, at B = BATCH and PAST32_RAGGED (the first envs of the
     BATCH blocks, against the same plain runs), behind k1_held's float64
-    screen; its backward solve at PAST32_TRANSPOSED_N; n = 65 raising
-    before a launch."""
+    screen; the pivot cases at PAST32_PIVOT (k1_compare_nan; their largest
+    share of the limit apart from the error returned); its backward
+    solve at PAST32_TRANSPOSED_N; n = 65 raising before a launch."""
     err, out = 0.0, {}
     for n in PAST32_K1_N:
         tags, blocks = k1_device_blocks(400 + n, BATCH, n, K1_EVERY_N_LAYOUT,
@@ -6358,6 +6534,26 @@ def phase_k1_past32(device) -> tuple[dict, float]:
                               want=want[:B], exact=exact[:B])
                 out[f"n={n} {str(dtype)[6:]} B={B}"] = rec
                 err = max(err, rec["max_abs_err"])
+    # the pivot cases apart: a singular system's gap (q̈ near 1e11) would
+    # hide the held layouts' error, so they give their largest share of
+    # the limit
+    pivot_n, B = PAST32_PIVOT
+    share = 0.0
+    for case in PIVOT_CASES:
+        for n in pivot_n:
+            tags, blocks = pivot_case(case, B, B, n)
+            blocks = [tuple(torch.tensor(x, device=device) for x in blk)
+                      for blk in blocks]
+            half = [tuple(x.to(torch.bfloat16) for x in blk)
+                    for blk in blocks]
+            single = case in SINGULAR
+            share = max(share, k1_compare_nan(
+                tags, blocks, f"{case}, n={n}, B={B}", single)[1],
+                k1_compare_nan(tags, half, f"{case}, n={n}, B={B}, bfloat16",
+                               single)[1])
+    out["pivot_largest_share"] = share
+    log(f"K1 CTA kernel, pivot cases at n = {pivot_n}: largest share of the "
+        f"limit {share:.3e} (apart from max_abs_err)")
     n = PAST32_TRANSPOSED_N
     for B in (BATCH,) + PAST32_RAGGED:
         tags, blocks = k1_device_blocks(500 + B, B, n, K1_EVERY_N_LAYOUT,
@@ -6415,6 +6611,8 @@ def phase_slice21(card: str, device) -> dict:
     for what, b in builds.items():
         if b["spill_store_bytes"] or b["spill_load_bytes"]:
             log(f"{what}: registers spill ({json.dumps(b)})")
+            check(not what.startswith("K1"), f"{what}: registers spill")
+    residency = {n: k1_cta_residency(n) for n in (33, 36, 48, 64)}
     k1, k1_err = phase_k1_past32(device)
     k3_err = max(k3_check(m, what, device)
                  for what, m in past32_models().items())
@@ -6438,12 +6636,13 @@ def phase_slice21(card: str, device) -> dict:
                                f"K1 n={PAST32_LINKS}")
     check(per_call == 1, f"K1 n={PAST32_LINKS}: not one launch per call")
     times["K1 n=64"] = dict(k1_times(f"{name} real tick", tags, blocks),
-                            device_launches_per_call=per_call)
-    times["K1 n=33"] = k1_times("planar_33link real tick",
-                                *real_tick_blocks(planar.planar_arm_env(33),
-                                                  BATCH, 33))
-    times["K1 n=36"] = k1_times("n=36 (random layout)", *k1_device_blocks(
-        36, BATCH, 36, K1_EVERY_N_LAYOUT, device))
+                            device_launches_per_call=per_call,
+                            **residency[64])
+    times["K1 n=33"] = dict(k1_times(
+        "planar_33link real tick", *real_tick_blocks(
+            planar.planar_arm_env(33), BATCH, 33)), **residency[33])
+    times["K1 n=36"] = dict(k1_times("n=36 (random layout)", *k1_device_blocks(
+        36, BATCH, 36, K1_EVERY_N_LAYOUT, device)), **residency[36])
     for what, model in past32_models().items():
         if "branched" not in what:
             times[f"K3 {what}"] = k3_times(model, what, device)
@@ -6458,7 +6657,7 @@ def phase_slice21(card: str, device) -> dict:
     log(f"phase 23: {seconds:.1f} s")
     check(not failed, "; ".join(failed))
     return dict(builds=builds, k1=k1, k1_err=k1_err, k3_err=k3_err,
-                raised=raised, times=times, result=res,
+                raised=raised, times=times, result=res, residency=residency,
                 paths={name: (launches, res)}, seconds=seconds)
 
 
@@ -6518,6 +6717,8 @@ def cpu_reference_calls() -> list:
         args = (scene, geometry, method, fused, B, ticks, cpu)
         calls += [(17, grad_case, args, {}),
                   (17, grad_case, args, dict(float64=True))]
+    calls += [(21, cpu_traced_export,
+               (os.path.join(AOT_DIR, "flagship_cpu_traced.pt2"),), {})]
     return calls
 
 
@@ -6554,10 +6755,17 @@ def main(argv=None) -> int:
 
     def phase_build():
         t0 = time.perf_counter()
+        # K1's op on CPU blocks while nvcc runs: the process's first call
+        # through the op imports its dispatch (torch._dynamo among it)
+        warm = threading.Thread(target=warm_dispatch)
+        warm.start()
         lib = _build.build()
+        warm.join()
         seconds = time.perf_counter() - t0
-        log(f"build: {lib} in {seconds:.1f} s; nvcc seconds by source "
-            f"{json.dumps(_build.build_times().get('nvcc_s', {}))}")
+        built = _build.build_times()
+        log(f"build: {lib} in {seconds:.1f} s ({built.get('cpus')} CPUs, at "
+            f"most {built.get('jobs')} nvcc at a time); seconds to "
+            f"each source's end {json.dumps(built.get('nvcc_s', {}))}")
         for line in _build.build_log().splitlines():
             if "registers" in line or "spill" in line or line.startswith("=="):
                 log(f"  {line.strip()}")
@@ -6794,6 +7002,7 @@ def run_phases(card: str, build_s: float, chosen: set | None, start: float,
         source="rmp_tpu_torch/csrc/pullback_resolve_cta.cuh",
         replaces="rmp_tpu/ops/pallas_resolve.py:226", counter=k1["name"],
         path=path64, max_abs_err=slice21["k1_err"],
+        pivot_largest_share=slice21["k1"]["pivot_largest_share"],
         **{k: slice21["times"]["K1 n=64"][k] for k in
            ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "device_launches_per_call")})

@@ -4,9 +4,10 @@ GPU.
     python3 kernel_probe.py [part ...] [--against DIR]
 
 Parts: sass, k3, k3narrow, k3tile, k3ab, k4, k5, k5wide, k5ab, k1, k1parts,
-k1ab, host, traces. k5ab needs --against; a run that names no part runs
-every part but those that need --against where none is given, and names
-the parts it skips on stderr (`choose_parts`).
+k1ab, k1cta, k1ctaab, sassab, host, traces. k5ab, k1ctaab and
+sassab need --against; a run that names no part runs every part but those
+that need --against where none is given, and names the parts it skips on
+stderr (`choose_parts`).
 
 1. Phase splits by edited copies of csrc/: each variant is rebuilt from a
    copy of csrc/ with an edit and runs in its own process (the library loads
@@ -37,7 +38,7 @@ the parts it skips on stderr (`choose_parts`).
      forced on every support, and built with a cap of 64 registers
      (__launch_bounds__(128, 8) in place of (128): one wave at the
      flagship, and spills).
-   - K5 (csrc/fused_tick.cu) at scene 06, B = 4096, near the ready pose:
+   - K5 (csrc/fused_tick.cuh) at scene 06, B = 4096, near the ready pose:
      return after the FK recursion, after the frame slots, after the work
      items (before the butterfly), or the whole kernel.
    - K5's wide kernel (part k5wide, csrc/fused_tick_wide.cuh) at B = 4096
@@ -74,6 +75,24 @@ the parts it skips on stderr (`choose_parts`).
      timed in K1_ROUNDS processes, the order turned every round, with
      each layout's largest |q̈ - plain| / max(1, |plain|). A variant that
      fails to build or run is reported and the probe exits 1.
+   - K1's CTA kernel (n = 33..64, part k1cta) at B = 4096 on
+     K1CTA_LAYOUTS (the 33- and 64-link arms' real ticks, random n = 36,
+     40, 41, 47, 48, 63, 64: each instantiation's ends, 40 | 41 its
+     boundary): every block staged with the identity blocks' rows not added
+     (the scalar and dense rows' sums), all sums, the elimination, or the
+     whole kernel, with both instantiations' ptxas counts and each
+     layout's shared bytes and envs an SM; with --against DIR also DIR's
+     kernel where it is the design with [A | f] in shared memory that this
+     one replaced (K1CTA_SMEM: after the tiles' sums, after the identity
+     blocks, after the elimination, whole). Part k1ctaab: the
+     kernel against DIR's in K1_ROUNDS processes, the order turned every
+     round, with each layout's largest |q̈ - plain| / max(1, |plain|) and
+     its median of the medians.
+   - Part sassab (--against DIR): every kernel's SASS (cuobjdump -sass) in
+     this tree's library against the kernel of the same name in DIR's,
+     built from DIR's csrc/; an anonymous namespace's per-file name and
+     hashes are one token and a line's padding is collapsed, so a kernel
+     moved to another source compares as itself.
 2. Instructions per kernel and their opcodes, from cuobjdump -sass of the
    built library (the listing goes to
    chiprun_out/kernel_probe_sass.txt.gz).
@@ -91,6 +110,7 @@ The results also go to chiprun_out/kernel_probe.json. Needs CUDA and nvcc.
 """
 from __future__ import annotations
 
+import glob
 import gzip
 import json
 import os
@@ -149,7 +169,7 @@ VARIANTS = {
             "    const float4 p = make_float4(0.01f * i, 0.02f * i, "
             "-0.01f * i, i);\n    const float s = row_dot(")],
     },
-    "fused_tick.cu": {
+    "fused_tick.cuh": {
         "full": [],
         "fk_only": [(K5_SLOTS, STOP + K5_SLOTS)],
         "fk_and_slots": [(K5_ITEMS, STOP + K5_ITEMS)],
@@ -324,6 +344,71 @@ def k1_prefetch(ahead: int) -> list:
 K1_AB = {K1_SOURCE: {"full": [], "prefetch_1": k1_prefetch(1),
                      "prefetch_2": k1_prefetch(2)}}
 
+# K1's CTA kernel (n = 33..64, part k1cta): return after the scalar and
+# dense rows' sums, after the identity blocks, after the elimination, or the
+# whole kernel; each early return first stores, under a condition that never
+# holds, a value of the work done, so the compiler keeps that work. On
+# K1CTA_LAYOUTS, with the ptxas counts of each instantiation. With
+# --against DIR the same split of DIR's CTA kernel, where it is the design
+# with [A | f] in shared memory that this one replaced (K1CTA_SMEM, its own
+# markers), runs too.
+K1CTA_SOURCE = "pullback_resolve_cta.cuh"
+K1CTA_STOP = "  if (n > 0) return;\n"
+# (name, n, the planar arm's real tick or else the random layout
+# chip_smoke.K1_EVERY_N_LAYOUT)
+K1CTA_LAYOUTS = (("n=33 planar real tick", 33, True),
+                 ("n=36 random", 36, False), ("n=40 random", 40, False),
+                 ("n=41 random", 41, False), ("n=47 random", 47, False),
+                 ("n=48 random", 48, False), ("n=63 random", 63, False),
+                 ("n=64 random", 64, False),
+                 ("n=64 planar real tick", 64, True))
+
+
+def k1cta_stop(anchor: str, guard: str) -> list:
+    """An edit that returns before `anchor`, after storing `guard` (a value
+    of the work done) where it equals a number it never takes."""
+    return [(anchor, f"  if ({guard} == 1.2345e-30f) out[b] = 1.0f;\n"
+             + K1CTA_STOP + anchor)]
+
+
+K1CTA_KERNEL = ("template <int kMaxN>\n__global__ void __launch_bounds__(32, "
+                "Shape<kMaxN>::ctas)")
+K1CTA_ROW_SUM = [(K1CTA_KERNEL, K5_ROW_SUM_FN.replace("row_sum(const float (&row)"
+                                                      "[N], float fr)",
+                                                      "row_sum(const float "
+                                                      "(&row)[N], float fr "
+                                                      "= 0.0f)")
+                  + K1CTA_KERNEL)]
+K1CTA_GUARD = "row_sum(r0) + row_sum(r1)"
+K1CTA_SPLITS = {K1CTA_SOURCE: {
+    "full": [],
+    # every block staged, the scalar and dense rows summed, the identity
+    # blocks' rows not added
+    "rows_sums": K1CTA_ROW_SUM + [(
+        "      if (i >= 0 && i < nr) {",
+        "      if (i >= 0 && i < nr && n < 0) {")]
+    + k1cta_stop("  // ---- the ridge ----", K1CTA_GUARD),
+    "sums": K1CTA_ROW_SUM + k1cta_stop("  // ---- the ridge ----", K1CTA_GUARD),
+    "eliminated": K1CTA_ROW_SUM + k1cta_stop(
+        "  // ---- back substitution, by columns ----", K1CTA_GUARD),
+}}
+# the replaced CTA kernel ([A | f] in shared memory): its own markers
+K1CTA_SMEM_SUMS = ("#pragma unroll\n  for (int i = 0; i < A; ++i)\n"
+                   "#pragma unroll\n    for (int j = 0; j < Bt; ++j) "
+                   "sums += acc[i][j];\n")
+K1CTA_SMEM = {K1CTA_SOURCE: {
+    "full": [],
+    "sums": [("  // ---- the tiles into [A | f] (over the ring) ----",
+              "  float sums = 0.0f;\n" + K1CTA_SMEM_SUMS
+              + "  if (sums == 1.2345e-30f) out[b] = 1.0f;\n" + K1CTA_STOP
+              + "  // ---- the tiles into [A | f] (over the ring) ----")],
+    "identity": k1cta_stop("  // ---- elimination ----", "sA[tid]"),
+    "eliminated": k1cta_stop("  // ---- back substitution, by columns, on "
+                             "warp 0 ----", "sA[tid]"),
+}}
+# part k1ctaab: the CTA kernel as it is against another checkout's
+K1CTA_AB = {K1CTA_SOURCE: {"full": []}}
+
 
 CHILD = r"""
 import json, sys
@@ -366,6 +451,37 @@ elif src == "gjk_hull.cu":
     ops, _ = cs.k4_main_path_operands()
     calls = {{f"iters{{i}}": (lambda i=i: cuda_gjk.gjk_hull_obstacles(
         **ops, iters=i)) for i in {iters!r}}}
+elif src == {k1cta!r}:
+    # K1's CTA kernel on K1CTA_LAYOUTS, the inputs made through the plain
+    # versions and saved by the first variant's process, as below
+    from rmp_tpu_torch.envs import planar
+    from rmp_tpu_torch.ops import cuda_resolve
+    import os
+    dev = torch.device("cuda")
+    if os.path.exists({inputs!r}):
+        inputs, want = torch.load({inputs!r}, map_location=dev)
+    else:
+        with cs.plain_kernels():
+            inputs = {{}}
+            for name, n, real in {k1cta_layouts!r}:
+                inputs[name] = (cs.real_tick_blocks(
+                    planar.planar_arm_env(n), cs.BATCH, n) if real else
+                    cs.k1_device_blocks(n, cs.BATCH, n,
+                                        cs.K1_EVERY_N_LAYOUT, dev))
+        want = {{k: cuda_resolve.pullback_resolve_structured_plain(t, b)
+                 for k, (t, b) in inputs.items()}}
+        torch.save((inputs, want), {inputs!r})
+    calls = {{k: (lambda t=t, b=b: cuda_resolve.pullback_resolve_structured(
+        t, b)) for k, (t, b) in inputs.items()}}
+    # |q̈ - plain| / max(1, |plain|) where the plain version is finite, and
+    # the envs whose finiteness differs
+    err, nonfinite = {{}}, {{}}
+    for k, fn in calls.items():
+        got, ref = fn(), want[k]
+        fin = torch.isfinite(ref).all(1)
+        err[k] = float(((got[fin] - ref[fin]).abs()
+                        / ref[fin].abs().clamp(min=1.0)).max())
+        nonfinite[k] = int((torch.isfinite(got).all(1) != fin).sum())
 elif src.startswith("pullback_resolve"):
     from rmp_tpu_torch.envs import planar
     from rmp_tpu_torch.ops import cuda_resolve
@@ -439,6 +555,9 @@ extra = (dict(build_narrow=cs.ptxas_counts(
                build_wide=cs.ptxas_counts("fk_derivatives_wide.cuh",
                                           "ILi40ELi32E"))
     if src.startswith("fk_derivatives")
+    else {{f"build_{{m}}": cs.ptxas_counts(
+        src, f"pullback_resolve_cta_kernelILi{{m}}E") for m in (40, 48, 64)}}
+    if src == {k1cta!r}
     else {{f"build_n{{n}}": cs.ptxas_counts(
         src, f"pullback_resolve_wide_kernelILi{{n}}E") for n in {k1_n!r}}}
     if src.startswith("pullback_resolve")
@@ -447,6 +566,12 @@ extra = (dict(build_narrow=cs.ptxas_counts(
     if src.startswith("fused_tick_wide") else {{}})
 if src.startswith("fused_tick_wide"):
     extra["residency"] = shared
+if src == {k1cta!r}:
+    extra["nonfinite"] = nonfinite
+    if hasattr(_build.load(), "rmp_pullback_resolve_cta_residency"):
+        extra["residency"] = {{n: cs.k1_cta_residency(n)
+                              for n in sorted({{n for _, n, _ in
+                                               {k1cta_layouts!r}}})}}
 if src.startswith("pullback_resolve") or {k3_all!r}:
     extra["err"] = err
 print("RESULT", json.dumps(dict(
@@ -533,7 +658,8 @@ def split(source: str, variants: dict = VARIANTS, only: str | None = None,
                                     build=os.path.join(work, "build"),
                                     src=source, iters=K4_ITERS,
                                     k1_n=K1_PROBE_N, inputs=inputs,
-                                    k3_all=k3_all)
+                                    k3_all=k3_all, k1cta=K1CTA_SOURCE,
+                                    k1cta_layouts=K1CTA_LAYOUTS)
                 run = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                                      capture_output=True, text=True,
                                      timeout=600)
@@ -712,8 +838,88 @@ def host_costs() -> dict:
     return out
 
 
+def k1cta(against: str | None) -> dict:
+    """Part k1cta: the split of this tree's CTA kernel (K1CTA_SPLITS) and,
+    with --against DIR, of DIR's where it is the design with [A | f] in
+    shared memory (K1CTA_SMEM, variants named "smem ...")."""
+    out = split(K1CTA_SOURCE, K1CTA_SPLITS, only="pullback_resolve")
+    if against is not None:
+        out.update((f"smem {k}", v) for k, v in split(
+            K1CTA_SOURCE, K1CTA_SMEM, only="pullback_resolve",
+            base=against).items())
+    return out
+
+
+# a kernel's name and body with each source's anonymous namespace (its
+# length prefix, file name and hashes) made one token, so that a kernel
+# moved to another source compares as itself
+ANON = re.compile(r"\d+_GLOBAL__N__[0-9a-f]{8}_\d+_\w*?_cu_[0-9a-f]{8}")
+
+
+def sass_functions(lib: str) -> dict:
+    """{kernel (anonymous namespaces made one token): its SASS instruction
+    lines} of a built library, by cuobjdump -sass."""
+    from rmp_tpu_torch import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out = {}
+    for chunk in text.split("Function : ")[1:]:
+        name, body = chunk.split("\n", 1)
+        # cuobjdump pads a line to its listing's widest: spaces collapsed
+        out[ANON.sub("ANON", name.strip())] = [
+            ANON.sub("ANON", " ".join(ln.split())) for ln in body.splitlines()
+            if re.match(r"\s*/\*[0-9a-f]{4,}\*/", ln)]
+    return out
+
+
+def sass_against(against: str) -> dict:
+    """Part sassab: every kernel of this tree's library against the kernel
+    of the same name in DIR's (built from DIR's csrc/ alone): identical
+    SASS, different (the unified diff into chiprun_out/sassab.txt.gz), or in
+    one library only."""
+    import difflib
+
+    from rmp_tpu_torch import _build
+
+    mine = sass_functions(_build.build())
+    work = tempfile.mkdtemp()
+    try:
+        run = subprocess.run([sys.executable, "-c", BUILD_CHILD.format(
+            root=ROOT, csrc=os.path.join(against, "rmp_tpu_torch", "csrc"),
+            build=os.path.join(work, "build"))], cwd=ROOT,
+            capture_output=True, text=True, timeout=900)
+        if run.returncode != 0:
+            return dict(error=f"build failed:\n{run.stderr[-4000:]}")
+        libs = glob.glob(os.path.join(work, "build", "*", "*.so"))
+        theirs = sass_functions(libs[0])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out = dict(identical=[], different={},
+               only_tree=sorted(set(mine) - set(theirs)),
+               only_against=sorted(set(theirs) - set(mine)))
+    diffs = []
+    for name in sorted(set(mine) & set(theirs)):
+        if mine[name] == theirs[name]:
+            out["identical"].append(name)
+        else:
+            out["different"][name] = [len(theirs[name]), len(mine[name])]
+            diffs += [f"== {name}"] + list(difflib.unified_diff(
+                theirs[name], mine[name], lineterm="", n=1))
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with gzip.open(os.path.join(ROOT, "chiprun_out", "sassab.txt.gz"),
+                   "wt") as f:
+        f.write("\n".join(diffs))
+    print(f"sassab: {len(out['identical'])} kernels identical, "
+          f"{len(out['different'])} different {sorted(out['different'])}, "
+          f"only in this tree {out['only_tree']}, only in {against} "
+          f"{out['only_against']}", flush=True)
+    return out
+
+
 # the parts that compare with another checkout and run only with one
-NEEDS_AGAINST = ("k5ab",)
+NEEDS_AGAINST = ("k5ab", "k1ctaab", "sassab")
 
 
 def choose_parts(args: list, against: bool, parts: list) -> tuple:
@@ -768,7 +974,12 @@ def main() -> int:
                                        only="pullback_resolve"),
                  k1ab=lambda: split(K1_SOURCE, K1_AB, only="pullback_resolve",
                                     rounds=K1_ROUNDS, against=against),
-                 k5=lambda: split("fused_tick.cu"),
+                 k1cta=lambda: k1cta(against),
+                 k1ctaab=lambda: medians(split(
+                     K1CTA_SOURCE, K1CTA_AB, only="pullback_resolve",
+                     rounds=K1_ROUNDS, against=against), "k1ctaab"),
+                 sassab=lambda: sass_against(against),
+                 k5=lambda: split("fused_tick.cuh"),
                  k5wide=lambda: split(K5_WIDE, K5_WIDE_SPLITS,
                                       only="fused_tick"),
                  k5ab=lambda: medians(split(

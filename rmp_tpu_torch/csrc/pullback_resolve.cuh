@@ -2,8 +2,8 @@
 // value, the element loads (float32, bfloat16 widened on load), the
 // sign-preserving clamp, and the staging by cp.async that the warp and CTA
 // kernels share. pullback_resolve.cu (n <= 9, and the C entry
-// point), pullback_resolve_wide.cu (n = 10..32) and pullback_resolve_cta.cu
-// (n = 33..64) include it.
+// point), pullback_resolve_wide*.cu (n = 10..32) and
+// pullback_resolve_cta*.cu (n = 33..64) include it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -12,7 +12,7 @@ namespace rmp_k1 {
 
 constexpr int kMaxLaneN = 9;    // n of the lane-group kernel; above, a warp
 constexpr int kMaxWarpN = 32;   // n of the warp kernel: one row per lane
-constexpr int kMaxN = 64;       // n of the CTA kernel: [A | f] in shared memory
+constexpr int kMaxN = 64;       // n of the CTA kernel: two rows a lane
 // descriptors per call; the by-value table (3,592 bytes) stays inside the
 // 4 KB of kernel parameters every CUDA version takes
 constexpr int kMaxBlocks = 32;
@@ -94,19 +94,33 @@ __device__ __forceinline__ void copy(float* dst, const bf16_t* src) {
   *dst = load(src);
 }
 
-// n = 10..kMaxWarpN on the warp kernel (pullback_resolve_wide.cuh; n = 18..24
-// instantiated in pullback_resolve_wide_18.cu, 25..32 in
-// pullback_resolve_wide_25.cu): launches on `stream`, returns nothing; the
-// caller reads cudaGetLastError().
+// n = 10..kMaxWarpN on the warp kernel (pullback_resolve_wide.cuh;
+// instantiated in pullback_resolve_wide.cu, n = 10..13, and in
+// pullback_resolve_wide_<lo>.cu from n = lo on): launches on `stream`,
+// returns nothing; the caller reads cudaGetLastError().
 void launch_wide(int n, int B, const Table& table, float ridge, float* out,
                  cudaStream_t stream);
+void launch_wide_14(int n, int B, const Table& table, float ridge,
+                    float* out, cudaStream_t stream);
 void launch_wide_18(int n, int B, const Table& table, float ridge,
+                    float* out, cudaStream_t stream);
+void launch_wide_22(int n, int B, const Table& table, float ridge,
                     float* out, cudaStream_t stream);
 void launch_wide_25(int n, int B, const Table& table, float ridge,
                     float* out, cudaStream_t stream);
+void launch_wide_28(int n, int B, const Table& table, float ridge,
+                    float* out, cudaStream_t stream);
+void launch_wide_31(int n, int B, const Table& table, float ridge,
+                    float* out, cudaStream_t stream);
 // n = kMaxWarpN + 1..kMaxN on the CTA kernel (pullback_resolve_cta.cuh,
-// instantiated in pullback_resolve_cta.cu); launches likewise.
+// instantiated in pullback_resolve_cta.cu, n <= 40, and
+// pullback_resolve_cta_64.cu, n = 41..64); launches likewise.
+// residency_cta_64: the shared bytes a CTA and the CTAs an SM of the
+// kMaxN = 64 kernel at B envs, and 64, into out[0..2].
 void launch_cta(int n, int B, const Table& table, float ridge, float* out,
                 cudaStream_t stream);
+void launch_cta_64(int n, int B, const Table& table, float ridge, float* out,
+                   cudaStream_t stream);
+void residency_cta_64(int B, int* out);
 
 }  // namespace rmp_k1

@@ -1,4 +1,4 @@
-// K1's warp kernel (pullback_resolve_wide.cuh) for n = 18..24; see
+// K1's warp kernel (pullback_resolve_wide.cuh) for n = 18..21; see
 // pullback_resolve_wide.cu.
 #include "pullback_resolve_wide.cuh"
 
@@ -6,7 +6,7 @@ namespace rmp_k1 {
 
 void launch_wide_18(int n, int B, const Table& table, float ridge,
                     float* out, cudaStream_t stream) {
-  launch_range<18, 24>(n, B, table, ridge, out, stream);
+  launch_range<18, 21>(n, B, table, ridge, out, stream);
 }
 
 }  // namespace rmp_k1

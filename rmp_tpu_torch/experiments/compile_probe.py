@@ -7,11 +7,11 @@ device tables, cuBLAS) and, for a serving host, the export of the step.
 Measured, each on the card:
 
 - the build of every `csrc/*.cu` from nothing: each source's nvcc wall
-  seconds (all started together), the link, the total. Where this process
-  has already built the package's library (`_build.build_times`: the same
-  `_build.compile_into` into a fresh directory), that build is the
-  measurement; else the probe builds into a temporary directory (never
-  rmp_tpu_torch/_build/);
+  seconds (at most one nvcc a CPU at a time), the link, the total. Where
+  this process has already built the package's library
+  (`_build.build_times`: the same `_build.compile_into` into a fresh
+  directory), that build is the measurement; else the probe builds into
+  a temporary directory (never rmp_tpu_torch/_build/);
 - the cached load: the library's path from its source hash, and dlopen;
 - the flagship's first tick against its steady tick at --batch envs
   (`utils/profiling.time_jitted`, synchronised on the card);

@@ -14,9 +14,9 @@ give q̈ = (A + ridge I)^{-1} f with A = Σ identity M + Σ Jᵀ diag(m) J +
 Σ Jᵀ W and f = Σ v + Σ Jᵀ v. A CPU tensor takes the plain PyTorch version
 (`pullback_resolve_structured_plain`); a CUDA tensor launches the kernel or
 raises (n = 1..9 on a group of 8 lanes per env, csrc/pullback_resolve.cu;
-n = 10..32 on a warp per env, csrc/pullback_resolve_wide.cu; n = 33..64 on
-a CTA per env, csrc/pullback_resolve_cta.cu; n > 64 and more than 32
-blocks raise). The
+n = 10..32 on a warp per env, csrc/pullback_resolve_wide.cuh; n = 33..64
+on a warp per env with two rows of [A | f] a lane, the CTA kernel of
+csrc/pullback_resolve_cta.cuh; n > 64 and more than 32 blocks raise). The
 kernel reads every block where it lies, through its strides
 (`block_table`): the call copies no operand and launches nothing else.
 Every call, K2a's and K2b's and the backward's transposed solve too, goes
@@ -135,7 +135,7 @@ def cast_blocks(tags, blocks, block_dtype):
 KINDS = {"identity": 0, "scalar": 1, "dense": 2}
 ELEMENT_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_N = 64           # n = 1..9 on 8 lanes per env, 10..32 on a warp,
-                     # 33..MAX_N on a CTA
+                     # 33..MAX_N on a warp with two rows a lane
 KERNEL_N = range(1, MAX_N + 1)  # the n the kernels take
 MAX_BLOCKS = 32      # descriptors the kernel takes per call
 ROW_WORDS = 15       # kind, rows, 3 addresses, 3 x 3 strides, element type

@@ -48,10 +48,13 @@ def test_build_compiles_every_source_once_for_sm90a(toolkit, monkeypatch):
     assert len(compiles) == len(_build.sources())
     assert sorted(os.path.basename(p) for p in _build.sources()) == [
         "fk_derivatives.cu", "fk_derivatives_wide.cu",
-        "fk_derivatives_xl.cu", "fused_tick.cu", "fused_tick_wide.cu",
-        "gjk_hull.cu", "pullback_resolve.cu", "pullback_resolve_cta.cu",
-        "pullback_resolve_wide.cu", "pullback_resolve_wide_18.cu",
-        "pullback_resolve_wide_25.cu"]
+        "fk_derivatives_xl.cu", "fused_tick.cu", "fused_tick_10.cu",
+        "fused_tick_14.cu", "fused_tick_wide.cu", "gjk_hull.cu",
+        "pullback_resolve.cu", "pullback_resolve_cta.cu",
+        "pullback_resolve_cta_64.cu", "pullback_resolve_wide.cu",
+        "pullback_resolve_wide_14.cu", "pullback_resolve_wide_18.cu",
+        "pullback_resolve_wide_22.cu", "pullback_resolve_wide_25.cu",
+        "pullback_resolve_wide_28.cu", "pullback_resolve_wide_31.cu"]
     assert all("arch=compute_90a,code=sm_90a" in c for c in compiles)
     assert all(f"-I {_build.CSRC_DIR}" in c for c in compiles)
     assert sum("-shared" in c.split() for c in calls) == 1
@@ -68,6 +71,42 @@ def test_build_compiles_every_source_once_for_sm90a(toolkit, monkeypatch):
     monkeypatch.setattr(_build, "_built", {})
     assert _build.build() == lib
     assert _build.build_times() == {}
+
+
+SLOW_NVCC = """#!/bin/sh
+# stand-in for nvcc that notes how many run at once
+dir="$(dirname "$0")"
+prev=''
+for a in "$@"; do
+  if [ "$prev" = "-o" ]; then out="$a"; fi
+  prev="$a"
+done
+touch "$dir/running.$$"
+ls "$dir" | grep -c '^running' >> "$dir/at_once.log"
+sleep 0.2
+rm "$dir/running.$$"
+echo built > "$out"
+"""
+
+
+@pytest.mark.parametrize("cpus", [None, 2])
+def test_compile_into_caps_the_processes_at_once(toolkit, tmp_path,
+                                                 monkeypatch, cpus):
+    """compile_into runs at most one nvcc a CPU at a time (one at a time
+    where the host's CPU count is unknown); it reports the cap and the
+    host's CPUs, and every source is built."""
+    (toolkit / "nvcc").write_text(SLOW_NVCC)
+    monkeypatch.setattr(os, "cpu_count", lambda: cpus)
+    work = tmp_path / "work"
+    work.mkdir()
+    built = _build.compile_into(str(work))
+    # one line a compile, then the link's
+    seen = [int(x) for x in (toolkit / "at_once.log").read_text().split()]
+    assert len(seen) == len(_build.sources()) + 1
+    assert max(seen[:-1]) <= (cpus or 1)
+    assert built["jobs"] == (cpus or 1) and built["cpus"] == cpus
+    assert sorted(built["nvcc_s"]) == sorted(
+        os.path.basename(p) for p in _build.sources())
 
 
 def test_failed_compile_raises_and_leaves_no_library(toolkit, monkeypatch):

@@ -163,7 +163,9 @@ def kernel_probe():
 
 
 PARTS = ["sass", "k3", "k3narrow", "k3tile", "k3ab", "k4", "k5", "k5wide",
-         "k5ab", "k1", "k1parts", "k1ab", "host", "traces"]
+         "k5ab", "k1", "k1parts", "k1ab", "k1cta", "k1ctaab", "sassab",
+         "host", "traces"]
+NEEDS_AGAINST = ["k5ab", "k1ctaab", "sassab"]
 
 
 def test_kernel_probe_without_parts_skips_those_that_need_against():
@@ -174,13 +176,14 @@ def test_kernel_probe_without_parts_skips_those_that_need_against():
     kp = kernel_probe()
     assert "k5parent" not in kp.__doc__ and not hasattr(kp, "K5_PARENT")
     chosen, skipped = kp.choose_parts([], False, PARTS)
-    assert skipped == list(kp.NEEDS_AGAINST) == ["k5ab"]
-    assert chosen == [p for p in PARTS if p != "k5ab"]
+    assert skipped == list(kp.NEEDS_AGAINST) == NEEDS_AGAINST
+    assert chosen == [p for p in PARTS if p not in NEEDS_AGAINST]
     assert kp.choose_parts([], True, PARTS) == (PARTS, [])
-    assert kp.choose_parts(["k1", "k3ab"], False, PARTS) == (
-        ["k1", "k3ab"], [])
-    with pytest.raises(SystemExit, match="need --against"):
-        kp.choose_parts(["k5ab"], False, PARTS)
+    assert kp.choose_parts(["k1", "k3ab", "k1cta"], False, PARTS) == (
+        ["k1", "k3ab", "k1cta"], [])
+    for part in NEEDS_AGAINST:
+        with pytest.raises(SystemExit, match="need --against"):
+            kp.choose_parts([part], False, PARTS)
     with pytest.raises(SystemExit, match="unknown parts"):
         kp.choose_parts(["k5parent"], True, PARTS)
 
@@ -191,7 +194,7 @@ def test_kernel_probe_edit_anchors_match_the_sources():
     kp = kernel_probe()
     csrc = os.path.join(ROOT, "rmp_tpu_torch", "csrc")
     tables = [kp.VARIANTS, kp.K3_TILES, kp.K5_WIDE_SPLITS, kp.K1_SPLITS,
-              kp.K1_PARTS, kp.K1_AB]
+              kp.K1_PARTS, kp.K1_AB, kp.K1CTA_SPLITS, kp.K1CTA_AB]
     checked = 0
     for table in tables:
         for source, variants in table.items():
@@ -204,3 +207,22 @@ def test_kernel_probe_edit_anchors_match_the_sources():
                                                           target, old)
                     checked += 1
     assert checked >= 20
+
+
+def test_kernel_probe_names_a_moved_kernel_as_itself():
+    """sassab's names: a kernel in an anonymous namespace carries its
+    source's name and hashes (and their length), so one moved to another
+    source compares under one name; named namespaces are left alone."""
+    kp = kernel_probe()
+    old = ("_ZN46_GLOBAL__N__ceda65cc_13_fused_tick_cu_01ac950e16fused_qdd_"
+           "kernelILi12EEEviiiiii")
+    new = ("_ZN49_GLOBAL__N__0badc0de_16_fused_tick_10_cu_12345678"
+           "16fused_qdd_kernelILi12EEEviiiiii")
+    assert kp.ANON.sub("ANON", old) == kp.ANON.sub("ANON", new)
+    warp = ("_ZN6rmp_k157_GLOBAL__N__1e3fbee8_24_pullback_resolve_wide_cu_"
+            "aa1c58ed28pullback_resolve_wide_kernelILi12EEEv")
+    moved = ("_ZN6rmp_k160_GLOBAL__N__96e54000_27_pullback_resolve_wide_14_"
+             "cu_e5f264db28pullback_resolve_wide_kernelILi12EEEv")
+    assert kp.ANON.sub("ANON", warp) == kp.ANON.sub("ANON", moved)
+    named = "_ZN6rmp_k521fused_qdd_wide_kernelILi24EEEv"
+    assert kp.ANON.sub("ANON", named) == named
